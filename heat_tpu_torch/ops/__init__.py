@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels and their plain PyTorch versions."""
+
+from . import kmeans_kernels
+from .kmeans_kernels import fused_assign, fused_em_stats, launch_counts

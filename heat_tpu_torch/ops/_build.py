@@ -1,0 +1,122 @@
+"""Build and load the package's CUDA kernels.
+
+``load()`` compiles every ``csrc/*.cu`` of this package with ``nvcc`` for
+``sm_90a`` (one ``nvcc`` per source, all started together, then one link)
+into a shared library with a plain C interface, under ``build/heat_tpu_torch/``
+at the repository root, and loads it with ``ctypes``.  The library's name
+carries a hash of the sources and flags, so a build is reused until a source
+changes.  Nothing is built at import time: the CPU never needs the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import List, Optional
+
+__all__ = ["load", "BUILD_DIR", "CSRC"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "heat_tpu_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ARCH + ["-shared", "-Xcompiler", "-fPIC"]
+
+_lib: Optional[ctypes.CDLL] = None
+# what the last build did: seconds and the compiler's output (with ptxas's
+# register and shared-memory report per kernel)
+build_info = {"seconds": None, "log": "", "library": None}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the CUDA kernels")
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(target: Path, sources: List[Path]) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    t0 = time.perf_counter()
+    objs = [BUILD_DIR / f"{src.stem}.{target.stem}.{tag}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+            text=True,
+        )
+        for src, obj in zip(sources, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = target.with_name(f"{target.name}.{tag}.tmp")
+    link = subprocess.run(
+        [nvcc, *LINK_FLAGS, *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        text=True,
+    )
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, target)  # atomic: concurrent ranks may build at once
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = "\n".join(logs)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    lib.heat_kmeans_assign.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr]
+    lib.heat_kmeans_assign.restype = i32
+    lib.heat_kmeans_em_grid.argtypes = [i32, i64, i32, i32, i32]
+    lib.heat_kmeans_em_grid.restype = i32
+    lib.heat_kmeans_em_stats.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.heat_kmeans_em_stats.restype = i32
+    lib.heat_kmeans_strerror.argtypes = [i32]
+    lib.heat_kmeans_strerror.restype = ctypes.c_char_p
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built first if its sources changed."""
+    global _lib
+    if _lib is None:
+        sources = _sources()
+        target = BUILD_DIR / f"libheat_tpu_torch_{_digest(sources)}.so"
+        if not target.exists():
+            _build(target, sources)
+        lib = ctypes.CDLL(str(target))
+        _declare(lib)
+        build_info["library"] = str(target)
+        _lib = lib
+    return _lib
