@@ -11,6 +11,8 @@ from .core import *
 from . import core
 from .core import random
 from . import cluster
+from . import nn
+from . import optim
 from . import ops
 from . import utils
 

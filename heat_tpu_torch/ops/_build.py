@@ -50,7 +50,7 @@ def _sources() -> List[Path]:
 
 def _digest(sources: List[Path]) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):  # the headers the sources include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -105,6 +105,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_kmeans_em_stats.restype = i32
     lib.heat_kmeans_strerror.argtypes = [i32]
     lib.heat_kmeans_strerror.restype = ctypes.c_char_p
+    f32 = ctypes.c_float
+    lib.heat_flash_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_fwd.restype = i32
+    lib.heat_flash_bwd_dq.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_bwd_dq.restype = i32
+    lib.heat_flash_bwd_dkv.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_bwd_dkv.restype = i32
+    lib.heat_flash_strerror.argtypes = [i32]
+    lib.heat_flash_strerror.restype = ctypes.c_char_p
 
 
 def load() -> ctypes.CDLL:

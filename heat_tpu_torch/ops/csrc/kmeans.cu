@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kErrUnsupportedD = -1;
@@ -422,8 +424,8 @@ extern "C" {
 // Labels (int32) and clamped min d^2 (float32) of rows [0, n) of x (n, d).
 int heat_kmeans_assign(int device, const void* x, const float* centers, int64_t n, int k, int d, int bf16,
                        int* labels, float* d2, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return int(e);
+  const heat::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return int(guard.error());
   HEAT_KMEANS_DISPATCH(bf16, d, return (assign_launch<T, DP, RPT>(x, centers, n, k, d, labels, d2,
                                                                    static_cast<cudaStream_t>(stream))));
 }
@@ -431,16 +433,16 @@ int heat_kmeans_assign(int device, const void* x, const float* centers, int64_t 
 // Number of row-tile partitions (>= 1) em_stats uses for n rows; the caller
 // allocates (grid, k, d) float32 and (grid, k) int32 scratch.  < 0: error.
 int heat_kmeans_em_grid(int device, int64_t n, int k, int d, int bf16) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return -1000 - int(e);
+  const heat::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return -1000 - int(guard.error());
   HEAT_KMEANS_DISPATCH(bf16, d, return (em_grid<T, DP, RPT>(n, k)));
 }
 
 // Per-cluster sums (k, d) and counts (k,) over rows [0, n) of x.
 int heat_kmeans_em_stats(int device, const void* x, const float* centers, int64_t n, int k, int d, int bf16,
                          int grid, float* psums, int* pcounts, float* sums, float* counts, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return int(e);
+  const heat::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return int(guard.error());
   HEAT_KMEANS_DISPATCH(bf16, d, return (em_launch<T, DP, RPT>(x, centers, n, k, d, grid, psums, pcounts, sums,
                                                                counts, static_cast<cudaStream_t>(stream))));
 }

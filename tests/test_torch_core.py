@@ -54,7 +54,8 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted((REPO / "heat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "heat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                               REPO / "tests" / "test_torch_cuda_kernels.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

@@ -93,18 +93,6 @@ def test_assign_kernel_resolution_and_validation(on_cpu):
     assert htt.cluster.KMeans(n_clusters=7).get_params()["n_clusters"] == 7
 
 
-@pytest.mark.cuda
-def test_auto_on_cuda_raises_past_the_kernels_limits():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    X = np.random.default_rng(0).standard_normal((4096, 32)).astype(np.float32)
-    x = htt.array(X, split=0, device="gpu")
-    km = htt.cluster.KMeans(n_clusters=2048, init=X[:2048], max_iter=1)
-    assert km._use_kernel(x)  # 'auto' on a CUDA tensor: the kernels, never the torch path
-    with pytest.raises(RuntimeError, match="shared-memory"):
-        km.fit(x)
-
-
 @pytest.mark.parametrize("init", ["random", "kmeans++"])
 def test_random_inits(init, on_cpu):
     X, _ = _blobs(n=900, d=4, k=3, seed=5)

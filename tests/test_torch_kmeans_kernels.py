@@ -15,7 +15,7 @@ Tolerances:
 - min d² uses atol 1e-6 of the expansion's magnitude (|x|² + |c|²): the
   same float32 expansion, with the dot product summed in another order,
   cancels to within a few float32 ulps of that magnitude.
-The kernels themselves run only on the card (``cuda`` marker).
+The kernels themselves run only on the card: ``test_torch_cuda_kernels.py``.
 """
 
 import numpy as np
@@ -142,28 +142,3 @@ def test_sq_dist_blocks_cover_the_rows_in_blocks(clamp_first, monkeypatch):
     direct = ((x[:900, None, :] - c[None, :, :]) ** 2).sum(-1)  # no near ties: checked by _gap_ok
     assert _gap_ok(x[:900], c)
     np.testing.assert_array_equal(lab.numpy(), direct.argmin(1))
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    x, c, _, _ = _inputs(5003, 32, 64, np.float32, seed=3)
-    xt, ct = torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
-    before = dict(kk.launch_counts)
-    lab, d2 = kk.fused_assign(xt, ct)
-    s, cnt = kk.fused_em_stats(xt, ct, 4999)
-    assert kk.launch_counts["assign"] == before["assign"] + 1
-    assert kk.launch_counts["em_stats"] == before["em_stats"] + 1
-    lab_p, d2_p = kk._torch_assign(xt, ct)
-    s_p, cnt_p = kk._torch_em_stats(xt, ct, 4999)
-    torch.testing.assert_close(lab, lab_p)
-    torch.testing.assert_close(d2, d2_p, rtol=0, atol=1e-6 * _scale(x, c))
-    torch.testing.assert_close(cnt, cnt_p, rtol=0, atol=0)
-    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-4)
-    with pytest.raises(TypeError):
-        kk.fused_assign(xt.double(), ct)
-    with pytest.raises(ValueError):
-        kk.fused_assign(xt, ct.cpu())
-    with pytest.raises(ValueError):
-        kk.fused_assign(torch.zeros(8, 200, device="cuda"), torch.zeros(2, 200, device="cuda"))
