@@ -17,24 +17,31 @@
    So a ``kmeans++`` fit on the same 1e8 rows, and one at n = 2**22, must
    recover every generating mean.  The launch counts are zeroed just before
    each fit and read just after it.
-4. Holds the three flash-attention kernels against their plain versions:
-   float32 and bfloat16, causal and full, d = 64 and 128, ragged S (1000,
-   129) and S = 1024; each row against that row's largest value, and in
-   bfloat16 the share of elements that differ at all; the forward twice to
-   the same bits; d = 256 refused.
+4. Holds the three flash-attention kernels against their plain versions,
+   through the multi-head wrappers and through the grouped-query ones
+   (query heads : K/V heads 8:2, 8:1 and 4:4): float32 and bfloat16, causal
+   and full, d = 64 and 128, ragged S (1000, 129) and S = 1024; each row
+   against that row's largest value, and in bfloat16 the share of elements
+   that differ at all; the forward (and the grouped dk/dv) twice to the
+   same bits; d = 256 refused.
 5. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
    width of the repo's LM benchmark) in float32 for 20 Adam steps on token
    batches (8, 1025) of repeated random segments: every flash kernel must
-   launch 8 x 20 times and the loss must fall.  Then one step through the
-   kernels against one step through their plain versions (substituted here
-   with ``unittest.mock.patch``), loss and every gradient.
+   launch 8 x 20 times, the grouped ones none, and the loss must fall.  Then
+   one step through the kernels against one step through their plain
+   versions (substituted here with ``unittest.mock.patch``), loss and every
+   gradient.
 6. Generates 448 tokens after a (8, 64) prompt with the weights in
    bfloat16, greedily: no flash kernel may launch.  Decoding is held against
    the bfloat16 forward over the prompt, which launches the forward kernel
    once per block.
-7. Times each kernel, its plain version and a library call at the main
+7. Does 5 and 6 again for the grouped-query LM, the same width with
+   ``num_kv_heads=2, positions="rope"`` (four query heads to a K/V head):
+   its training launches each grouped kernel 8 x 20 times and the
+   multi-head ones none, and it decodes from a cache of 2 K/V heads.
+8. Times each kernel, its plain version and a library call at the main
    path's shapes and prints the ``kernels`` line.
-8. Ends with the line ``{"ok": true, "device": {...}}``.
+9. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without CUDA it exits 2 at once.
@@ -65,11 +72,19 @@ LM = dict(vocab_size=32768, embed_dim=512, num_heads=8, depth=8, max_len=1024)
 LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 8, 1024, 20, 1e-3
 LM_SEGMENT, LM_POOL = 32, 1024  # sequences repeat a random 32-token segment drawn from 1024 tokens
 PROMPT, NEW_TOKENS = 64, 448
-# flash kernel checks: (batch*heads, S, d, causal)
-FLASH_CHECKS = [(16, 1000, 64, True), (16, 1000, 64, False), (16, 129, 128, True), (16, 129, 128, False),
-                (64, 1024, 64, True), (16, 1024, 128, False)]
-FLASH_MAIN = (64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
-FLASH_BENCH = (32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
+# the grouped-query LM: the same width, 2 K/V heads for the 8 query heads
+# (Llama-3-8B's grouping, 32:8), rotary positions; 55.6 M parameters
+LM_GQA = dict(LM, num_kv_heads=2, positions="rope")
+MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+GQA_KERNELS = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
+# flash kernel checks: (query rows B*Hq, K/V rows B*Hkv, S, d, causal)
+FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 129, 128, True),
+                (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False)]
+GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 128, True), (16, 2, 129, 128, False),
+              (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False)]
+FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
+GQA_MAIN = (64, 16, 1024, 64)  # the grouped LM's: 8 batches of 8 query and 2 K/V heads
+FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
 # kernel vs plain version, by _row_err (each row's largest error over that
 # row's largest |plain|).  Both take P at the same running maximum over
 # 64-key tiles and round at the same points, so they differ by float32 sum
@@ -362,39 +377,51 @@ def _row_err(got, want) -> float:
     return float(((got - want).abs().amax(-1) / scale).max())
 
 
-def _flash_inputs(bh, S, d, dtype, seed):
+def _flash_inputs(bhq, bhk, S, d, dtype, seed):
+    """q, k, v, dO: q and dO of bhq rows, k and v of bhk."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn((bh, S, d), generator=g, device="cuda").to(dtype) for _ in range(4)]
+    return [torch.randn((rows, S, d), generator=g, device="cuda").to(dtype) for rows in (bhq, bhk, bhk, bhq)]
 
 
-def check_flash_kernels() -> dict:
-    """Each flash kernel against its plain version on the card; returns the
-    errors at the main path's shape per dtype for the kernels line."""
-    import torch
-
+def _flash_fns(names):
+    """The wrappers of ``names`` and their plain versions (``_torch_<name>``)."""
     from heat_tpu_torch.ops import flash_attention as fa
 
+    return [getattr(fa, n) for n in names], [getattr(fa, f"_torch_{n}") for n in names]
+
+
+def check_flash_kernels(names, checks, main) -> dict:
+    """Each flash kernel, through the wrappers ``names`` (multi-head or
+    grouped), against its plain version on the card; returns the errors at
+    the main path's shape ``main`` per dtype for the kernels line."""
+    import torch
+
+    (fwd, bwd_dq, bwd_dkv), (fwd_p, bwd_dq_p, bwd_dkv_p) = _flash_fns(names)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         tol = FLASH_TOL[name]
-        for bh, S, d, causal in FLASH_CHECKS:
-            q, k, v, do = _flash_inputs(bh, S, d, dtype, seed=S + d + causal)
+        for bhq, bhk, S, d, causal in checks:
+            shape = (bhq, bhk, S, d, causal)
+            q, k, v, do = _flash_inputs(bhq, bhk, S, d, dtype, seed=S + d + causal + bhq // bhk - 1)
             scale = d**-0.5
-            out, lse = fa.flash_fwd(q, k, v, causal, scale)
-            again, lse2 = fa.flash_fwd(q, k, v, causal, scale)
+            out, lse = fwd(q, k, v, causal, scale)
+            again, lse2 = fwd(q, k, v, causal, scale)
             torch.cuda.synchronize()
             if not (torch.equal(out, again) and torch.equal(lse, lse2)):
-                fail(f"flash_fwd is not deterministic at {(bh, S, d, causal)} {name}")
+                fail(f"{names[0]} is not deterministic at {shape} {name}")
             dd = (do.float() * out.float()).sum(-1)
-            dq = fa.flash_bwd_dq(q, k, v, do, lse, dd, causal, scale)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dd, causal, scale)
-            out_p, lse_p = fa._torch_flash_fwd(q, k, v, causal, scale)
-            dq_p = fa._torch_flash_bwd_dq(q, k, v, do, lse, dd, causal, scale)
-            dk_p, dv_p = fa._torch_flash_bwd_dkv(q, k, v, do, lse, dd, causal, scale)
+            dq = bwd_dq(q, k, v, do, lse, dd, causal, scale)
+            dk, dv = bwd_dkv(q, k, v, do, lse, dd, causal, scale)
+            dk2, dv2 = bwd_dkv(q, k, v, do, lse, dd, causal, scale)
+            out_p, lse_p = fwd_p(q, k, v, causal, scale)
+            dq_p = bwd_dq_p(q, k, v, do, lse, dd, causal, scale)
+            dk_p, dv_p = bwd_dkv_p(q, k, v, do, lse, dd, causal, scale)
             torch.cuda.synchronize()
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                fail(f"{names[2]} is not deterministic at {shape} {name}")
             res = {"out": _row_err(out, out_p), "dq": _row_err(dq, dq_p), "dk": _row_err(dk, dk_p),
                    "dv": _row_err(dv, dv_p)}
             lse_err = float((lse - lse_p).abs().max())
@@ -404,26 +431,26 @@ def check_flash_kernels() -> dict:
             if dtype == torch.bfloat16:
                 bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
             if bad or not lse_err <= LSE_ATOL:
-                fail(f"flash kernels vs plain at {(bh, S, d, causal)} {name}: {res}, {share}, lse {lse_err}")
+                fail(f"flash kernels vs plain at {shape} {name}: {res}, {share}, lse {lse_err}")
             abs_err = {key: float((a.float() - b.float()).abs().max())
                        for key, a, b in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))}
-            print(json.dumps({"phase": "kernel_check", "kernel": "flash_fwd+flash_bwd_dq+flash_bwd_dkv", "dtype": name,
-                              "bh": bh, "S": S, "d": d, "causal": causal, "max_abs_err": abs_err,
+            print(json.dumps({"phase": "kernel_check", "kernel": "+".join(names), "dtype": name, "bhq": bhq,
+                              "bhk": bhk, "S": S, "d": d, "causal": causal, "max_abs_err": abs_err,
                               "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
-                              "differing_share": share, "lse_atol": LSE_ATOL, "forward_repeats_bitwise": True,
+                              "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
                               "check": "pass"}), flush=True)
-            if (bh, S, d) == FLASH_MAIN and causal:
-                errs[name] = {"flash_fwd": (max(abs_err["out"], lse_err), res["out"]),
-                              "flash_bwd_dq": (abs_err["dq"], res["dq"]),
-                              "flash_bwd_dkv": (max(abs_err["dk"], abs_err["dv"]), max(res["dk"], res["dv"]))}
-    q = torch.zeros((2, 16, 256), device="cuda")
+            if (bhq, bhk, S, d) == main and causal:
+                errs[name] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
+                                              (max(abs_err["dk"], abs_err["dv"]), max(res["dk"], res["dv"])))))
+    q = torch.zeros((4, 16, 256), device="cuda")
+    kv = q[:2] if names == GQA_KERNELS else q
     try:
-        fa.flash_fwd(q, q, q, True, 1.0)
+        fwd(q, kv, kv, True, 1.0)
     except ValueError as e:
-        print(json.dumps({"phase": "kernel_check", "kernel": "flash_fwd", "d": 256, "raised": str(e),
+        print(json.dumps({"phase": "kernel_check", "kernel": names[0], "d": 256, "raised": str(e),
                           "check": "pass"}), flush=True)
     else:
-        fail("flash_fwd took d = 256")
+        fail(f"{names[0]} took d = 256")
     return errs
 
 
@@ -445,14 +472,21 @@ def lm_loss(ht, lm, batch):
     return ht.nn.functional.cross_entropy(logits.reshape(-1, LM["vocab_size"]), batch[:, 1:].reshape(-1))
 
 
-def lm_train(ht):
-    """The training main path: 20 Adam steps at full width, counts zeroed just before."""
+def _path_counts(label: str, counts: dict, kernels, want: int) -> None:
+    """The path's kernels launched ``want`` times each, every other flash kernel never."""
+    expect = {key: want if key in kernels else 0 for key in counts}
+    if counts != expect:
+        fail(f"{label} launches {counts}, want {expect}")
+
+
+def lm_train(ht, cfg: dict, kernels, label: str):
+    """A training main path: 20 Adam steps at full width, counts zeroed just before."""
     import torch
 
     from heat_tpu_torch.ops import flash_attention as fa
 
     torch.manual_seed(0)
-    lm = ht.nn.models.TransformerLM(**LM)
+    lm = ht.nn.models.TransformerLM(**cfg)
     n_params = sum(p.numel() for p in lm.parameters())
     opt = ht.optim.DataParallelOptimizer("adam", lm.parameters(), lr=LM_LR)
     batches = torch.from_numpy(lm_batches(LM_STEPS + 1, seed=11)).cuda()
@@ -471,13 +505,11 @@ def lm_train(ht):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss.detach()))
     counts = dict(fa.launch_counts)
-    want = LM["depth"] * LM_STEPS
-    if counts != {key: want for key in counts}:
-        fail(f"LM training launches {counts}, want {want} of each flash kernel")
+    _path_counts(label, counts, kernels, cfg["depth"] * LM_STEPS)
     if not all(x == x and abs(x) < float("inf") for x in losses) or not losses[-1] < losses[0]:
-        fail(f"LM training loss did not fall: {losses}")
+        fail(f"{label} loss did not fall: {losses}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    print(json.dumps({"phase": "main_path", "path": "TransformerLM training", **LM, "params": n_params,
+    print(json.dumps({"phase": "main_path", "path": label, **cfg, "params": n_params,
                       "dtype": "float32", "batch": [LM_BATCH, LM_SEQ + 1], "optimizer": "adam", "lr": LM_LR,
                       "steps": LM_STEPS, "first_step_ms": step_s[0] * 1e3, "step_ms_median": steady * 1e3,
                       "step_ms": [round(t * 1e3, 3) for t in step_s],
@@ -532,7 +564,7 @@ def profile_device(fn, label: str) -> dict:
     return row
 
 
-def profile_training_step(ht, lm, opt, batch) -> None:
+def profile_training_step(ht, lm, opt, batch, label: str) -> None:
     """One training step under the profiler."""
     def step():
         loss = lm_loss(ht, lm, batch)
@@ -540,15 +572,13 @@ def profile_training_step(ht, lm, opt, batch) -> None:
         loss.backward()
         opt.step()
 
-    profile_device(step, "TransformerLM training step (float32)")
+    profile_device(step, f"{label} step (float32)")
 
 
-def lm_step_vs_plain(ht, lm, batch) -> None:
+def lm_step_vs_plain(ht, lm, batch, kernels, label: str) -> None:
     """One step's loss and gradients through the kernels and through their
-    plain versions, substituted for the three wrappers by mock.patch."""
+    plain versions, substituted for the path's three wrappers by mock.patch."""
     from unittest import mock
-
-    import torch
 
     from heat_tpu_torch.ops import flash_attention as fa
 
@@ -560,35 +590,42 @@ def lm_step_vs_plain(ht, lm, batch) -> None:
 
     before = dict(fa.launch_counts)
     loss_k, grads_k = step()
-    if any(fa.launch_counts[key] - before[key] != LM["depth"] for key in before):
-        fail("the kernel step did not launch each flash kernel once per block")
+    _path_counts(f"{label}, one step", {key: fa.launch_counts[key] - before[key] for key in before}, kernels,
+                 LM["depth"])
     before = dict(fa.launch_counts)
-    with mock.patch.object(fa, "flash_fwd", fa._torch_flash_fwd), \
-            mock.patch.object(fa, "flash_bwd_dq", fa._torch_flash_bwd_dq), \
-            mock.patch.object(fa, "flash_bwd_dkv", fa._torch_flash_bwd_dkv):
+    patches = [mock.patch.object(fa, name, getattr(fa, f"_torch_{name}")) for name in kernels]
+    for patch in patches:
+        patch.start()
+    try:
         loss_p, grads_p = step()
+    finally:
+        for patch in patches:
+            patch.stop()
     if fa.launch_counts != before:
         fail("the plain step launched a kernel")
     lm.zero_grad(set_to_none=True)
     worst = max(((n, float((grads_k[n] - grads_p[n]).abs().max()) / max(float(grads_p[n].abs().max()), 1e-30))
                  for n in grads_p), key=lambda t: t[1])
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(json.dumps({"phase": "one_step_vs_plain", "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_rel,
+    print(json.dumps({"phase": "one_step_vs_plain", "path": label, "loss": loss_k, "plain_loss": loss_p,
+                      "loss_rel_err": loss_rel,
                       "worst_grad": worst[0], "worst_grad_rel_err": worst[1], "params_checked": len(grads_p),
                       "loss_rtol": STEP_LOSS_RTOL, "grad_rtol": STEP_GRAD_RTOL}), flush=True)
     if not loss_rel <= STEP_LOSS_RTOL or not worst[1] <= STEP_GRAD_RTOL:
         fail(f"one step through the kernels vs plain: loss {loss_rel}, gradient {worst}")
 
 
-def lm_generate(ht, lm) -> None:
+def lm_generate(ht, lm, fwd_kernel: str, label: str) -> None:
     """Generation in bfloat16 at bench's lm_generate shape; then decoding
-    against the bfloat16 forward over the prompt."""
+    against the bfloat16 forward over the prompt, which launches
+    ``fwd_kernel`` once a block."""
     import numpy as np
     import torch
 
     from heat_tpu_torch.ops import flash_attention as fa
 
     lm = lm.to(torch.bfloat16).eval()
+    kv_heads = lm.blocks[0].mha.num_kv_heads
     prompt = torch.from_numpy(np.random.default_rng(12).integers(0, LM["vocab_size"], (LM_BATCH, PROMPT))).cuda()
     for key in fa.launch_counts:
         fa.launch_counts[key] = 0
@@ -605,100 +642,133 @@ def lm_generate(ht, lm) -> None:
         fail("generate's output is not the prompt followed by the new tokens")
     if int(out.min()) < 0 or int(out.max()) >= LM["vocab_size"]:
         fail("generated tokens out of range")
-    print(json.dumps({"phase": "main_path", "path": "TransformerLM generation", "dtype": "bfloat16",
+    print(json.dumps({"phase": "main_path", "path": label, "dtype": "bfloat16", "kv_heads": kv_heads,
                       "prompt": [LM_BATCH, PROMPT], "new_tokens": NEW_TOKENS, "greedy": True, "seconds": dt,
                       "tokens_per_s": LM_BATCH * NEW_TOKENS / dt, "launch_counts": counts}), flush=True)
 
     with torch.no_grad():
         caches = lm.init_caches(LM_BATCH, PROMPT)
+        # the K/V cache a generation of PROMPT + NEW_TOKENS positions holds
+        cache_bytes = sum(c[key].numel() * c[key].element_size() for c in caches for key in ("k", "v")) * \
+            (PROMPT + NEW_TOKENS) // PROMPT
+        if tuple(caches[0]["k"].shape) != (LM_BATCH, kv_heads, PROMPT, LM["embed_dim"] // LM["num_heads"]):
+            fail(f"{label}: the cache holds {tuple(caches[0]['k'].shape)}, not {kv_heads} K/V heads")
         dec = torch.stack([lm.decode_step(prompt[:, t], t, caches)[0] for t in range(PROMPT)], dim=1)
         for key in fa.launch_counts:
             fa.launch_counts[key] = 0
         fwd = lm(prompt)
         torch.cuda.synchronize()
-    if fa.launch_counts["flash_fwd"] != LM["depth"]:
-        fail(f"the bfloat16 forward launched {fa.launch_counts}")
+    _path_counts(f"{label}: the bfloat16 forward", dict(fa.launch_counts), (fwd_kernel,), LM["depth"])
     rel = _rel_err(dec, fwd)
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
-    print(json.dumps({"phase": "decode_vs_forward", "dtype": "bfloat16", "positions": PROMPT,
+    print(json.dumps({"phase": "decode_vs_forward", "path": label, "dtype": "bfloat16", "positions": PROMPT,
+                      "kv_heads": kv_heads, "generation_cache_bytes": cache_bytes,
                       "max_abs_err": float((dec.float() - fwd.float()).abs().max()),
                       "max_abs_logit": float(fwd.float().abs().max()), "rel_err": rel, "rel_tol": DECODE_RTOL,
                       "argmax_agreement": agree, "forward_launches": dict(fa.launch_counts)}), flush=True)
     if not rel <= DECODE_RTOL:
         fail(f"decode vs forward logits differ by {rel} of their largest magnitude")
-    profile_device(lambda: lm.generate(prompt[:, :8], 56), "TransformerLM generation, 63 decode steps (bfloat16)")
+    profile_device(lambda: lm.generate(prompt[:, :8], 56), f"{label}, 63 decode steps (bfloat16)")
 
 
-def flash_bound(kernel: str, bh: int, S: int, d: int, itemsize: int):
-    """(bound_ms, bound_by) of one causal launch: FLOP at the dtype's peak vs bytes moved once."""
-    flops = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[kernel] * bh * S * S * d / 2
-    # (S, d) tensors read and written, (S,) float32 rows read and written:
-    # the forward reads q, k, v and writes out, lse; dq reads q, k, v, dO,
-    # lse, dd and writes dq; dk/dv the same and writes dk, dv
-    t_in, r_in, t_out, r_out = {"flash_fwd": (3, 0, 1, 1), "flash_bwd_dq": (4, 2, 1, 0),
-                                "flash_bwd_dkv": (4, 2, 2, 0)}[kernel]
-    nbytes = (t_in + t_out) * bh * S * d * itemsize + (r_in + r_out) * bh * S * 4
+def flash_bound(kernel: str, bhq: int, bhk: int, S: int, d: int, itemsize: int):
+    """(bound_ms, bound_by) of one causal launch: FLOP at the dtype's peak vs
+    bytes moved once.  q, dO, out, dq and the float32 rows have bhq rows;
+    k, v, dk and dv bhk (the grouped kernels never repeat K/V)."""
+    kernel = kernel.replace("flash_gqa_", "flash_")
+    flops = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[kernel] * bhq * S * S * d / 2
+    # (S, d) tensors of q's rows and of K/V's rows read or written, (S,)
+    # float32 rows read or written: the forward reads q, k, v and writes out,
+    # lse; dq reads q, k, v, dO, lse, dd and writes dq; dk/dv the same and
+    # writes dk, dv
+    t_q, t_kv, r = {"flash_fwd": (2, 2, 1), "flash_bwd_dq": (3, 2, 2), "flash_bwd_dkv": (2, 4, 2)}[kernel]
+    nbytes = (t_q * bhq + t_kv * bhk) * S * d * itemsize + r * bhq * S * 4
     t_ops = flops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_flash(bh, S, d, dtype, reps: int) -> dict:
-    """ms of each kernel, its plain version and the library call, causal, at (bh, S, d)."""
+def device_kernels(fn, top: int = 2, reps: int = 3) -> list:
+    """The names of the ``top`` CUDA kernels with the most device time over
+    ``reps`` calls of ``fn()``: which backend a library call took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return [e.key[:120] for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:top]]
+
+
+def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
+    """ms of each kernel, its plain version and the library call, causal, at
+    q (bhq, S, d) and k, v (bhk, S, d), through the wrappers ``names``."""
     import torch
 
-    from heat_tpu_torch.ops import flash_attention as fa
-
-    q, k, v, do = _flash_inputs(bh, S, d, dtype, seed=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    (fwd, bwd_dq, bwd_dkv), (fwd_p, bwd_dq_p, bwd_dkv_p) = _flash_fns(names)
+    q, k, v, do = _flash_inputs(bhq, bhk, S, d, dtype, seed=5)
     scale = d**-0.5
-    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    out, lse = fwd(q, k, v, True, scale)
     dd = (do.float() * out.float()).sum(-1)
     # the library call on (B, H, S, d) views: given (B*H, S, d) it takes its math path
-    q4, k4, v4, do4 = (t.view(-1, LM["num_heads"], S, d) for t in (q, k, v, do))
+    hq = LM["num_heads"]
+    q4, do4 = (t.view(-1, hq, S, d) for t in (q, do))
+    k4, v4 = (t.view(-1, hq * bhk // bhq, S, d) for t in (k, v))
+    gqa = {"enable_gqa": True} if bhk != bhq else {}
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do4, retain_graph=True), reps)
+    lib_out = sdpa(qg, kg, vg, is_causal=True, **gqa)
+
+    def lib_fwd():
+        return sdpa(q4, k4, v4, is_causal=True, **gqa)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qg, kg, vg), do4, retain_graph=True)
+
+    lib_bwd_ms, lib_bwd_kernels = cuda_ms(lib_bwd, reps), device_kernels(lib_bwd)
     res = {
-        "flash_fwd": (cuda_ms(lambda: fa.flash_fwd(q, k, v, True, scale), reps),
-                      cuda_ms(lambda: fa._torch_flash_fwd(q, k, v, True, scale), 3),
-                      cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-                              reps)),
-        "flash_bwd_dq": (cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd, True, scale), reps),
-                         cuda_ms(lambda: fa._torch_flash_bwd_dq(q, k, v, do, lse, dd, True, scale), 3), lib_bwd),
-        "flash_bwd_dkv": (cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd, True, scale), reps),
-                          cuda_ms(lambda: fa._torch_flash_bwd_dkv(q, k, v, do, lse, dd, True, scale), 3), lib_bwd),
+        names[0]: (cuda_ms(lambda: fwd(q, k, v, True, scale), reps), cuda_ms(lambda: fwd_p(q, k, v, True, scale), 3),
+                   cuda_ms(lib_fwd, reps), device_kernels(lib_fwd)),
+        names[1]: (cuda_ms(lambda: bwd_dq(q, k, v, do, lse, dd, True, scale), reps),
+                   cuda_ms(lambda: bwd_dq_p(q, k, v, do, lse, dd, True, scale), 3), lib_bwd_ms, lib_bwd_kernels),
+        names[2]: (cuda_ms(lambda: bwd_dkv(q, k, v, do, lse, dd, True, scale), reps),
+                   cuda_ms(lambda: bwd_dkv_p(q, k, v, do, lse, dd, True, scale), 3), lib_bwd_ms, lib_bwd_kernels),
     }
     rows = {}
-    for name, (ms, plain_ms, lib_ms) in res.items():
-        b_ms, b_by = flash_bound(name, bh, S, d, q.element_size())
-        rows[name] = {"shape": [bh, S, d], "causal": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": lib_ms}
+    for name, (ms, plain_ms, lib_ms, lib_kernels) in res.items():
+        b_ms, b_by = flash_bound(name, bhq, bhk, S, d, q.element_size())
+        rows[name] = {"shape": [bhq, bhk, S, d], "causal": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib_ms, "library_kernels": lib_kernels}
     return rows
 
 
-def flash_rows(launches: dict, errs: dict) -> list:
-    """The flash kernels' rows of the kernels line: float32 at the training
-    step's shape, with bfloat16 at that shape and at the attention benchmark's."""
+def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None) -> list:
+    """The kernels line's rows of the wrappers ``names``: float32 at the
+    training step's shape ``main``, with bfloat16 at that shape and, given
+    ``bench``, at the attention benchmark's."""
     import torch
 
-    f32 = time_flash(*FLASH_MAIN, torch.float32, 20)
-    bf16 = time_flash(*FLASH_MAIN, torch.bfloat16, 20)
-    bench = time_flash(*FLASH_BENCH, torch.bfloat16, 5)
-    lines = {"flash_fwd": 132, "flash_bwd_dq": 339, "flash_bwd_dkv": 376}  # the Pallas kernel bodies
-    lib = {"flash_fwd": "scaled_dot_product_attention(is_causal=True) forward",
-           "flash_bwd_dq": "scaled_dot_product_attention backward: dq, dk and dv together",
-           "flash_bwd_dkv": "scaled_dot_product_attention backward: dq, dk and dv together"}
+    f32 = time_flash(names, *main, torch.float32, 20)
+    bf16 = time_flash(names, *main, torch.bfloat16, 20)
+    at_bench = time_flash(names, *bench, torch.bfloat16, 5) if bench else {}
+    gqa = ", enable_gqa=True" if main[0] != main[1] else ""
+    lib = [f"scaled_dot_product_attention(is_causal=True{gqa}) forward"] + \
+        [f"scaled_dot_product_attention(is_causal=True{gqa}) backward: dq, dk and dv together"] * 2
     rows = []
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name, line, lib_call in zip(names, replaces, lib):
         rows.append({
             "name": name, "route": "cuda", "source": "heat_tpu_torch/ops/csrc/flash_attention.cu",
-            "replaces": f"heat_tpu/ops/flash_attention.py:{lines[name]}", "launches": launches[name],
+            "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
             "launches_per_step": launches[name] // LM_STEPS, "max_abs_err": errs["float32"][name][0],
             "row_rel_err": errs["float32"][name][1],
-            **f32[name], "library_call": lib[name],
+            **f32[name], "library_call": lib_call,
             "bfloat16": {**bf16[name], "max_abs_err": errs["bfloat16"][name][0],
                          "row_rel_err": errs["bfloat16"][name][1]},
-            "bench_shape_bfloat16": bench[name], "check": "pass",
+            **({"bench_shape_bfloat16": at_bench[name]} if bench else {}), "check": "pass",
         })
     return rows
 
@@ -735,7 +805,8 @@ def main() -> int:
     # 2. kernels against their plain versions
     for dtype in (torch.float32, torch.bfloat16):
         check_kernels_small(dtype)
-    flash_errs = check_flash_kernels()
+    flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN)
+    gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN)
 
     # 3. the KMeans main path at full width
     gm = torch.Generator().manual_seed(7)
@@ -769,14 +840,20 @@ def main() -> int:
     recover(ht, xp, means_dev, "float32_kmeans++_2^22")
     del xp
 
-    # 4. the LM: training, one step against the plain versions, generation
-    lm, opt, lm_launches, batch = lm_train(ht)
-    profile_training_step(ht, lm, opt, batch)
-    lm_step_vs_plain(ht, lm, batch)
-    lm_generate(ht, lm)
-    del lm, opt, batch
-    torch.cuda.empty_cache()
-    rows += flash_rows(lm_launches, flash_errs)
+    # 4. the LMs, multi-head and grouped-query: training, one step against
+    # the plain versions, generation
+    launches = {}
+    for cfg, kernels, label in ((LM, MHA_KERNELS, "TransformerLM"),
+                                (LM_GQA, GQA_KERNELS, "TransformerLM(num_kv_heads=2, rope)")):
+        lm, opt, counts, batch = lm_train(ht, cfg, kernels, f"{label} training")
+        launches.update({key: counts[key] for key in kernels})
+        profile_training_step(ht, lm, opt, batch, f"{label} training")
+        lm_step_vs_plain(ht, lm, batch, kernels, label)
+        lm_generate(ht, lm, kernels[0], f"{label} generation")
+        del lm, opt, batch
+        torch.cuda.empty_cache()
+    rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH)
+    rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
 
     # 5. the kernels line and the result
     print(smi)

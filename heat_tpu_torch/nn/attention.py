@@ -1,14 +1,18 @@
 """Multi-head attention (reference: ``heat_tpu/nn/attention.py``).
 
 ``MultiheadAttention`` keeps the reference's (and torch's) packed-projection
-parameters, ``in_proj_weight`` (3E, E), ``in_proj_bias`` (3E,) and
-``out_proj``, so parameters carry over one to one.  Unmasked self-attention
-runs the flash kernels; masks, ``need_weights`` and cross-attention over
-other lengths run the dense path.  Two features of the reference wait for
-kernels that are not ported yet and raise ``NotImplementedError``:
-grouped-query attention (``num_kv_heads < num_heads``, ROADMAP B5) and the
-sequence-parallel ring (``comm=``, ROADMAP B6).  No dense path stands in
-for them.
+parameters, ``in_proj_weight`` (E + 2·kv_dim, E), ``in_proj_bias`` and
+``out_proj``, so parameters carry over one to one; kv_dim = num_kv_heads ·
+head_dim, so the packed projection is torch's (3E, E) unless grouped-query
+attention (``num_kv_heads < num_heads``) shrinks it.  Unmasked
+self-attention runs the flash kernels (the grouped ones under grouped-query
+attention, which never repeat K/V), and so does multi-head
+cross-attention over a memory of the query's length; masks,
+``need_weights`` and other cross-attention run the dense path, over K/V
+repeated to the query heads where they are grouped.  Decoding attends a cache of ``num_kv_heads`` heads
+through one grouped tail.  The sequence-parallel ring (``comm=``) waits for
+kernels that are not ported yet (ROADMAP B6) and raises
+``NotImplementedError``; no dense path stands in for it.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_attention import _dense_attention, flash_attention
+from ..ops.flash_attention import _dense_attention, flash_attention, flash_attention_gqa
 from .modules import Linear, _device
 
 __all__ = ["MultiheadAttention", "apply_rope"]
@@ -67,44 +71,61 @@ class MultiheadAttention(torch.nn.Module):
             num_kv_heads = num_heads
         if num_kv_heads < 1 or num_heads % num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not divisible by num_kv_heads {num_kv_heads}")
-        if num_kv_heads < num_heads:
-            raise NotImplementedError("grouped-query attention (num_kv_heads < num_heads) needs the grouped "
-                                      "flash kernels, not ported yet (ROADMAP B5)")
         if comm is not None:
             raise NotImplementedError("sequence-parallel attention (comm=) needs the ring and its positions "
                                       "kernels, not ported yet (ROADMAP B6)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
-        self.num_kv_heads = num_kv_heads
+        self.num_kv_heads = num_kv_heads  # < num_heads: grouped-query attention
+        self.kv_dim = num_kv_heads * self.head_dim
         self.bias = bias
         self.rope = rope  # rotary positions on self-attention q/k (not cross)
         self.rope_base = rope_base
         dev = _device(device)
         E = embed_dim
-        # the reference's init: xavier-uniform packed projection, zero biases,
-        # out_proj weight uniform in ±1/sqrt(E)
-        self.in_proj_weight = torch.nn.Parameter(torch.empty((3 * E, E), device=dev, dtype=dtype))
+        # the reference's init: xavier-uniform packed projection of E + 2·kv_dim
+        # rows, zero biases, out_proj weight uniform in ±1/sqrt(E)
+        rows = E + 2 * self.kv_dim
+        self.in_proj_weight = torch.nn.Parameter(torch.empty((rows, E), device=dev, dtype=dtype))
         torch.nn.init.xavier_uniform_(self.in_proj_weight)
         if bias:
-            self.in_proj_bias = torch.nn.Parameter(torch.zeros(3 * E, device=dev, dtype=dtype))
+            self.in_proj_bias = torch.nn.Parameter(torch.zeros(rows, device=dev, dtype=dtype))
         else:
             self.register_parameter("in_proj_bias", None)
         self.out_proj = Linear(E, E, bias=bias, device=device, dtype=dtype)
         if bias:
             torch.nn.init.zeros_(self.out_proj.bias)
 
-    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+    def _heads(self, t: torch.Tensor, n_heads: int = None) -> torch.Tensor:
         B, S, _ = t.shape
-        return t.reshape(B, S, self.num_heads, self.head_dim).transpose(1, 2)
+        return t.reshape(B, S, n_heads or self.num_heads, self.head_dim).transpose(1, 2)
+
+    def _split_heads(self, x: torch.Tensor):
+        """The packed projection of x, split [E, kv_dim, kv_dim] into q, k, v heads."""
+        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).split(
+            [self.embed_dim, self.kv_dim, self.kv_dim], dim=-1)
+        return self._heads(q), self._heads(k, self.num_kv_heads), self._heads(v, self.num_kv_heads)
+
+    def _repeat_kv(self, kh: torch.Tensor, vh: torch.Tensor):
+        """Grouped K/V heads repeated to the query heads, for the dense paths
+        (masks, need_weights, cross-attention); the grouped flash kernels and
+        the decode tail do without the copy."""
+        g = self.num_heads // self.num_kv_heads
+        if g == 1:
+            return kh, vh
+        return kh.repeat_interleave(g, dim=1), vh.repeat_interleave(g, dim=1)
 
     def _project(self, x: torch.Tensor, rows: slice) -> torch.Tensor:
         b = self.in_proj_bias
         return F.linear(x, self.in_proj_weight[rows], None if b is None else b[rows])
 
     def _project_kv(self, kv: torch.Tensor):
-        E = self.embed_dim
-        return self._heads(self._project(kv, slice(E, 2 * E))), self._heads(self._project(kv, slice(2 * E, 3 * E)))
+        """``num_kv_heads`` K and V heads of kv, from the packed projection's K/V rows."""
+        E, n = self.embed_dim, self.num_kv_heads
+        k = self._project(kv, slice(E, E + self.kv_dim))
+        v = self._project(kv, slice(E + self.kv_dim, E + 2 * self.kv_dim))
+        return self._heads(k, n), self._heads(v, n)
 
     def _merge_project(self, out: torch.Tensor) -> torch.Tensor:
         B, H, S, d = out.shape
@@ -130,9 +151,7 @@ class MultiheadAttention(torch.nn.Module):
                 attn_mask=None, need_weights: bool = False, average_attn_weights: bool = True):
         E = self.embed_dim
         if kv is None:
-            b = self.in_proj_bias
-            q, k, v = F.linear(x, self.in_proj_weight, b).split(E, dim=-1)
-            qh, kh, vh = self._heads(q), self._heads(k), self._heads(v)
+            qh, kh, vh = self._split_heads(x)
             if self.rope:
                 pos = torch.arange(qh.shape[-2], device=x.device)
                 qh = apply_rope(qh, pos, self.rope_base)
@@ -141,14 +160,19 @@ class MultiheadAttention(torch.nn.Module):
             qh = self._heads(self._project(x, slice(0, E)))
             kh, vh = self._project_kv(kv)
         probs = None
+        grouped = self.num_kv_heads != self.num_heads
         if key_padding_mask is not None or attn_mask is not None or need_weights:
-            out = self._masked_dense(qh, kh, vh, causal, key_padding_mask, attn_mask, return_probs=need_weights)
+            out = self._masked_dense(qh, *self._repeat_kv(kh, vh), causal, key_padding_mask, attn_mask,
+                                     return_probs=need_weights)
             if need_weights:
                 out, probs = out
-        elif qh.shape == kh.shape == vh.shape:
+        elif grouped and kv is None:
+            out = flash_attention_gqa(qh, kh, vh, causal=causal)
+        elif not grouped and qh.shape == kh.shape == vh.shape:
             out = flash_attention(qh, kh, vh, causal=causal)
         else:
-            out = _dense_attention(qh, kh, vh, causal, 1.0 / math.sqrt(self.head_dim), kh.shape[-2])
+            out = _dense_attention(qh, *self._repeat_kv(kh, vh), causal, 1.0 / math.sqrt(self.head_dim),
+                                   kh.shape[-2])
         y = self._merge_project(out)
         if need_weights:
             # torch's contract: (B, S_q, S_k) averaged over heads, or (B, H, S_q, S_k)
@@ -160,8 +184,8 @@ class MultiheadAttention(torch.nn.Module):
     # ------------------------------------------------------------------ #
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32) -> dict:
-        """Static KV cache for :meth:`decode_step`: (B, H, max_len, d) buffers
-        written in place, one position a step, and the next position."""
+        """Static KV cache for :meth:`decode_step`: (B, num_kv_heads, max_len,
+        d) buffers written in place, one position a step, and the next position."""
         shape = (batch, self.num_kv_heads, max_len, self.head_dim)
         dev = self.in_proj_weight.device
         return {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -176,8 +200,7 @@ class MultiheadAttention(torch.nn.Module):
         i = int(cache["index"])
         if i >= cache["k"].shape[2]:
             raise ValueError(f"decode_step past cache capacity: index {i} >= max_len {cache['k'].shape[2]}")
-        q, k, v = F.linear(x, self.in_proj_weight, self.in_proj_bias).split(self.embed_dim, dim=-1)
-        qh, kh, vh = self._heads(q), self._heads(k), self._heads(v)
+        qh, kh, vh = self._split_heads(x)
         if self.rope:
             # the cache holds rotated keys, so cached entries carry their positions
             qh = apply_rope(qh, i, self.rope_base)
@@ -191,15 +214,20 @@ class MultiheadAttention(torch.nn.Module):
 
     def _attend_merge_project(self, qh, kh, vh, live=None) -> torch.Tensor:
         """The one-query decode tail: scores (``live`` key slots only),
-        softmax, value contraction, head merge, output projection."""
-        s = torch.einsum("bhqd,bhld->bhql", qh, kh) / math.sqrt(self.head_dim)
+        softmax, value contraction, head merge, output projection.  Grouped:
+        each of the kh.shape[1] K/V heads serves its group of G query heads
+        (G = 1 without grouped-query attention), so K/V are not repeated."""
+        B, H, Sq, d = qh.shape
+        hk = kh.shape[1]
+        qg = qh.reshape(B, hk, H // hk, Sq, d)
+        s = torch.einsum("bkgqd,bkld->bkgql", qg, kh) / math.sqrt(self.head_dim)
         if live is not None:
             s = s.masked_fill(~live, float("-inf"))
-        out = torch.einsum("bhql,bhld->bhqd", torch.softmax(s, dim=-1), vh)
-        return self._merge_project(out)
+        out = torch.einsum("bkgql,bkld->bkgqd", torch.softmax(s, dim=-1), vh)
+        return self._merge_project(out.reshape(B, H, Sq, d))
 
     def precompute_kv(self, kv: torch.Tensor):
-        """Per-head K/V (B, H, S_kv, d) of a memory, projected once for :meth:`cross_step`."""
+        """Per-head K/V (B, num_kv_heads, S_kv, d) of a memory, projected once for :meth:`cross_step`."""
         return self._project_kv(kv)
 
     def cross_step(self, x: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from ..ops.flash_attention import _dense_attention, flash_attention
+from ..ops.flash_attention import _dense_attention, flash_attention, flash_attention_gqa
 
 __all__ = ["cross_entropy", "scaled_dot_product_attention"]
 
@@ -30,20 +30,19 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, is_causal: b
     additive), top-left causal.
 
     Unmasked calls with identical shapes run the flash kernels (forward and
-    backward); everything else runs the one dense softmax path, whose
-    fully-masked rows give 0 with NaN-free gradients (torch gives NaN).
-    Unmasked grouped-query calls (``enable_gqa`` with fewer K/V heads) would
-    need the grouped flash kernels, which are not ported yet (ROADMAP B5),
-    and raise ``NotImplementedError``."""
+    backward), and unmasked grouped-query calls (``enable_gqa`` with fewer
+    K/V heads and the same leading axes) the grouped flash kernels, which
+    never repeat K/V.  Everything else runs the one dense softmax path
+    (grouped K/V repeated to the query heads), whose fully-masked rows give 0
+    with NaN-free gradients (torch gives NaN)."""
     q, k, v = query, key, value
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if enable_gqa and q.ndim >= 3 and k.shape[-3] != q.shape[-3]:
         hq, hkv = q.shape[-3], k.shape[-3]
         if hq % hkv:
             raise ValueError(f"enable_gqa requires query heads ({hq}) divisible by key/value heads ({hkv})")
-        if attn_mask is None:
-            raise NotImplementedError("unmasked grouped-query attention needs the grouped flash kernels, "
-                                      "not ported yet (ROADMAP B5)")
+        if attn_mask is None and k.shape == v.shape and q.shape[-2:] == k.shape[-2:] and q.shape[:-3] == k.shape[:-3]:
+            return flash_attention_gqa(q, k, v, causal=is_causal, scale=scale)
         k = k.repeat_interleave(hq // hkv, dim=-3)
         v = v.repeat_interleave(hq // hkv, dim=-3)
     if attn_mask is None and q.shape == k.shape == v.shape:

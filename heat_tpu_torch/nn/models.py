@@ -4,10 +4,11 @@
 token embedding + positions + pre-norm causal blocks + final LayerNorm +
 LM head.  ``forward`` is the reference's teacher-forced ``apply`` and runs
 the flash kernels in every block (forward, and dq and dk/dv under
-``backward``).  ``generate`` decodes against a static KV cache: the
-reference compiles the whole loop into one ``lax.scan``; here it is a
-Python loop over a preallocated cache written in place, one
-``decode_step`` per position, with no host round trip inside the loop.
+``backward``; the grouped ones with ``num_kv_heads < num_heads``).
+``generate`` decodes against a static KV cache: the reference compiles
+the whole loop into one ``lax.scan``; here it is a Python loop over a
+preallocated cache written in place, one ``decode_step`` per position, with
+no host round trip inside the loop.
 """
 
 from __future__ import annotations
@@ -139,8 +140,10 @@ class TransformerLM(torch.nn.Module):
     logits (B, S, vocab) is the reference's ``apply``; ``decode_step`` and
     ``generate`` decode against a static KV cache.
 
-    ``num_experts`` raises ``NotImplementedError`` (MoE, ROADMAP A11), as do
-    ``num_kv_heads < num_heads`` (grouped-query, B5) and ``comm`` (the ring,
+    ``num_kv_heads < num_heads`` makes every block's attention grouped-query:
+    the grouped flash kernels in ``forward`` and a KV cache of
+    ``num_kv_heads`` heads in decoding.  ``num_experts`` raises
+    ``NotImplementedError`` (MoE, ROADMAP A11), as does ``comm`` (the ring,
     B6).  ``remat`` is ignored, with a warning: activation checkpointing is
     not ported yet, so every block keeps its activations for the backward.
     ``dropout`` follows torch's module mode (active after ``train()``,

@@ -106,11 +106,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_kmeans_strerror.argtypes = [i32]
     lib.heat_kmeans_strerror.restype = ctypes.c_char_p
     f32 = ctypes.c_float
-    lib.heat_flash_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32, ptr]
+    # (device, operand and output pointers, bhq, bhk, S, d, bf16, scale, causal, stream)
+    tail = [i64, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_fwd.argtypes = [i32] + [ptr] * 5 + tail
     lib.heat_flash_fwd.restype = i32
-    lib.heat_flash_bwd_dq.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_bwd_dq.argtypes = [i32] + [ptr] * 7 + tail
     lib.heat_flash_bwd_dq.restype = i32
-    lib.heat_flash_bwd_dkv.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_bwd_dkv.argtypes = [i32] + [ptr] * 8 + tail
     lib.heat_flash_bwd_dkv.restype = i32
     lib.heat_flash_strerror.argtypes = [i32]
     lib.heat_flash_strerror.restype = ctypes.c_char_p

@@ -11,8 +11,19 @@
 // does; dd = rowsum(dO * O) is computed by the caller (l.523 leaves it to
 // XLA, the wrapper to torch).
 //
+// Grouped-query attention (GQA) runs the same three kernels: they replace
+// _flash_gqa_fwd_impl (l.871) and _flash_gqa_bwd_impl (l.910), which reuse
+// the Pallas bodies above and change only the index maps, as here.  q, out,
+// lse, dO, dd and dq have bhq rows (batch * query heads), k, v, dk and dv
+// bhk rows, with g = bhq / bhk query heads to a K/V head.  The reference's
+// K/V row of query row b, _gqa_kv_row = (b / hq) * hk + (b % hq) / g (l.862),
+// is b / g, since hq = g * hk; and the query rows of K/V row b, qrow =
+// (b / hk) * hq + (b % hk) * g + i (l.939), are b * g + i for i < g.  So the
+// kernels take bhq and bhk, and nothing else of the head layout.  Multi-head
+// attention is g = 1.  K/V are never repeated in memory.
+//
 // Semantics: top-left causal (a query at row i sees keys 0..i) or full
-// attention over identical (S, d) shapes; storage float32 or bfloat16, all
+// attention over (S, d) rows; storage float32 or bfloat16, all
 // accumulation in float32 on the CUDA cores.  float32 stays full float32
 // (no TF32).  The reference's rounding points are kept: P is rounded to V's
 // type before P.V and to dO's type before P^T.dO; dS is rounded to K's type
@@ -24,12 +35,19 @@
 // 67 TFLOP/s float32 rate), dq 6*BH*S^2*d/2 (0.19 ms), dk/dv 8*BH*S^2*d/2
 // (0.26 ms), against 34 MB of float32 inputs and outputs (0.01 ms at
 // 3.35 TB/s).  So all three are compute-bound, and in bfloat16 on the tensor
-// cores (989 TFLOP/s) they would still be.  This first version spends its
-// effort on being right and simple:
+// cores (989 TFLOP/s) they would still be.  The grouped launches at the
+// grouped LM's shape, (bhq, bhk) = (64, 16), do the same FLOPs over fewer
+// K/V bytes.  Grouped dk/dv has bhk * ceil(S/64) blocks (256 there, on 132
+// SMs at one block an SM), each g times the work of a multi-head block, so
+// it fills the card less evenly than the multi-head grid of 1024 blocks.
+// This first version spends its effort on being right and simple:
 //   * one block of 256 threads per (batch*head, 64-row tile); the TPU's
 //     sequential grid axis becomes a loop inside the block: over key tiles
-//     for the forward and dq (one block per query tile), over query tiles
-//     for dk/dv (one block per key tile).  Nothing crosses blocks, so there
+//     for the forward and dq (one block per query row and tile), over the g
+//     query heads of the group and, in each, over query tiles for dk/dv (one
+//     block per K/V row and key tile, one float32 accumulator for the whole
+//     group, cast once at the end, in the order of the reference's nq_inner
+//     sweep: head by head, tile by tile).  Nothing crosses blocks, so there
 //     are no atomics and the results repeat bit for bit;
 //   * the causal skip of the reference (l.149-151, 350-352, 395-397) is the
 //     loop's bounds; heavy causal tiles are launched first;
@@ -150,7 +168,7 @@ constexpr size_t dkv_smem() {  // kt, vt, qt, dot [D][TS]; qs, dos [BQ][D + PAD]
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int d, float scale, int causal) {
+                     float* __restrict__ lse, int S, int d, int group, float scale, int causal) {
   constexpr int NG = D / 64;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
@@ -159,14 +177,14 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* pt = vs + BK * (D + PAD);
 
   const int nq = (S + BQ - 1) / BQ;
-  const int64_t bh = blockIdx.x / nq;
+  const int bh = int(blockIdx.x) / nq;  // the query row; its K/V row is bh / group
   const int iq = nq - 1 - int(blockIdx.x % nq);  // longest causal rows first
   const int q0 = iq * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = bh * S * int64_t(d);
-  q += base;
-  k += base;
-  v += base;
+  const int64_t kv_base = int64_t(bh / group) * S * d;
+  q += int64_t(bh) * S * d;
+  k += kv_base;
+  v += kv_base;
 
   load_tile<T, D>(q, q0, S, d, nullptr, qt);
   float m[4], l[4], acc[4][NG * 4];
@@ -219,8 +237,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     mm_patch<NG, BK>(acc, pt, TS, vs, D + PAD, ty, tx);
   }
 
-  // _finalize
-  out += base;
+  // _finalize; the outputs are offset here, so no 64-bit offset stays live through the loop
+  out += int64_t(bh) * S * d;
+  lse += int64_t(bh) * S;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -233,7 +252,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         const int c = g * 64 + tx * 4 + j;
         if (c < d) out[int64_t(row) * d + c] = from_f32<T>(acc[i][g * 4 + j] / den);
       }
-    if (tx == 0) lse[bh * S + row] = l[i] > 0.f ? (isfinite(m[i]) ? m[i] : 0.f) + logf(den) : kNoMass;
+    if (tx == 0) lse[row] = l[i] > 0.f ? (isfinite(m[i]) ? m[i] : 0.f) + logf(den) : kNoMass;
   }
 }
 
@@ -241,7 +260,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                        T* __restrict__ dq, int S, int d, float scale, int causal) {
+                        T* __restrict__ dq, int S, int d, int group, float scale, int causal) {
   constexpr int NG = D / 64;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
@@ -252,15 +271,17 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* dst = ks + BK * (D + PAD);
 
   const int nq = (S + BQ - 1) / BQ;
-  const int64_t bh = blockIdx.x / nq;
+  const int bh = int(blockIdx.x) / nq;  // the query row; its K/V row is bh / group
   const int iq = nq - 1 - int(blockIdx.x % nq);
   const int q0 = iq * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = bh * S * int64_t(d);
+  const int64_t base = int64_t(bh) * S * d, kv_base = int64_t(bh / group) * S * d;
   q += base;
-  k += base;
-  v += base;
+  k += kv_base;
+  v += kv_base;
   dout += base;
+  lse += int64_t(bh) * S;
+  dd += int64_t(bh) * S;
 
   load_tile<T, D>(q, q0, S, d, nullptr, qt);
   load_tile<T, D>(dout, q0, S, d, nullptr, dot);
@@ -268,8 +289,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < S ? lse[bh * S + row] : 0.f;
-    dd_r[i] = row < S ? dd[bh * S + row] : 0.f;
+    lse_r[i] = row < S ? lse[row] : 0.f;
+    dd_r[i] = row < S ? dd[row] : 0.f;
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) acc[i][j] = 0.f;
   }
@@ -299,7 +320,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     mm_patch<NG, BK>(acc, dst, TS, ks, D + PAD, ty, tx);  // dS K
   }
 
-  dq += base;
+  dq += int64_t(bh) * S * d;  // offset here, as the forward's outputs
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -318,7 +339,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                         T* __restrict__ dk, T* __restrict__ dv, int S, int d, float scale, int causal) {
+                         T* __restrict__ dk, T* __restrict__ dv, int S, int d, int group, float scale, int causal) {
   constexpr int NG = D / 64;
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);
@@ -332,15 +353,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* dd_s = lse_s + BQ;
 
   const int nk = (S + BK - 1) / BK;
-  const int64_t bh = blockIdx.x / nk;
+  const int bh = int(blockIdx.x) / nk;  // the K/V row; its query rows are bh * group + h
   const int ik = int(blockIdx.x % nk);  // under causal the first key tiles have the most work
   const int k0 = ik * BK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = bh * S * int64_t(d);
-  q += base;
+  const int64_t base = int64_t(bh) * S * d;
   k += base;
   v += base;
-  dout += base;
 
   load_tile<T, D>(k, k0, S, d, nullptr, kt);
   load_tile<T, D>(v, k0, S, d, nullptr, vt);
@@ -350,47 +369,53 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // query tiles that see this key tile: all, or under causal those from the diagonal on
+  // each query head of the group, and in it the query tiles that see this
+  // key tile: all, or under causal those from the diagonal on
   const int nq = (S + BQ - 1) / BQ;
-  for (int iq = causal ? ik : 0; iq < nq; ++iq) {
-    const int q0 = iq * BQ;
-    __syncthreads();
-    load_tile<T, D>(q, q0, S, d, qs, qt);
-    load_tile<T, D>(dout, q0, S, d, dos, dot);
-    if (threadIdx.x < BQ) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < S ? lse[bh * S + row] : 0.f;
-      dd_s[threadIdx.x] = row < S ? dd[bh * S + row] : 0.f;
-    }
-    __syncthreads();
-    // this thread's patch: key rows k0 + ty*4 + i, query columns q0 + tx*4 + j
-    float st[4][4] = {}, dpt[4][4] = {};
-    mm_patch<1, D>(st, kt, TS, qt, TS, ty, tx);    // (Q K^T)^T
-    mm_patch<1, D>(dpt, vt, TS, dot, TS, ty, tx);  // (dO V^T)^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = q0 + tx * 4 + j;
-      const float lse_c = lse_s[tx * 4 + j], dd_c = dd_s[tx * 4 + j];
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // query rows past S are zero padding: they take part in nothing
-        const bool dead = col >= S || masked(col, k0 + ty * 4 + i, S, causal);
-        p[i] = dead ? 0.f : expf(st[i][j] * scale - lse_c);
-        st[i][j] = p[i] * (dpt[i][j] - dd_c) * scale;  // now dS^T
+  for (int h = 0; h < group; ++h) {
+    const int64_t qrow = int64_t(bh) * group + h;
+    const T* __restrict__ qh = q + qrow * S * int64_t(d);
+    const T* __restrict__ doh = dout + qrow * S * int64_t(d);
+    for (int iq = causal ? ik : 0; iq < nq; ++iq) {
+      const int q0 = iq * BQ;
+      __syncthreads();
+      load_tile<T, D>(qh, q0, S, d, qs, qt);
+      load_tile<T, D>(doh, q0, S, d, dos, dot);
+      if (threadIdx.x < BQ) {
+        const int row = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = row < S ? lse[qrow * S + row] : 0.f;
+        dd_s[threadIdx.x] = row < S ? dd[qrow * S + row] : 0.f;
       }
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) =  // P, rounded to dO's type
-          make_float4(round_to<T>(p[0]), round_to<T>(p[1]), round_to<T>(p[2]), round_to<T>(p[3]));
-    }
-    __syncthreads();
-    mm_patch<NG, BQ>(dv_acc, pt, TS, dos, D + PAD, ty, tx);  // P^T dO
-    __syncthreads();
+      __syncthreads();
+      // this thread's patch: key rows k0 + ty*4 + i, query columns q0 + tx*4 + j
+      float st[4][4] = {}, dpt[4][4] = {};
+      mm_patch<1, D>(st, kt, TS, qt, TS, ty, tx);    // (Q K^T)^T
+      mm_patch<1, D>(dpt, vt, TS, dot, TS, ty, tx);  // (dO V^T)^T
 #pragma unroll
-    for (int j = 0; j < 4; ++j)  // dS, rounded to Q's type
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) = make_float4(
-          round_to<T>(st[0][j]), round_to<T>(st[1][j]), round_to<T>(st[2][j]), round_to<T>(st[3][j]));
-    __syncthreads();
-    mm_patch<NG, BQ>(dk_acc, pt, TS, qs, D + PAD, ty, tx);  // dS^T Q
+      for (int j = 0; j < 4; ++j) {
+        const int col = q0 + tx * 4 + j;
+        const float lse_c = lse_s[tx * 4 + j], dd_c = dd_s[tx * 4 + j];
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // query rows past S are zero padding: they take part in nothing
+          const bool dead = col >= S || masked(col, k0 + ty * 4 + i, S, causal);
+          p[i] = dead ? 0.f : expf(st[i][j] * scale - lse_c);
+          st[i][j] = p[i] * (dpt[i][j] - dd_c) * scale;  // now dS^T
+        }
+        *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) =  // P, rounded to dO's type
+            make_float4(round_to<T>(p[0]), round_to<T>(p[1]), round_to<T>(p[2]), round_to<T>(p[3]));
+      }
+      __syncthreads();
+      mm_patch<NG, BQ>(dv_acc, pt, TS, dos, D + PAD, ty, tx);  // P^T dO
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // dS, rounded to Q's type
+        *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) = make_float4(
+            round_to<T>(st[0][j]), round_to<T>(st[1][j]), round_to<T>(st[2][j]), round_to<T>(st[3][j]));
+      __syncthreads();
+      mm_patch<NG, BQ>(dk_acc, pt, TS, qs, D + PAD, ty, tx);  // dS^T Q
+    }
   }
 
   dk += base;
@@ -412,54 +437,56 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Set the kernel's dynamic shared memory and check the grid; 0 or an error code.
+// Check the shape and set the kernel's dynamic shared memory; 0 or an error
+// code.  ``rows`` is the grid's row count: bhq for the forward and dq, bhk for dk/dv.
 template <typename Kernel>
-int prepare(Kernel kern, size_t smem, int64_t bh, int S) {
+int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t rows, int S) {
+  const bool rows_ok = bhk == 0 ? bhq == 0 : bhq >= 0 && bhk > 0 && bhq % bhk == 0;
+  if (!rows_ok || S < 0 || rows * ((S + 63) / 64) > 0x7fffffff) return kErrBadShape;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return int(err);
   if (smem > size_t(max_smem)) return kErrSharedMemory;
-  const int64_t blocks = bh * ((S + 63) / 64);
-  if (bh < 0 || S < 0 || blocks > 0x7fffffff) return kErrBadShape;
   return int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
 }
 
-int grid_of(int64_t bh, int S) { return int(bh * ((S + 63) / 64)); }
+int grid_of(int64_t rows, int S) { return int(rows * ((S + 63) / 64)); }
 
 template <typename T, int D>
-int fwd_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bh, int S, int d,
-               float scale, int causal, cudaStream_t stream) {
-  const int err = prepare(flash_fwd_kernel<T, D>, fwd_smem<D>(), bh, S);
+int fwd_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk, int S,
+               int d, float scale, int causal, cudaStream_t stream) {
+  const int err = prepare(flash_fwd_kernel<T, D>, fwd_smem<D>(), bhq, bhk, bhq, S);
   if (err != 0) return err;
-  if (grid_of(bh, S) == 0) return 0;
-  flash_fwd_kernel<T, D><<<grid_of(bh, S), THREADS, fwd_smem<D>(), stream>>>(
+  if (grid_of(bhq, S) == 0) return 0;
+  flash_fwd_kernel<T, D><<<grid_of(bhq, S), THREADS, fwd_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse, S, d,
-      scale, causal);
+      int(bhq / bhk), scale, causal);
   return int(cudaGetLastError());
 }
 
 template <typename T, int D>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
-              void* dq, int64_t bh, int S, int d, float scale, int causal, cudaStream_t stream) {
-  const int err = prepare(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), bh, S);
+              void* dq, int64_t bhq, int64_t bhk, int S, int d, float scale, int causal, cudaStream_t stream) {
+  const int err = prepare(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), bhq, bhk, bhq, S);
   if (err != 0) return err;
-  if (grid_of(bh, S) == 0) return 0;
-  flash_bwd_dq_kernel<T, D><<<grid_of(bh, S), THREADS, dq_smem<D>(), stream>>>(
+  if (grid_of(bhq, S) == 0) return 0;
+  flash_bwd_dq_kernel<T, D><<<grid_of(bhq, S), THREADS, dq_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      dd, static_cast<T*>(dq), S, d, scale, causal);
+      dd, static_cast<T*>(dq), S, d, int(bhq / bhk), scale, causal);
   return int(cudaGetLastError());
 }
 
 template <typename T, int D>
 int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
-               void* dk, void* dv, int64_t bh, int S, int d, float scale, int causal, cudaStream_t stream) {
-  const int err = prepare(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>(), bh, S);
+               void* dk, void* dv, int64_t bhq, int64_t bhk, int S, int d, float scale, int causal,
+               cudaStream_t stream) {
+  const int err = prepare(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>(), bhq, bhk, bhk, S);
   if (err != 0) return err;
-  if (grid_of(bh, S) == 0) return 0;
-  flash_bwd_dkv_kernel<T, D><<<grid_of(bh, S), THREADS, dkv_smem<D>(), stream>>>(
+  if (grid_of(bhk, S) == 0) return 0;
+  flash_bwd_dkv_kernel<T, D><<<grid_of(bhk, S), THREADS, dkv_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      dd, static_cast<T*>(dk), static_cast<T*>(dv), S, d, scale, causal);
+      dd, static_cast<T*>(dk), static_cast<T*>(dv), S, d, int(bhq / bhk), scale, causal);
   return int(cudaGetLastError());
 }
 
@@ -481,39 +508,42 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout, co
 
 extern "C" {
 
-// out (bh, S, d) in the storage type and lse (bh, S) float32 of q, k, v (bh, S, d).
-int heat_flash_fwd(int device, const void* q, const void* k, const void* v, void* out, float* lse, int64_t bh, int s,
-                   int d, int bf16, float scale, int causal, void* stream) {
+// out (bhq, S, d) in the storage type and lse (bhq, S) float32 of q (bhq, S, d)
+// and k, v (bhk, S, d); bhk divides bhq, and bhk = bhq is multi-head attention.
+int heat_flash_fwd(int device, const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq,
+                   int64_t bhk, int s, int d, int bf16, float scale, int causal, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_FLASH_DISPATCH(bf16, d, return (fwd_launch<T, D>(q, k, v, out, lse, bh, s, d, scale, causal,
+  HEAT_FLASH_DISPATCH(bf16, d, return (fwd_launch<T, D>(q, k, v, out, lse, bhq, bhk, s, d, scale, causal,
                                                         static_cast<cudaStream_t>(stream))));
 }
 
-// dq (bh, S, d) from q, k, v, dO (bh, S, d), lse and dd = rowsum(dO * O) (bh, S) float32.
+// dq (bhq, S, d) from q, dO (bhq, S, d), k, v (bhk, S, d), lse and
+// dd = rowsum(dO * O) (bhq, S) float32.
 int heat_flash_bwd_dq(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                      const float* dd, void* dq, int64_t bh, int s, int d, int bf16, float scale, int causal,
-                      void* stream) {
+                      const float* dd, void* dq, int64_t bhq, int64_t bhk, int s, int d, int bf16, float scale,
+                      int causal, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_FLASH_DISPATCH(bf16, d, return (dq_launch<T, D>(q, k, v, dout, lse, dd, dq, bh, s, d, scale, causal,
+  HEAT_FLASH_DISPATCH(bf16, d, return (dq_launch<T, D>(q, k, v, dout, lse, dd, dq, bhq, bhk, s, d, scale, causal,
                                                        static_cast<cudaStream_t>(stream))));
 }
 
-// dk, dv (bh, S, d) from the same inputs.
+// dk, dv (bhk, S, d) from the same inputs, each summed over its group's query heads.
 int heat_flash_bwd_dkv(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                       const float* dd, void* dk, void* dv, int64_t bh, int s, int d, int bf16, float scale,
-                       int causal, void* stream) {
+                       const float* dd, void* dk, void* dv, int64_t bhq, int64_t bhk, int s, int d, int bf16,
+                       float scale, int causal, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_FLASH_DISPATCH(bf16, d, return (dkv_launch<T, D>(q, k, v, dout, lse, dd, dk, dv, bh, s, d, scale, causal,
-                                                        static_cast<cudaStream_t>(stream))));
+  HEAT_FLASH_DISPATCH(bf16, d, return (dkv_launch<T, D>(q, k, v, dout, lse, dd, dk, dv, bhq, bhk, s, d, scale,
+                                                        causal, static_cast<cudaStream_t>(stream))));
 }
 
 const char* heat_flash_strerror(int code) {
   if (code == kErrUnsupportedD) return "the flash-attention kernels take 1 <= d <= 128";
   if (code == kErrSharedMemory) return "the flash-attention tiles need more shared memory than this card gives a block";
-  if (code == kErrBadShape) return "bad shape: batch*heads*ceil(S/64) must fit a 31-bit grid";
+  if (code == kErrBadShape)
+    return "bad shape: the K/V rows must divide the query rows, and rows*ceil(S/64) fit a 31-bit grid";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -11,6 +11,15 @@ kernels that replace the Pallas kernels of
 - ``flash_bwd_dq`` (``_flash_bwd_dq_kernel``): dq;
 - ``flash_bwd_dkv`` (``_flash_bwd_dkv_kernel``): dk and dv.
 
+``flash_attention_gqa(q, k, v, causal=False, scale=None)`` is grouped-query
+attention: q ``(..., H_q, S, d)`` against k, v ``(..., H_kv, S, d)``, each
+K/V head serving ``H_q / H_kv`` query heads.  It runs the same kernels with
+K/V rows mapped per group (the reference's ``_flash_gqa_fwd_impl`` and
+``_flash_gqa_bwd_impl``), so K/V are never repeated in memory, through the
+wrappers ``flash_gqa_fwd``, ``flash_gqa_bwd_dq`` and ``flash_gqa_bwd_dkv``;
+dk and dv sum the group's query heads in one float32 accumulator and round
+once.
+
 The CUDA source, with its design and its bound on the card, is
 ``csrc/flash_attention.cu``.  A ``torch.autograd.Function`` ties them
 together as the reference's ``jax.custom_vjp`` does: the forward saves
@@ -18,14 +27,16 @@ together as the reference's ``jax.custom_vjp`` does: the forward saves
 and launches dq and dk/dv.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor goes to the plain
-version (``_torch_flash_fwd``/``_torch_flash_bwd_dq``/``_torch_flash_bwd_dkv``),
-which the tests use and which the kernels are held against on the card.
+version (``_torch_flash_fwd``/``_torch_flash_bwd_dq``/``_torch_flash_bwd_dkv``
+and their ``_torch_flash_gqa_*`` counterparts), which the tests use and which
+the kernels are held against on the card.
 The plain versions keep the kernels' rounding points: P is rounded to V's
 type before P.V and to dO's type before P^T.dO, dS to K's type before dS.K
 and to Q's type before dS^T.Q; accumulation is float32.  The forward takes
 P against the same running maximum over 64-key tiles as the kernel, so in
 bfloat16 P rounds at the same values and the two differ by float32 sum
-order only.  ``launch_counts`` counts kernel launches.
+order only.  ``launch_counts`` counts kernel launches, one key a wrapper,
+so a run shows which path launched.
 
 ``_dense_attention`` is the one dense softmax path of the package, for
 masks, biases, rectangular shapes and attention probabilities.
@@ -40,34 +51,41 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "launch_counts"]
+__all__ = ["flash_attention", "flash_attention_gqa", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_gqa_fwd",
+           "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv", "launch_counts"]
 
-# kernel launches since the last reset, one count per kernel
-launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# kernel launches since the last reset, one count per wrapper
+launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_gqa_fwd": 0, "flash_gqa_bwd_dq": 0,
+                 "flash_gqa_bwd_dkv": 0}
 
 MAX_D = 128  # tiles are zero-padded to 64 or 128 columns
 KEY_TILE = 64  # keys per step of the forward kernel's loop (BK in the CUDA source)
 NO_MASS = -1e30  # lse of a row with no live key (_finalize's sentinel)
 
 
-def _check(*ts: torch.Tensor) -> None:
-    """Operands (BH, S, d) of one shape, float32 or bfloat16, contiguous, on one device."""
+def _check(q, k, v, *qlike, grouped: bool) -> None:
+    """Operands float32 or bfloat16, contiguous, on one device: q and the
+    ``qlike`` (dO) of one shape (BHq, S, d), k and v of one shape (BHk, S, d);
+    BHk = BHq, or with ``grouped`` a divisor of it."""
+    ts = (q, k, v, *qlike)
     if not all(isinstance(t, torch.Tensor) for t in ts):
         raise TypeError("flash attention operands must be torch tensors")
-    first = ts[0]
-    if first.ndim != 3 or any(t.shape != first.shape for t in ts):
-        raise ValueError(f"need operands of one shape (BH, S, d), got {[tuple(t.shape) for t in ts]}")
-    if first.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != first.dtype for t in ts):
+    if (q.ndim != 3 or k.ndim != 3 or any(t.shape != q.shape for t in qlike) or k.shape != v.shape
+            or k.shape[1:] != q.shape[1:]
+            or not (k.shape[0] == q.shape[0] or grouped and k.shape[0] and q.shape[0] % k.shape[0] == 0)):
+        want = "(BHq, S, d) q and dO, (BHk, S, d) k and v, BHk dividing BHq" if grouped else "one shape (BH, S, d)"
+        raise ValueError(f"need operands of {want}, got {[tuple(t.shape) for t in ts]}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"need float32 or bfloat16 operands of one dtype, got {[t.dtype for t in ts]}")
-    if any(t.device != first.device for t in ts):
+    if any(t.device != q.device for t in ts):
         raise ValueError(f"operands on several devices: {[str(t.device) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash attention operands must be contiguous")
-    if first.device.type == "cuda":
-        if not 1 <= first.shape[2] <= MAX_D:
-            raise ValueError(f"the CUDA flash-attention kernels take 1 <= d <= {MAX_D}, got d={first.shape[2]}")
-    elif first.device.type != "cpu":
-        raise ValueError(f"unsupported device {first.device}")
+    if q.device.type == "cuda":
+        if not 1 <= q.shape[2] <= MAX_D:
+            raise ValueError(f"the CUDA flash-attention kernels take 1 <= d <= {MAX_D}, got d={q.shape[2]}")
+    elif q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
 
 
 def _check_rows(like: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -80,20 +98,24 @@ def _check_rows(like: torch.Tensor, *rows: torch.Tensor) -> None:
 
 def _launch(name: str, plain, inputs, rows, outputs, causal: bool, scale: float):
     """Check the operands; send CPU tensors to ``plain``; else launch the
-    kernel ``heat_<name>`` on q's device and current stream, raise on a
-    nonzero code and count the launch.  ``outputs()`` allocates the
-    tensors the kernel writes."""
-    _check(*inputs)
+    kernel on q's device and current stream, raise on a nonzero code and
+    count the launch under ``name``.  The grouped wrappers (``flash_gqa_*``)
+    launch the kernel of their multi-head counterpart (``heat_flash_*``),
+    which takes the K/V row count.  ``outputs()`` allocates the tensors the
+    kernel writes."""
+    grouped = name.startswith("flash_gqa_")
+    _check(*inputs, grouped=grouped)
     _check_rows(inputs[0], *rows)
     if inputs[0].device.type == "cpu":
         return plain(*inputs, *rows, causal, scale)
-    q = inputs[0]
+    q, k = inputs[:2]
     out = outputs()
     lib = _build.load()
+    kernel = name.replace("flash_gqa_", "flash_")
     bh, s, d = q.shape
-    rc = getattr(lib, f"heat_{name}")(q.device.index, *(t.data_ptr() for t in (*inputs, *rows, *out)), bh, s, d,
-                                       int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
-                                       torch.cuda.current_stream(q.device).cuda_stream)
+    rc = getattr(lib, f"heat_{kernel}")(q.device.index, *(t.data_ptr() for t in (*inputs, *rows, *out)), bh,
+                                         k.shape[0], s, d, int(q.dtype == torch.bfloat16), float(scale),
+                                         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel {name} failed: {lib.heat_flash_strerror(rc).decode()} (code {rc})")
     launch_counts[name] += 1
@@ -118,14 +140,35 @@ def flash_bwd_dkv(q, k, v, do, lse, dd, causal: bool, scale: float):
                    lambda: (torch.empty_like(k), torch.empty_like(v)), causal, scale)
 
 
+def flash_gqa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float):
+    """(out (BHq, S, d) in q's dtype, lse (BHq, S) float32) of q (BHq, S, d)
+    and k, v (BHk, S, d): query row b attends K/V row b // (BHq / BHk)."""
+    return _launch("flash_gqa_fwd", _torch_flash_gqa_fwd, (q, k, v), (), lambda: (
+        torch.empty_like(q), torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)), causal, scale)
+
+
+def flash_gqa_bwd_dq(q, k, v, do, lse, dd, causal: bool, scale: float) -> torch.Tensor:
+    """dq (BHq, S, d) in q's dtype; k, v (BHk, S, d)."""
+    return _launch("flash_gqa_bwd_dq", _torch_flash_gqa_bwd_dq, (q, k, v, do), (lse, dd),
+                   lambda: (torch.empty_like(q),), causal, scale)
+
+
+def flash_gqa_bwd_dkv(q, k, v, do, lse, dd, causal: bool, scale: float):
+    """(dk, dv) (BHk, S, d) in k's and v's dtype, each summed over the
+    BHq / BHk query rows of its group in float32 and rounded once."""
+    return _launch("flash_gqa_bwd_dkv", _torch_flash_gqa_bwd_dkv, (q, k, v, do), (lse, dd),
+                   lambda: (torch.empty_like(k), torch.empty_like(v)), causal, scale)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The reference's ``_flash`` custom VJP: forward and backward kernels."""
+    """The reference's ``_flash`` custom VJP (``_flash_gqa`` with
+    ``grouped``): forward and backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, grouped: bool):
+        out, lse = (flash_gqa_fwd if grouped else flash_fwd)(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.grouped = causal, scale, grouped
         return out
 
     @staticmethod
@@ -134,9 +177,10 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         dd = (do.float() * out.float()).sum(-1)  # D_i = sum_d dO_i * O_i, as _flash_bwd_impl leaves to XLA
-        dq = flash_bwd_dq(q, k, v, do, lse, dd, ctx.causal, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, dd, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        bwd_dq, bwd_dkv = (flash_gqa_bwd_dq, flash_gqa_bwd_dkv) if ctx.grouped else (flash_bwd_dq, flash_bwd_dkv)
+        dq = bwd_dq(q, k, v, do, lse, dd, ctx.causal, ctx.scale)
+        dk, dv = bwd_dkv(q, k, v, do, lse, dd, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
@@ -153,7 +197,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     S, d = q.shape[-2:]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     flat = [t.reshape(-1, S, d).contiguous() for t in (q, k, v)]
-    return _FlashAttention.apply(*flat, bool(causal), scale).reshape(q.shape)
+    return _FlashAttention.apply(*flat, bool(causal), scale, False).reshape(q.shape)
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention, flash-fused on the card without repeating K/V.
+
+    ``q``: ``(..., H_q, S, d)``; ``k``, ``v``: ``(..., H_kv, S, d)`` with
+    ``H_q % H_kv == 0`` and identical leading axes; query head h attends
+    K/V head ``h // (H_q / H_kv)``.  Returns ``(..., H_q, S, d)`` in q's
+    dtype, with :func:`flash_attention`'s causal and masked-row semantics;
+    equal head counts are :func:`flash_attention`.  Differentiable: the
+    backward runs the grouped dq and dk/dv kernels."""
+    if q.ndim < 3 or k.shape != v.shape or q.shape[:-3] != k.shape[:-3] or q.shape[-2:] != k.shape[-2:]:
+        raise ValueError(f"flash_attention_gqa requires (..., H_q, S, d) q and (..., H_kv, S, d) k == v, "
+                         f"got {q.shape}, {k.shape}, {v.shape}")
+    hq, hk = q.shape[-3], k.shape[-3]
+    if hq % hk:
+        raise ValueError(f"query heads ({hq}) must be a multiple of key/value heads ({hk})")
+    S, d = q.shape[-2:]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if hq == hk:
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    flat = [t.reshape(-1, S, d).contiguous() for t in (q, k, v)]
+    return _FlashAttention.apply(*flat, bool(causal), scale, True).reshape(q.shape)
 
 
 # ---------------------------------------------------------------------- #
@@ -209,12 +277,41 @@ def _torch_flash_bwd_dq(q, k, v, do, lse, dd, causal: bool, scale: float) -> tor
     return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
 
 
+def _torch_dkv_f32(q, k, v, do, lse, dd, causal: bool, scale: float):
+    """dk and dv in float32, before the cast to k's and v's type."""
+    p, ds = _torch_p_ds(q, k, v, do, lse, dd, causal, scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return dk, dv
+
+
 def _torch_flash_bwd_dkv(q, k, v, do, lse, dd, causal: bool, scale: float):
     """Plain version of ``flash_bwd_dkv``."""
-    p, ds = _torch_p_ds(q, k, v, do, lse, dd, causal, scale)
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float()).to(v.dtype)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()).to(k.dtype)
-    return dk, dv
+    dk, dv = _torch_dkv_f32(q, k, v, do, lse, dd, causal, scale)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _repeat_groups(q, *kv):
+    """K/V rows (BHk, S, d) repeated to q's BHq rows: row b // g serves query row b."""
+    g = q.shape[0] // kv[0].shape[0]
+    return [t.repeat_interleave(g, dim=0) for t in kv]
+
+
+def _torch_flash_gqa_fwd(q, k, v, causal: bool, scale: float):
+    """Plain version of ``flash_gqa_fwd``: ``_torch_flash_fwd`` over repeated K/V."""
+    return _torch_flash_fwd(q, *_repeat_groups(q, k, v), causal, scale)
+
+
+def _torch_flash_gqa_bwd_dq(q, k, v, do, lse, dd, causal: bool, scale: float) -> torch.Tensor:
+    """Plain version of ``flash_gqa_bwd_dq``."""
+    return _torch_flash_bwd_dq(q, *_repeat_groups(q, k, v), do, lse, dd, causal, scale)
+
+
+def _torch_flash_gqa_bwd_dkv(q, k, v, do, lse, dd, causal: bool, scale: float):
+    """Plain version of ``flash_gqa_bwd_dkv``: each query row's float32 dk,
+    dv over repeated K/V, summed over the group in float32, cast once."""
+    dk, dv = _torch_dkv_f32(q, *_repeat_groups(q, k, v), do, lse, dd, causal, scale)
+    return tuple(t.unflatten(0, (k.shape[0], -1)).sum(1).to(k.dtype) for t in (dk, dv))
 
 
 # ---------------------------------------------------------------------- #

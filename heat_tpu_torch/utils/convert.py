@@ -6,7 +6,9 @@ given as numpy values, into a fitted estimator of this package whose
 and ``multihead_attention_from_reference`` turn a reference parameter
 pytree (nested dicts and lists of numpy arrays, as ``init`` makes it) into a
 module of this package that computes the same function; ``to_reference``
-gives a module's pytree back.  A pytree path maps to
+gives a module's pytree back.  A grouped-query model's packed projection,
+``in_proj_weight`` of (E + 2·num_kv_heads·head_dim, E), carries over as it
+is: the module built from the same ``num_kv_heads`` has that shape.  A pytree path maps to
 the module's parameter name by joining its keys with dots
 (``blocks[0]["mha"]["out_proj"]["weight"]`` is ``blocks.0.mha.out_proj.weight``);
 the empty entries of parameter-free layers (``GELU``'s ``()``) have none.

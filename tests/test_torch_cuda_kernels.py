@@ -23,6 +23,9 @@ Tolerances:
     elements may differ at all: P and dS round at the same points on both
     sides, so only float32 sum order moves a result across a rounding
     boundary (~1e-4 of them); rounding P at another maximum moves 5-24%.
+  - the grouped-query kernels take the same limits: their plain versions
+    repeat K/V per group and run the multi-head ones, and dk, dv sum the
+    group in float32 on both sides before the one rounding.
 """
 
 import numpy as np
@@ -111,7 +114,8 @@ def test_cuda_flash_kernels_match_plain_versions(S, d, causal, dtype):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
     torch.cuda.synchronize()
     assert {key: fa.launch_counts[key] - before[key] for key in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_gqa_fwd": 0, "flash_gqa_bwd_dq": 0,
+        "flash_gqa_bwd_dkv": 0}
     out_p, lse_p = fa._torch_flash_fwd(q, k, v, causal, d**-0.5)
     dq_p = fa._torch_flash_bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
     dk_p, dv_p = fa._torch_flash_bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
@@ -125,9 +129,51 @@ def test_cuda_flash_kernels_match_plain_versions(S, d, causal, dtype):
     assert torch.equal(out, again)  # no atomics: the same bits every run
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hk", [(8, 2), (8, 1)])
+@pytest.mark.parametrize("S,d,causal", [(1000, 64, True), (129, 128, False), (77, 8, False)])
+def test_cuda_gqa_flash_kernels_match_plain_versions(S, d, causal, hq, hk, dtype):
+    """The grouped kernels against their plain versions over K/V repeated
+    per group, with the tolerances of the multi-head kernels: dk and dv sum
+    the group in float32 on both sides and round once."""
+    g = torch.Generator(device="cuda").manual_seed(S + d + hq + hk)
+    B = 2
+    q, do = (torch.randn((B * hq, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((B * hk, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_gqa_fwd(q, k, v, causal, d**-0.5)
+    dd = (do.float() * out.float()).sum(-1)
+    dq = fa.flash_gqa_bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
+    dk, dv = fa.flash_gqa_bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
+    torch.cuda.synchronize()
+    assert {key: fa.launch_counts[key] - before[key] for key in before} == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_gqa_fwd": 1, "flash_gqa_bwd_dq": 1,
+        "flash_gqa_bwd_dkv": 1}
+    assert dk.shape == k.shape and dv.shape == v.shape
+    out_p, lse_p = fa._torch_flash_gqa_fwd(q, k, v, causal, d**-0.5)
+    dq_p = fa._torch_flash_gqa_bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
+    dk_p, dv_p = fa._torch_flash_gqa_bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+    for got, want, kind in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
+        assert row_err(got, want) <= tol[kind]
+        if dtype == torch.bfloat16:
+            assert float((got != want).float().mean()) <= 0.01
+    again, _ = fa.flash_gqa_fwd(q, k, v, causal, d**-0.5)
+    dk2, dv2 = fa.flash_gqa_bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
+    assert torch.equal(out, again) and torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics
+    three = k.repeat(2, 1, 1)[:3]
+    with pytest.raises(ValueError):  # K/V rows that do not divide the query rows
+        fa.flash_gqa_fwd(q, three, three, causal, d**-0.5)
+    with pytest.raises(ValueError):  # the multi-head wrapper takes one shape only
+        fa.flash_fwd(q, k, v, causal, d**-0.5)
+
+
 def test_cuda_flash_kernels_refuse_d_256():
     q = torch.zeros((2, 16, 256), device="cuda")
     with pytest.raises(ValueError):
         fa.flash_fwd(q, q, q, True, 1.0)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        fa.flash_attention_gqa(q.view(1, 2, 16, 256), q[:1].view(1, 1, 16, 256), q[:1].view(1, 1, 16, 256))

@@ -5,7 +5,10 @@ through ``utils.convert``; the same numpy inputs go to both.  The reference
 runs its Pallas flash kernels in interpret mode (S <= 512), the port its
 plain versions through the same autograd function the kernels use.  The
 width is small: vocab 61, E 32, 4 heads (d = 8), depth 2, max_len 64,
-S <= 32.
+S <= 32.  Grouped-query attention (``num_kv_heads`` 2 and 1) runs through
+the same tests of the attention module, and the grouped LM at the shape of
+the reference's own ``test_lm_with_gqa`` (vocab 19, E 16, 4 query and 2 K/V
+heads, depth 2, rope).
 
 Tolerances, all float32:
 - modules (Linear, LayerNorm, Embedding, GELU): atol 1e-6, the same
@@ -162,18 +165,22 @@ def test_scaled_dot_product_attention():
     kg, vg = k[:, :2], v[:, :2]
     _close(sdpa(_t(q), _t(kg), _t(vg), attn_mask=_t(bmask), enable_gqa=True),
            sdpa_r(jnp.asarray(q), jnp.asarray(kg), jnp.asarray(vg), attn_mask=jnp.asarray(bmask), enable_gqa=True))
-    with pytest.raises(NotImplementedError, match="B5"):
-        sdpa(_t(q), _t(kg), _t(vg), enable_gqa=True)
+    # unmasked grouped-query: the grouped flash path on both sides
+    for kw in (dict(is_causal=True), dict(is_causal=False, scale=0.2)):
+        counts = dict(fa.launch_counts)
+        _close(sdpa(_t(q), _t(kg), _t(vg), enable_gqa=True, **kw),
+               sdpa_r(jnp.asarray(q), jnp.asarray(kg), jnp.asarray(vg), enable_gqa=True, **kw))
+        assert fa.launch_counts == counts
 
 
 # ---------------------------------------------------------------------- #
 # attention
 # ---------------------------------------------------------------------- #
-def _mha_pair(rope=False, seed=4):
-    rm = ref_attention.MultiheadAttention(E, H, rope=rope)
+def _mha_pair(rope=False, seed=4, num_kv_heads=None):
+    rm = ref_attention.MultiheadAttention(E, H, rope=rope, num_kv_heads=num_kv_heads)
     p = rm.init(jax.random.key(seed))
     return rm, p, convert.multihead_attention_from_reference(_np(p), embed_dim=E, num_heads=H, rope=rope,
-                                                             device="cpu")
+                                                             num_kv_heads=num_kv_heads, device="cpu")
 
 
 @pytest.mark.parametrize("rope", [False, True])
@@ -218,9 +225,17 @@ def test_mha_masks_and_weights():
         assert w.shape == ((2, 10, 10) if avg else (2, H, 10, 10))
 
 
+def _shapes(tree):
+    return {key: a.shape for key, a in convert._flatten(_np(tree)).items()}
+
+
 def test_mha_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="B5"):
-        ht.nn.MultiheadAttention(E, H, num_kv_heads=2, device="cpu")
+    # grouped-query attention is ported: the reference's parameter shapes, and its init bound
+    gqa = ht.nn.MultiheadAttention(E, H, num_kv_heads=2, device="cpu")
+    ref_gqa = ref_attention.MultiheadAttention(E, H, num_kv_heads=2)
+    assert _shapes(convert.to_reference(gqa)) == _shapes(ref_gqa.init(jax.random.key(0)))
+    assert gqa.in_proj_weight.shape == (E + 2 * 2 * (E // H), E) and gqa.kv_dim == 16
+    assert float(gqa.in_proj_weight.detach().abs().max()) <= (6.0 / (E + 2 * 16 + E)) ** 0.5
     with pytest.raises(NotImplementedError, match="B6"):
         ht.nn.MultiheadAttention(E, H, comm=object(), device="cpu")
     with pytest.raises(ValueError):
@@ -229,12 +244,85 @@ def test_mha_unported_features_raise():
         models.TransformerLM(**CFG, num_experts=4, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         models.transformer_encoder(E, H, depth=1, num_experts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
-        models.TransformerLM(**CFG, num_kv_heads=2, device="cpu")
+    rm = ref_models.TransformerLM(**CFG, num_kv_heads=2)
+    assert _shapes(convert.to_reference(models.TransformerLM(**CFG, num_kv_heads=2, device="cpu"))) == \
+        _shapes(rm.init(jax.random.key(0)))
+    with pytest.raises(ValueError):
+        models.TransformerLM(**CFG, num_kv_heads=3, device="cpu")
     with pytest.raises(NotImplementedError, match="B6"):
         models.TransformerLM(**CFG, comm=object(), device="cpu")
     with pytest.warns(UserWarning, match="remat"):
         models.TransformerLM(**CFG, remat=True, device="cpu")
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("num_kv_heads", [2, 1])
+def test_gqa_mha_self_attention_and_gradients(num_kv_heads, causal, rope):
+    """Grouped-query self-attention (the grouped flash path on both sides),
+    and the gradient of every parameter and of the input."""
+    rm, p, pm = _mha_pair(rope, seed=15, num_kv_heads=num_kv_heads)
+    rng = np.random.default_rng(15)
+    x, w = (rng.standard_normal((2, 24, E)).astype(np.float32) for _ in range(2))
+    y_r, vjp = jax.vjp(lambda params, xs: rm.apply(params, xs, causal=causal), p, jnp.asarray(x))
+    grads_r, dx_r = vjp(jnp.asarray(w))
+    xt = _t(x).requires_grad_(True)
+    counts = dict(fa.launch_counts)
+    y = pm(xt, causal=causal)
+    y.backward(_t(w))
+    assert fa.launch_counts == counts
+    _close(y, y_r)
+    _close(xt.grad, dx_r)
+    _tree_close(convert._unflatten({n: q.grad.numpy() for n, q in pm.named_parameters()}), grads_r)
+
+
+@pytest.mark.parametrize("num_kv_heads", [2, 1])
+def test_gqa_mha_masks_weights_and_cross_attention(num_kv_heads):
+    """The dense paths over K/V repeated per group: masks, need_weights,
+    cross-attention, and cross_step against the grouped decode tail."""
+    rm, p, pm = _mha_pair(seed=16, num_kv_heads=num_kv_heads)
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2, 10, E)).astype(np.float32)
+    mem = rng.standard_normal((2, 13, E)).astype(np.float32)
+    kpm = np.zeros((2, 10), bool)
+    kpm[0, 6:] = True
+    bmask = rng.random((10, 10)) > 0.7
+    xr = jnp.asarray(x)
+    _close(pm(_t(x), key_padding_mask=_t(kpm)), rm.apply(p, xr, key_padding_mask=jnp.asarray(kpm)))
+    _close(pm(_t(x), attn_mask=_t(bmask), causal=True), rm.apply(p, xr, attn_mask=jnp.asarray(bmask), causal=True))
+    y, wts = pm(_t(x), need_weights=True, average_attn_weights=False, causal=True)
+    y_r, w_r = rm.apply(p, xr, need_weights=True, average_attn_weights=False, causal=True)
+    _close(y, y_r)
+    _close(wts, w_r)
+    assert wts.shape == (2, H, 10, 10)
+    yc = pm(_t(x), kv=_t(mem))
+    _close(yc, rm.apply(p, xr, kv=jnp.asarray(mem)))
+    kh, vh = pm.precompute_kv(_t(mem))
+    assert kh.shape == (2, num_kv_heads, 13, E // H)
+    kh_r, vh_r = rm.precompute_kv(p, jnp.asarray(mem))
+    _close(kh, kh_r)
+    for t in (0, 5, 9):
+        _close(pm.cross_step(_t(x[:, t : t + 1]), kh, vh), rm.cross_step(p, xr[:, t : t + 1], kh_r, vh_r))
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("num_kv_heads", [2, 1])
+def test_gqa_decode_step_matches_reference(num_kv_heads, rope):
+    """decode_step against the reference's, one position at a time, with a
+    cache of num_kv_heads heads; and against the port's own causal forward."""
+    rm, p, pm = _mha_pair(rope, seed=17, num_kv_heads=num_kv_heads)
+    x = np.random.default_rng(17).standard_normal((3, 9, E)).astype(np.float32)
+    cache, cache_r = pm.init_cache(3, 9), rm.init_cache(3, 9)
+    assert cache["k"].shape == (3, num_kv_heads, 9, E // H) == cache_r["k"].shape
+    with torch.no_grad():
+        full = pm(_t(x), causal=True)
+        for t in range(9):
+            y, cache = pm.decode_step(_t(x[:, t : t + 1]), cache)
+            y_r, cache_r = rm.decode_step(p, jnp.asarray(x[:, t : t + 1]), cache_r)
+            _close(y, y_r)
+            _close(y, full[:, t : t + 1].numpy())
+    _close(cache["k"], cache_r["k"])
+    _close(cache["v"], cache_r["v"])
 
 
 def test_apply_rope_is_relative():
@@ -382,6 +470,50 @@ def test_greedy_generate_matches_reference(positions, tied):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+GQA_CFG = dict(vocab_size=19, embed_dim=16, num_heads=4, depth=2, max_len=32, num_kv_heads=2, positions="rope")
+
+
+def _gqa_lm_pair(seed):
+    rm = ref_models.TransformerLM(**GQA_CFG)
+    params = rm.init(jax.random.key(seed))
+    return rm, params, convert.transformer_lm_from_reference(_np(params), **GQA_CFG, device="cpu")
+
+
+def test_gqa_lm_logits_loss_and_every_gradient():
+    """TransformerLM(num_kv_heads=2, positions='rope') at the reference's
+    own test shape: logits, loss and every parameter's gradient."""
+    rm, params, pm = _gqa_lm_pair(seed=18)
+    tok = np.random.default_rng(18).integers(0, 19, (2, 9)).astype(np.int32)
+    _close(pm(_t(tok[:, :-1])), rm.apply(params, jnp.asarray(tok[:, :-1])))
+
+    def loss(p, t):
+        logits = rm.apply(p, t[:, :-1])
+        return ref_ht.nn.functional.cross_entropy(logits.reshape(-1, 19), t[:, 1:].reshape(-1))
+
+    loss_r, grads_r = jax.value_and_grad(loss)(params, jnp.asarray(tok))
+    counts = dict(fa.launch_counts)
+    tt = _t(tok).long()
+    lp = ht.nn.functional.cross_entropy(pm(tt[:, :-1]).reshape(-1, 19), tt[:, 1:].reshape(-1))
+    lp.backward()
+    assert fa.launch_counts == counts
+    np.testing.assert_allclose(float(lp.detach()), float(loss_r), rtol=1e-6)
+    _tree_close(convert._unflatten({n: p.grad.numpy() for n, p in pm.named_parameters()}), grads_r)
+
+
+def test_gqa_lm_decode_and_greedy_generate_match_reference():
+    rm, params, pm = _gqa_lm_pair(seed=19)
+    tok = np.random.default_rng(19).integers(0, 19, (2, 8)).astype(np.int32)
+    with torch.no_grad():
+        full = pm(_t(tok))
+        caches = pm.init_caches(2, 8)
+        assert caches[0]["k"].shape == (2, 2, 8, 4)
+        rows = [pm.decode_step(_t(tok[:, t]), t, caches)[0] for t in range(8)]
+    _close(torch.stack(rows, 1), full.numpy())
+    want = rm.generate(params, jnp.asarray(tok[:, :3]), 20)
+    got = pm.generate(_t(tok[:, :3]), 20)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_top_k_one_sampling_and_eos_pinning_match_reference():
     rm, params, pm = _lm_pair(seed=10)
     prompt = _tokens((3, 5), seed=10)
@@ -462,6 +594,20 @@ def test_multihead_attention_round_trip():
                                                     dtype=torch.bfloat16)
     assert bf.in_proj_weight.dtype == torch.bfloat16
     _tree_close(convert.to_reference(bf), p, atol=2**-8)
+
+
+def test_gqa_transformer_lm_round_trip():
+    """A reference GQA pytree (in_proj_weight (E + 2·kv_dim, E)) carries over
+    through utils.convert and back unchanged."""
+    _, params, pm = _gqa_lm_pair(seed=20)
+    assert pm.blocks[0].mha.in_proj_weight.shape == (16 + 2 * 8, 16)
+    back = convert.to_reference(pm)
+    assert jax.tree.structure(back) == jax.tree.structure(_np(params))
+    _tree_close(back, params, atol=0)
+    _, p, mha = _mha_pair(seed=21, num_kv_heads=1)
+    _tree_close(convert.to_reference(mha), p, atol=0)
+    with pytest.raises(RuntimeError):  # a GQA pytree into a module of other head counts
+        convert.multihead_attention_from_reference(_np(p), embed_dim=E, num_heads=H, device="cpu")
 
 
 def test_cpu_path_launches_no_kernel():
