@@ -39,9 +39,25 @@
    ``num_kv_heads=2, positions="rope"`` (four query heads to a K/V head):
    its training launches each grouped kernel 8 x 20 times and the
    multi-head ones none, and it decodes from a cache of 2 K/V heads.
-8. Times each kernel, its plain version and a library call at the main
-   path's shapes and prints the ``kernels`` line.
-9. Ends with the line ``{"ok": true, "device": {...}}``.
+8. Holds the three positions kernels of ring attention's block against
+   their plain versions: float32 and bfloat16, d = 64 and 128, the ring
+   step's diagonal, past and dead blocks at (B*H, Sq, Sk, d) = (16, 2048,
+   2048, 64), rectangular, ragged, pad-key and unmasked blocks, with a
+   nonzero lse cotangent folded into dd; the forward and dk/dv twice to the
+   same bits.
+9. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=4096, comm=comm)``
+   sequence-parallel over 2 ranks: two spawned processes on this one card in
+   a gloo group (NCCL refuses two ranks on one card; the ring's sends stage
+   CUDA tensors through host memory), 20 float32 Adam steps on (2, 4097)-token
+   batches, each rank holding 2048 positions.  Each positions wrapper must
+   launch 8 x 20 x 2 times on each rank, the static ones none, and the
+   loss must fall.  Then one ring step's loss and gradients against a
+   world-1 step of the same weights on the card (the static flash
+   kernels), and a ring step under the profiler on rank 0.  A child that
+   fails, or does not report within the time limit, fails the run.
+10. Times each kernel, its plain version and a library call at the main
+   paths' shapes and prints the ``kernels`` line.
+11. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without CUDA it exits 2 at once.
@@ -50,6 +66,8 @@ line.  Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import json
+import queue
+import socket
 import subprocess
 import sys
 import time
@@ -77,6 +95,22 @@ PROMPT, NEW_TOKENS = 64, 448
 LM_GQA = dict(LM, num_kv_heads=2, positions="rope")
 MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GQA_KERNELS = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
+POS_KERNELS = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
+# the sequence-parallel LM: the same width, 4096 positions over 2 ranks
+LM_RING = dict(LM, max_len=4096)
+RING_RANKS, RING_BATCH, RING_SEQ = 2, 2, 4096
+RING_TIMEOUT_S = 600  # a child that has not reported by then fails the run
+# the ring step's blocks at (B*H, Sq, Sk, d) = (16, 2048, 2048, 64), causal:
+# name -> (query offset, key offset); over a layer's forward on both ranks
+# the ring launches two diagonal blocks, one past and one dead
+POS_MAIN = (16, 2048, 2048, 64)
+POS_BLOCKS = {"diagonal": (2048, 2048), "past": (2048, 0), "dead": (0, 2048)}
+POS_MIX = {"diagonal": 2, "past": 1, "dead": 1}
+# positions-kernel checks: (B, Sq, Sk, d, query offset, key offset, causal, s_valid)
+POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64, 2048, 0, True, 4096),
+              (16, 2048, 2048, 64, 0, 2048, True, 4096), (8, 1000, 600, 128, 300, 0, True, 1000),
+              (8, 129, 1000, 64, 0, 0, False, 900), (8, 512, 512, 128, 0, 512, False, 2**30),
+              (8, 200, 333, 64, 100, 50, True, 383)]
 # flash kernel checks: (query rows B*Hq, K/V rows B*Hkv, S, d, causal)
 FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 129, 128, True),
                 (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False)]
@@ -454,17 +488,17 @@ def check_flash_kernels(names, checks, main) -> dict:
     return errs
 
 
-def lm_batches(steps: int, seed: int):
-    """Token batches (steps, B, S + 1) int64: each row repeats a random
+def lm_batches(steps: int, seed: int, batch: int = LM_BATCH, seq: int = LM_SEQ):
+    """Token batches (steps, batch, seq + 1) int64: each row repeats a random
     segment of LM_SEGMENT tokens from a pool of LM_POOL, so the next token
     is learnable (first its frequency, then by copying)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     pool = rng.choice(LM["vocab_size"], LM_POOL, replace=False)
-    seg = pool[rng.integers(0, LM_POOL, (steps, LM_BATCH, LM_SEGMENT))]
-    reps = -(-(LM_SEQ + 1) // LM_SEGMENT)
-    return np.tile(seg, (1, 1, reps))[:, :, : LM_SEQ + 1].astype(np.int64)
+    seg = pool[rng.integers(0, LM_POOL, (steps, batch, LM_SEGMENT))]
+    reps = -(-(seq + 1) // LM_SEGMENT)
+    return np.tile(seg, (1, 1, reps))[:, :, : seq + 1].astype(np.int64)
 
 
 def lm_loss(ht, lm, batch):
@@ -537,7 +571,14 @@ def _kernel_class(name: str) -> str:
 def profile_device(fn, label: str) -> dict:
     """Device time by kernel class over ``fn()`` (torch.profiler), and the
     device's busy share of the wall time: kernels on one stream do not
-    overlap, so their summed time is the busy time."""
+    overlap, so their summed time is the busy time.  Prints the row."""
+    row = profile_row(fn, label)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def profile_row(fn, label: str) -> dict:
+    """``profile_device``'s row, unprinted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -557,11 +598,9 @@ def profile_device(fn, label: str) -> dict:
     busy = sum(classes.values())
     if busy <= 0:
         fail(f"{label}: the profiler saw no device time")
-    row = {"phase": "where_time_goes", "path": label, "wall_ms": wall * 1e3, "device_busy_ms": busy,
-           "device_idle_share": 1.0 - busy / (wall * 1e3), "kernel_launches": kernels,
-           "device_ms_by_class": {k: round(v, 3) for k, v in sorted(classes.items(), key=lambda kv: -kv[1])}}
-    print(json.dumps(row), flush=True)
-    return row
+    return {"phase": "where_time_goes", "path": label, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3), "kernel_launches": kernels,
+            "device_ms_by_class": {k: round(v, 3) for k, v in sorted(classes.items(), key=lambda kv: -kv[1])}}
 
 
 def profile_training_step(ht, lm, opt, batch, label: str) -> None:
@@ -773,6 +812,341 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None) ->
     return rows
 
 
+def _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed):
+    """q, k, v, dO, an lse cotangent, and int32 positions on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, Sq, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Sk, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    g_lse = torch.randn((B, Sq), generator=g, device="cuda")
+    qpos = torch.arange(qo, qo + Sq, dtype=torch.int32, device="cuda")
+    kpos = torch.arange(ko, ko + Sk, dtype=torch.int32, device="cuda")
+    return q, k, v, do, g_lse, qpos, kpos
+
+
+def check_pos_kernels() -> dict:
+    """The positions kernels against their plain versions on the card;
+    returns the errors at the ring step's blocks per dtype and block."""
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        tol = FLASH_TOL[name]
+        for B, Sq, Sk, d, qo, ko, causal, s_valid in POS_CHECKS:
+            shape = (B, Sq, Sk, d, qo, ko, causal, s_valid)
+            q, k, v, do, g_lse, qpos, kpos = _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed=Sq + Sk + d + qo)
+            args = (qpos, kpos, causal, d**-0.5, s_valid, causal or s_valid < 2**30)
+            out, lse = fa.flash_pos_fwd(q, k, v, *args)
+            again, lse2 = fa.flash_pos_fwd(q, k, v, *args)
+            dd = (do.float() * out.float()).sum(-1) - g_lse  # the lse cotangent folds into dd
+            dq = fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
+            dk, dv = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+            dk2, dv2 = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(dk, dk2)
+                    and torch.equal(dv, dv2)):
+                fail(f"the positions kernels do not repeat bit for bit at {shape} {name}")
+            out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
+            dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
+            dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+            pairs = (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))
+            res = {key: _row_err(a, b) for key, a, b in pairs}
+            share = {key: float((a != b).float().mean()) for key, a, b in pairs}
+            abs_err = {key: float((a.float() - b.float()).abs().max()) for key, a, b in pairs}
+            lse_err = float((lse - lse_p).abs().max())
+            bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
+            if dtype == torch.bfloat16:
+                bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
+            if qo + Sq <= ko and causal and (out.any() or not bool((lse == -1e30).all())):
+                bad["dead_block"] = "a block after every query gave out != 0 or lse != -1e30"
+            if bad or not lse_err <= LSE_ATOL:
+                fail(f"positions kernels vs plain at {shape} {name}: {bad}, {res}, lse {lse_err}")
+            block = next((b for b, offs in POS_BLOCKS.items() if (B, Sq, Sk, d) == POS_MAIN and offs == (qo, ko)),
+                         None)
+            print(json.dumps({"phase": "kernel_check", "kernel": "+".join(POS_KERNELS), "dtype": name,
+                              "shape": {"B": B, "Sq": Sq, "Sk": Sk, "d": d, "q_offset": qo, "k_offset": ko,
+                                        "causal": causal, "s_valid": s_valid}, "ring_block": block,
+                              "max_abs_err": abs_err, "lse_max_abs_err": lse_err, "row_rel_err": res,
+                              "row_rel_tol": tol, "differing_share": share, "lse_atol": LSE_ATOL,
+                              "repeats_bitwise": True, "check": "pass"}), flush=True)
+            if block:
+                errs.setdefault(name, {})[block] = {
+                    "flash_pos_fwd": max(abs_err["out"], lse_err), "flash_pos_bwd_dq": abs_err["dq"],
+                    "flash_pos_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}
+    return errs
+
+
+def _ring_step(ht, lm, comm, batch, lo: int, hi: int):
+    """One sequence-parallel step's forward and backward on this rank's
+    positions [lo, hi) of ``batch`` (B, S + 1): the loss is the global mean
+    (the local sum, Allreduced, over the global token count) and every
+    gradient is summed over the ranks.  Returns the loss."""
+    inp, tgt = batch[:, :-1][:, lo:hi], batch[:, 1:][:, lo:hi]
+    logits = lm(inp)
+    local = ht.nn.functional.cross_entropy(logits.reshape(-1, LM["vocab_size"]), tgt.reshape(-1), reduction="sum")
+    count = batch.shape[0] * (batch.shape[1] - 1)
+    lm.zero_grad(set_to_none=True)
+    (local / count).backward()
+    for p in lm.parameters():
+        comm.Allreduce(p.grad)
+    return float(comm.Allreduce(local.detach().clone())) / count
+
+
+def ring_rank(rank: int, port: int, out_q) -> None:
+    """One rank of the sequence-parallel main path (a spawned process):
+    training, the step against world size 1 (rank 0), a profiled step.
+    Puts (rank, result) on ``out_q``; any failure raises, so the process
+    exits non-zero."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=RING_RANKS, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        lo, _, _ = comm.chunk((RING_SEQ,), 0)
+        hi = lo + comm.chunk((RING_SEQ,), 0)[1][0]
+        torch.manual_seed(0)
+        lm = ht.nn.models.TransformerLM(**LM_RING, comm=comm)
+        for p in lm.parameters():  # every rank holds rank 0's weights
+            comm.Bcast(p.data)
+        opt = ht.optim.DataParallelOptimizer("adam", lm.parameters(), lr=LM_LR)
+        batches = torch.from_numpy(lm_batches(LM_STEPS + 2, 13, RING_BATCH, RING_SEQ)).cuda()
+        res = {"rank": rank, "positions": [lo, hi], "transport": comm.transport(batches),
+               "device": str(batches.device)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for key in fa.launch_counts:
+            fa.launch_counts[key] = 0
+        losses, step_s = [], []
+        for step in range(LM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(_ring_step(ht, lm, comm, batches[step], lo, hi))
+            opt.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        res.update(launch_counts=dict(fa.launch_counts), losses=losses, step_s=step_s,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(), guard_stats=opt.guard_stats())
+
+        # one ring step against one world-1 step of the same weights (rank 0)
+        batch = batches[LM_STEPS]
+        loss_r = _ring_step(ht, lm, comm, batch, lo, hi)
+        if rank == 0:
+            grads_r = {n: p.grad.detach().clone() for n, p in lm.named_parameters()}
+            one = ht.nn.models.TransformerLM(**LM_RING)
+            one.load_state_dict(lm.state_dict())
+            before = dict(fa.launch_counts)
+            loss_1 = lm_loss(ht, one, batch)
+            loss_1.backward()
+            res["world_one_launches"] = {k: fa.launch_counts[k] - before[k] for k in before}
+            worst = max(((n, float((grads_r[n] - p.grad).abs().max()) / max(float(p.grad.abs().max()), 1e-30))
+                         for n, p in one.named_parameters()), key=lambda t: t[1])
+            res.update(step_loss=loss_r, world_one_loss=float(loss_1.detach()), worst_grad=worst,
+                       params_checked=len(grads_r))
+            del one, grads_r
+        comm_row = None
+        if rank == 0:
+            comm_row = profile_row(lambda: _ring_step(ht, lm, comm, batches[LM_STEPS + 1], lo, hi),
+                                   "TransformerLM(comm=2 ranks) training step, rank 0")
+        else:
+            _ring_step(ht, lm, comm, batches[LM_STEPS + 1], lo, hi)
+        torch.cuda.synchronize()
+        res["profile"] = comm_row
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def spawn_ranks(target, world: int, timeout_s: float, *args) -> dict:
+    """Run ``target(rank, port, out_q, *args)`` in ``world`` spawned
+    processes that meet at a free localhost port; returns {rank: result}
+    from what each puts on ``out_q``.  A rank that exits non-zero, or does
+    not report within ``timeout_s``, fails the run; every process is gone
+    on return."""
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, out_q, *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout_s
+    try:
+        while len(results) < world:
+            try:
+                rank, res = out_q.get(timeout=5)
+                results[rank] = res
+            except queue.Empty:
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if failed:
+                    fail(f"a rank exited with {failed} before reporting")
+                if time.monotonic() > deadline:
+                    fail(f"the ranks did not report within {timeout_s} s")
+        for p in procs:
+            p.join(120)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            fail(f"ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return results
+
+
+def ring_train() -> dict:
+    """The sequence-parallel main path: RING_RANKS spawned processes on this
+    card; checks what they report and returns rank 0's result with both
+    ranks' launch counts."""
+    results = spawn_ranks(ring_rank, RING_RANKS, RING_TIMEOUT_S)
+    want = LM_RING["depth"] * LM_STEPS * RING_RANKS
+    for rank, res in sorted(results.items()):
+        _path_counts(f"TransformerLM(comm) training, rank {rank}", res["launch_counts"], POS_KERNELS, want)
+        losses = res["losses"]
+        if not all(x == x and abs(x) < float("inf") for x in losses) or not losses[-1] < losses[0]:
+            fail(f"rank {rank}: the ring loss did not fall: {losses}")
+    if results[0]["losses"] != results[1]["losses"]:
+        fail("the ranks report different global losses")
+    r0 = results[0]
+    steady = sorted(r0["step_s"][1:])[len(r0["step_s"][1:]) // 2]
+    print(json.dumps({
+        "phase": "main_path", "path": "TransformerLM(comm) sequence-parallel training", **LM_RING,
+        "ranks": RING_RANKS, "ranks_share_one_card": True, "transport": r0["transport"], "dtype": "float32",
+        "batch": [RING_BATCH, RING_SEQ + 1], "positions_per_rank": [res["positions"] for _, res in sorted(
+            results.items())], "optimizer": "adam", "lr": LM_LR, "steps": LM_STEPS,
+        "first_step_ms": r0["step_s"][0] * 1e3, "step_ms_median": steady * 1e3,
+        "step_ms": [round(t * 1e3, 3) for t in r0["step_s"]], "train_tokens_per_s": RING_BATCH * RING_SEQ / steady,
+        "first_loss": r0["losses"][0], "last_loss": r0["losses"][-1], "losses": [round(x, 4) for x in r0["losses"]],
+        "peak_mem_bytes_per_rank": [res["peak_mem_bytes"] for _, res in sorted(results.items())],
+        "guard_stats": r0["guard_stats"],
+        "launch_counts_per_rank": [res["launch_counts"] for _, res in sorted(results.items())]}), flush=True)
+    loss_rel = abs(r0["step_loss"] - r0["world_one_loss"]) / abs(r0["world_one_loss"])
+    print(json.dumps({"phase": "ring_step_vs_world_one", "loss": r0["step_loss"], "world_one_loss":
+                      r0["world_one_loss"], "loss_rel_err": loss_rel, "worst_grad": r0["worst_grad"][0],
+                      "worst_grad_rel_err": r0["worst_grad"][1], "params_checked": r0["params_checked"],
+                      "world_one_launches": r0["world_one_launches"], "loss_rtol": STEP_LOSS_RTOL,
+                      "grad_rtol": STEP_GRAD_RTOL}), flush=True)
+    if not loss_rel <= STEP_LOSS_RTOL or not r0["worst_grad"][1] <= STEP_GRAD_RTOL:
+        fail(f"the ring step vs world size 1: loss {loss_rel}, gradient {r0['worst_grad']}")
+    _path_counts("the world-1 step", r0["world_one_launches"], MHA_KERNELS, LM_RING["depth"])
+    print(json.dumps(r0["profile"]), flush=True)
+    return {key: r0["launch_counts"][key] for key in POS_KERNELS}
+
+
+def pos_bound(kernel: str, B: int, Sq: int, Sk: int, d: int, live_pairs: int, itemsize: int):
+    """(bound_ms, bound_by) of one positions launch: FLOP of its live (q, k)
+    pairs at the dtype's peak vs every input read and output written once.
+    The forward reads q, k, v and the positions and writes out and lse; dq
+    reads q, k, v, dO, lse, dd and the positions and writes dq; dk/dv the
+    same and writes dk and dv.  A block with no live pair needs only the
+    positions and its outputs (zeros, and lse -1e30): nothing else is read."""
+    flops = {"flash_pos_fwd": 4, "flash_pos_bwd_dq": 6, "flash_pos_bwd_dkv": 8}[kernel] * live_pairs * d
+    # (q-side tensors, k-side tensors, float32 rows) read or written
+    t_q, t_kv, r = {"flash_pos_fwd": (2, 2, 1), "flash_pos_bwd_dq": (3, 2, 2), "flash_pos_bwd_dkv": (2, 4, 2)}[kernel]
+    if not live_pairs:  # outputs only: out + lse, dq, or dk + dv
+        t_q, t_kv, r = {"flash_pos_fwd": (1, 0, 1), "flash_pos_bwd_dq": (1, 0, 0),
+                        "flash_pos_bwd_dkv": (0, 2, 0)}[kernel]
+    nbytes = (t_q * Sq + t_kv * Sk) * B * d * itemsize + r * B * Sq * 4 + (Sq + Sk) * 4
+    t_ops = flops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_pos(dtype, reps: int) -> dict:
+    """{block: {kernel: times}} at the ring step's blocks: each kernel, its
+    plain version and the library call, ``scaled_dot_product_attention``
+    on (2, 8, S, d) views with a boolean mask built from the positions."""
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, Sq, Sk, d = POS_MAIN
+    out_rows = {}
+    for block, (qo, ko) in POS_BLOCKS.items():
+        q, k, v, do, g_lse, qpos, kpos = _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed=7)
+        s_valid = 2 * Sq
+        args = (qpos, kpos, True, d**-0.5, s_valid, True)
+        out, lse = fa.flash_pos_fwd(q, k, v, *args)
+        dd = (do.float() * out.float()).sum(-1) - g_lse
+        keep = (qpos[:, None] >= kpos[None, :]) & (kpos[None, :] < s_valid)  # True = attend
+        live = B * int(keep.sum())
+        q4, k4, v4, do4 = (t.view(-1, LM["num_heads"], t.shape[1], d) for t in (q, k, v, do))
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
+        lib_out = sdpa(qg, kg, vg, attn_mask=keep)
+
+        def lib_fwd():
+            return sdpa(q4, k4, v4, attn_mask=keep)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (qg, kg, vg), do4, retain_graph=True)
+
+        lib_bwd_ms = cuda_ms(lib_bwd, reps)
+        runs = {
+            "flash_pos_fwd": (lambda: fa.flash_pos_fwd(q, k, v, *args), lambda: fa._torch_flash_pos_fwd(q, k, v, *args),
+                              cuda_ms(lib_fwd, reps)),
+            "flash_pos_bwd_dq": (lambda: fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args),
+                                 lambda: fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args), lib_bwd_ms),
+            "flash_pos_bwd_dkv": (lambda: fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args),
+                                  lambda: fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args), lib_bwd_ms),
+        }
+        kernels = {"forward": device_kernels(lib_fwd), "backward": device_kernels(lib_bwd)}
+        for name, (run, plain, lib_ms) in runs.items():
+            b_ms, b_by = pos_bound(name, B, Sq, Sk, d, live, q.element_size())
+            out_rows.setdefault(name, {})[block] = {
+                "live_pairs": live, "ms": cuda_ms(run, reps), "plain_ms": cuda_ms(plain, 2), "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms,
+                "library_kernels": kernels["forward" if name == "flash_pos_fwd" else "backward"]}
+        del q, k, v, do, lib_out, qg, kg, vg
+    return out_rows
+
+
+def pos_rows(launches: dict, errs: dict) -> list:
+    """The kernels line's rows of the positions kernels: float32 at the ring
+    step's blocks (and bfloat16 beside), each block reported apart and the
+    row's numbers the mean launch of the main path's mix of blocks."""
+    import torch
+
+    total = sum(POS_MIX.values())
+
+    def mix(per_block: dict) -> dict:
+        row = {key: sum(POS_MIX[b] * per_block[b][key] for b in POS_MIX) / total
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        # bound by what bounds the block that adds most to the mix's bound
+        row["bound_by"] = per_block[max(POS_MIX, key=lambda b: POS_MIX[b] * per_block[b]["bound_ms"])]["bound_by"]
+        return row
+
+    f32, bf16 = time_pos(torch.float32, 10), time_pos(torch.bfloat16, 10)
+    lib = ["scaled_dot_product_attention(attn_mask=positions mask) forward"] + \
+        ["scaled_dot_product_attention(attn_mask=positions mask) backward: dq, dk and dv together"] * 2
+    rows = []
+    for name, line, lib_call in zip(POS_KERNELS, (235, 264, 298), lib):
+        rows.append({
+            "name": name, "route": "cuda", "source": "heat_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
+            "max_abs_err": max(e[name] for e in errs["float32"].values()), **mix(f32[name]),
+            "shape": list(POS_MAIN), "causal": True, "mix": POS_MIX, "blocks": f32[name], "library_call": lib_call,
+            "bfloat16": {**mix(bf16[name]), "max_abs_err": max(e[name] for e in errs["bfloat16"].values()),
+                         "blocks": bf16[name]},
+            "check": "pass",
+        })
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -807,6 +1181,7 @@ def main() -> int:
         check_kernels_small(dtype)
     flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN)
     gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN)
+    pos_errs = check_pos_kernels()
 
     # 3. the KMeans main path at full width
     gm = torch.Generator().manual_seed(7)
@@ -852,10 +1227,14 @@ def main() -> int:
         lm_generate(ht, lm, kernels[0], f"{label} generation")
         del lm, opt, batch
         torch.cuda.empty_cache()
+    # 5. the sequence-parallel LM over 2 ranks on this card
+    launches.update(ring_train())
+
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH)
     rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
+    rows += pos_rows(launches, pos_errs)
 
-    # 5. the kernels line and the result
+    # 6. the kernels line and the result
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,6 +4,8 @@ HeAT's design: a ``DNDarray`` is this process's local ``torch.Tensor`` plus
 its global shape and split axis, and a communicator over
 ``torch.distributed`` (gloo on the CPU, NCCL on the card) issues the
 collectives.  ``import heat_tpu_torch as ht`` reads like ``heat_tpu``.
+``ht.parallel.ring_attention`` runs attention over a sequence split across
+the ranks.
 Arrays live on the card (``'gpu'``) unless the caller asks for the CPU.
 """
 
@@ -14,6 +16,7 @@ from . import cluster
 from . import nn
 from . import optim
 from . import ops
+from . import parallel
 from . import utils
 
 __version__ = "0.1.0"

@@ -5,7 +5,10 @@ process's rank and the world size, does the shard math of the split axis,
 and issues the collectives the estimators need.  World size 1 needs no
 process group: every collective is then the identity.  The process group
 is created by :func:`heat_tpu_torch.core.bootstrap.init_distributed`, with
-gloo for CPU tensors and NCCL for CUDA tensors.
+gloo for CPU tensors and NCCL for CUDA tensors.  A group of gloo alone
+(several processes on one card, where NCCL refuses to run) takes CUDA
+tensors in its collectives but not in send/recv: ``Send`` stages them
+through host memory.
 
 Shard math follows HeAT, not the JAX package: ``chunk`` gives the first
 ``n % size`` ranks one extra row, and nothing is padded.
@@ -123,6 +126,47 @@ class Communication:
         out = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(out, x.contiguous())
         return out
+
+    def Send(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Ring shift (reference ``comm.Send``): every rank sends ``x`` to rank
+        ``(rank + shift) % size`` and returns the tensor it receives from rank
+        ``(rank - shift) % size``, of ``x``'s shape and dtype on ``x``'s
+        device.  One ``batch_isend_irecv`` pair; the identity at world size 1.
+
+        Under NCCL a CUDA tensor goes as it is.  gloo's send/recv read CPU
+        buffers only (on an H100 a CUDA tensor's send fails with ``writev
+        ... Bad address``, where gloo's collectives take one), so under gloo
+        a CUDA tensor is staged through host memory: copied to the host,
+        exchanged, copied back.  That is the transport, not a fallback: whatever
+        computes on ``x`` still runs on the card (:meth:`transport` names
+        the route)."""
+        p = self.size
+        if p == 1 or shift % p == 0:
+            return x
+        rank = self.rank
+        staged = self._host_staged(x)
+        buf = x.detach().contiguous()
+        if staged:
+            buf = buf.cpu()
+        recv = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, (rank + shift) % p), dist.P2POp(dist.irecv, recv, (rank - shift) % p)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv.to(x.device) if staged else recv
+
+    def transport(self, x: torch.Tensor) -> str:
+        """How :meth:`Send` moves ``x``: ``'local'`` at world size 1,
+        ``'gloo-host-staged'`` for a CUDA tensor under gloo, else the
+        backend's name."""
+        if not self.is_distributed():
+            return "local"
+        if self._host_staged(x):
+            return "gloo-host-staged"
+        return "nccl" if x.is_cuda else "gloo"
+
+    def _host_staged(self, x: torch.Tensor) -> bool:
+        """A CUDA tensor in a process group with no CUDA backend (gloo alone)."""
+        return x.is_cuda and "nccl" not in str(dist.get_backend()).lower()
 
     def Allgatherv(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """Every rank's ``x``, concatenated along ``axis`` in rank order.

@@ -10,9 +10,17 @@ attention, which never repeat K/V), and so does multi-head
 cross-attention over a memory of the query's length; masks,
 ``need_weights`` and other cross-attention run the dense path, over K/V
 repeated to the query heads where they are grouped.  Decoding attends a cache of ``num_kv_heads`` heads
-through one grouped tail.  The sequence-parallel ring (``comm=``) waits for
-kernels that are not ported yet (ROADMAP B6) and raises
-``NotImplementedError``; no dense path stands in for it.
+through one grouped tail.
+
+With ``comm=`` unmasked self- and cross-attention run sequence-parallel on
+the ring (``parallel.ring_attention``): ``x`` (and ``kv``) are this rank's
+blocks of the sequence (HeAT's ``chunk``; the reference takes global arrays
+and shards them), grouped K/V heads are repeated to the query heads before
+the ring, and rotary positions are global, this rank's offset plus the
+local index.  The offset comes from the ranks' lengths: one small
+Allgather a call, unless the caller passes them (``TransformerLM`` gathers
+them once a forward for all its blocks).  Masks and
+``need_weights`` raise on more than one rank; decoding ignores ``comm``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import _dense_attention, flash_attention, flash_attention_gqa
+from ..parallel.ring_attention import _ring, ring_attention, sequence_lengths
 from .modules import Linear, _device
 
 __all__ = ["MultiheadAttention", "apply_rope"]
@@ -53,9 +62,10 @@ class MultiheadAttention(torch.nn.Module):
     cross-attention against ``kv`` (B, S_kv, E).  Masks follow torch:
     ``key_padding_mask`` (B, S_k) bool, True = ignore that key;
     ``attn_mask`` (S_q, S_k) bool (True = NOT allowed) or float (added to
-    the scores).  ``init_cache``/``decode_step`` decode one token at a time
-    against a static KV cache; ``precompute_kv``/``cross_step`` do the same
-    against a fixed memory."""
+    the scores).  With ``comm`` the inputs are this rank's sequence blocks
+    and unmasked attention runs on the ring.  ``init_cache``/``decode_step``
+    decode one token at a time against a static KV cache;
+    ``precompute_kv``/``cross_step`` do the same against a fixed memory."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True, batch_first: bool = True, comm=None,
                  rope: bool = False, rope_base: float = 10000.0, num_kv_heads: int = None, device=None,
@@ -71,9 +81,7 @@ class MultiheadAttention(torch.nn.Module):
             num_kv_heads = num_heads
         if num_kv_heads < 1 or num_heads % num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not divisible by num_kv_heads {num_kv_heads}")
-        if comm is not None:
-            raise NotImplementedError("sequence-parallel attention (comm=) needs the ring and its positions "
-                                      "kernels, not ported yet (ROADMAP B6)")
+        self.comm = comm  # the sequence-parallel ring's communicator, or None
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -148,12 +156,28 @@ class MultiheadAttention(torch.nn.Module):
                                 return_probs=return_probs)
 
     def forward(self, x: torch.Tensor, kv: torch.Tensor = None, causal: bool = False, key_padding_mask=None,
-                attn_mask=None, need_weights: bool = False, average_attn_weights: bool = True):
+                attn_mask=None, need_weights: bool = False, average_attn_weights: bool = True, lengths=None):
+        """``lengths``: with ``comm`` over more than one rank, every rank's
+        (query, key/value) local lengths as ``sequence_lengths`` gives them,
+        from a caller that gathered them once for several layers; without
+        it this call gathers them (one small Allgather)."""
         E = self.embed_dim
+        masked = key_padding_mask is not None or attn_mask is not None
+        split = self.comm is not None and self.comm.size > 1
+        if split and (need_weights or masked):
+            # the inputs are local blocks: a dense path would see this rank's keys only
+            raise ValueError("need_weights and key_padding_mask/attn_mask are not supported on the sequence-parallel "
+                             "ring path (comm= over more than one rank); use causal=, or mask the inputs first")
+        ring = self.comm is not None and not masked and not need_weights
+        offset = 0
+        if split:
+            if lengths is None:
+                lengths = sequence_lengths(self.comm, x.shape[1], (x if kv is None else kv).shape[1])
+            offset = sum(n for n, _ in lengths[: self.comm.rank])
         if kv is None:
             qh, kh, vh = self._split_heads(x)
             if self.rope:
-                pos = torch.arange(qh.shape[-2], device=x.device)
+                pos = torch.arange(offset, offset + qh.shape[-2], device=x.device)  # global positions
                 qh = apply_rope(qh, pos, self.rope_base)
                 kh = apply_rope(kh, pos, self.rope_base)
         else:
@@ -161,7 +185,14 @@ class MultiheadAttention(torch.nn.Module):
             kh, vh = self._project_kv(kv)
         probs = None
         grouped = self.num_kv_heads != self.num_heads
-        if key_padding_mask is not None or attn_mask is not None or need_weights:
+        if ring:
+            # the ring rotates full-head K/V blocks: grouped heads are repeated first, as in the reference
+            kr, vr = self._repeat_kv(kh, vh)
+            if split:
+                out = _ring(qh, kr, vr, self.comm, causal, 1.0 / math.sqrt(self.head_dim), "auto", lengths)
+            else:
+                out = ring_attention(qh, kr, vr, self.comm, causal=causal)
+        elif masked or need_weights:
             out = self._masked_dense(qh, *self._repeat_kv(kh, vh), causal, key_padding_mask, attn_mask,
                                      return_probs=need_weights)
             if need_weights:

@@ -9,6 +9,13 @@ the flash kernels in every block (forward, and dq and dk/dv under
 the whole loop into one ``lax.scan``; here it is a Python loop over a
 preallocated cache written in place, one ``decode_step`` per position, with
 no host round trip inside the loop.
+
+With ``comm=`` every block's attention runs on the sequence-parallel ring
+(the positions kernels), and ``forward`` takes this rank's block of the
+sequence.  A training step over the ranks does explicitly what the
+reference's sharded program does implicitly: the loss is the global mean
+(the local sum, Allreduced, over the global token count) and each
+parameter's gradient is summed over the ranks with ``comm.Allreduce``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import warnings
 
 import torch
 
+from ..parallel.ring_attention import sequence_lengths
 from .attention import MultiheadAttention
 from .modules import GELU, Dropout, Embedding, LayerNorm, Linear, Sequential, _device
 
@@ -53,8 +61,10 @@ class _TransformerBlock(torch.nn.Module):
         self.drop = Dropout(dropout)  # torch TransformerEncoderLayer's residual-branch sites
         self.causal = causal
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x + self.drop(self.mha(self.ln1(x), causal=self.causal))
+    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+        """``lengths``: the ranks' sequence lengths for the attention under
+        ``comm`` (see ``MultiheadAttention.forward``), or None to gather them."""
+        h = x + self.drop(self.mha(self.ln1(x), causal=self.causal, lengths=lengths))
         return h + self.drop(self.ff(self.ln2(h)))
 
     def decode_step(self, x: torch.Tensor, cache: dict):
@@ -70,9 +80,11 @@ def transformer_encoder(embed_dim: int = 256, num_heads: int = 8, depth: int = 4
                         dropout: float = 0.0, device=None) -> Sequential:
     """A stack of pre-norm transformer blocks over (B, S, embed_dim) input,
     bidirectional by default (``causal=True`` for decoder-style masking).
-    ``num_experts`` raises ``NotImplementedError`` (MoE, ROADMAP A11),
-    ``comm`` too (the ring, ROADMAP B6); ``remat`` is ignored with a warning
-    (activation checkpointing is not ported yet)."""
+    With ``comm`` every block's attention runs on the sequence-parallel ring
+    over this rank's block of the sequence, and each gathers the ranks'
+    lengths (one small Allgather a block).  ``num_experts`` raises
+    ``NotImplementedError`` (MoE, ROADMAP A11); ``remat`` is ignored with a
+    warning (activation checkpointing is not ported yet)."""
     _unported(num_experts, remat)
     return Sequential(*[_TransformerBlock(embed_dim, num_heads, mlp_ratio, causal, comm, dropout=dropout,
                                           device=device) for _ in range(depth)])
@@ -142,9 +154,15 @@ class TransformerLM(torch.nn.Module):
 
     ``num_kv_heads < num_heads`` makes every block's attention grouped-query:
     the grouped flash kernels in ``forward`` and a KV cache of
-    ``num_kv_heads`` heads in decoding.  ``num_experts`` raises
-    ``NotImplementedError`` (MoE, ROADMAP A11), as does ``comm`` (the ring,
-    B6).  ``remat`` is ignored, with a warning: activation checkpointing is
+    ``num_kv_heads`` heads in decoding.  ``comm`` makes it sequence-parallel:
+    ``forward(tokens)`` takes this rank's block (B, S_local) of a sequence
+    split over the ranks (HeAT's ``chunk``), and every block's attention runs
+    on the ring; positions are global, this rank's offset plus the local
+    index, from one Allgather of the ranks' lengths a forward that every
+    block reuses, and
+    ``max_len`` bounds the global length.  Decoding ignores ``comm``.
+    ``num_experts`` raises ``NotImplementedError`` (MoE, ROADMAP A11).
+    ``remat`` is ignored, with a warning: activation checkpointing is
     not ported yet, so every block keeps its activations for the backward.
     ``dropout`` follows torch's module mode (active after ``train()``,
     torch's default, off after ``eval()``) where the reference takes
@@ -166,6 +184,7 @@ class TransformerLM(torch.nn.Module):
         self.max_len = max_len
         self.positions = positions
         self.tie_embeddings = tie_embeddings
+        self.comm = comm  # the sequence-parallel ring's communicator, or None
         scale = 1.0 / math.sqrt(embed_dim)
         self.embed = Embedding(vocab_size, embed_dim, device=device)
         with torch.no_grad():
@@ -194,13 +213,18 @@ class TransformerLM(torch.nn.Module):
         return h  # rope rotates q/k inside the attention
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced forward: tokens (B, S) int -> logits (B, S, vocab)."""
-        S = tokens.shape[1]
+        """Teacher-forced forward: tokens (B, S) int -> logits (B, S, vocab);
+        with ``comm``, this rank's blocks of both."""
+        S, offset, lengths = tokens.shape[1], 0, None
+        if self.comm is not None and self.comm.size > 1:
+            lengths = sequence_lengths(self.comm, S, S)  # once: every block's attention reuses them
+            offset = sum(n for n, _ in lengths[: self.comm.rank])
+            S = sum(n for n, _ in lengths)
         if S > self.max_len:
             raise ValueError(f"sequence length {S} exceeds max_len {self.max_len}")
-        h = self._positions(self.embed(tokens), torch.arange(S, device=tokens.device))
+        h = self._positions(self.embed(tokens), torch.arange(offset, offset + tokens.shape[1], device=tokens.device))
         for block in self.blocks:
-            h = block(h)
+            h = block(h, lengths)
         return self._logits(self.ln_f(h))
 
     def init_caches(self, batch: int, max_len: int, dtype=None) -> list:

@@ -114,6 +114,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_flash_bwd_dq.restype = i32
     lib.heat_flash_bwd_dkv.argtypes = [i32] + [ptr] * 8 + tail
     lib.heat_flash_bwd_dkv.restype = i32
+    # (device, operand, position and output pointers, b, sq, sk, d, bf16, scale, causal, s_valid, masked, stream)
+    pos_tail = [i64, i32, i32, i32, i32, f32, i32, i32, i32, ptr]
+    lib.heat_flash_pos_fwd.argtypes = [i32] + [ptr] * 7 + pos_tail
+    lib.heat_flash_pos_fwd.restype = i32
+    lib.heat_flash_pos_bwd_dq.argtypes = [i32] + [ptr] * 9 + pos_tail
+    lib.heat_flash_pos_bwd_dq.restype = i32
+    lib.heat_flash_pos_bwd_dkv.argtypes = [i32] + [ptr] * 10 + pos_tail
+    lib.heat_flash_pos_bwd_dkv.restype = i32
     lib.heat_flash_strerror.argtypes = [i32]
     lib.heat_flash_strerror.restype = ctypes.c_char_p
 

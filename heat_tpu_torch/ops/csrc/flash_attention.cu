@@ -11,6 +11,32 @@
 // does; dd = rowsum(dO * O) is computed by the caller (l.523 leaves it to
 // XLA, the wrapper to torch).
 //
+// The positions block, ring attention's step, runs the same three bodies
+// under another mask:
+//   flash_pos_fwd     <- _flash_pos_kernel (l.235) via _flash_pos_fwd_impl
+//                        (l.596), with _masked_scores_pos (l.206) and
+//                        _block_live (l.225)
+//   flash_pos_bwd_dq  <- _flash_pos_bwd_dq_kernel (l.264) via
+//                        _flash_pos_bwd_impl (l.636), with _recompute_p_pos (l.219)
+//   flash_pos_bwd_dkv <- _flash_pos_bwd_dkv_kernel (l.298), also via _flash_pos_bwd_impl
+// q (B, Sq, d) and k, v (B, Sk, d) may differ in length; qpos (Sq) and kpos
+// (Sk) are int32 global positions shared by the B rows.  With ``masked`` a
+// key attends when kpos < s_valid and, under causal, qpos >= kpos; without
+// it every key attends.  The caller folds the lse cotangent into dd
+// (dd = rowsum(dO * O) - g_lse, l.644-645).
+//
+// The mask is a compile-time policy of the kernels: StaticMask is the
+// static-offset attention above (positions are row indices; the causal skip
+// is the loop's bounds, so its code is the same as before the policy), and
+// PosMask reads the position vectors.  PosMask skips a tile as _block_live
+// does: when every key is pad (min kpos >= s_valid) or, under causal, lies
+// after every query (min kpos > max qpos).  Each warp reduces the 64
+// positions of a tile itself (two per lane and a warp min/max), so the
+// decision is the same in every warp and needs no shared memory or barrier;
+// a skipped tile is not loaded.  A block wholly in the future of its
+// queries still launches and skips every tile: its rows give O = 0 and
+// lse = -1e30, as _finalize writes.
+//
 // Grouped-query attention (GQA) runs the same three kernels: they replace
 // _flash_gqa_fwd_impl (l.871) and _flash_gqa_bwd_impl (l.910), which reuse
 // the Pallas bodies above and change only the index maps, as here.  q, out,
@@ -58,9 +84,20 @@
 //   * the ragged last tile is masked inside the kernel (rows >= S load as
 //     zeros, keys >= S are masked); S is never padded in device memory.
 // wgmma/TMA pipelines and bfloat16 tensor-core products are later work.
+//
+// The positions kernels at the ring step's shape, (B*H, Sq, Sk, d) = (16,
+// 2048, 2048, 64), count only the (q, k) pairs they must compute: a past
+// block (every key before every query) has 16 * 2048^2 live pairs, the
+// diagonal block half of them, a block after every query none.  At 4 (fwd),
+// 6 (dq) and 8 (dk/dv) FLOP a pair and d, a past block is 17.2, 25.8 and
+// 34.4 GFLOP (0.26, 0.38 and 0.51 ms at 67 TFLOP/s float32) against 17 to
+// 34 MB of float32 operands (5 to 10 us at 3.35 TB/s): compute-bound, as
+// the static kernels; a dead block does no FLOP, and only the launch and
+// the tile decisions remain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -141,16 +178,74 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// the score mask of _masked_scores: keys past S, and the future under causal
-__device__ __forceinline__ bool masked(int row, int col, int S, int causal) {
-  return col >= S || (causal && col > row);
+// The mask of the static-offset kernels: one sequence of S rows for q and
+// K/V; a row's position is its index.  The score mask of _masked_scores
+// drops keys past S and, under causal, the future; the causal skip of the
+// reference (l.149-151, 350-352, 395-397) is the loops' bounds, so every
+// tile in them is live.
+struct StaticMask {
+  int S, causal;
+  __host__ __device__ __forceinline__ int q_rows() const { return S; }
+  __host__ __device__ __forceinline__ int k_rows() const { return S; }
+  __device__ __forceinline__ int q_pos(int row) const { return row; }
+  __device__ __forceinline__ int k_pos(int col) const { return col; }
+  __device__ __forceinline__ bool dead(int qp, int kp, int col) const { return col >= S || (causal && kp > qp); }
+  // forward and dq: query tile iq reads key tiles [0, key_end(iq)): all, or under causal up to the diagonal
+  __device__ __forceinline__ int key_end(int iq) const {
+    const int nk = (S + BK - 1) / BK;
+    return causal ? min(nk, iq + 1) : nk;
+  }
+  __device__ __forceinline__ int query_bound(int) const { return 0; }
+  __device__ __forceinline__ bool key_live(int, int) const { return true; }
+  // dk/dv: key tile ik is read by query tiles [query_begin(ik), nq)
+  __device__ __forceinline__ int query_begin(int ik) const { return causal ? ik : 0; }
+  __device__ __forceinline__ int key_bound(int) const { return 0; }
+  __device__ __forceinline__ bool query_live(int, int) const { return true; }
+};
+
+// min / max over the positions [r0, r0 + 64) of a tile that lie below n,
+// computed by each warp alone (two entries a lane), so every warp of the
+// block gets the same value without a barrier
+__device__ __forceinline__ int tile_min(const int* __restrict__ pos, int r0, int n) {
+  const int lane = threadIdx.x % 32, a = r0 + lane, b = a + 32;
+  return __reduce_min_sync(0xffffffffu, min(a < n ? pos[a] : INT_MAX, b < n ? pos[b] : INT_MAX));
+}
+__device__ __forceinline__ int tile_max(const int* __restrict__ pos, int r0, int n) {
+  const int lane = threadIdx.x % 32, a = r0 + lane, b = a + 32;
+  return __reduce_max_sync(0xffffffffu, max(a < n ? pos[a] : INT_MIN, b < n ? pos[b] : INT_MIN));
 }
 
-// key tiles that query tile iq reads: all, or under causal those up to the diagonal
-__device__ __forceinline__ int key_tiles(int iq, int S, int causal) {
-  const int nk = (S + BK - 1) / BK;
-  return causal ? min(nk, iq + 1) : nk;
-}
+// The mask of the positions block (_masked_scores_pos): q of Sq rows, K/V
+// of Sk rows, global positions qpos (Sq) and kpos (Sk).  Keys past Sk are
+// dead; with ``masked`` a key attends when kpos < s_valid and, under
+// causal, kpos <= qpos.  Tiles are skipped by _block_live: a bound of the
+// tile the block owns (max qpos for the forward and dq, min kpos for dk/dv)
+// is taken once, the other per tile in the loop.
+struct PosMask {
+  const int* qpos;
+  const int* kpos;
+  int Sq, Sk, s_valid, causal, masked;
+  __host__ __device__ __forceinline__ int q_rows() const { return Sq; }
+  __host__ __device__ __forceinline__ int k_rows() const { return Sk; }
+  __device__ __forceinline__ int q_pos(int row) const { return row < Sq ? qpos[row] : 0; }  // rows past Sq: unwritten
+  __device__ __forceinline__ int k_pos(int col) const { return col < Sk ? kpos[col] : 0; }  // keys past Sk: dead
+  __device__ __forceinline__ bool dead(int qp, int kp, int col) const {
+    return col >= Sk || (masked && (kp >= s_valid || (causal && kp > qp)));
+  }
+  __device__ __forceinline__ int key_end(int) const { return (Sk + BK - 1) / BK; }
+  __device__ __forceinline__ int query_bound(int q0) const { return masked && causal ? tile_max(qpos, q0, Sq) : 0; }
+  __device__ __forceinline__ bool key_live(int k0, int qmax) const {
+    if (!masked) return true;
+    const int kmin = tile_min(kpos, k0, Sk);
+    return kmin < s_valid && (!causal || kmin <= qmax);
+  }
+  __device__ __forceinline__ int query_begin(int) const { return 0; }
+  __device__ __forceinline__ int key_bound(int k0) const { return masked ? tile_min(kpos, k0, Sk) : 0; }
+  __device__ __forceinline__ bool query_live(int q0, int kmin) const {
+    if (!masked) return true;
+    return kmin < s_valid && (!causal || kmin <= tile_max(qpos, q0, Sq));
+  }
+};
 
 template <int D>
 constexpr size_t fwd_smem() {  // qt, kt [D][TS]; vs [BK][D + PAD]; pt [BK][TS]
@@ -165,10 +260,11 @@ constexpr size_t dkv_smem() {  // kt, vt, qt, dot [D][TS]; qs, dos [BQ][D + PAD]
   return sizeof(float) * (4 * D * TS + 2 * BQ * (D + PAD) + BQ * TS + 2 * BQ);
 }
 
-template <typename T, int D>
+
+template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int d, int group, float scale, int causal) {
+                     float* __restrict__ lse, int d, int group, float scale, const Mask mask) {
   constexpr int NG = D / 64;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
@@ -176,42 +272,49 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* vs = kt + D * TS;
   float* pt = vs + BK * (D + PAD);
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int Sq = mask.q_rows(), Sk = mask.k_rows();
+  const int nq = (Sq + BQ - 1) / BQ;
   const int bh = int(blockIdx.x) / nq;  // the query row; its K/V row is bh / group
   const int iq = nq - 1 - int(blockIdx.x % nq);  // longest causal rows first
   const int q0 = iq * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t kv_base = int64_t(bh / group) * S * d;
-  q += int64_t(bh) * S * d;
+  const int64_t kv_base = int64_t(bh / group) * Sk * d;
+  q += int64_t(bh) * Sq * d;
   k += kv_base;
   v += kv_base;
 
-  load_tile<T, D>(q, q0, S, d, nullptr, qt);
+  load_tile<T, D>(q, q0, Sq, d, nullptr, qt);
   float m[4], l[4], acc[4][NG * 4];
+  int qp[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
+    qp[i] = mask.q_pos(q0 + ty * 4 + i);
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) acc[i][j] = 0.f;
   }
 
-  const int nk = key_tiles(iq, S, causal);
+  const int qmax = mask.query_bound(q0);
+  const int nk = mask.key_end(iq);
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * BK;
+    if (!mask.key_live(k0, qmax)) continue;  // the same decision in every warp
     __syncthreads();  // the last tile's readers are done
-    load_tile<T, D>(k, k0, S, d, nullptr, kt);
-    load_tile<T, D>(v, k0, S, d, vs, nullptr);
+    load_tile<T, D>(k, k0, Sk, d, nullptr, kt);
+    load_tile<T, D>(v, k0, Sk, d, vs, nullptr);
     __syncthreads();
     float s[4][4] = {};
     mm_patch<1, D>(s, qt, TS, kt, TS, ty, tx);
+    int kp[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kp[j] = mask.k_pos(k0 + tx * 4 + j);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked(row, k0 + tx * 4 + j, S, causal) ? -INFINITY : s[i][j] * scale;
+        s[i][j] = mask.dead(qp[i], kp[j], k0 + tx * 4 + j) ? -INFINITY : s[i][j] * scale;
         mx = fmaxf(mx, s[i][j]);
       }
       // _online_update: rows with no live key so far keep m = -inf
@@ -238,12 +341,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 
   // _finalize; the outputs are offset here, so no 64-bit offset stays live through the loop
-  out += int64_t(bh) * S * d;
-  lse += int64_t(bh) * S;
+  out += int64_t(bh) * Sq * d;
+  lse += int64_t(bh) * Sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -256,11 +359,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                        T* __restrict__ dq, int S, int d, int group, float scale, int causal) {
+                        T* __restrict__ dq, int d, int group, float scale, const Mask mask) {
   constexpr int NG = D / 64;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);
@@ -270,48 +373,54 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* ks = vt + D * TS;
   float* dst = ks + BK * (D + PAD);
 
-  const int nq = (S + BQ - 1) / BQ;
+  const int Sq = mask.q_rows(), Sk = mask.k_rows();
+  const int nq = (Sq + BQ - 1) / BQ;
   const int bh = int(blockIdx.x) / nq;  // the query row; its K/V row is bh / group
   const int iq = nq - 1 - int(blockIdx.x % nq);
   const int q0 = iq * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = int64_t(bh) * S * d, kv_base = int64_t(bh / group) * S * d;
+  const int64_t base = int64_t(bh) * Sq * d, kv_base = int64_t(bh / group) * Sk * d;
   q += base;
   k += kv_base;
   v += kv_base;
   dout += base;
-  lse += int64_t(bh) * S;
-  dd += int64_t(bh) * S;
+  lse += int64_t(bh) * Sq;
+  dd += int64_t(bh) * Sq;
 
-  load_tile<T, D>(q, q0, S, d, nullptr, qt);
-  load_tile<T, D>(dout, q0, S, d, nullptr, dot);
+  load_tile<T, D>(q, q0, Sq, d, nullptr, qt);
+  load_tile<T, D>(dout, q0, Sq, d, nullptr, dot);
   float lse_r[4], dd_r[4], acc[4][NG * 4];
+  int qp[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < S ? lse[row] : 0.f;
-    dd_r[i] = row < S ? dd[row] : 0.f;
+    lse_r[i] = row < Sq ? lse[row] : 0.f;
+    dd_r[i] = row < Sq ? dd[row] : 0.f;
+    qp[i] = mask.q_pos(row);
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) acc[i][j] = 0.f;
   }
 
-  const int nk = key_tiles(iq, S, causal);
+  const int qmax = mask.query_bound(q0);
+  const int nk = mask.key_end(iq);
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * BK;
+    if (!mask.key_live(k0, qmax)) continue;
     __syncthreads();
-    load_tile<T, D>(k, k0, S, d, ks, kt);
-    load_tile<T, D>(v, k0, S, d, nullptr, vt);
+    load_tile<T, D>(k, k0, Sk, d, ks, kt);
+    load_tile<T, D>(v, k0, Sk, d, nullptr, vt);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     mm_patch<1, D>(s, qt, TS, kt, TS, ty, tx);    // Q K^T
     mm_patch<1, D>(dp, dot, TS, vt, TS, ty, tx);  // dO V^T
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx * 4 + j;
+      const int kp = mask.k_pos(col);
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty * 4 + i;
-        const float p = masked(row, k0 + tx * 4 + j, S, causal) ? 0.f : expf(s[i][j] * scale - lse_r[i]);
+        const float p = mask.dead(qp[i], kp, col) ? 0.f : expf(s[i][j] * scale - lse_r[i]);
         ds[i] = round_to<T>(p * (dp[i][j] - dd_r[i]) * scale);  // dS, rounded to K's type
       }
       *reinterpret_cast<float4*>(dst + (tx * 4 + j) * TS + ty * 4) = make_float4(ds[0], ds[1], ds[2], ds[3]);
@@ -320,11 +429,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     mm_patch<NG, BK>(acc, dst, TS, ks, D + PAD, ty, tx);  // dS K
   }
 
-  dq += int64_t(bh) * S * d;  // offset here, as the forward's outputs
+  dq += base;  // offset here, as the forward's outputs
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -335,11 +444,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                         T* __restrict__ dk, T* __restrict__ dv, int S, int d, int group, float scale, int causal) {
+                         T* __restrict__ dk, T* __restrict__ dv, int d, int group, float scale, const Mask mask) {
   constexpr int NG = D / 64;
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);
@@ -352,39 +461,45 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* lse_s = pt + BQ * TS;
   float* dd_s = lse_s + BQ;
 
-  const int nk = (S + BK - 1) / BK;
+  const int Sq = mask.q_rows(), Sk = mask.k_rows();
+  const int nk = (Sk + BK - 1) / BK;
   const int bh = int(blockIdx.x) / nk;  // the K/V row; its query rows are bh * group + h
   const int ik = int(blockIdx.x % nk);  // under causal the first key tiles have the most work
   const int k0 = ik * BK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = int64_t(bh) * S * d;
+  const int64_t base = int64_t(bh) * Sk * d;
   k += base;
   v += base;
 
-  load_tile<T, D>(k, k0, S, d, nullptr, kt);
-  load_tile<T, D>(v, k0, S, d, nullptr, vt);
+  load_tile<T, D>(k, k0, Sk, d, nullptr, kt);
+  load_tile<T, D>(v, k0, Sk, d, nullptr, vt);
   float dk_acc[4][NG * 4], dv_acc[4][NG * 4];
+  int kp[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
+    kp[i] = mask.k_pos(k0 + ty * 4 + i);
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  }
 
   // each query head of the group, and in it the query tiles that see this
-  // key tile: all, or under causal those from the diagonal on
-  const int nq = (S + BQ - 1) / BQ;
+  // key tile: from query_begin on, those that are live
+  const int kmin = mask.key_bound(k0);
+  const int nq = (Sq + BQ - 1) / BQ;
   for (int h = 0; h < group; ++h) {
     const int64_t qrow = int64_t(bh) * group + h;
-    const T* __restrict__ qh = q + qrow * S * int64_t(d);
-    const T* __restrict__ doh = dout + qrow * S * int64_t(d);
-    for (int iq = causal ? ik : 0; iq < nq; ++iq) {
+    const T* __restrict__ qh = q + qrow * Sq * int64_t(d);
+    const T* __restrict__ doh = dout + qrow * Sq * int64_t(d);
+    for (int iq = mask.query_begin(ik); iq < nq; ++iq) {
       const int q0 = iq * BQ;
+      if (!mask.query_live(q0, kmin)) continue;  // the same decision in every warp
       __syncthreads();
-      load_tile<T, D>(qh, q0, S, d, qs, qt);
-      load_tile<T, D>(doh, q0, S, d, dos, dot);
+      load_tile<T, D>(qh, q0, Sq, d, qs, qt);
+      load_tile<T, D>(doh, q0, Sq, d, dos, dot);
       if (threadIdx.x < BQ) {
         const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < S ? lse[qrow * S + row] : 0.f;
-        dd_s[threadIdx.x] = row < S ? dd[qrow * S + row] : 0.f;
+        lse_s[threadIdx.x] = row < Sq ? lse[qrow * Sq + row] : 0.f;
+        dd_s[threadIdx.x] = row < Sq ? dd[qrow * Sq + row] : 0.f;
       }
       __syncthreads();
       // this thread's patch: key rows k0 + ty*4 + i, query columns q0 + tx*4 + j
@@ -394,12 +509,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = q0 + tx * 4 + j;
+        const int qp = mask.q_pos(col);
         const float lse_c = lse_s[tx * 4 + j], dd_c = dd_s[tx * 4 + j];
         float p[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          // query rows past S are zero padding: they take part in nothing
-          const bool dead = col >= S || masked(col, k0 + ty * 4 + i, S, causal);
+          // query rows past Sq are zero padding: they take part in nothing
+          const bool dead = col >= Sq || mask.dead(qp, kp[i], k0 + ty * 4 + i);
           p[i] = dead ? 0.f : expf(st[i][j] * scale - lse_c);
           st[i][j] = p[i] * (dpt[i][j] - dd_c) * scale;  // now dS^T
         }
@@ -423,7 +539,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
-    if (row >= S) continue;
+    if (row >= Sk) continue;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -437,12 +553,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// Blocks of a grid over ``rows`` rows of n positions in 64-row tiles.
+int64_t tiles_of(int64_t rows, int n) { return rows * ((int64_t(n) + 63) / 64); }
+
 // Check the shape and set the kernel's dynamic shared memory; 0 or an error
-// code.  ``rows`` is the grid's row count: bhq for the forward and dq, bhk for dk/dv.
-template <typename Kernel>
-int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t rows, int S) {
+// code.  ``blocks`` is the grid: query tiles for the forward and dq, key
+// tiles for dk/dv.
+template <typename Kernel, typename Mask>
+int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t blocks, const Mask& mask) {
   const bool rows_ok = bhk == 0 ? bhq == 0 : bhq >= 0 && bhk > 0 && bhq % bhk == 0;
-  if (!rows_ok || S < 0 || rows * ((S + 63) / 64) > 0x7fffffff) return kErrBadShape;
+  if (!rows_ok || mask.q_rows() < 0 || mask.k_rows() < 0 || blocks > 0x7fffffff) return kErrBadShape;
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -451,42 +571,42 @@ int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t rows, in
   return int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
 }
 
-int grid_of(int64_t rows, int S) { return int(rows * ((S + 63) / 64)); }
-
-template <typename T, int D>
-int fwd_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk, int S,
-               int d, float scale, int causal, cudaStream_t stream) {
-  const int err = prepare(flash_fwd_kernel<T, D>, fwd_smem<D>(), bhq, bhk, bhq, S);
+template <typename T, int D, typename Mask>
+int fwd_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk, int d,
+               float scale, Mask mask, cudaStream_t stream) {
+  const int64_t blocks = tiles_of(bhq, mask.q_rows());
+  const int err = prepare(flash_fwd_kernel<T, D, Mask>, fwd_smem<D>(), bhq, bhk, blocks, mask);
   if (err != 0) return err;
-  if (grid_of(bhq, S) == 0) return 0;
-  flash_fwd_kernel<T, D><<<grid_of(bhq, S), THREADS, fwd_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse, S, d,
-      int(bhq / bhk), scale, causal);
+  if (blocks == 0) return 0;
+  flash_fwd_kernel<T, D, Mask><<<int(blocks), THREADS, fwd_smem<D>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse, d,
+      int(bhq / bhk), scale, mask);
   return int(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Mask>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
-              void* dq, int64_t bhq, int64_t bhk, int S, int d, float scale, int causal, cudaStream_t stream) {
-  const int err = prepare(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), bhq, bhk, bhq, S);
+              void* dq, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {
+  const int64_t blocks = tiles_of(bhq, mask.q_rows());
+  const int err = prepare(flash_bwd_dq_kernel<T, D, Mask>, dq_smem<D>(), bhq, bhk, blocks, mask);
   if (err != 0) return err;
-  if (grid_of(bhq, S) == 0) return 0;
-  flash_bwd_dq_kernel<T, D><<<grid_of(bhq, S), THREADS, dq_smem<D>(), stream>>>(
+  if (blocks == 0) return 0;
+  flash_bwd_dq_kernel<T, D, Mask><<<int(blocks), THREADS, dq_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      dd, static_cast<T*>(dq), S, d, int(bhq / bhk), scale, causal);
+      dd, static_cast<T*>(dq), d, int(bhq / bhk), scale, mask);
   return int(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Mask>
 int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
-               void* dk, void* dv, int64_t bhq, int64_t bhk, int S, int d, float scale, int causal,
-               cudaStream_t stream) {
-  const int err = prepare(flash_bwd_dkv_kernel<T, D>, dkv_smem<D>(), bhq, bhk, bhk, S);
+               void* dk, void* dv, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {
+  const int64_t blocks = tiles_of(bhk, mask.k_rows());
+  const int err = prepare(flash_bwd_dkv_kernel<T, D, Mask>, dkv_smem<D>(), bhq, bhk, blocks, mask);
   if (err != 0) return err;
-  if (grid_of(bhk, S) == 0) return 0;
-  flash_bwd_dkv_kernel<T, D><<<grid_of(bhk, S), THREADS, dkv_smem<D>(), stream>>>(
+  if (blocks == 0) return 0;
+  flash_bwd_dkv_kernel<T, D, Mask><<<int(blocks), THREADS, dkv_smem<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      dd, static_cast<T*>(dk), static_cast<T*>(dv), S, d, int(bhq / bhk), scale, causal);
+      dd, static_cast<T*>(dk), static_cast<T*>(dv), d, int(bhq / bhk), scale, mask);
   return int(cudaGetLastError());
 }
 
@@ -514,7 +634,7 @@ int heat_flash_fwd(int device, const void* q, const void* k, const void* v, void
                    int64_t bhk, int s, int d, int bf16, float scale, int causal, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_FLASH_DISPATCH(bf16, d, return (fwd_launch<T, D>(q, k, v, out, lse, bhq, bhk, s, d, scale, causal,
+  HEAT_FLASH_DISPATCH(bf16, d, return (fwd_launch<T, D>(q, k, v, out, lse, bhq, bhk, d, scale, StaticMask{s, causal},
                                                         static_cast<cudaStream_t>(stream))));
 }
 
@@ -525,8 +645,8 @@ int heat_flash_bwd_dq(int device, const void* q, const void* k, const void* v, c
                       int causal, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_FLASH_DISPATCH(bf16, d, return (dq_launch<T, D>(q, k, v, dout, lse, dd, dq, bhq, bhk, s, d, scale, causal,
-                                                       static_cast<cudaStream_t>(stream))));
+  HEAT_FLASH_DISPATCH(bf16, d, return (dq_launch<T, D>(q, k, v, dout, lse, dd, dq, bhq, bhk, d, scale,
+                                                       StaticMask{s, causal}, static_cast<cudaStream_t>(stream))));
 }
 
 // dk, dv (bhk, S, d) from the same inputs, each summed over its group's query heads.
@@ -535,8 +655,45 @@ int heat_flash_bwd_dkv(int device, const void* q, const void* k, const void* v, 
                        float scale, int causal, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_FLASH_DISPATCH(bf16, d, return (dkv_launch<T, D>(q, k, v, dout, lse, dd, dk, dv, bhq, bhk, s, d, scale,
-                                                        causal, static_cast<cudaStream_t>(stream))));
+  HEAT_FLASH_DISPATCH(bf16, d, return (dkv_launch<T, D>(q, k, v, dout, lse, dd, dk, dv, bhq, bhk, d, scale,
+                                                        StaticMask{s, causal}, static_cast<cudaStream_t>(stream))));
+}
+
+// The positions block: out (b, sq, d) in the storage type and lse (b, sq)
+// float32 of q (b, sq, d), k, v (b, sk, d) and int32 positions qpos (sq),
+// kpos (sk); ``masked`` applies kpos < s_valid and, under causal, qpos >= kpos.
+int heat_flash_pos_fwd(int device, const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
+                       void* out, float* lse, int64_t b, int sq, int sk, int d, int bf16, float scale, int causal,
+                       int s_valid, int masked, void* stream) {
+  const heat::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return int(guard.error());
+  const PosMask mask{qpos, kpos, sq, sk, s_valid, causal, masked};
+  HEAT_FLASH_DISPATCH(bf16, d, return (fwd_launch<T, D>(q, k, v, out, lse, b, b, d, scale, mask,
+                                                        static_cast<cudaStream_t>(stream))));
+}
+
+// dq (b, sq, d) of the positions block; dd = rowsum(dO * O) - g_lse.
+int heat_flash_pos_bwd_dq(int device, const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* dd, const int* qpos, const int* kpos, void* dq, int64_t b,
+                          int sq, int sk, int d, int bf16, float scale, int causal, int s_valid, int masked,
+                          void* stream) {
+  const heat::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return int(guard.error());
+  const PosMask mask{qpos, kpos, sq, sk, s_valid, causal, masked};
+  HEAT_FLASH_DISPATCH(bf16, d, return (dq_launch<T, D>(q, k, v, dout, lse, dd, dq, b, b, d, scale, mask,
+                                                       static_cast<cudaStream_t>(stream))));
+}
+
+// dk, dv (b, sk, d) of the positions block.
+int heat_flash_pos_bwd_dkv(int device, const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* dd, const int* qpos, const int* kpos, void* dk, void* dv,
+                           int64_t b, int sq, int sk, int d, int bf16, float scale, int causal, int s_valid,
+                           int masked, void* stream) {
+  const heat::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return int(guard.error());
+  const PosMask mask{qpos, kpos, sq, sk, s_valid, causal, masked};
+  HEAT_FLASH_DISPATCH(bf16, d, return (dkv_launch<T, D>(q, k, v, dout, lse, dd, dk, dv, b, b, d, scale, mask,
+                                                        static_cast<cudaStream_t>(stream))));
 }
 
 const char* heat_flash_strerror(int code) {

@@ -26,6 +26,9 @@ Tolerances:
   - the grouped-query kernels take the same limits: their plain versions
     repeat K/V per group and run the multi-head ones, and dk, dv sum the
     group in float32 on both sides before the one rounding.
+  - the positions kernels (ring attention's block) take the same limits:
+    the same bodies and rounding points under another mask; a block wholly
+    after its queries gives out 0 and lse -1e30 exactly.
 """
 
 import numpy as np
@@ -115,7 +118,7 @@ def test_cuda_flash_kernels_match_plain_versions(S, d, causal, dtype):
     torch.cuda.synchronize()
     assert {key: fa.launch_counts[key] - before[key] for key in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_gqa_fwd": 0, "flash_gqa_bwd_dq": 0,
-        "flash_gqa_bwd_dkv": 0}
+        "flash_gqa_bwd_dkv": 0, "flash_pos_fwd": 0, "flash_pos_bwd_dq": 0, "flash_pos_bwd_dkv": 0}
     out_p, lse_p = fa._torch_flash_fwd(q, k, v, causal, d**-0.5)
     dq_p = fa._torch_flash_bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
     dk_p, dv_p = fa._torch_flash_bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
@@ -148,7 +151,7 @@ def test_cuda_gqa_flash_kernels_match_plain_versions(S, d, causal, hq, hk, dtype
     torch.cuda.synchronize()
     assert {key: fa.launch_counts[key] - before[key] for key in before} == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_gqa_fwd": 1, "flash_gqa_bwd_dq": 1,
-        "flash_gqa_bwd_dkv": 1}
+        "flash_gqa_bwd_dkv": 1, "flash_pos_fwd": 0, "flash_pos_bwd_dq": 0, "flash_pos_bwd_dkv": 0}
     assert dk.shape == k.shape and dv.shape == v.shape
     out_p, lse_p = fa._torch_flash_gqa_fwd(q, k, v, causal, d**-0.5)
     dq_p = fa._torch_flash_gqa_bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
@@ -177,3 +180,109 @@ def test_cuda_flash_kernels_refuse_d_256():
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         fa.flash_attention_gqa(q.view(1, 2, 16, 256), q[:1].view(1, 1, 16, 256), q[:1].view(1, 1, 16, 256))
+
+
+# positions blocks: (Sq, Sk, d, query offset, key offset, causal, s_valid)
+POS_BLOCKS = [(256, 256, 64, 256, 256, True, 512),  # the diagonal block of a causal ring
+              (256, 256, 64, 256, 0, True, 512),  # a past block: every key before every query
+              (256, 256, 64, 0, 256, True, 512),  # a dead block: every key after every query
+              (100, 77, 128, 50, 30, True, 160),  # rectangular and ragged, half live
+              (129, 200, 64, 0, 0, False, 150),  # full attention with pad keys past s_valid
+              (64, 130, 8, 7, 0, False, 2**30)]  # unmasked: every key attends
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,d,qo,ko,causal,s_valid", POS_BLOCKS)
+def test_cuda_positions_kernels_match_plain_versions(Sq, Sk, d, qo, ko, causal, s_valid, dtype):
+    """The positions kernels against their plain versions, with a nonzero
+    lse cotangent folded into dd."""
+    g = torch.Generator(device="cuda").manual_seed(Sq + Sk + d)
+    q, do = (torch.randn((6, Sq, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((6, Sk, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    qpos = torch.arange(qo, qo + Sq, dtype=torch.int32, device="cuda")
+    kpos = torch.arange(ko, ko + Sk, dtype=torch.int32, device="cuda")
+    masked = causal or s_valid < 2**30
+    args = (qpos, kpos, causal, d**-0.5, s_valid, masked)
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_pos_fwd(q, k, v, *args)
+    dd = (do.float() * out.float()).sum(-1) - torch.randn((6, Sq), generator=g, device="cuda")
+    dq = fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
+    dk, dv = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+    torch.cuda.synchronize()
+    assert {key: fa.launch_counts[key] - before[key] for key in before} == {
+        key: int(key.startswith("flash_pos_")) for key in before}
+    assert dk.shape == k.shape and dv.shape == v.shape and lse.shape == (6, Sq)
+    out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
+    dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
+    dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+    for got, want, kind in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
+        assert row_err(got, want) <= tol[kind]
+        if dtype == torch.bfloat16:
+            assert float((got != want).float().mean()) <= 0.01
+    if qo + Sq <= ko:  # every key after every query
+        assert not out.any() and bool((lse == fa.NO_MASS).all())
+    again, lse2 = fa.flash_pos_fwd(q, k, v, *args)
+    dk2, dv2 = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+    assert torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_cuda_flash_attention_block_pads_and_slices():
+    """flash_attention_block on the card: ragged sides padded to the tile,
+    against the dense oracle, forward and gradients (float32)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((2, 3, n, 32), generator=g, device="cuda").requires_grad_(True) for n in (70, 90, 90))
+    qpos = torch.arange(40, 110, device="cuda")
+    kpos = torch.arange(0, 90, device="cuda")
+    out, lse = fa.flash_attention_block(q, k, v, qpos, kpos, causal=True, scale=0.2, s_valid=120)
+    w, gl = torch.randn_like(out), torch.randn_like(lse)
+    grads = torch.autograd.grad((out * w).sum() + (lse * gl).sum(), (q, k, v))
+    out_d, lse_d = fa._dense_block_pos(q, k, v, qpos, kpos, True, 0.2, 120, True)
+    grads_d = torch.autograd.grad((out_d * w).sum() + (lse_d * gl).sum(), (q, k, v))
+    torch.testing.assert_close(out, out_d, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, lse_d, atol=2e-5, rtol=2e-5)
+    for got, want in zip(grads, grads_d):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def _gloo_rank(rank, store):
+    """One of two processes on cuda:0 in a gloo group: the communicator's
+    collectives on CUDA tensors, each result on the card with the right
+    values.  gloo's own send/recv refuse CUDA buffers, so ``Send`` stages
+    them through host memory; its collectives take them as they are."""
+    import heat_tpu_torch as ht
+
+    ht.core.bootstrap.init_distributed(f"file://{store}", world_size=2, rank=rank, backend="gloo", timeout_s=60)
+    try:
+        comm = ht.core.communication.get_comm()
+        x = torch.tensor([rank, 10 + rank], dtype=torch.float32, device="cuda")
+        assert comm.transport(x) == "gloo-host-staged"
+        got = comm.Send(x, shift=1)
+        assert got.is_cuda and got.tolist() == [1 - rank, 11 - rank]
+        total = comm.Allreduce(x.clone())
+        assert total.is_cuda and total.tolist() == [1, 21]
+        root = comm.Bcast(x.clone(), root=1)
+        assert root.is_cuda and root.tolist() == [1, 11]
+        parts = comm.Allgather(x)
+        assert all(p.is_cuda for p in parts) and [p.tolist() for p in parts] == [[0, 10], [1, 11]]
+        torch.distributed.barrier()
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def test_cuda_collectives_under_gloo_on_one_card(tmp_path):
+    """The ring's transport on one card: two gloo ranks on cuda:0 (NCCL
+    refuses two ranks on one card) shift, reduce, broadcast and gather
+    CUDA tensors through the communicator."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp_path / "store"))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    assert [p.exitcode for p in procs] == [0, 0]

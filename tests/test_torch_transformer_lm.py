@@ -236,8 +236,13 @@ def test_mha_unported_features_raise():
     assert _shapes(convert.to_reference(gqa)) == _shapes(ref_gqa.init(jax.random.key(0)))
     assert gqa.in_proj_weight.shape == (E + 2 * 2 * (E // H), E) and gqa.kv_dim == 16
     assert float(gqa.in_proj_weight.detach().abs().max()) <= (6.0 / (E + 2 * 16 + E)) ** 0.5
-    with pytest.raises(NotImplementedError, match="B6"):
-        ht.nn.MultiheadAttention(E, H, comm=object(), device="cpu")
+    # comm= is ported: a world-1 communicator runs the ring's one-process path, the no-comm output
+    world_one = ht.core.communication.Communication()
+    rm, p, pm = _mha_pair(rope=True)
+    ring = convert.multihead_attention_from_reference(_np(p), embed_dim=E, num_heads=H, rope=True, comm=world_one,
+                                                      device="cpu")
+    x = _t(np.random.default_rng(2).standard_normal((2, 12, E)).astype(np.float32))
+    torch.testing.assert_close(ring(x, causal=True), pm(x, causal=True), atol=0, rtol=0)
     with pytest.raises(ValueError):
         ht.nn.MultiheadAttention(E, 5, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
@@ -249,8 +254,10 @@ def test_mha_unported_features_raise():
         _shapes(rm.init(jax.random.key(0)))
     with pytest.raises(ValueError):
         models.TransformerLM(**CFG, num_kv_heads=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="B6"):
-        models.TransformerLM(**CFG, comm=object(), device="cpu")
+    lm = models.TransformerLM(**CFG, comm=world_one, device="cpu")
+    plain = convert.transformer_lm_from_reference(convert.to_reference(lm), **CFG, device="cpu")
+    tok = _t(_tokens((2, 20))).long()
+    torch.testing.assert_close(lm(tok), plain(tok), atol=0, rtol=0)
     with pytest.warns(UserWarning, match="remat"):
         models.TransformerLM(**CFG, remat=True, device="cpu")
 
