@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi's name and power limit) and builds the CUDA
-   kernels from ``heat_tpu_torch/ops/csrc``.
+   kernels from ``heat_tpu_torch/ops/csrc``; prints ptxas's registers and
+   spills of each instance of the bfloat16 forward (``flash_fwd_tc.cuh``).
 2. Holds each kernel against its plain PyTorch version at k=64, d=32 on a
    ragged n=1,000,003, in float32 and bfloat16.
 3. Drives the main path at the BASELINE width: ``create_clusters`` with
@@ -20,10 +21,12 @@
 4. Holds the three flash-attention kernels against their plain versions,
    through the multi-head wrappers and through the grouped-query ones
    (query heads : K/V heads 8:2, 8:1 and 4:4): float32 and bfloat16, causal
-   and full, d = 64 and 128, ragged S (1000, 129) and S = 1024; each row
-   against that row's largest value, and in bfloat16 the share of elements
-   that differ at all; the forward (and the grouped dk/dv) twice to the
-   same bits; d = 256 refused.
+   and full, d = 8, 33, 64, 100 and 128, ragged S (1000, 129) and S = 1024,
+   and the forward alone at the edges of its tiles (S = 1, 15, 64, 127);
+   each row against that row's largest value, and in bfloat16 the share of
+   elements that differ at all; the forward (and the grouped dk/dv) twice
+   to the same bits, and the forward again to the same bits with q off
+   16-byte alignment; d = 256 refused.
 5. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
    width of the repo's LM benchmark) in float32 for 20 Adam steps on token
    batches (8, 1025) of repeated random segments: every flash kernel must
@@ -40,11 +43,12 @@
    its training launches each grouped kernel 8 x 20 times and the
    multi-head ones none, and it decodes from a cache of 2 K/V heads.
 8. Holds the three positions kernels of ring attention's block against
-   their plain versions: float32 and bfloat16, d = 64 and 128, the ring
-   step's diagonal, past and dead blocks at (B*H, Sq, Sk, d) = (16, 2048,
-   2048, 64), rectangular, ragged, pad-key and unmasked blocks, with a
-   nonzero lse cotangent folded into dd; the forward and dk/dv twice to the
-   same bits.
+   their plain versions: float32 and bfloat16, d = 8, 33, 64, 100 and 128,
+   the ring step's diagonal, past and dead blocks at (B*H, Sq, Sk, d) =
+   (16, 2048, 2048, 64) and ragged at (4, 300, 300), rectangular, ragged,
+   one-row, one-key, pad-key and unmasked blocks, with a nonzero lse
+   cotangent folded into dd; the forward and dk/dv twice to the same bits,
+   and the forward again with k off 16-byte alignment.
 9. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=4096, comm=comm)``
    sequence-parallel over 2 ranks: two spawned processes on this one card in
    a gloo group (NCCL refuses two ranks on one card; the ring's sends stage
@@ -56,7 +60,9 @@
    kernels), and a ring step under the profiler on rank 0.  A child that
    fails, or does not report within the time limit, fails the run.
 10. Times each kernel, its plain version and a library call at the main
-   paths' shapes and prints the ``kernels`` line.
+   paths' shapes (CUDA events behind a device sleep, so the device's time
+   and not Python's launch) and prints the ``kernels`` line, each flash
+   row with the cores and the source of its float32 and bfloat16 body.
 11. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -84,6 +90,9 @@ MAX_ITER = 20
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# cuda_ms's device sleep: cycles a second at the H100's largest SM clock
+# (1980 MHz; a lower clock only sleeps longer), at most 50 ms a timing
+SLEEP_CYCLES_PER_S, SLEEP_MAX_S = 1.98e9, 0.05
 
 # the LM of the repo's benchmark (bench.py, lm_generate): 59 M parameters, head dim 64
 LM = dict(vocab_size=32768, embed_dim=512, num_heads=8, depth=8, max_len=1024)
@@ -93,6 +102,8 @@ PROMPT, NEW_TOKENS = 64, 448
 # the grouped-query LM: the same width, 2 K/V heads for the 8 query heads
 # (Llama-3-8B's grouping, 32:8), rotary positions; 55.6 M parameters
 LM_GQA = dict(LM, num_kv_heads=2, positions="rope")
+FLASH_SOURCE = "heat_tpu_torch/ops/csrc/flash_attention.cu"
+FWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh"  # the bfloat16 forward, included by FLASH_SOURCE
 MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GQA_KERNELS = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
 POS_KERNELS = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
@@ -110,12 +121,25 @@ POS_MIX = {"diagonal": 2, "past": 1, "dead": 1}
 POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64, 2048, 0, True, 4096),
               (16, 2048, 2048, 64, 0, 2048, True, 4096), (8, 1000, 600, 128, 300, 0, True, 1000),
               (8, 129, 1000, 64, 0, 0, False, 900), (8, 512, 512, 128, 0, 512, False, 2**30),
-              (8, 200, 333, 64, 100, 50, True, 383)]
+              (8, 200, 333, 64, 100, 50, True, 383),
+              # the bfloat16 forward's edges: d off the 16-byte loads (33, 100) and tiny, one
+              # row or key, and the ring's diagonal, past and dead blocks ragged at d = 100, 33, 8
+              (4, 15, 127, 33, 100, 0, True, 227), (4, 1, 129, 8, 0, 0, False, 100),
+              (4, 127, 1, 100, 200, 0, True, 201), (4, 300, 300, 100, 300, 300, True, 600),
+              (4, 300, 300, 33, 300, 0, True, 600), (4, 300, 300, 8, 0, 300, True, 600)]
 # flash kernel checks: (query rows B*Hq, K/V rows B*Hkv, S, d, causal)
 FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 129, 128, True),
-                (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False)]
+                (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False),
+                (16, 16, 1000, 33, True), (16, 16, 129, 8, False)]
 GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 128, True), (16, 2, 129, 128, False),
-              (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False)]
+              (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False),
+              (32, 4, 1000, 128, True)]
+# the forward's edges, through the forward alone: S of one row and under the
+# 64-key and 128-row tiles; d = 33 and 100 load element by element, 8 pads one
+# k16 step.  (Below ~129 rows a backward's differing share is set by the rows
+# whose dS cancels to float32 noise: every row at S = 1, row 0 of a causal dq.)
+FWD_EDGE_CHECKS = [(16, 16, 1, 8, True), (16, 16, 15, 33, False), (16, 16, 127, 100, True), (16, 16, 64, 64, True)]
+GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 1, 128, True)]
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
 GQA_MAIN = (64, 16, 1024, 64)  # the grouped LM's: 8 batches of 8 query and 2 K/V heads
 FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
@@ -160,10 +184,20 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """ms of one call of ``fn`` on the card: ``reps`` calls between two CUDA
+    events, queued behind a device sleep that outlasts their launch on the
+    host, so the events time the device's work back to back and not the
+    host's (a call whose kernels take less than its Python takes to launch
+    them would otherwise time the Python)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # one call's launch, or its whole run where it waits on the card
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * reps * host_s, SLEEP_MAX_S) * SLEEP_CYCLES_PER_S))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -419,6 +453,19 @@ def _flash_inputs(bhq, bhk, S, d, dtype, seed):
     return [torch.randn((rows, S, d), generator=g, device="cuda").to(dtype) for rows in (bhq, bhk, bhk, bhq)]
 
 
+def _misaligned(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past the allocator's alignment: the bfloat16 forward then loads element
+    by element instead of by 16-byte copies, into the same shared tiles."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    if out.data_ptr() % 16 == 0:
+        fail("the misaligned copy is 16-byte aligned")
+    return out
+
+
 def _flash_fns(names):
     """The wrappers of ``names`` and their plain versions (``_torch_<name>``)."""
     from heat_tpu_torch.ops import flash_attention as fa
@@ -426,10 +473,45 @@ def _flash_fns(names):
     return [getattr(fa, n) for n in names], [getattr(fa, f"_torch_{n}") for n in names]
 
 
-def check_flash_kernels(names, checks, main) -> dict:
+def check_forward_edges(name, edges) -> None:
+    """The forward wrapper ``name`` against its plain version at the edge
+    shapes ``edges``, float32 and bfloat16, with the tolerances of
+    ``check_flash_kernels``: twice to the same bits, and again to the same
+    bits with q off 16-byte alignment."""
+    import torch
+
+    (fwd,), (fwd_p,) = _flash_fns((name,))
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for bhq, bhk, S, d, causal in edges:
+            shape = (bhq, bhk, S, d, causal)
+            q, k, v, _ = _flash_inputs(bhq, bhk, S, d, dtype, seed=S + d + causal + bhq // bhk - 1)
+            out, lse = fwd(q, k, v, causal, d**-0.5)
+            again, lse2 = fwd(q, k, v, causal, d**-0.5)
+            off, lse3 = fwd(_misaligned(q), k, v, causal, d**-0.5)
+            out_p, lse_p = fwd_p(q, k, v, causal, d**-0.5)
+            torch.cuda.synchronize()
+            err, lse_err = _row_err(out, out_p), float((lse - lse_p).abs().max())
+            share = float((out != out_p).float().mean())
+            if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(out, off)
+                    and torch.equal(lse, lse3)):
+                fail(f"{name} does not repeat its bits (or not off alignment) at {shape} {dname}")
+            if not (err <= FLASH_TOL[dname]["out"] and lse_err <= LSE_ATOL
+                    and (dtype == torch.float32 or share <= BF16_DIFF_SHARE)):
+                fail(f"{name} vs plain at {shape} {dname}: row {err}, differing {share}, lse {lse_err}")
+            print(json.dumps({"phase": "kernel_check", "kernel": name, "dtype": dname, "bhq": bhq, "bhk": bhk,
+                              "S": S, "d": d, "causal": causal, "max_abs_err": float((out.float() - out_p.float())
+                                                                                      .abs().max()),
+                              "lse_max_abs_err": lse_err, "row_rel_err": err, "row_rel_tol": FLASH_TOL[dname]["out"],
+                              "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
+                              "misaligned_q_bitwise": True, "check": "pass"}), flush=True)
+
+
+def check_flash_kernels(names, checks, main, edges) -> dict:
     """Each flash kernel, through the wrappers ``names`` (multi-head or
-    grouped), against its plain version on the card; returns the errors at
-    the main path's shape ``main`` per dtype for the kernels line."""
+    grouped), against its plain version on the card, and the forward alone
+    at ``edges``; returns the errors at the main path's shape ``main`` per
+    dtype for the kernels line."""
     import torch
 
     (fwd, bwd_dq, bwd_dkv), (fwd_p, bwd_dq_p, bwd_dkv_p) = _flash_fns(names)
@@ -443,9 +525,12 @@ def check_flash_kernels(names, checks, main) -> dict:
             scale = d**-0.5
             out, lse = fwd(q, k, v, causal, scale)
             again, lse2 = fwd(q, k, v, causal, scale)
+            off, lse3 = fwd(_misaligned(q), k, v, causal, scale)
             torch.cuda.synchronize()
             if not (torch.equal(out, again) and torch.equal(lse, lse2)):
                 fail(f"{names[0]} is not deterministic at {shape} {name}")
+            if not (torch.equal(out, off) and torch.equal(lse, lse3)):
+                fail(f"{names[0]} gives other bits for a q off 16-byte alignment at {shape} {name}")
             dd = (do.float() * out.float()).sum(-1)
             dq = bwd_dq(q, k, v, do, lse, dd, causal, scale)
             dk, dv = bwd_dkv(q, k, v, do, lse, dd, causal, scale)
@@ -472,10 +557,11 @@ def check_flash_kernels(names, checks, main) -> dict:
                               "bhk": bhk, "S": S, "d": d, "causal": causal, "max_abs_err": abs_err,
                               "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
-                              "check": "pass"}), flush=True)
+                              "misaligned_q_bitwise": True, "check": "pass"}), flush=True)
             if (bhq, bhk, S, d) == main and causal:
                 errs[name] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
                                               (max(abs_err["dk"], abs_err["dv"]), max(res["dk"], res["dv"])))))
+    check_forward_edges(names[0], edges)
     q = torch.zeros((4, 16, 256), device="cuda")
     kv = q[:2] if names == GQA_KERNELS else q
     try:
@@ -785,6 +871,43 @@ def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
     return rows
 
 
+def flash_cores(name: str) -> dict:
+    """What a flash wrapper's kernel multiplies on, by dtype: the bfloat16
+    forward runs flash_fwd_tc.cuh's mma.sync body, the rest their CUDA-core
+    bodies in flash_attention.cu."""
+    fwd = name.endswith("_fwd")
+    return {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores" if fwd else "CUDA cores"}
+
+
+def flash_sources(name: str) -> dict:
+    return {"float32": FLASH_SOURCE, "bfloat16": FWD_TC_SOURCE if name.endswith("_fwd") else FLASH_SOURCE}
+
+
+def ptxas_report(log: str, word: str) -> list:
+    """ptxas's registers and spills for each compiled instance of the
+    kernel template ``word`` (its template arguments read from the mangled
+    name: D, 16-byte loads, mask)."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            args = re.search(word + r"ILi(\d+)ELb([01])ENS_\d+(\w+?)EE", entry.group(1))
+            cur = {"D": int(args.group(1)), "vec": args.group(2) == "1", "mask": args.group(3)} if args else None
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            cur.update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rows.append({**cur, "registers": int(regs.group(1))})
+            cur = None
+    return rows
+
+
 def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None) -> list:
     """The kernels line's rows of the wrappers ``names``: float32 at the
     training step's shape ``main``, with bfloat16 at that shape and, given
@@ -800,7 +923,8 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None) ->
     rows = []
     for name, line, lib_call in zip(names, replaces, lib):
         rows.append({
-            "name": name, "route": "cuda", "source": "heat_tpu_torch/ops/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": FLASH_SOURCE, "cores": flash_cores(name),
+            "sources": flash_sources(name),
             "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
             "launches_per_step": launches[name] // LM_STEPS, "max_abs_err": errs["float32"][name][0],
             "row_rel_err": errs["float32"][name][1],
@@ -842,6 +966,7 @@ def check_pos_kernels() -> dict:
             args = (qpos, kpos, causal, d**-0.5, s_valid, causal or s_valid < 2**30)
             out, lse = fa.flash_pos_fwd(q, k, v, *args)
             again, lse2 = fa.flash_pos_fwd(q, k, v, *args)
+            off, lse3 = fa.flash_pos_fwd(q, _misaligned(k), v, *args)
             dd = (do.float() * out.float()).sum(-1) - g_lse  # the lse cotangent folds into dd
             dq = fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
             dk, dv = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
@@ -850,6 +975,8 @@ def check_pos_kernels() -> dict:
             if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(dk, dk2)
                     and torch.equal(dv, dv2)):
                 fail(f"the positions kernels do not repeat bit for bit at {shape} {name}")
+            if not (torch.equal(out, off) and torch.equal(lse, lse3)):
+                fail(f"flash_pos_fwd gives other bits for a k off 16-byte alignment at {shape} {name}")
             out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
             dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
             dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
@@ -872,7 +999,7 @@ def check_pos_kernels() -> dict:
                                         "causal": causal, "s_valid": s_valid}, "ring_block": block,
                               "max_abs_err": abs_err, "lse_max_abs_err": lse_err, "row_rel_err": res,
                               "row_rel_tol": tol, "differing_share": share, "lse_atol": LSE_ATOL,
-                              "repeats_bitwise": True, "check": "pass"}), flush=True)
+                              "repeats_bitwise": True, "misaligned_k_bitwise": True, "check": "pass"}), flush=True)
             if block:
                 errs.setdefault(name, {})[block] = {
                     "flash_pos_fwd": max(abs_err["out"], lse_err), "flash_pos_bwd_dq": abs_err["dq"],
@@ -1136,7 +1263,8 @@ def pos_rows(launches: dict, errs: dict) -> list:
     rows = []
     for name, line, lib_call in zip(POS_KERNELS, (235, 264, 298), lib):
         rows.append({
-            "name": name, "route": "cuda", "source": "heat_tpu_torch/ops/csrc/flash_attention.cu",
+            "name": name, "route": "cuda", "source": FLASH_SOURCE, "cores": flash_cores(name),
+            "sources": flash_sources(name),
             "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
             "max_abs_err": max(e[name] for e in errs["float32"].values()), **mix(f32[name]),
             "shape": list(POS_MAIN), "causal": True, "mix": POS_MIX, "blocks": f32[name], "library_call": lib_call,
@@ -1175,12 +1303,14 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if any(word in line for word in ("entry function", "registers", "spill", "error")):
             print("ptxas:", line.strip())
+    print(json.dumps({"phase": "ptxas", "kernel": "flash_fwd_bf16_kernel", "source": FWD_TC_SOURCE,
+                      "instances": ptxas_report(_build.build_info["log"], "flash_fwd_bf16_kernel")}), flush=True)
 
     # 2. kernels against their plain versions
     for dtype in (torch.float32, torch.bfloat16):
         check_kernels_small(dtype)
-    flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN)
-    gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN)
+    flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN, FWD_EDGE_CHECKS)
+    gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN, GQA_FWD_EDGE_CHECKS)
     pos_errs = check_pos_kernels()
 
     # 3. the KMeans main path at full width

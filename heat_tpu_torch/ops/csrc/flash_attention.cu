@@ -48,25 +48,34 @@
 // kernels take bhq and bhk, and nothing else of the head layout.  Multi-head
 // attention is g = 1.  K/V are never repeated in memory.
 //
+// Which body runs: every float32 launch, and the bfloat16 backward (dq,
+// dk/dv), run the CUDA-core bodies below.  The bfloat16 forward of all
+// three wrappers (flash_fwd, flash_gqa_fwd, flash_pos_fwd) runs
+// flash_fwd_bf16_kernel, the tensor-core body in flash_fwd_tc.cuh, which
+// has its own note; fwd_launch routes it, and the bfloat16 instance of
+// flash_fwd_kernel is not built.
+//
 // Semantics: top-left causal (a query at row i sees keys 0..i) or full
 // attention over (S, d) rows; storage float32 or bfloat16, all
-// accumulation in float32 on the CUDA cores.  float32 stays full float32
-// (no TF32).  The reference's rounding points are kept: P is rounded to V's
-// type before P.V and to dO's type before P^T.dO; dS is rounded to K's type
-// before dS.K and to Q's type before dS^T.Q.  _finalize divides by
-// max(l, 1e-30) and writes lse = m + log(l), or -1e30 where l = 0.
+// accumulation in float32.  float32 stays full float32 (no TF32).  The
+// reference's rounding points are kept: P is rounded to V's type before
+// P.V and to dO's type before P^T.dO; dS is rounded to K's type before
+// dS.K and to Q's type before dS^T.Q.  _finalize divides by max(l, 1e-30)
+// and writes lse = m + log(l), or -1e30 where l = 0.
 //
 // Bound on an H100 SXM at the main path's shape, (B*H, S, d) = (64, 1024,
 // 64) causal: the forward does 4*BH*S^2*d/2 = 8.6 GFLOP (0.13 ms at the
 // 67 TFLOP/s float32 rate), dq 6*BH*S^2*d/2 (0.19 ms), dk/dv 8*BH*S^2*d/2
 // (0.26 ms), against 34 MB of float32 inputs and outputs (0.01 ms at
-// 3.35 TB/s).  So all three are compute-bound, and in bfloat16 on the tensor
-// cores (989 TFLOP/s) they would still be.  The grouped launches at the
-// grouped LM's shape, (bhq, bhk) = (64, 16), do the same FLOPs over fewer
-// K/V bytes.  Grouped dk/dv has bhk * ceil(S/64) blocks (256 there, on 132
-// SMs at one block an SM), each g times the work of a multi-head block, so
-// it fills the card less evenly than the multi-head grid of 1024 blocks.
-// This first version spends its effort on being right and simple:
+// 3.35 TB/s).  So in float32 all three are compute-bound; in bfloat16 on
+// the tensor cores (989 TFLOP/s) the forward at this shape is bytes-bound
+// (flash_fwd_tc.cuh), dq and dk/dv still compute-bound.  The grouped
+// launches at the grouped LM's shape, (bhq, bhk) = (64, 16), do the same
+// FLOPs over fewer K/V bytes.  Grouped dk/dv has bhk * ceil(S/64) blocks
+// (256 there, on 132 SMs at one block an SM), each g times the work of a
+// multi-head block, so it fills the card less evenly than the multi-head
+// grid of 1024 blocks.  The CUDA-core bodies spend their effort on being
+// right and simple:
 //   * one block of 256 threads per (batch*head, 64-row tile); the TPU's
 //     sequential grid axis becomes a loop inside the block: over key tiles
 //     for the forward and dq (one block per query row and tile), over the g
@@ -83,7 +92,8 @@
 //     64 x 64 product in registers, fed by 16-byte shared-memory reads;
 //   * the ragged last tile is masked inside the kernel (rows >= S load as
 //     zeros, keys >= S are masked); S is never padded in device memory.
-// wgmma/TMA pipelines and bfloat16 tensor-core products are later work.
+// The bfloat16 backward on the tensor cores, on the forward's fragment
+// code, and wgmma/TMA pipelines are later work.
 //
 // The positions kernels at the ring step's shape, (B*H, Sq, Sk, d) = (16,
 // 2048, 2048, 64), count only the (q, k) pairs they must compute: a past
@@ -101,6 +111,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "device_guard.cuh"
 
 namespace {
@@ -115,6 +127,15 @@ constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 patch of a 64 x 6
 constexpr int PAD = 4;        // padding of each shared row, in floats: keeps 16-byte alignment
 constexpr int TS = 64 + PAD;  // stride of a transposed tile [D][64]
 constexpr float kNoMass = -1e30f;
+// The bfloat16 forward's block: 4 warps of 16 query rows, one BQ tile, so
+// the masks' key_end and query_bound hold for it; and the blocks an SM that
+// ptxas budgets registers for: 3 at D = 64 (<= 170 registers), 2 at
+// D = 128 (<= 255).  8 warps or 4 blocks cap a thread at 128 registers,
+// where D = 64 spills.
+constexpr int kFwdWarps = 4;
+static_assert(16 * kFwdWarps == BQ, "the bfloat16 forward's query tile is the masks' BQ");
+template <int D>
+constexpr int kFwdMinBlocks = D == 64 ? 3 : 2;
 
 static_assert(BQ == BK, "the causal loop bounds assume square tiles");
 
@@ -201,6 +222,17 @@ struct StaticMask {
   __device__ __forceinline__ int query_begin(int ik) const { return causal ? ik : 0; }
   __device__ __forceinline__ int key_bound(int) const { return 0; }
   __device__ __forceinline__ bool query_live(int, int) const { return true; }
+  // the bfloat16 forward (flash_fwd_tc.cuh), by warps of 16 query rows:
+  // (min, max) position of the warp's rows from r0, and of the keys of tile k0
+  __device__ __forceinline__ int2 fwd_warp_span(int r0) const { return make_int2(r0, r0 + 15); }
+  __device__ __forceinline__ int2 fwd_tile_range(int k0) const { return make_int2(k0, k0 + BK - 1); }
+  __device__ __forceinline__ bool fwd_block_live(int2, int) const { return true; }  // the loop's bounds skip
+  // the warp sees some key of the tile: under causal, not every key is after its last row
+  __device__ __forceinline__ bool fwd_warp_live(int2 keys, int2 span) const { return !causal || keys.x <= span.y; }
+  // every key of the tile is live for every row of the warp: no element mask
+  __device__ __forceinline__ bool fwd_tile_full(int2 keys, int2 span) const {
+    return keys.y < S && (!causal || keys.y <= span.x);
+  }
 };
 
 // min / max over the positions [r0, r0 + 64) of a tile that lie below n,
@@ -245,7 +277,38 @@ struct PosMask {
     if (!masked) return true;
     return kmin < s_valid && (!causal || kmin <= tile_max(qpos, q0, Sq));
   }
+  // the bfloat16 forward (flash_fwd_tc.cuh), by warps of 16 query rows:
+  // (min, max) position of the warp's rows from r0 below Sq (lanes 0-15 and
+  // 16-31 read the same 16), and of the keys of tile k0 below Sk: one read
+  // of two positions a lane, taken once a tile by each warp
+  __device__ __forceinline__ int2 fwd_warp_span(int r0) const {
+    const int r = r0 + int(threadIdx.x % 16);
+    return make_int2(__reduce_min_sync(0xffffffffu, r < Sq ? qpos[r] : INT_MAX),
+                     __reduce_max_sync(0xffffffffu, r < Sq ? qpos[r] : INT_MIN));
+  }
+  __device__ __forceinline__ int2 fwd_tile_range(int k0) const {
+    if (!masked) return make_int2(0, 0);
+    const int lane = threadIdx.x % 32, a = k0 + lane, b = a + 32;
+    const int pa = a < Sk ? kpos[a] : 0, pb = b < Sk ? kpos[b] : 0;
+    return make_int2(__reduce_min_sync(0xffffffffu, min(a < Sk ? pa : INT_MAX, b < Sk ? pb : INT_MAX)),
+                     __reduce_max_sync(0xffffffffu, max(a < Sk ? pa : INT_MIN, b < Sk ? pb : INT_MIN)));
+  }
+  // key_live on the tile's range
+  __device__ __forceinline__ bool fwd_block_live(int2 keys, int qmax) const {
+    return !masked || (keys.x < s_valid && (!causal || keys.x <= qmax));
+  }
+  // the warp sees some key of a tile the block found live
+  __device__ __forceinline__ bool fwd_warp_live(int2 keys, int2 span) const {
+    return !(masked && causal) || keys.x <= span.y;
+  }
+  // every key of the tile is live for every row of the warp: no element mask
+  // (keys past Sk are dead; the caller checks them)
+  __device__ __forceinline__ bool fwd_tile_full(int2 keys, int2 span) const {
+    return !masked || (keys.y < s_valid && (!causal || keys.y <= span.x));
+  }
 };
+
+#include "flash_fwd_tc.cuh"  // the bfloat16 forward: flash_fwd_bf16_kernel
 
 template <int D>
 constexpr size_t fwd_smem() {  // qt, kt [D][TS]; vs [BK][D + PAD]; pt [BK][TS]
@@ -571,17 +634,40 @@ int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t blocks, 
   return int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
 }
 
+// The bfloat16 forward on the tensor cores: VEC (16-byte loads) where d % 8
+// == 0 and every operand is 16-byte aligned, else element by element.
+template <int D, bool VEC, typename Mask>
+int fwd_bf16_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk,
+                    int d, float scale, Mask mask, cudaStream_t stream) {
+  const int64_t blocks = tiles_of(bhq, mask.q_rows());
+  const int err = prepare(flash_fwd_bf16_kernel<D, VEC, Mask>, fwd_bf16_smem<D>(), bhq, bhk, blocks, mask);
+  if (err != 0) return err;
+  if (blocks == 0) return 0;
+  flash_fwd_bf16_kernel<D, VEC, Mask><<<int(blocks), 32 * kFwdWarps, fwd_bf16_smem<D>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, int(bhq), d, int(bhq / bhk), scale,
+      mask);
+  return int(cudaGetLastError());
+}
+
 template <typename T, int D, typename Mask>
 int fwd_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk, int d,
                float scale, Mask mask, cudaStream_t stream) {
-  const int64_t blocks = tiles_of(bhq, mask.q_rows());
-  const int err = prepare(flash_fwd_kernel<T, D, Mask>, fwd_smem<D>(), bhq, bhk, blocks, mask);
-  if (err != 0) return err;
-  if (blocks == 0) return 0;
-  flash_fwd_kernel<T, D, Mask><<<int(blocks), THREADS, fwd_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse, d,
-      int(bhq / bhk), scale, mask);
-  return int(cudaGetLastError());
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const bool vec = d % 8 == 0 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    return vec ? fwd_bf16_launch<D, true>(q, k, v, out, lse, bhq, bhk, d, scale, mask, stream)
+               : fwd_bf16_launch<D, false>(q, k, v, out, lse, bhq, bhk, d, scale, mask, stream);
+  } else {
+    const int64_t blocks = tiles_of(bhq, mask.q_rows());
+    const int err = prepare(flash_fwd_kernel<T, D, Mask>, fwd_smem<D>(), bhq, bhk, blocks, mask);
+    if (err != 0) return err;
+    if (blocks == 0) return 0;
+    flash_fwd_kernel<T, D, Mask><<<int(blocks), THREADS, fwd_smem<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse, d,
+        int(bhq / bhk), scale, mask);
+    return int(cudaGetLastError());
+  }
 }
 
 template <typename T, int D, typename Mask>

@@ -29,6 +29,12 @@ Tolerances:
   - the positions kernels (ring attention's block) take the same limits:
     the same bodies and rounding points under another mask; a block wholly
     after its queries gives out 0 and lse -1e30 exactly.
+  - the bfloat16 forward (the tensor-core body, ``csrc/flash_fwd_tc.cuh``)
+    takes the same limits at every d it takes (8, 33, 100 padded into its
+    64- and 128-column tiles), S around its 64-key and 128-row tiles,
+    multi-head and grouped 4:1 and 8:1, and the ring's blocks; its output
+    repeats bit for bit, and an operand off 16-byte alignment (loaded
+    element by element into the same shared tiles) gives the same bits.
 """
 
 import numpy as np
@@ -244,6 +250,75 @@ def test_cuda_flash_attention_block_pads_and_slices():
     torch.testing.assert_close(lse, lse_d, atol=2e-5, rtol=2e-5)
     for got, want in zip(grads, grads_d):
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor whose data starts one element past
+    the allocator's alignment, so not on a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+def _assert_bf16_forward(fwd, plain, q, k, v, *args):
+    """One bfloat16 forward against its plain version, repeated, and again
+    with q off 16-byte alignment; returns (out, lse)."""
+    out, lse = fwd(q, k, v, *args)
+    again, lse2 = fwd(q, k, v, *args)
+    off, lse3 = fwd(_misaligned(q), k, v, *args)
+    out_p, lse_p = plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and lse.shape == q.shape[:2]
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+    assert row_err(out, out_p) <= FLASH_TOL[torch.bfloat16]["out"]
+    assert float((out != out_p).float().mean()) <= 0.01
+    assert torch.equal(out, again) and torch.equal(lse, lse2)  # no atomics: the same bits every run
+    assert torch.equal(out, off) and torch.equal(lse, lse3)  # element-wise loads fill the same tiles
+    return out, lse
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 15, 127, 129, 1000])
+@pytest.mark.parametrize("d", [8, 33, 64, 100, 128])
+def test_cuda_bf16_forward_matches_plain_version(d, S, causal, group):
+    """The tensor-core forward through flash_fwd (group 1) and
+    flash_gqa_fwd (4 or 8 query rows to a K/V row), 2 K/V rows."""
+    g = torch.Generator(device="cuda").manual_seed(1000 * d + 10 * S + group + causal)
+    q = torch.randn((2 * group, S, d), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((2, S, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    fwd, plain, key = ((fa.flash_fwd, fa._torch_flash_fwd, "flash_fwd") if group == 1 else
+                       (fa.flash_gqa_fwd, fa._torch_flash_gqa_fwd, "flash_gqa_fwd"))
+    before = dict(fa.launch_counts)
+    _assert_bf16_forward(fwd, plain, q, k, v, causal, d**-0.5)
+    assert {name: fa.launch_counts[name] - before[name] for name in before} == {
+        name: 3 * (name == key) for name in before}
+
+
+# ring blocks at (Sq, Sk) = (300, 300), ragged against both tiles:
+# name -> (query offset, key offset, causal, s_valid)
+BF16_RING_BLOCKS = {"diagonal": (300, 300, True, 600), "past": (300, 0, True, 600), "dead": (0, 300, True, 600),
+                    "pad keys": (0, 0, False, 250)}
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+@pytest.mark.parametrize("block", list(BF16_RING_BLOCKS))
+def test_cuda_bf16_forward_positions_blocks(block, d):
+    """The tensor-core forward under the positions mask: the ring's
+    diagonal, past and dead blocks, and full attention with pad keys; the
+    dead block gives out 0 and lse -1e30 exactly."""
+    qo, ko, causal, s_valid = BF16_RING_BLOCKS[block]
+    g = torch.Generator(device="cuda").manual_seed(d + qo + ko)
+    q, k, v = (torch.randn((4, 300, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    qpos = torch.arange(qo, qo + 300, dtype=torch.int32, device="cuda")
+    kpos = torch.arange(ko, ko + 300, dtype=torch.int32, device="cuda")
+    args = (qpos, kpos, causal, d**-0.5, s_valid, True)
+    out, lse = _assert_bf16_forward(fa.flash_pos_fwd, fa._torch_flash_pos_fwd, q, k, v, *args)
+    if block == "dead":
+        assert not out.any() and bool((lse == fa.NO_MASS).all())
+    else:
+        assert bool(torch.isfinite(lse).all()) and bool((lse > fa.NO_MASS).all())
 
 
 def _gloo_rank(rank, store):
