@@ -5,7 +5,8 @@
 
 1. Prints the card (nvidia-smi's name and power limit) and builds the CUDA
    kernels from ``heat_tpu_torch/ops/csrc``; prints ptxas's registers and
-   spills of each instance of the bfloat16 forward (``flash_fwd_tc.cuh``).
+   spills of each instance of the bfloat16 tensor-core kernels: the forward
+   (``flash_fwd_tc.cuh``), dq and dk/dv (``flash_bwd_tc.cuh``).
 2. Holds each kernel against its plain PyTorch version at k=64, d=32 on a
    ragged n=1,000,003, in float32 and bfloat16.
 3. Drives the main path at the BASELINE width: ``create_clusters`` with
@@ -22,11 +23,15 @@
    through the multi-head wrappers and through the grouped-query ones
    (query heads : K/V heads 8:2, 8:1 and 4:4): float32 and bfloat16, causal
    and full, d = 8, 33, 64, 100 and 128, ragged S (1000, 129) and S = 1024,
-   and the forward alone at the edges of its tiles (S = 1, 15, 64, 127);
-   each row against that row's largest value, and in bfloat16 the share of
-   elements that differ at all; the forward (and the grouped dk/dv) twice
-   to the same bits, and the forward again to the same bits with q off
-   16-byte alignment; d = 256 refused.
+   and at the edges of the tiles (S = 1, 15, 64, 127); each row against
+   that row's largest value, and in bfloat16 the share of elements that
+   differ at all (at the edges, for dq, dk and dv: of the elements above
+   the row floor, since below ~129 rows whole rows of dq and dk cancel to
+   float32 noise); every
+   kernel twice to the same bits, the forward again with q and dq and dk/dv
+   again with dO off 16-byte alignment, to the same bits; d = 256 refused.
+   Every bfloat16 launch runs a tensor-core body (``mma.sync``): the
+   forward ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``.
 5. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
    width of the repo's LM benchmark) in float32 for 20 Adam steps on token
    batches (8, 1025) of repeated random segments: every flash kernel must
@@ -47,8 +52,8 @@
    the ring step's diagonal, past and dead blocks at (B*H, Sq, Sk, d) =
    (16, 2048, 2048, 64) and ragged at (4, 300, 300), rectangular, ragged,
    one-row, one-key, pad-key and unmasked blocks, with a nonzero lse
-   cotangent folded into dd; the forward and dk/dv twice to the same bits,
-   and the forward again with k off 16-byte alignment.
+   cotangent folded into dd; every kernel twice to the same bits, and again
+   with k off 16-byte alignment.
 9. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=4096, comm=comm)``
    sequence-parallel over 2 ranks: two spawned processes on this one card in
    a gloo group (NCCL refuses two ranks on one card; the ring's sends stage
@@ -59,11 +64,17 @@
    world-1 step of the same weights on the card (the static flash
    kernels), and a ring step under the profiler on rank 0.  A child that
    fails, or does not report within the time limit, fails the run.
-10. Times each kernel, its plain version and a library call at the main
+10. Trains the multi-head LM of 5 cast to bfloat16, 10 Adam steps on
+   batches of 5's shape: each step launches each multi-head flash kernel 8
+   times (the bfloat16 forward, dq and dk/dv on the tensor cores) and no
+   other, and the loss must fall; the median step, the flash share of a
+   profiled step, and one step through the kernels against one through
+   their plain versions (loss and every gradient, ``BF16_STEP_*``).
+11. Times each kernel, its plain version and a library call at the main
    paths' shapes (CUDA events behind a device sleep, so the device's time
    and not Python's launch) and prints the ``kernels`` line, each flash
    row with the cores and the source of its float32 and bfloat16 body.
-11. Ends with the line ``{"ok": true, "device": {...}}``.
+12. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without CUDA it exits 2 at once.
@@ -97,6 +108,7 @@ SLEEP_CYCLES_PER_S, SLEEP_MAX_S = 1.98e9, 0.05
 # the LM of the repo's benchmark (bench.py, lm_generate): 59 M parameters, head dim 64
 LM = dict(vocab_size=32768, embed_dim=512, num_heads=8, depth=8, max_len=1024)
 LM_BATCH, LM_SEQ, LM_STEPS, LM_LR = 8, 1024, 20, 1e-3
+LM_BF16_STEPS = 10  # the bfloat16 training phase: the MHA LM cast to bfloat16
 LM_SEGMENT, LM_POOL = 32, 1024  # sequences repeat a random 32-token segment drawn from 1024 tokens
 PROMPT, NEW_TOKENS = 64, 448
 # the grouped-query LM: the same width, 2 K/V heads for the 8 query heads
@@ -104,6 +116,10 @@ PROMPT, NEW_TOKENS = 64, 448
 LM_GQA = dict(LM, num_kv_heads=2, positions="rope")
 FLASH_SOURCE = "heat_tpu_torch/ops/csrc/flash_attention.cu"
 FWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh"  # the bfloat16 forward, included by FLASH_SOURCE
+BWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh"  # the bfloat16 dq and dk/dv, included by FLASH_SOURCE
+# the tensor-core kernel templates whose instances the ptxas lines report
+TC_KERNELS = {"flash_fwd_bf16_kernel": FWD_TC_SOURCE, "flash_bwd_dq_bf16_kernel": BWD_TC_SOURCE,
+              "flash_bwd_dkv_bf16_kernel": BWD_TC_SOURCE}
 MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GQA_KERNELS = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
 POS_KERNELS = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
@@ -134,10 +150,14 @@ FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 12
 GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 128, True), (16, 2, 129, 128, False),
               (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False),
               (32, 4, 1000, 128, True)]
-# the forward's edges, through the forward alone: S of one row and under the
+# the tiles' edges, through all three kernels: S of one row and under the
 # 64-key and 128-row tiles; d = 33 and 100 load element by element, 8 pads one
-# k16 step.  (Below ~129 rows a backward's differing share is set by the rows
-# whose dS cancels to float32 noise: every row at S = 1, row 0 of a causal dq.)
+# k16 step.  Below ~129 rows whole rows of dq and dk cancel to float32 noise
+# (every row at S = 1: P = 1, O = V, so dP - dd = dO.V - dO.O is 0 but for
+# the rounding of two sums; row 0 of a causal dq), whose bits depend on the
+# order of the sums, so there the bfloat16 share of dq, dk and dv counts only
+# the elements above the row floor (_share_above_floor) and the rest is held
+# by the row error, as at every shape; the forward's counts every element
 FWD_EDGE_CHECKS = [(16, 16, 1, 8, True), (16, 16, 15, 33, False), (16, 16, 127, 100, True), (16, 16, 64, 64, True)]
 GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 1, 128, True)]
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
@@ -158,7 +178,10 @@ ROW_FLOOR = 2.0**-7  # a row that cancels to ~0 keeps the rounding of its terms,
 # P and dS rounded at the same points, a result differs only where float32
 # sum order carries it across a bfloat16 rounding boundary (~1e-4 of them);
 # rounding P at another maximum (the whole row's, not the running one over
-# 64-key tiles) moves 5-24% of them (CPU runs of the plain version)
+# 64-key tiles) moves 5-24% of them (CPU runs of the plain version).  At the
+# edge shapes the share of dq, dk and dv counts the elements above the row
+# floor only (see FWD_EDGE_CHECKS): those that are float32 noise of a sum
+# that cancels are held by the row error instead
 BF16_DIFF_SHARE = 0.01
 LSE_ATOL = 2e-5  # lse is float32 in both dtypes, of magnitude ~log(S) + |s|: a few float32 ulps
 # one training step through the kernels vs through the plain versions
@@ -166,6 +189,14 @@ LSE_ATOL = 2e-5  # lse is float32 in both dtypes, of magnitude ~log(S) + |s|: a 
 # largest entry (the attention outputs differ by float32 rounding, ~1e-6,
 # and the 8 blocks' backward carries that through GEMMs and LayerNorms)
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-3
+# the same in bfloat16 (weights, activations, the loss and the gradients
+# bfloat16): the attention's outputs and gradients round to bfloat16 on both
+# sides and may round a step apart, carried through 8 blocks.  Set from the
+# CUDA-core bfloat16 backward that the tensor-core one replaced, in this
+# comparison on an H100 (PERF.md §6): its loss agreed exactly and its
+# worst gradient to 0.0076 of its largest entry, one bfloat16 step (2^-7).
+# Held to one step of the loss and two of a gradient's largest entry
+BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL = 2.0**-7, 2.0**-6
 # bfloat16 decoding vs the bfloat16 forward: every activation rounds to
 # bfloat16 (2^-8) in both, in another order (einsum + softmax against the
 # flash kernel's float32 accumulation), over 8 residual blocks and the
@@ -445,6 +476,17 @@ def _row_err(got, want) -> float:
     return float(((got - want).abs().amax(-1) / scale).max())
 
 
+def _share_above_floor(got, want) -> float:
+    """The share of elements that differ at all, among those whose plain
+    value reaches the row floor of _row_err (ROW_FLOOR of the tensor's
+    largest |want| or of 1): the edge shapes' bfloat16 share.  0 where no
+    element reaches it (S = 1: dq and dk are float32 noise of a cancelled
+    sum throughout)."""
+    got, want = got.float(), want.float()
+    big = want.abs() >= ROW_FLOOR * max(float(want.abs().max()), 1.0)
+    return float((got != want)[big].float().mean()) if bool(big.any()) else 0.0
+
+
 def _flash_inputs(bhq, bhk, S, d, dtype, seed):
     """q, k, v, dO: q and dO of bhq rows, k and v of bhk."""
     import torch
@@ -473,44 +515,70 @@ def _flash_fns(names):
     return [getattr(fa, n) for n in names], [getattr(fa, f"_torch_{n}") for n in names]
 
 
-def check_forward_edges(name, edges) -> None:
-    """The forward wrapper ``name`` against its plain version at the edge
-    shapes ``edges``, float32 and bfloat16, with the tolerances of
-    ``check_flash_kernels``: twice to the same bits, and again to the same
-    bits with q off 16-byte alignment."""
+def check_edges(names, edges) -> None:
+    """The wrappers ``names`` against their plain versions at the edge
+    shapes ``edges``, with the tolerances of ``check_flash_kernels`` but for
+    the bfloat16 share of dq, dk and dv, which counts the elements above the
+    row floor (_share_above_floor; the forward's counts every element): the
+    forward in float32 and bfloat16, dq and dk/dv in bfloat16 (the
+    tensor-core bodies; the float32 backward keeps its
+    checks at the shapes of ``check_flash_kernels``, since at one row its
+    cancelled float32 noise, summed over a group of 8 heads at d = 128,
+    reaches the float32 gradient tolerance itself).  Each kernel twice to
+    the same bits, and again to the same bits with q (forward) or dO (dq,
+    dk/dv) off 16-byte alignment."""
     import torch
 
-    (fwd,), (fwd_p,) = _flash_fns((name,))
+    (fwd, bwd_dq, bwd_dkv), (fwd_p, bwd_dq_p, bwd_dkv_p) = _flash_fns(names)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
+        tol = FLASH_TOL[dname]
         for bhq, bhk, S, d, causal in edges:
             shape = (bhq, bhk, S, d, causal)
-            q, k, v, _ = _flash_inputs(bhq, bhk, S, d, dtype, seed=S + d + causal + bhq // bhk - 1)
-            out, lse = fwd(q, k, v, causal, d**-0.5)
-            again, lse2 = fwd(q, k, v, causal, d**-0.5)
-            off, lse3 = fwd(_misaligned(q), k, v, causal, d**-0.5)
-            out_p, lse_p = fwd_p(q, k, v, causal, d**-0.5)
+            q, k, v, do = _flash_inputs(bhq, bhk, S, d, dtype, seed=S + d + causal + bhq // bhk - 1)
+            scale = d**-0.5
+            out, lse = fwd(q, k, v, causal, scale)
+            again, lse2 = fwd(q, k, v, causal, scale)
+            off, lse3 = fwd(_misaligned(q), k, v, causal, scale)
+            out_p, lse_p = fwd_p(q, k, v, causal, scale)
+            pairs = [("out", out, out_p)]
+            if dtype == torch.bfloat16:
+                dd = (do.float() * out.float()).sum(-1)
+                grads, repeats, offs = ((bwd_dq(*a, lse, dd, causal, scale),) + tuple(
+                    bwd_dkv(*a, lse, dd, causal, scale)) for a in ((q, k, v, do), (q, k, v, do),
+                                                                   (q, k, v, _misaligned(do))))
+                plain = (bwd_dq_p(q, k, v, do, lse, dd, causal, scale),) + tuple(
+                    bwd_dkv_p(q, k, v, do, lse, dd, causal, scale))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(grads, repeats, offs)):
+                    fail(f"{names[1]} or {names[2]} does not repeat its bits (or not off alignment) at {shape}")
+                pairs += list(zip(("dq", "dk", "dv"), grads, plain))
             torch.cuda.synchronize()
-            err, lse_err = _row_err(out, out_p), float((lse - lse_p).abs().max())
-            share = float((out != out_p).float().mean())
             if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(out, off)
                     and torch.equal(lse, lse3)):
-                fail(f"{name} does not repeat its bits (or not off alignment) at {shape} {dname}")
-            if not (err <= FLASH_TOL[dname]["out"] and lse_err <= LSE_ATOL
-                    and (dtype == torch.float32 or share <= BF16_DIFF_SHARE)):
-                fail(f"{name} vs plain at {shape} {dname}: row {err}, differing {share}, lse {lse_err}")
-            print(json.dumps({"phase": "kernel_check", "kernel": name, "dtype": dname, "bhq": bhq, "bhk": bhk,
-                              "S": S, "d": d, "causal": causal, "max_abs_err": float((out.float() - out_p.float())
-                                                                                      .abs().max()),
-                              "lse_max_abs_err": lse_err, "row_rel_err": err, "row_rel_tol": FLASH_TOL[dname]["out"],
+                fail(f"{names[0]} does not repeat its bits (or not off alignment) at {shape} {dname}")
+            res = {key: _row_err(a, b) for key, a, b in pairs}
+            # the forward cannot cancel: its share counts every element, as at every shape
+            share = {key: float((a != b).float().mean()) if key == "out" else _share_above_floor(a, b)
+                     for key, a, b in pairs}
+            lse_err = float((lse - lse_p).abs().max())
+            bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
+            if dtype == torch.bfloat16:
+                bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
+            if bad or not lse_err <= LSE_ATOL:
+                fail(f"{'+'.join(names)} vs plain at the edge {shape} {dname}: {res}, {share}, lse {lse_err}")
+            print(json.dumps({"phase": "kernel_check", "kernel": "+".join(names if len(pairs) > 1 else names[:1]),
+                              "edge": True, "dtype": dname, "bhq": bhq, "bhk": bhk, "S": S, "d": d, "causal": causal,
+                              "max_abs_err": {key: float((a.float() - b.float()).abs().max()) for key, a, b in pairs},
+                              "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
-                              "misaligned_q_bitwise": True, "check": "pass"}), flush=True)
+                              "misaligned_bitwise": True, "check": "pass"}), flush=True)
 
 
 def check_flash_kernels(names, checks, main, edges) -> dict:
     """Each flash kernel, through the wrappers ``names`` (multi-head or
-    grouped), against its plain version on the card, and the forward alone
-    at ``edges``; returns the errors at the main path's shape ``main`` per
+    grouped), against its plain version on the card, and at the tiles'
+    edges ``edges``; returns the errors at the main path's shape ``main`` per
     dtype for the kernels line."""
     import torch
 
@@ -534,13 +602,19 @@ def check_flash_kernels(names, checks, main, edges) -> dict:
             dd = (do.float() * out.float()).sum(-1)
             dq = bwd_dq(q, k, v, do, lse, dd, causal, scale)
             dk, dv = bwd_dkv(q, k, v, do, lse, dd, causal, scale)
+            dq2 = bwd_dq(q, k, v, do, lse, dd, causal, scale)
             dk2, dv2 = bwd_dkv(q, k, v, do, lse, dd, causal, scale)
+            do_off = _misaligned(do)
+            dq3 = bwd_dq(q, k, v, do_off, lse, dd, causal, scale)
+            dk3, dv3 = bwd_dkv(q, k, v, do_off, lse, dd, causal, scale)
             out_p, lse_p = fwd_p(q, k, v, causal, scale)
             dq_p = bwd_dq_p(q, k, v, do, lse, dd, causal, scale)
             dk_p, dv_p = bwd_dkv_p(q, k, v, do, lse, dd, causal, scale)
             torch.cuda.synchronize()
-            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-                fail(f"{names[2]} is not deterministic at {shape} {name}")
+            if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                fail(f"{names[1]} or {names[2]} is not deterministic at {shape} {name}")
+            if not (torch.equal(dq, dq3) and torch.equal(dk, dk3) and torch.equal(dv, dv3)):
+                fail(f"{names[1]} or {names[2]} gives other bits for a dO off 16-byte alignment at {shape} {name}")
             res = {"out": _row_err(out, out_p), "dq": _row_err(dq, dq_p), "dk": _row_err(dk, dk_p),
                    "dv": _row_err(dv, dv_p)}
             lse_err = float((lse - lse_p).abs().max())
@@ -557,11 +631,12 @@ def check_flash_kernels(names, checks, main, edges) -> dict:
                               "bhk": bhk, "S": S, "d": d, "causal": causal, "max_abs_err": abs_err,
                               "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
-                              "misaligned_q_bitwise": True, "check": "pass"}), flush=True)
+                              "misaligned_q_bitwise": True, "misaligned_do_bitwise": True, "check": "pass"}),
+                  flush=True)
             if (bhq, bhk, S, d) == main and causal:
                 errs[name] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
                                               (max(abs_err["dk"], abs_err["dv"]), max(res["dk"], res["dv"])))))
-    check_forward_edges(names[0], edges)
+    check_edges(names, edges)
     q = torch.zeros((4, 16, 256), device="cuda")
     kv = q[:2] if names == GQA_KERNELS else q
     try:
@@ -599,23 +674,26 @@ def _path_counts(label: str, counts: dict, kernels, want: int) -> None:
         fail(f"{label} launches {counts}, want {expect}")
 
 
-def lm_train(ht, cfg: dict, kernels, label: str):
-    """A training main path: 20 Adam steps at full width, counts zeroed just before."""
+def lm_train(ht, cfg: dict, kernels, label: str, dtype: str = "float32", steps: int = LM_STEPS):
+    """A training main path: ``steps`` Adam steps at full width, the weights
+    in ``dtype``, counts zeroed just before; each step launches each kernel
+    of ``kernels`` once a block and no other flash kernel."""
     import torch
 
     from heat_tpu_torch.ops import flash_attention as fa
 
     torch.manual_seed(0)
-    lm = ht.nn.models.TransformerLM(**cfg)
+    lm = ht.nn.models.TransformerLM(**cfg).to(getattr(torch, dtype))
     n_params = sum(p.numel() for p in lm.parameters())
     opt = ht.optim.DataParallelOptimizer("adam", lm.parameters(), lr=LM_LR)
-    batches = torch.from_numpy(lm_batches(LM_STEPS + 1, seed=11)).cuda()
+    batches = torch.from_numpy(lm_batches(steps + 1, seed=11)).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for key in fa.launch_counts:
         fa.launch_counts[key] = 0
     losses, step_s = [], []
-    for step in range(LM_STEPS):
+    for step in range(steps):
+        before = dict(fa.launch_counts)
         t0 = time.perf_counter()
         loss = lm_loss(ht, lm, batches[step])
         opt.zero_grad()
@@ -624,20 +702,22 @@ def lm_train(ht, cfg: dict, kernels, label: str):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss.detach()))
+        _path_counts(f"{label}, step {step}", {key: fa.launch_counts[key] - before[key] for key in before}, kernels,
+                     cfg["depth"])
     counts = dict(fa.launch_counts)
-    _path_counts(label, counts, kernels, cfg["depth"] * LM_STEPS)
+    _path_counts(label, counts, kernels, cfg["depth"] * steps)
     if not all(x == x and abs(x) < float("inf") for x in losses) or not losses[-1] < losses[0]:
         fail(f"{label} loss did not fall: {losses}")
     steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
     print(json.dumps({"phase": "main_path", "path": label, **cfg, "params": n_params,
-                      "dtype": "float32", "batch": [LM_BATCH, LM_SEQ + 1], "optimizer": "adam", "lr": LM_LR,
-                      "steps": LM_STEPS, "first_step_ms": step_s[0] * 1e3, "step_ms_median": steady * 1e3,
+                      "dtype": dtype, "batch": [LM_BATCH, LM_SEQ + 1], "optimizer": "adam", "lr": LM_LR,
+                      "steps": steps, "first_step_ms": step_s[0] * 1e3, "step_ms_median": steady * 1e3,
                       "step_ms": [round(t * 1e3, 3) for t in step_s],
                       "train_tokens_per_s": LM_BATCH * LM_SEQ / steady, "first_loss": losses[0],
                       "last_loss": losses[-1], "losses": [round(x, 4) for x in losses],
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(), "guard_stats": opt.guard_stats(),
                       "launch_counts": counts}), flush=True)
-    return lm, opt, counts, batches[LM_STEPS]
+    return lm, opt, counts, batches[steps]
 
 
 def _kernel_class(name: str) -> str:
@@ -645,7 +725,7 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_" in low:
         return "flash_attention"
-    if any(word in low for word in ("gemm", "gemv", "cutlass", "xmma", "cublas", "sm90_")):
+    if any(word in low for word in ("gemm", "gemv", "cutlass", "xmma", "cublas", "sm90_", "nvjet")):
         return "gemm"
     if any(word in low for word in ("softmax", "nll", "cross_entropy")):
         return "softmax_cross_entropy"
@@ -689,20 +769,25 @@ def profile_row(fn, label: str) -> dict:
             "device_ms_by_class": {k: round(v, 3) for k, v in sorted(classes.items(), key=lambda kv: -kv[1])}}
 
 
-def profile_training_step(ht, lm, opt, batch, label: str) -> None:
-    """One training step under the profiler."""
+def profile_training_step(ht, lm, opt, batch, label: str, dtype: str = "float32") -> dict:
+    """One training step under the profiler; prints and returns its row,
+    with the flash kernels' share of the device's busy time."""
     def step():
         loss = lm_loss(ht, lm, batch)
         opt.zero_grad()
         loss.backward()
         opt.step()
 
-    profile_device(step, f"{label} step (float32)")
+    row = profile_row(step, f"{label} step ({dtype})")
+    row["flash_share_of_busy"] = row["device_ms_by_class"].get("flash_attention", 0.0) / row["device_busy_ms"]
+    print(json.dumps(row), flush=True)
+    return row
 
 
-def lm_step_vs_plain(ht, lm, batch, kernels, label: str) -> None:
+def lm_step_vs_plain(ht, lm, batch, kernels, label: str, tol=(STEP_LOSS_RTOL, STEP_GRAD_RTOL)) -> dict:
     """One step's loss and gradients through the kernels and through their
-    plain versions, substituted for the path's three wrappers by mock.patch."""
+    plain versions, substituted for the path's three wrappers by mock.patch;
+    held to ``tol`` = (loss rtol, gradient rtol).  Returns the printed row."""
     from unittest import mock
 
     from heat_tpu_torch.ops import flash_attention as fa
@@ -729,15 +814,19 @@ def lm_step_vs_plain(ht, lm, batch, kernels, label: str) -> None:
     if fa.launch_counts != before:
         fail("the plain step launched a kernel")
     lm.zero_grad(set_to_none=True)
-    worst = max(((n, float((grads_k[n] - grads_p[n]).abs().max()) / max(float(grads_p[n].abs().max()), 1e-30))
-                 for n in grads_p), key=lambda t: t[1])
+    # each gradient's largest error over its largest entry
+    rel = {n: float((grads_k[n] - grads_p[n]).abs().max()) / max(float(grads_p[n].abs().max()), 1e-30)
+           for n in grads_p}
+    worst = max(rel.items(), key=lambda t: t[1])
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(json.dumps({"phase": "one_step_vs_plain", "path": label, "loss": loss_k, "plain_loss": loss_p,
-                      "loss_rel_err": loss_rel,
-                      "worst_grad": worst[0], "worst_grad_rel_err": worst[1], "params_checked": len(grads_p),
-                      "loss_rtol": STEP_LOSS_RTOL, "grad_rtol": STEP_GRAD_RTOL}), flush=True)
-    if not loss_rel <= STEP_LOSS_RTOL or not worst[1] <= STEP_GRAD_RTOL:
+    row = {"phase": "one_step_vs_plain", "path": label, "dtype": str(next(lm.parameters()).dtype).replace(
+        "torch.", ""), "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_rel, "worst_grad": worst[0],
+           "worst_grad_rel_err": worst[1], "median_grad_rel_err": sorted(rel.values())[len(rel) // 2],
+           "params_checked": len(grads_p), "loss_rtol": tol[0], "grad_rtol": tol[1]}
+    print(json.dumps(row), flush=True)
+    if not loss_rel <= tol[0] or not worst[1] <= tol[1]:
         fail(f"one step through the kernels vs plain: loss {loss_rel}, gradient {worst}")
+    return row
 
 
 def lm_generate(ht, lm, fwd_kernel: str, label: str) -> None:
@@ -794,6 +883,24 @@ def lm_generate(ht, lm, fwd_kernel: str, label: str) -> None:
     if not rel <= DECODE_RTOL:
         fail(f"decode vs forward logits differ by {rel} of their largest magnitude")
     profile_device(lambda: lm.generate(prompt[:, :8], 56), f"{label}, 63 decode steps (bfloat16)")
+
+
+def lm_train_bf16(ht) -> dict:
+    """The multi-head LM at LM's width cast to bfloat16: LM_BF16_STEPS Adam
+    steps on batches of the float32 phase's shape (each launching every
+    multi-head flash kernel once a block, the backward's on the tensor
+    cores), a profiled step with the flash share, and one step against the
+    plain attention under BF16_STEP_*.  Returns the multi-head launch counts."""
+    import torch
+
+    label = "TransformerLM bf16 training"
+    lm, opt, counts, batch = lm_train(ht, LM, MHA_KERNELS, label, "bfloat16", LM_BF16_STEPS)
+    profile_training_step(ht, lm, opt, batch, label, "bfloat16")
+    lm_step_vs_plain(ht, lm, batch, MHA_KERNELS, "TransformerLM (bfloat16)",
+                     (BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_RTOL))
+    del lm, opt, batch
+    torch.cuda.empty_cache()
+    return {key: counts[key] for key in MHA_KERNELS}
 
 
 def flash_bound(kernel: str, bhq: int, bhk: int, S: int, d: int, itemsize: int):
@@ -872,15 +979,14 @@ def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
 
 
 def flash_cores(name: str) -> dict:
-    """What a flash wrapper's kernel multiplies on, by dtype: the bfloat16
-    forward runs flash_fwd_tc.cuh's mma.sync body, the rest their CUDA-core
-    bodies in flash_attention.cu."""
-    fwd = name.endswith("_fwd")
-    return {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores" if fwd else "CUDA cores"}
+    """What a flash wrapper's kernel multiplies on, by dtype: every bfloat16
+    launch runs an mma.sync body (flash_fwd_tc.cuh, flash_bwd_tc.cuh), every
+    float32 launch its CUDA-core body in flash_attention.cu."""
+    return {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores"}
 
 
 def flash_sources(name: str) -> dict:
-    return {"float32": FLASH_SOURCE, "bfloat16": FWD_TC_SOURCE if name.endswith("_fwd") else FLASH_SOURCE}
+    return {"float32": FLASH_SOURCE, "bfloat16": FWD_TC_SOURCE if name.endswith("_fwd") else BWD_TC_SOURCE}
 
 
 def ptxas_report(log: str, word: str) -> list:
@@ -908,9 +1014,10 @@ def ptxas_report(log: str, word: str) -> list:
     return rows
 
 
-def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None) -> list:
+def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, launches_bf16=None) -> list:
     """The kernels line's rows of the wrappers ``names``: float32 at the
-    training step's shape ``main``, with bfloat16 at that shape and, given
+    training step's shape ``main``, with bfloat16 at that shape (and its
+    launches in the bfloat16 training phase, ``launches_bf16``) and, given
     ``bench``, at the attention benchmark's."""
     import torch
 
@@ -930,7 +1037,8 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None) ->
             "row_rel_err": errs["float32"][name][1],
             **f32[name], "library_call": lib_call,
             "bfloat16": {**bf16[name], "max_abs_err": errs["bfloat16"][name][0],
-                         "row_rel_err": errs["bfloat16"][name][1]},
+                         "row_rel_err": errs["bfloat16"][name][1],
+                         **({"launches": launches_bf16[name]} if launches_bf16 else {})},
             **({"bench_shape_bfloat16": at_bench[name]} if bench else {}), "check": "pass",
         })
     return rows
@@ -970,13 +1078,18 @@ def check_pos_kernels() -> dict:
             dd = (do.float() * out.float()).sum(-1) - g_lse  # the lse cotangent folds into dd
             dq = fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
             dk, dv = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+            dq2 = fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
             dk2, dv2 = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+            k_off = _misaligned(k)
+            dq3 = fa.flash_pos_bwd_dq(q, k_off, v, do, lse, dd, *args)
+            dk3, dv3 = fa.flash_pos_bwd_dkv(q, k_off, v, do, lse, dd, *args)
             torch.cuda.synchronize()
-            if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(dk, dk2)
-                    and torch.equal(dv, dv2)):
+            if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+                    and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 fail(f"the positions kernels do not repeat bit for bit at {shape} {name}")
-            if not (torch.equal(out, off) and torch.equal(lse, lse3)):
-                fail(f"flash_pos_fwd gives other bits for a k off 16-byte alignment at {shape} {name}")
+            if not (torch.equal(out, off) and torch.equal(lse, lse3) and torch.equal(dq, dq3)
+                    and torch.equal(dk, dk3) and torch.equal(dv, dv3)):
+                fail(f"the positions kernels give other bits for a k off 16-byte alignment at {shape} {name}")
             out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
             dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
             dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
@@ -988,8 +1101,9 @@ def check_pos_kernels() -> dict:
             bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
             if dtype == torch.bfloat16:
                 bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
-            if qo + Sq <= ko and causal and (out.any() or not bool((lse == -1e30).all())):
-                bad["dead_block"] = "a block after every query gave out != 0 or lse != -1e30"
+            if qo + Sq <= ko and causal and (out.any() or dq.any() or dk.any() or dv.any()
+                                             or not bool((lse == -1e30).all())):
+                bad["dead_block"] = "a block after every query gave out, dq, dk or dv != 0 or lse != -1e30"
             if bad or not lse_err <= LSE_ATOL:
                 fail(f"positions kernels vs plain at {shape} {name}: {bad}, {res}, lse {lse_err}")
             block = next((b for b, offs in POS_BLOCKS.items() if (B, Sq, Sk, d) == POS_MAIN and offs == (qo, ko)),
@@ -1303,8 +1417,9 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if any(word in line for word in ("entry function", "registers", "spill", "error")):
             print("ptxas:", line.strip())
-    print(json.dumps({"phase": "ptxas", "kernel": "flash_fwd_bf16_kernel", "source": FWD_TC_SOURCE,
-                      "instances": ptxas_report(_build.build_info["log"], "flash_fwd_bf16_kernel")}), flush=True)
+    for kernel, source in TC_KERNELS.items():
+        print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
+                          "instances": ptxas_report(_build.build_info["log"], kernel)}), flush=True)
 
     # 2. kernels against their plain versions
     for dtype in (torch.float32, torch.bfloat16):
@@ -1357,10 +1472,13 @@ def main() -> int:
         lm_generate(ht, lm, kernels[0], f"{label} generation")
         del lm, opt, batch
         torch.cuda.empty_cache()
+    # the multi-head LM trained in bfloat16: every bfloat16 kernel on the tensor cores
+    launches_bf16 = lm_train_bf16(ht)
     # 5. the sequence-parallel LM over 2 ranks on this card
     launches.update(ring_train())
 
-    rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH)
+    rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
+                       launches_bf16=launches_bf16)
     rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
     rows += pos_rows(launches, pos_errs)
 

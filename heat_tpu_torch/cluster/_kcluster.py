@@ -17,6 +17,7 @@ import torch
 from ..core import random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
+from ..core.factories import narrow_64bit
 from ..core.sanitation import sanitize_in
 from ..ops.kmeans_kernels import fused_assign, sq_dist_blocks
 
@@ -77,7 +78,9 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             if isinstance(self.init, DNDarray):
                 init = self.init.larray if not self.init.is_distributed() else torch.from_numpy(self.init.numpy())
             else:
-                init = torch.as_tensor(np.array(self.init) if isinstance(self.init, np.ndarray) else self.init)
+                # numpy centres are ingested as factories.array ingests data: 64 bits narrowed
+                init = torch.as_tensor(narrow_64bit(np.array(self.init)) if isinstance(self.init, np.ndarray)
+                                       else self.init)
             if tuple(init.shape) != (k, d):
                 raise ValueError(f"initial centers must have shape {(k, d)}, got {tuple(init.shape)}")
             return init.to(device=tdev, dtype=torch.float32).contiguous(), init.dtype

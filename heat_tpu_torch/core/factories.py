@@ -21,6 +21,18 @@ from .stride_tricks import sanitize_axis, sanitize_shape
 __all__ = ["arange", "array", "asarray", "empty", "full", "ones", "zeros"]
 
 
+# The 64-bit types and what the reference makes of them on ingest: JAX with
+# x64 off keeps none (jnp.asarray in heat_tpu/core/factories.py::array; full's
+# float64 fill), so default ingest of numpy and Python data narrows them.
+_NARROWED = {types.float64: types.float32, types.int64: types.int32, types.complex128: types.complex64}
+
+
+def narrow_64bit(npa: np.ndarray) -> np.ndarray:
+    """``npa`` with a float64, int64 or complex128 dtype narrowed to 32 bits, as the reference ingests it."""
+    narrow = _NARROWED.get(types.canonical_heat_type(npa.dtype)) if npa.dtype.kind in "fic" else None
+    return npa if narrow is None else npa.astype(narrow._name)
+
+
 def _sanitize(device, comm):
     device = sanitize_device(device)
     return device, device.torch_device, sanitize_comm(comm)
@@ -42,7 +54,10 @@ def array(
     ``split=k`` treats ``obj`` as the GLOBAL array and keeps this rank's
     chunk of axis ``k``; ``is_split=k`` treats ``obj`` as this rank's LOCAL
     chunk along ``k`` and derives the global shape from all ranks.
-    A Python scalar or list of floats becomes float32, as in torch.
+    Without ``dtype``, numpy and Python data of 64 bits is narrowed as the
+    reference ingests it (float64 to float32, int64 to int32, complex128 to
+    complex64); an explicit ``dtype`` is kept, float64 too, and so is the
+    dtype of a ``torch.Tensor`` or DNDarray given as it is.
     """
     if split is not None and is_split is not None:
         raise ValueError("split and is_split are mutually exclusive")
@@ -62,8 +77,8 @@ def array(
         npa = np.asarray(obj)
         if npa.dtype == object:
             raise TypeError("invalid data of type object")
-        if not isinstance(obj, np.ndarray) and npa.dtype == np.float64:
-            npa = npa.astype(np.float32)
+        if dtype is None:
+            npa = narrow_64bit(npa)
         t = torch.from_numpy(np.array(npa, order="C", copy=not npa.flags.writeable))
     device, tdev, comm = _sanitize(device, comm)
     if dtype is not None:
@@ -116,8 +131,9 @@ def empty(shape, dtype=types.float32, split=None, device=None, comm=None, order=
 
 
 def full(shape, fill_value, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
-    if dtype is None:
+    if dtype is None:  # a 64-bit fill narrowed as array() narrows data
         dtype = types.heat_type_of(fill_value)
+        dtype = _NARROWED.get(dtype, dtype)
 
     def fill(lshape, dtype, device):
         return torch.full(lshape, fill_value, dtype=dtype, device=device)

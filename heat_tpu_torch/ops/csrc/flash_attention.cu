@@ -48,12 +48,14 @@
 // kernels take bhq and bhk, and nothing else of the head layout.  Multi-head
 // attention is g = 1.  K/V are never repeated in memory.
 //
-// Which body runs: every float32 launch, and the bfloat16 backward (dq,
-// dk/dv), run the CUDA-core bodies below.  The bfloat16 forward of all
-// three wrappers (flash_fwd, flash_gqa_fwd, flash_pos_fwd) runs
-// flash_fwd_bf16_kernel, the tensor-core body in flash_fwd_tc.cuh, which
-// has its own note; fwd_launch routes it, and the bfloat16 instance of
-// flash_fwd_kernel is not built.
+// Which body runs: every float32 launch runs the CUDA-core bodies below.
+// Every bfloat16 launch runs a tensor-core body (mma.sync), each with its
+// own note: the forward of all three wrappers (flash_fwd, flash_gqa_fwd,
+// flash_pos_fwd) flash_fwd_bf16_kernel in flash_fwd_tc.cuh, routed by
+// fwd_launch; dq and dk/dv of all three (flash_bwd_*, flash_gqa_bwd_*,
+// flash_pos_bwd_*) flash_bwd_dq_bf16_kernel and flash_bwd_dkv_bf16_kernel
+// in flash_bwd_tc.cuh, routed by dq_launch and dkv_launch.  No bfloat16
+// instance of the CUDA-core bodies is built.
 //
 // Semantics: top-left causal (a query at row i sees keys 0..i) or full
 // attention over (S, d) rows; storage float32 or bfloat16, all
@@ -92,8 +94,7 @@
 //     64 x 64 product in registers, fed by 16-byte shared-memory reads;
 //   * the ragged last tile is masked inside the kernel (rows >= S load as
 //     zeros, keys >= S are masked); S is never padded in device memory.
-// The bfloat16 backward on the tensor cores, on the forward's fragment
-// code, and wgmma/TMA pipelines are later work.
+// wgmma/TMA pipelines for the tensor-core bodies are later work.
 //
 // The positions kernels at the ring step's shape, (B*H, Sq, Sk, d) = (16,
 // 2048, 2048, 64), count only the (q, k) pairs they must compute: a past
@@ -233,6 +234,20 @@ struct StaticMask {
   __device__ __forceinline__ bool fwd_tile_full(int2 keys, int2 span) const {
     return keys.y < S && (!causal || keys.y <= span.x);
   }
+  // the bfloat16 dk/dv (flash_bwd_tc.cuh), by warps of 16 keys against a
+  // 64-query tile: (min, max) position of the warp's keys from r0, and of the
+  // queries of tile q0 (the tile's liveness is the loop's bounds, query_begin)
+  __device__ __forceinline__ int2 bwd_warp_span(int r0) const { return make_int2(r0, r0 + 15); }
+  __device__ __forceinline__ int2 bwd_tile_range(int q0) const { return make_int2(q0, q0 + BQ - 1); }
+  // some query of the tile sees some key of the warp: under causal, not every key is after its last query
+  __device__ __forceinline__ bool bwd_warp_live(int2 queries, int2 keys) const {
+    return !causal || keys.x <= queries.y;
+  }
+  // every key of the warp is live for every query of the tile: no element
+  // mask (queries past the rows: the caller checks them)
+  __device__ __forceinline__ bool bwd_tile_full(int2 queries, int2 keys) const {
+    return keys.y < S && (!causal || keys.y <= queries.x);
+  }
 };
 
 // min / max over the positions [r0, r0 + 64) of a tile that lie below n,
@@ -245,6 +260,22 @@ __device__ __forceinline__ int tile_min(const int* __restrict__ pos, int r0, int
 __device__ __forceinline__ int tile_max(const int* __restrict__ pos, int r0, int n) {
   const int lane = threadIdx.x % 32, a = r0 + lane, b = a + 32;
   return __reduce_max_sync(0xffffffffu, max(a < n ? pos[a] : INT_MIN, b < n ? pos[b] : INT_MIN));
+}
+
+// (min, max) over the positions [r0, r0 + 16) that lie below n, the same in
+// every lane of the warp (lanes 0-15 and 16-31 read the same 16)
+__device__ __forceinline__ int2 warp_span(const int* __restrict__ pos, int r0, int n) {
+  const int r = r0 + int(threadIdx.x % 16);
+  return make_int2(__reduce_min_sync(0xffffffffu, r < n ? pos[r] : INT_MAX),
+                   __reduce_max_sync(0xffffffffu, r < n ? pos[r] : INT_MIN));
+}
+// (min, max) over the positions [r0, r0 + 64) that lie below n: one read of
+// two positions a lane, the same in every lane
+__device__ __forceinline__ int2 tile_span(const int* __restrict__ pos, int r0, int n) {
+  const int lane = threadIdx.x % 32, a = r0 + lane, b = a + 32;
+  const int pa = a < n ? pos[a] : 0, pb = b < n ? pos[b] : 0;
+  return make_int2(__reduce_min_sync(0xffffffffu, min(a < n ? pa : INT_MAX, b < n ? pb : INT_MAX)),
+                   __reduce_max_sync(0xffffffffu, max(a < n ? pa : INT_MIN, b < n ? pb : INT_MIN)));
 }
 
 // The mask of the positions block (_masked_scores_pos): q of Sq rows, K/V
@@ -281,17 +312,9 @@ struct PosMask {
   // (min, max) position of the warp's rows from r0 below Sq (lanes 0-15 and
   // 16-31 read the same 16), and of the keys of tile k0 below Sk: one read
   // of two positions a lane, taken once a tile by each warp
-  __device__ __forceinline__ int2 fwd_warp_span(int r0) const {
-    const int r = r0 + int(threadIdx.x % 16);
-    return make_int2(__reduce_min_sync(0xffffffffu, r < Sq ? qpos[r] : INT_MAX),
-                     __reduce_max_sync(0xffffffffu, r < Sq ? qpos[r] : INT_MIN));
-  }
+  __device__ __forceinline__ int2 fwd_warp_span(int r0) const { return warp_span(qpos, r0, Sq); }
   __device__ __forceinline__ int2 fwd_tile_range(int k0) const {
-    if (!masked) return make_int2(0, 0);
-    const int lane = threadIdx.x % 32, a = k0 + lane, b = a + 32;
-    const int pa = a < Sk ? kpos[a] : 0, pb = b < Sk ? kpos[b] : 0;
-    return make_int2(__reduce_min_sync(0xffffffffu, min(a < Sk ? pa : INT_MAX, b < Sk ? pb : INT_MAX)),
-                     __reduce_max_sync(0xffffffffu, max(a < Sk ? pa : INT_MIN, b < Sk ? pb : INT_MIN)));
+    return masked ? tile_span(kpos, k0, Sk) : make_int2(0, 0);
   }
   // key_live on the tile's range
   __device__ __forceinline__ bool fwd_block_live(int2 keys, int qmax) const {
@@ -306,9 +329,26 @@ struct PosMask {
   __device__ __forceinline__ bool fwd_tile_full(int2 keys, int2 span) const {
     return !masked || (keys.y < s_valid && (!causal || keys.y <= span.x));
   }
+  // the bfloat16 dk/dv (flash_bwd_tc.cuh), by warps of 16 keys against a
+  // 64-query tile: (min, max) position of the warp's keys from r0 below Sk,
+  // and of the queries of tile q0 below Sq; a tile is live for the block as
+  // fwd_block_live(the block's keys, the tile's max query) says
+  __device__ __forceinline__ int2 bwd_warp_span(int r0) const { return warp_span(kpos, r0, Sk); }
+  __device__ __forceinline__ int2 bwd_tile_range(int q0) const {
+    return masked ? tile_span(qpos, q0, Sq) : make_int2(0, 0);
+  }
+  // some key of the warp is not pad and, under causal, not after every query of the tile
+  __device__ __forceinline__ bool bwd_warp_live(int2 queries, int2 keys) const {
+    return !masked || (keys.x < s_valid && (!causal || keys.x <= queries.y));
+  }
+  // every key of the warp is live for every query of the tile: no element mask
+  __device__ __forceinline__ bool bwd_tile_full(int2 queries, int2 keys) const {
+    return !masked || (keys.y < s_valid && (!causal || keys.y <= queries.x));
+  }
 };
 
 #include "flash_fwd_tc.cuh"  // the bfloat16 forward: flash_fwd_bf16_kernel
+#include "flash_bwd_tc.cuh"  // the bfloat16 backward: flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel
 
 template <int D>
 constexpr size_t fwd_smem() {  // qt, kt [D][TS]; vs [BK][D + PAD]; pt [BK][TS]
@@ -619,11 +659,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 // Blocks of a grid over ``rows`` rows of n positions in 64-row tiles.
 int64_t tiles_of(int64_t rows, int n) { return rows * ((int64_t(n) + 63) / 64); }
 
-// Check the shape and set the kernel's dynamic shared memory; 0 or an error
-// code.  ``blocks`` is the grid: query tiles for the forward and dq, key
-// tiles for dk/dv.
-template <typename Kernel, typename Mask>
-int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t blocks, const Mask& mask) {
+// Check the shape, set the kernel's dynamic shared memory and launch it on
+// ``blocks`` blocks of ``threads`` threads with ``args``; 0 or an error code.
+// ``blocks`` is the grid: query tiles for the forward and dq, key tiles for
+// dk/dv.
+template <typename Mask, typename... P, typename... A>
+int launch(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int64_t bhq, int64_t bhk, const Mask& mask,
+           cudaStream_t stream, A... args) {
   const bool rows_ok = bhk == 0 ? bhq == 0 : bhq >= 0 && bhk > 0 && bhq % bhk == 0;
   if (!rows_ok || mask.q_rows() < 0 || mask.k_rows() < 0 || blocks > 0x7fffffff) return kErrBadShape;
   int dev = 0, max_smem = 0;
@@ -631,69 +673,80 @@ int prepare(Kernel kern, size_t smem, int64_t bhq, int64_t bhk, int64_t blocks, 
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return int(err);
   if (smem > size_t(max_smem)) return kErrSharedMemory;
-  return int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
-}
-
-// The bfloat16 forward on the tensor cores: VEC (16-byte loads) where d % 8
-// == 0 and every operand is 16-byte aligned, else element by element.
-template <int D, bool VEC, typename Mask>
-int fwd_bf16_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk,
-                    int d, float scale, Mask mask, cudaStream_t stream) {
-  const int64_t blocks = tiles_of(bhq, mask.q_rows());
-  const int err = prepare(flash_fwd_bf16_kernel<D, VEC, Mask>, fwd_bf16_smem<D>(), bhq, bhk, blocks, mask);
-  if (err != 0) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
   if (blocks == 0) return 0;
-  flash_fwd_bf16_kernel<D, VEC, Mask><<<int(blocks), 32 * kFwdWarps, fwd_bf16_smem<D>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, int(bhq), d, int(bhq / bhk), scale,
-      mask);
+  kern<<<int(blocks), threads, smem, stream>>>(args...);
   return int(cudaGetLastError());
 }
+
+// Query heads per K/V row; launch checks the rows before it launches.
+int group_of(int64_t bhq, int64_t bhk) { return bhk > 0 ? int(bhq / bhk) : 0; }
+
+// The bfloat16 kernels on the tensor cores take VEC (16-byte loads and
+// stores) where d % 8 == 0 and every operand is 16-byte aligned, else go
+// element by element.
+template <typename... P>
+bool vec_ok(int d, const P*... ptrs) {
+  return d % 8 == 0 && ((reinterpret_cast<uintptr_t>(ptrs) | ...) % 16) == 0;
+}
+
+using B = __nv_bfloat16;
 
 template <typename T, int D, typename Mask>
 int fwd_launch(const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq, int64_t bhk, int d,
                float scale, Mask mask, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const bool vec = d % 8 == 0 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-    return vec ? fwd_bf16_launch<D, true>(q, k, v, out, lse, bhq, bhk, d, scale, mask, stream)
-               : fwd_bf16_launch<D, false>(q, k, v, out, lse, bhq, bhk, d, scale, mask, stream);
+  const int64_t blocks = tiles_of(bhq, mask.q_rows());
+  const int g = group_of(bhq, bhk);
+  if constexpr (std::is_same_v<T, B>) {
+    const auto kern = vec_ok(d, q, k, v, out) ? flash_fwd_bf16_kernel<D, true, Mask>
+                                              : flash_fwd_bf16_kernel<D, false, Mask>;
+    return launch(kern, fwd_bf16_smem<D>(), 32 * kFwdWarps, blocks, bhq, bhk, mask, stream,
+                  static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<B*>(out),
+                  lse, int(bhq), d, g, scale, mask);
   } else {
-    const int64_t blocks = tiles_of(bhq, mask.q_rows());
-    const int err = prepare(flash_fwd_kernel<T, D, Mask>, fwd_smem<D>(), bhq, bhk, blocks, mask);
-    if (err != 0) return err;
-    if (blocks == 0) return 0;
-    flash_fwd_kernel<T, D, Mask><<<int(blocks), THREADS, fwd_smem<D>(), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), lse, d,
-        int(bhq / bhk), scale, mask);
-    return int(cudaGetLastError());
+    return launch(flash_fwd_kernel<T, D, Mask>, fwd_smem<D>(), THREADS, blocks, bhq, bhk, mask, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
+                  lse, d, g, scale, mask);
   }
 }
 
+// bfloat16 dq and dk/dv run on the tensor cores (flash_bwd_tc.cuh)
 template <typename T, int D, typename Mask>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
               void* dq, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {
   const int64_t blocks = tiles_of(bhq, mask.q_rows());
-  const int err = prepare(flash_bwd_dq_kernel<T, D, Mask>, dq_smem<D>(), bhq, bhk, blocks, mask);
-  if (err != 0) return err;
-  if (blocks == 0) return 0;
-  flash_bwd_dq_kernel<T, D, Mask><<<int(blocks), THREADS, dq_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      dd, static_cast<T*>(dq), d, int(bhq / bhk), scale, mask);
-  return int(cudaGetLastError());
+  const int g = group_of(bhq, bhk);
+  if constexpr (std::is_same_v<T, B>) {
+    const auto kern = vec_ok(d, q, k, v, dout, dq) ? flash_bwd_dq_bf16_kernel<D, true, Mask>
+                                                   : flash_bwd_dq_bf16_kernel<D, false, Mask>;
+    return launch(kern, dq_bf16_smem<D>(), 32 * kBwdWarps, blocks, bhq, bhk, mask, stream,
+                  static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
+                  static_cast<const B*>(dout), lse, dd, static_cast<B*>(dq), int(bhq), d, g, scale, mask);
+  } else {
+    return launch(flash_bwd_dq_kernel<T, D, Mask>, dq_smem<D>(), THREADS, blocks, bhq, bhk, mask, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), lse, dd, static_cast<T*>(dq), d, g, scale, mask);
+  }
 }
 
 template <typename T, int D, typename Mask>
 int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
                void* dk, void* dv, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {
   const int64_t blocks = tiles_of(bhk, mask.k_rows());
-  const int err = prepare(flash_bwd_dkv_kernel<T, D, Mask>, dkv_smem<D>(), bhq, bhk, blocks, mask);
-  if (err != 0) return err;
-  if (blocks == 0) return 0;
-  flash_bwd_dkv_kernel<T, D, Mask><<<int(blocks), THREADS, dkv_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      dd, static_cast<T*>(dk), static_cast<T*>(dv), d, int(bhq / bhk), scale, mask);
-  return int(cudaGetLastError());
+  const int g = group_of(bhq, bhk);
+  if constexpr (std::is_same_v<T, B>) {
+    const auto kern = vec_ok(d, q, k, v, dout, dk, dv) ? flash_bwd_dkv_bf16_kernel<D, true, Mask>
+                                                       : flash_bwd_dkv_bf16_kernel<D, false, Mask>;
+    return launch(kern, dkv_bf16_smem<D>(), 32 * kBwdWarps, blocks, bhq, bhk, mask, stream,
+                  static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
+                  static_cast<const B*>(dout), lse, dd, static_cast<B*>(dk), static_cast<B*>(dv), int(bhk), d, g,
+                  scale, mask);
+  } else {
+    return launch(flash_bwd_dkv_kernel<T, D, Mask>, dkv_smem<D>(), THREADS, blocks, bhq, bhk, mask, stream,
+                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(dout), lse, dd, static_cast<T*>(dk), static_cast<T*>(dv), d, g, scale, mask);
+  }
 }
 
 // Dispatch on the storage type and on d: tiles are zero-padded to D = 64 or 128 columns.

@@ -151,6 +151,68 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
+// The A fragment (16 x 16) of rows [r0, r0 + 16) and columns [c0, c0 + 16)
+// of a row-major shared tile with row stride SD
+template <int SD>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int r0, int c0, int lane) {
+  ldsm_x4(a, smem_u32(tile + (r0 + lane % 8 + (lane / 8 % 2) * 8) * SD + c0 + (lane / 16) * 8));
+}
+// The B fragments of two n8 tiles (b[0..1] columns n0.., b[2..3] n0 + 8..)
+// with k in [k0, k0 + 16), from a row-major [n][k] shared tile
+template <int SD>
+__device__ __forceinline__ void ldsm_b(uint32_t (&b)[4], const __nv_bfloat16* tile, int n0, int k0, int lane) {
+  ldsm_x4(b, smem_u32(tile + (n0 + lane % 8 + (lane / 16) * 8) * SD + k0 + (lane / 8 % 2) * 8));
+}
+// The same from a row-major [k][n] shared tile, read transposed
+template <int SD>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&b)[4], const __nv_bfloat16* tile, int k0, int n0, int lane) {
+  ldsm_x4_trans(b, smem_u32(tile + (k0 + lane % 8 + (lane / 8 % 2) * 8) * SD + n0 + (lane / 16) * 8));
+}
+
+// The A fragment of 16 rows and the 16 columns [16 kk, 16 kk + 16) of a
+// float32 accumulator x[n8 tile][4], rounded to bfloat16
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[N][4], int kk) {
+  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+// A warp's float32 accumulator of 16 rows x D columns, rounded to bfloat16,
+// into its 16 staged rows so[16][D + kTcPad], then rows [r0, r0 + 16) of
+// the row-major (n, d) dst below n: 16-byte rows with VEC, else element by
+// element
+template <int D, bool VEC>
+__device__ __forceinline__ void store_acc_bf16(__nv_bfloat16* __restrict__ dst, __nv_bfloat16* so,
+                                               const float (&acc)[D / 8][4], int r0, int n, int d, int lane) {
+  constexpr int SD = D + kTcPad;
+  const int g = lane / 4, t = lane % 4;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * SD + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+  __syncwarp();
+  if constexpr (VEC) {
+    constexpr int C = D / 8;
+#pragma unroll
+    for (int e = lane; e < 16 * C; e += 32) {
+      const int r = e / C, c = e % C;
+      if (r0 + r < n && c * 8 < d)
+        *reinterpret_cast<uint4*>(dst + int64_t(r0 + r) * d + c * 8) =
+            *reinterpret_cast<const uint4*>(so + r * SD + c * 8);
+    }
+  } else {
+    for (int e = lane; e < 16 * D; e += 32) {
+      const int r = e / D, c = e % D;
+      if (r0 + r < n && c < d) dst[int64_t(r0 + r) * d + c] = so[r * SD + c];
+    }
+  }
+}
+
 template <int D>
 constexpr size_t fwd_bf16_smem() {  // sq [BQ][D + pad]; sk, sv [2][BK][D + pad]
   return sizeof(__nv_bfloat16) * (BQ + 4 * BK) * (D + kTcPad);
@@ -177,7 +239,6 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
   const int q0 = iq * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // a fragment's row (and row + 8) and column pair
-  const int mi = lane / 8, mr = lane % 8;  // the ldmatrix matrix and row whose address this lane gives
   const int wq0 = q0 + warp * 16;          // the warp's first query row
   const int64_t kv_base = int64_t(bh / group) * Sk * d;
   q += int64_t(bh) * Sq * d;
@@ -210,8 +271,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
 
   uint32_t qf[KD][4];  // A fragments of the warp's 16 rows, d in k16 steps
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldsm_x4(qf[kd], smem_u32(sq + (warp * 16 + mr + (mi % 2) * 8) * SD + kd * 16 + (mi / 2) * 8));
+  for (int kd = 0; kd < KD; ++kd) ldsm_a<SD>(qf[kd], sq, warp * 16, kd * 16, lane);
 
   const int2 span = mask.fwd_warp_span(wq0);  // the warp's query positions (min, max)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NO][4];  // m in log2 units
@@ -236,7 +296,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
 #pragma unroll
         for (int j = 0; j < NS; j += 2) {  // key tiles j and j + 1
           uint32_t b[4];
-          ldsm_x4(b, smem_u32(ks + (j * 8 + mr + (mi / 2) * 8) * SD + kd * 16 + (mi % 2) * 8));
+          ldsm_b<SD>(b, ks, j * 8, kd * 16, lane);
           mma_bf16(s[j], qf[kd], b[0], b[1]);
           mma_bf16(s[j + 1], qf[kd], b[2], b[3]);
         }
@@ -294,13 +354,12 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
       // O += bf16(P) V: the S accumulators of keys 16kk .. 16kk + 15 are the A fragment
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t a[4];
+        acc_to_a(a, s, kk);
 #pragma unroll
         for (int n = 0; n < NO; n += 2) {
           uint32_t b[4];
-          ldsm_x4_trans(b, smem_u32(vs + (kk * 16 + mr + (mi % 2) * 8) * SD + n * 8 + (mi / 2) * 8));
+          ldsm_bt<SD>(b, vs, kk * 16, n * 8, lane);
           mma_bf16(o[n], a, b[0], b[1]);
           mma_bf16(o[n + 1], a, b[2], b[3]);
         }
@@ -311,7 +370,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
     keys = next_keys;
   }
 
-  // _finalize, through the warp's own rows of sq (no other warp reads them)
+  // _finalize, through the warp's own rows of sq (no other warp reads them);
+  // the outputs are offset here, so no 64-bit offset stays live through the loop
   float den[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -319,32 +379,12 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = fmaxf(l[r], 1e-30f);
   }
-  __nv_bfloat16* so = sq + warp * 16 * SD;
-  __syncwarp();
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * SD + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * r] / den[r], o[n][2 * r + 1] / den[r]);
-  __syncwarp();
-  out += int64_t(bh) * Sq * d;  // offset here, so no 64-bit offset stays live through the loop
+    for (int i = 0; i < 4; ++i) o[n][i] /= den[i / 2];
+  store_acc_bf16<D, VEC>(out + int64_t(bh) * Sq * d, sq + warp * 16 * SD, o, wq0, Sq, d, lane);
   lse += int64_t(bh) * Sq;
-  if constexpr (VEC) {
-    constexpr int C = D / 8;
-#pragma unroll
-    for (int e = lane; e < 16 * C; e += 32) {
-      const int r = e / C, c = e % C;
-      if (wq0 + r < Sq && c * 8 < d)
-        *reinterpret_cast<uint4*>(out + int64_t(wq0 + r) * d + c * 8) =
-            *reinterpret_cast<const uint4*>(so + r * SD + c * 8);
-    }
-  } else {
-    for (int e = lane; e < 16 * D; e += 32) {
-      const int r = e / D, c = e % D;
-      if (wq0 + r < Sq && c < d) out[int64_t(wq0 + r) * d + c] = so[r * SD + c];
-    }
-  }
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {

@@ -22,10 +22,11 @@ once.
 
 The CUDA source, with its design and its bound on the card, is
 ``csrc/flash_attention.cu``.  Which body runs depends on the dtype: every
-float32 launch and the bfloat16 backward (dq, dk/dv) run its CUDA-core
-bodies; the bfloat16 forward of ``flash_fwd``, ``flash_gqa_fwd`` and
-``flash_pos_fwd`` runs a tensor-core body (``mma.sync`` bf16 products
-with float32 accumulation), ``csrc/flash_fwd_tc.cuh``, with its own note.
+float32 launch runs its CUDA-core bodies; every bfloat16 launch runs a
+tensor-core body (``mma.sync`` bf16 products with float32 accumulation),
+each with its own note: the forward of ``flash_fwd``, ``flash_gqa_fwd`` and
+``flash_pos_fwd`` ``csrc/flash_fwd_tc.cuh``, dq and dk/dv of the three
+kinds of wrapper ``csrc/flash_bwd_tc.cuh``.
 A ``torch.autograd.Function`` ties them
 together as the reference's ``jax.custom_vjp`` does: the forward saves
 (q, k, v, out, lse), the backward computes ``dd = rowsum(dO * O)`` in torch
@@ -40,8 +41,8 @@ type before P.V and to dO's type before P^T.dO, dS to K's type before dS.K
 and to Q's type before dS^T.Q; accumulation is float32.  The forward takes
 P against the same running maximum over 64-key tiles as the kernel, so in
 bfloat16 P rounds at the same values and the two differ by float32 sum
-order (and, in the tensor-core forward, by exp taken as 2^x on the card's
-ex2: a few float32 ulps of P).  ``launch_counts`` counts kernel launches, one key a wrapper,
+order (and, in the tensor-core forward and dq, by exp taken as 2^x on
+the card's ex2: a few float32 ulps of P).  ``launch_counts`` counts kernel launches, one key a wrapper,
 so a run shows which path launched.
 
 ``flash_attention_block(q, k, v, q_pos, k_pos, *, causal, scale, s_valid)``

@@ -9,8 +9,12 @@ one JSON line: the card (nvidia-smi's name and power limit), DIR, and the
 ms per launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at
 the LM training step's attention, (B*H, S, d) = (64, 1024, 64) causal, in
 float32 and bfloat16, timed with CUDA events by ``chip_smoke.time_flash``
-(this checkout's).  Two checkouts compare only within one run on one
-card, run in turns:
+(this checkout's).  It then runs ``chip_smoke.py``'s bfloat16 LM training
+phase (``lm_train_bf16``) on DIR's package, printing the step time, the
+flash share and one step against the plain attention, held to
+``BF16_STEP_*`` as in ``chip_smoke.py``, so a checkout that breaks the
+bound fails.  Two checkouts compare only within one run on one card, run in
+turns:
 
     for r in OLD . . OLD; do python3 scripts/flash_ab.py --root $r; done
 """
@@ -54,7 +58,9 @@ def main() -> int:
         rows = chip_smoke.time_flash(chip_smoke.MHA_KERNELS, *chip_smoke.FLASH_MAIN, dtype, args.reps)
         times[str(dtype).replace("torch.", "")] = {name: row["ms"] for name, row in rows.items()}
     print(json.dumps({"card": smi, "root": str(root), "shape": list(chip_smoke.FLASH_MAIN), "causal": True,
-                      "ms": times}))
+                      "ms": times}), flush=True)
+    heat_tpu_torch.use_device("gpu")
+    chip_smoke.lm_train_bf16(heat_tpu_torch)
     return 0
 
 

@@ -1,14 +1,19 @@
 """chip_smoke.py's host-side parts, on the CPU: the ptxas report it prints
-for the bfloat16 forward, what each flash row of its ``kernels`` line says
-runs each dtype, and its refusal to run without a card."""
+for the bfloat16 tensor-core kernels, what each flash row of its ``kernels``
+line says runs each dtype, the differing share of its edge-shape checks
+(and why the edges need it: at one row dq and dk are float32 noise), and
+its refusal to run without a card."""
 
 import importlib.util
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+
+from heat_tpu_torch.ops import flash_attention as fa
 
 REPO = Path(__file__).resolve().parents[1]
 FLASH_NAMES = [f"flash_{kind}{k}" for kind in ("", "gqa_", "pos_") for k in ("fwd", "bwd_dq", "bwd_dkv")]
@@ -31,6 +36,19 @@ ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack si
 """
 
 
+# the same for the bfloat16 backward: a dq instance and a dk/dv instance
+PTXAS_BWD_LOG = """== flash_attention.cu
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63824flash_bwd_dq_bf16_kernelILi64ELb1ENS_10StaticMaskEEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PS2_iiifT1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63824flash_bwd_dq_bf16_kernelILi64ELb1ENS_10StaticMaskEEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PS2_iiifT1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 160 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63825flash_bwd_dkv_bf16_kernelILi128ELb0ENS_7PosMaskEEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PS2_S8_iiifT1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63825flash_bwd_dkv_bf16_kernelILi128ELb0ENS_7PosMaskEEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PS2_S8_iiifT1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 243 registers, used 1 barriers
+"""
+
+
 @pytest.fixture(scope="module")
 def chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -47,14 +65,29 @@ def test_ptxas_report_reads_each_bf16_forward_instance(chip_smoke):
     assert chip_smoke.ptxas_report("", "flash_fwd_bf16_kernel") == []  # a library loaded from the build cache
 
 
+def test_ptxas_report_reads_each_bf16_backward_instance(chip_smoke):
+    """Each backward template's instances, and none of the other's."""
+    assert chip_smoke.ptxas_report(PTXAS_BWD_LOG, "flash_bwd_dq_bf16_kernel") == [
+        {"D": 64, "vec": True, "mask": "StaticMask", "spill_stores": 0, "spill_loads": 0, "registers": 160}]
+    assert chip_smoke.ptxas_report(PTXAS_BWD_LOG, "flash_bwd_dkv_bf16_kernel") == [
+        {"D": 128, "vec": False, "mask": "PosMask", "spill_stores": 0, "spill_loads": 0, "registers": 243}]
+    assert chip_smoke.ptxas_report(PTXAS_LOG, "flash_bwd_dq_bf16_kernel") == []  # the float32 dq is not one
+    assert set(chip_smoke.TC_KERNELS) == {"flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                                          "flash_bwd_dkv_bf16_kernel"}
+    assert all((REPO / path).is_file() for path in chip_smoke.TC_KERNELS.values())
+
+
 @pytest.mark.parametrize("name", FLASH_NAMES)
 def test_flash_rows_name_each_dtypes_body(chip_smoke, name):
-    """Only the bfloat16 forward runs on the tensor cores, from flash_fwd_tc.cuh."""
+    """Every bfloat16 launch runs on the tensor cores, the forward from
+    flash_fwd_tc.cuh, dq and dk/dv from flash_bwd_tc.cuh; float32 on the
+    CUDA cores of flash_attention.cu."""
     cores, sources = chip_smoke.flash_cores(name), chip_smoke.flash_sources(name)
     fwd = name.endswith("_fwd")
-    assert cores == {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores" if fwd else "CUDA cores"}
+    assert cores == {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores"}
     assert sources["float32"] == "heat_tpu_torch/ops/csrc/flash_attention.cu"
-    assert sources["bfloat16"] == ("heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh" if fwd else sources["float32"])
+    assert sources["bfloat16"] == ("heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh" if fwd else
+                                   "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh")
     assert all((REPO / path).is_file() for path in sources.values())
 
 
@@ -65,6 +98,55 @@ def test_forward_edge_checks_stay_inside_the_kernels_limits(chip_smoke):
     for bhq, bhk, S, d, causal in chip_smoke.FWD_EDGE_CHECKS + chip_smoke.GQA_FWD_EDGE_CHECKS:
         assert bhq % bhk == 0 and 1 <= d <= 128 and 1 <= S < 129 and isinstance(causal, bool)
     assert {d for *_, d, _ in chip_smoke.FWD_EDGE_CHECKS + chip_smoke.GQA_FWD_EDGE_CHECKS} >= {8, 33, 100}
+
+
+def test_edge_share_counts_only_elements_above_the_row_floor(chip_smoke):
+    """_share_above_floor: the share of differing elements among those whose
+    plain value reaches ROW_FLOOR of the tensor's scale (or of 1)."""
+    want = torch.tensor([[1.0, -0.5, 1e-3, 0.25], [2e-3, 0.0, 1e-4, 4.0]])
+    assert chip_smoke._share_above_floor(want, want) == 0.0
+    got = want.clone()
+    got[0, 2] += 1e-4  # below the floor (2^-7 of 4): not counted
+    assert chip_smoke._share_above_floor(got, want) == 0.0
+    got[1, 3] = 4.03125  # one of the 4 elements above the floor
+    assert chip_smoke._share_above_floor(got, want) == 0.25
+    noise = torch.full((3, 8), 1e-7)  # every element below the floor: nothing to count
+    assert chip_smoke._share_above_floor(-noise, noise) == 0.0
+
+
+def test_one_row_backward_is_float32_noise_whose_bits_follow_the_sum_order(chip_smoke):
+    """At S = 1 each row has one key: P = 1 and O = V, so dP - dd = dO.V -
+    dO.O is 0 but for the rounding of two float32 sums, and dq = dS K and
+    dk = dS^T Q hold only that noise.  On the plain versions: dq and dk lie
+    far below ROW_FLOOR of the inputs' unit scale, dv = dO exactly, and
+    taking dd's sum in another order (exactly rounded against sequential)
+    gives other bits in many elements, the same noise that a kernel's
+    tensor-core sums give: so the edge checks count only elements above the
+    row floor, and nothing there is a kernel's fault."""
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((64, 1, 64), dtype=np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 64**-0.5
+    out, lse = fa._torch_flash_fwd(q, k, v, True, scale)
+    assert torch.equal(out, v)
+    prod = do.double() * out.double()
+    dd_exact = prod.sum(-1).float()
+    dd_seq = torch.zeros(prod.shape[:-1])
+    for i in range(prod.shape[-1]):  # left to right in float32
+        dd_seq = dd_seq + prod[..., i].float()
+    assert not torch.equal(dd_exact, dd_seq)
+    grads = [(fa._torch_flash_bwd_dq(q, k, v, do, lse, dd, True, scale),
+              *fa._torch_flash_bwd_dkv(q, k, v, do, lse, dd, True, scale)) for dd in (dd_exact, dd_seq)]
+    for dq, dk, dv in grads:
+        assert float(dq.float().abs().max()) < 1e-3 * chip_smoke.ROW_FLOOR
+        assert float(dk.float().abs().max()) < 1e-3 * chip_smoke.ROW_FLOOR
+        assert torch.equal(dv, do)
+    (dq_a, dk_a, _), (dq_b, dk_b, _) = grads
+    for a, b in ((dq_a, dq_b), (dk_a, dk_b)):
+        share = float((a != b).float().mean())
+        assert share > chip_smoke.BF16_DIFF_SHARE  # the plain share counts noise
+        assert chip_smoke._share_above_floor(a, b) == 0.0
+        assert chip_smoke._row_err(a, b) < 1e-3  # held by the row error instead
 
 
 def test_chip_smoke_without_cuda_exits_2_and_prints_no_result():

@@ -249,3 +249,39 @@ def test_sanitation(on_cpu):
         sanitize_out(x, (3, 3), 0, "cpu")
     with pytest.raises(ValueError):
         sanitize_out(x, (3, 2), None, "cpu")
+
+
+# default ingest of numpy and Python data narrows 64 bits as the reference
+# does (JAX with x64 off): float64, int64 and Python ints and floats
+INGEST = {"numpy float64": np.random.default_rng(0).random((5, 3)), "numpy int64": np.arange(6).reshape(2, 3),
+          "python ints": [1, 2, 3], "python floats": [1.5, -2.5], "nested mixed": [[1, 2.5], [3, 4]],
+          "numpy float32": np.ones((2, 2), np.float32), "numpy int32": np.arange(3, dtype=np.int32),
+          "numpy bool": np.array([True, False])}
+
+
+@pytest.mark.parametrize("name", list(INGEST))
+def test_array_ingest_dtype_matches_reference(name, on_cpu):
+    data = INGEST[name]
+    x, ref = htt.array(data), heat_tpu.array(data)
+    assert x.dtype.__name__ == ref.dtype.__name__
+    assert x.larray.dtype == getattr(torch, ref.dtype.__name__)
+    np.testing.assert_array_equal(x.numpy(), ref.numpy())
+
+
+def test_array_keeps_an_explicit_float64(on_cpu):
+    """An explicit float64 stays 64-bit (the reference, with x64 off, narrows
+    it: a recorded divergence), and so does a float64 torch tensor."""
+    X = np.random.default_rng(1).random((4, 3))
+    for x in (htt.array(X, dtype=htt.float64), htt.array(X).astype(htt.float64),
+              htt.array(torch.from_numpy(X))):
+        assert x.dtype is htt.float64 and x.larray.dtype == torch.float64
+    np.testing.assert_array_equal(htt.array(X, dtype=htt.float64).numpy(), X)
+    assert htt.array(X).larray.dtype == torch.float32
+
+
+def test_full_narrows_a_float64_fill_as_the_reference(on_cpu):
+    x, ref = htt.full((3, 2), np.float64(1.5)), heat_tpu.full((3, 2), np.float64(1.5))
+    assert x.dtype is htt.float32 and ref.dtype.__name__ == "float32"
+    np.testing.assert_array_equal(x.numpy(), ref.numpy())
+    assert htt.full((2,), np.int64(3)).dtype is htt.int32
+    assert htt.full((2,), 1.5, dtype=htt.float64).dtype is htt.float64

@@ -35,7 +35,20 @@ Tolerances:
     multi-head and grouped 4:1 and 8:1, and the ring's blocks; its output
     repeats bit for bit, and an operand off 16-byte alignment (loaded
     element by element into the same shared tiles) gives the same bits.
+  - the bfloat16 dq and dk/dv (the tensor-core bodies,
+    ``csrc/flash_bwd_tc.cuh``) take the same limits over the forward's
+    shapes, but for the differing share: whole rows of dq and dk can cancel
+    to float32 noise (at S = 1 every row: P = 1, O = V, dP - dd = 0 but for
+    rounding; row 0 of a causal dq at any S), whose bits follow the order
+    of the sums, so here the share counts the elements whose plain value
+    reaches the row floor, and the row error holds the rest.  (The tests
+    above keep the share of all elements at their shapes.)  dq and dk/dv
+    repeat bit for bit, and with dO off 16-byte alignment give the same
+    bits; a dead positions block gives exact zeros.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +62,12 @@ ROW_FLOOR = 2.0**-7
 FLASH_TOL = {torch.float32: {"out": 2e-5, "grad": 2e-4}, torch.bfloat16: {"out": 2.0**-6, "grad": 2.0**-6}}
 
 pytestmark = pytest.mark.cuda
+
+# chip_smoke.py (imports neither JAX nor heat_tpu) holds the edge shapes'
+# share of differing elements above the row floor, _share_above_floor
+_SPEC = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+_CHIP_SMOKE = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(_CHIP_SMOKE)
 
 
 def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -319,6 +338,65 @@ def test_cuda_bf16_forward_positions_blocks(block, d):
         assert not out.any() and bool((lse == fa.NO_MASS).all())
     else:
         assert bool(torch.isfinite(lse).all()) and bool((lse > fa.NO_MASS).all())
+
+
+def _assert_bf16_backward(names, q, k, v, do, *args, g_lse=None):
+    """The bfloat16 dq and dk/dv of the wrappers ``names`` against their
+    plain versions, repeated, and again with dO off 16-byte alignment;
+    ``g_lse``, an lse cotangent, folds into dd.  Returns (dq, dk, dv)."""
+    (fwd, bwd_dq, bwd_dkv), (plain_dq, plain_dkv) = (getattr(fa, n) for n in names), (
+        getattr(fa, f"_torch_{n}") for n in names[1:])
+    out, lse = fwd(q, k, v, *args)
+    dd = (do.float() * out.float()).sum(-1) - (0.0 if g_lse is None else g_lse)
+    before = dict(fa.launch_counts)
+    grads = (bwd_dq(q, k, v, do, lse, dd, *args), *bwd_dkv(q, k, v, do, lse, dd, *args))
+    again = (bwd_dq(q, k, v, do, lse, dd, *args), *bwd_dkv(q, k, v, do, lse, dd, *args))
+    off = _misaligned(do)
+    shifted = (bwd_dq(q, k, v, off, lse, dd, *args), *bwd_dkv(q, k, v, off, lse, dd, *args))
+    plain = (plain_dq(q, k, v, do, lse, dd, *args), *plain_dkv(q, k, v, do, lse, dd, *args))
+    torch.cuda.synchronize()
+    assert {n: fa.launch_counts[n] - before[n] for n in before} == {n: 3 * (n in names[1:]) for n in before}
+    assert grads[0].shape == q.shape and grads[1].shape == grads[2].shape == k.shape
+    for got, rep, mis, want in zip(grads, again, shifted, plain):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, rep) and torch.equal(got, mis)  # no atomics; element-wise loads, same tiles
+        assert row_err(got, want) <= FLASH_TOL[torch.bfloat16]["grad"]
+        assert _CHIP_SMOKE._share_above_floor(got, want) <= 0.01
+    return grads
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 15, 127, 129, 1024])
+@pytest.mark.parametrize("d", [8, 33, 64, 100, 128])
+def test_cuda_bf16_backward_matches_plain_version(d, S, causal, group):
+    """The tensor-core dq and dk/dv through flash_bwd_dq and flash_bwd_dkv
+    (group 1) and the grouped wrappers (4 or 8 query rows to a K/V row, dk
+    and dv summed over the group), 2 K/V rows."""
+    g = torch.Generator(device="cuda").manual_seed(2000 * d + 10 * S + group + causal)
+    q, do = (torch.randn((2 * group, S, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, S, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if group == 1 else (
+        "flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
+    _assert_bf16_backward(names, q, k, v, do, causal, d**-0.5)
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+@pytest.mark.parametrize("block", list(BF16_RING_BLOCKS))
+def test_cuda_bf16_backward_positions_blocks(block, d):
+    """The tensor-core dq and dk/dv under the positions mask, with a nonzero
+    lse cotangent: the ring's diagonal, past and dead blocks and full
+    attention with pad keys; the dead block gives exact zeros."""
+    qo, ko, causal, s_valid = BF16_RING_BLOCKS[block]
+    g = torch.Generator(device="cuda").manual_seed(3 * d + qo + ko)
+    q, k, v, do = (torch.randn((4, 300, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn((4, 300), generator=g, device="cuda")
+    qpos = torch.arange(qo, qo + 300, dtype=torch.int32, device="cuda")
+    kpos = torch.arange(ko, ko + 300, dtype=torch.int32, device="cuda")
+    grads = _assert_bf16_backward(("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv"), q, k, v, do, qpos,
+                                  kpos, causal, d**-0.5, s_valid, True, g_lse=g_lse)
+    if block == "dead":
+        assert not any(t.any() for t in grads)
 
 
 def _gloo_rank(rank, store):

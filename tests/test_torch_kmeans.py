@@ -162,3 +162,17 @@ def test_kmeans_from_reference_predicts_like_reference(on_cpu):
     assert km.n_iter_ == ref.n_iter_ and km.inertia_ == pytest.approx(ref.inertia_)
     np.testing.assert_array_equal(km.cluster_centers_.numpy(), state["cluster_centers_"])
     assert isinstance(km.cluster_centers_.larray, torch.Tensor)
+
+
+def test_pallas_fit_of_float64_numpy_data_matches_reference(on_cpu):
+    """numpy's default float64 data and init narrow to float32 on ingest, as
+    in the reference, so the kernel path takes them (it refuses float64):
+    the same 20 Lloyd steps, centres float32 to rtol/atol 1e-5 (float32 sums
+    of the same 2000 rows in another order)."""
+    X = np.random.default_rng(0).random((2000, 4))
+    km = htt.cluster.KMeans(3, init=X[:3], assign_kernel="pallas", max_iter=20).fit(htt.array(X))
+    ref = heat_tpu.cluster.KMeans(3, init=X[:3], assign_kernel="pallas", max_iter=20).fit(heat_tpu.array(X))
+    assert km.cluster_centers_.dtype is htt.float32 and ref.cluster_centers_.dtype.__name__ == "float32"
+    assert km.n_iter_ == ref.n_iter_
+    np.testing.assert_allclose(km.cluster_centers_.numpy(), ref.cluster_centers_.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(km.inertia_, ref.inertia_, rtol=1e-5)
