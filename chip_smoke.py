@@ -5,8 +5,9 @@
 
 1. Prints the card (nvidia-smi's name and power limit) and builds the CUDA
    kernels from ``heat_tpu_torch/ops/csrc``; prints ptxas's registers and
-   spills of each instance of the bfloat16 tensor-core kernels: the forward
-   (``flash_fwd_tc.cuh``), dq and dk/dv (``flash_bwd_tc.cuh``).
+   spills of each instance of the bfloat16 tensor-core kernels, the forward
+   (``flash_fwd_tc.cuh``), dq and dk/dv (``flash_bwd_tc.cuh``), and of the
+   float32 dq and dk/dv (``flash_bwd_f32.cuh``).
 2. Holds each kernel against its plain PyTorch version at k=64, d=32 on a
    ragged n=1,000,003, in float32 and bfloat16.
 3. Drives the main path at the BASELINE width: ``create_clusters`` with
@@ -25,13 +26,16 @@
    and full, d = 8, 33, 64, 100 and 128, ragged S (1000, 129) and S = 1024,
    and at the edges of the tiles (S = 1, 15, 64, 127); each row against
    that row's largest value, and in bfloat16 the share of elements that
-   differ at all (at the edges, for dq, dk and dv: of the elements above
-   the row floor, since below ~129 rows whole rows of dq and dk cancel to
-   float32 noise); every
-   kernel twice to the same bits, the forward again with q and dq and dk/dv
-   again with dO off 16-byte alignment, to the same bits; d = 256 refused.
-   Every bfloat16 launch runs a tensor-core body (``mma.sync``): the
-   forward ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``.
+   differ at all.  Below ~129 rows whole rows of dq and dk cancel to
+   float32 noise, so at the edges the bfloat16 share of dq, dk and dv
+   counts the elements above the row floor, and the float32 dq, dk and dv
+   are held by the row error over the rows that reach the floor and by
+   ``EDGE_F32_ATOL`` over the rows below it.  Every kernel twice to the
+   same bits, the forward again with q and dq and dk/dv again with dO off
+   16-byte alignment, to the same bits; d = 256 refused.  Every bfloat16
+   launch runs a tensor-core body (``mma.sync``): the forward
+   ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``; every float32
+   dq and dk/dv the CUDA-core bodies of ``flash_bwd_f32.cuh``.
 5. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
    width of the repo's LM benchmark) in float32 for 20 Adam steps on token
    batches (8, 1025) of repeated random segments: every flash kernel must
@@ -73,7 +77,9 @@
 11. Times each kernel, its plain version and a library call at the main
    paths' shapes (CUDA events behind a device sleep, so the device's time
    and not Python's launch) and prints the ``kernels`` line, each flash
-   row with the cores and the source of its float32 and bfloat16 body.
+   row with the cores, the kernel and the source of its float32 and
+   bfloat16 body (the multi-head rows also at the attention benchmark's
+   shape, in both dtypes).
 12. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -117,9 +123,12 @@ LM_GQA = dict(LM, num_kv_heads=2, positions="rope")
 FLASH_SOURCE = "heat_tpu_torch/ops/csrc/flash_attention.cu"
 FWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh"  # the bfloat16 forward, included by FLASH_SOURCE
 BWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh"  # the bfloat16 dq and dk/dv, included by FLASH_SOURCE
-# the tensor-core kernel templates whose instances the ptxas lines report
+BWD_F32_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_f32.cuh"  # the float32 dq and dk/dv, included by FLASH_SOURCE
+# the kernel templates whose instances the ptxas lines report: the tensor-core
+# bodies, and the float32 backward on the CUDA cores
 TC_KERNELS = {"flash_fwd_bf16_kernel": FWD_TC_SOURCE, "flash_bwd_dq_bf16_kernel": BWD_TC_SOURCE,
               "flash_bwd_dkv_bf16_kernel": BWD_TC_SOURCE}
+F32_KERNELS = {"flash_bwd_dq_f32_kernel": BWD_F32_SOURCE, "flash_bwd_dkv_f32_kernel": BWD_F32_SOURCE}
 MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GQA_KERNELS = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
 POS_KERNELS = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
@@ -157,7 +166,13 @@ GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 12
 # the rounding of two sums; row 0 of a causal dq), whose bits depend on the
 # order of the sums, so there the bfloat16 share of dq, dk and dv counts only
 # the elements above the row floor (_share_above_floor) and the rest is held
-# by the row error, as at every shape; the forward's counts every element
+# by the row error, as at every shape; the forward's counts every element.
+# In float32 such a row's noise is not small against the row error's floor
+# (ROW_FLOOR of the inputs' unit scale): summed over 8 heads at d = 128 it
+# reaches 2.5e-6, 1.6 times FLASH_TOL's 2e-4 of the floor, on the plain
+# versions alone (two sum orders of dd, CPU).  So at the edges the float32
+# dq, dk and dv are held by _edge_err: a row whose plain value reaches the
+# floor to FLASH_TOL's row error, a row below it to EDGE_F32_ATOL absolutely
 FWD_EDGE_CHECKS = [(16, 16, 1, 8, True), (16, 16, 15, 33, False), (16, 16, 127, 100, True), (16, 16, 64, 64, True)]
 GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 1, 128, True)]
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
@@ -174,6 +189,13 @@ FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.
 # apart too: 2^-6
 FLASH_TOL = {"float32": {"out": 2e-5, "grad": 2e-4}, "bfloat16": {"out": 2.0**-6, "grad": 2.0**-6}}
 ROW_FLOOR = 2.0**-7  # a row that cancels to ~0 keeps the rounding of its terms, of the tensor's or inputs' scale
+# float32 at the edges (_edge_err): the absolute error of a dq, dk or dv row
+# whose plain value stays below the row floor.  Such a row is float32 noise
+# of a cancelled sum; at unit-scale inputs it stays within 2.5e-6 (S = 1,
+# 8 heads to a K/V head, d = 128, two sum orders of dd on the plain
+# versions), and 2^-16 = 1.5e-5 leaves six times that, while one bfloat16
+# step of a value at the floor (2^-7 * 2^-7 = 6.1e-5) is four times over it
+EDGE_F32_ATOL = 2.0**-16
 # bfloat16: the share of out, dq, dk, dv elements that differ at all.  With
 # P and dS rounded at the same points, a result differs only where float32
 # sum order carries it across a bfloat16 rounding boundary (~1e-4 of them);
@@ -487,6 +509,25 @@ def _share_above_floor(got, want) -> float:
     return float((got != want)[big].float().mean()) if bool(big.any()) else 0.0
 
 
+def _edge_err(got, want) -> tuple:
+    """(row error over the rows whose largest |want| reaches the row floor
+    of _row_err, largest |got - want| over the rows below it): the edge
+    shapes' float32 criterion for dq, dk and dv, held to FLASH_TOL's grad
+    and EDGE_F32_ATOL.  0 for a side with no rows."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    floor = ROW_FLOOR * max(float(want.abs().max()), 1.0)
+    rowmax, err = want.abs().amax(-1), (got - want).abs().amax(-1)
+    big = rowmax >= floor
+    above = float((err[big] / rowmax[big]).max()) if bool(big.any()) else 0.0
+    below = float(err[~big].max()) if bool((~big).any()) else 0.0
+    return above, below
+
+
+def _edge_ok(err) -> bool:
+    """Whether ``err`` = _edge_err(got, want) meets the float32 edge criterion."""
+    return err[0] <= FLASH_TOL["float32"]["grad"] and err[1] <= EDGE_F32_ATOL
+
+
 def _flash_inputs(bhq, bhk, S, d, dtype, seed):
     """q, k, v, dO: q and dO of bhq rows, k and v of bhk."""
     import torch
@@ -517,16 +558,14 @@ def _flash_fns(names):
 
 def check_edges(names, edges) -> None:
     """The wrappers ``names`` against their plain versions at the edge
-    shapes ``edges``, with the tolerances of ``check_flash_kernels`` but for
-    the bfloat16 share of dq, dk and dv, which counts the elements above the
-    row floor (_share_above_floor; the forward's counts every element): the
-    forward in float32 and bfloat16, dq and dk/dv in bfloat16 (the
-    tensor-core bodies; the float32 backward keeps its
-    checks at the shapes of ``check_flash_kernels``, since at one row its
-    cancelled float32 noise, summed over a group of 8 heads at d = 128,
-    reaches the float32 gradient tolerance itself).  Each kernel twice to
-    the same bits, and again to the same bits with q (forward) or dO (dq,
-    dk/dv) off 16-byte alignment."""
+    shapes ``edges``, all three kernels in float32 and bfloat16, with the
+    tolerances of ``check_flash_kernels`` but for dq, dk and dv, where whole
+    rows cancel to float32 noise (see FWD_EDGE_CHECKS): their bfloat16 share
+    counts the elements above the row floor (_share_above_floor; the
+    forward's counts every element), and in float32 they are held by
+    _edge_err (rows reaching the floor by the row error, rows below it to
+    EDGE_F32_ATOL).  Each kernel twice to the same bits, and again to the
+    same bits with q (forward) or dO (dq, dk/dv) off 16-byte alignment."""
     import torch
 
     (fwd, bwd_dq, bwd_dkv), (fwd_p, bwd_dq_p, bwd_dkv_p) = _flash_fns(names)
@@ -541,36 +580,40 @@ def check_edges(names, edges) -> None:
             again, lse2 = fwd(q, k, v, causal, scale)
             off, lse3 = fwd(_misaligned(q), k, v, causal, scale)
             out_p, lse_p = fwd_p(q, k, v, causal, scale)
-            pairs = [("out", out, out_p)]
-            if dtype == torch.bfloat16:
-                dd = (do.float() * out.float()).sum(-1)
-                grads, repeats, offs = ((bwd_dq(*a, lse, dd, causal, scale),) + tuple(
-                    bwd_dkv(*a, lse, dd, causal, scale)) for a in ((q, k, v, do), (q, k, v, do),
-                                                                   (q, k, v, _misaligned(do))))
-                plain = (bwd_dq_p(q, k, v, do, lse, dd, causal, scale),) + tuple(
-                    bwd_dkv_p(q, k, v, do, lse, dd, causal, scale))
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(grads, repeats, offs)):
-                    fail(f"{names[1]} or {names[2]} does not repeat its bits (or not off alignment) at {shape}")
-                pairs += list(zip(("dq", "dk", "dv"), grads, plain))
+            dd = (do.float() * out.float()).sum(-1)
+            grads, repeats, offs = ((bwd_dq(*a, lse, dd, causal, scale),) + tuple(
+                bwd_dkv(*a, lse, dd, causal, scale)) for a in ((q, k, v, do), (q, k, v, do),
+                                                               (q, k, v, _misaligned(do))))
+            plain = (bwd_dq_p(q, k, v, do, lse, dd, causal, scale),) + tuple(
+                bwd_dkv_p(q, k, v, do, lse, dd, causal, scale))
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(grads, repeats, offs)):
+                fail(f"{names[1]} or {names[2]} does not repeat its bits (or not off alignment) at {shape} {dname}")
             if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(out, off)
                     and torch.equal(lse, lse3)):
                 fail(f"{names[0]} does not repeat its bits (or not off alignment) at {shape} {dname}")
+            pairs = [("out", out, out_p)] + list(zip(("dq", "dk", "dv"), grads, plain))
             res = {key: _row_err(a, b) for key, a, b in pairs}
             # the forward cannot cancel: its share counts every element, as at every shape
             share = {key: float((a != b).float().mean()) if key == "out" else _share_above_floor(a, b)
                      for key, a, b in pairs}
             lse_err = float((lse - lse_p).abs().max())
-            bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
+            edge = {key: _edge_err(a, b) for key, a, b in pairs[1:]}
             if dtype == torch.bfloat16:
+                bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
                 bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
+            else:
+                bad = {key: val for key, val in edge.items() if not _edge_ok(val)}
+                if not res["out"] <= tol["out"]:
+                    bad["out"] = res["out"]
             if bad or not lse_err <= LSE_ATOL:
-                fail(f"{'+'.join(names)} vs plain at the edge {shape} {dname}: {res}, {share}, lse {lse_err}")
-            print(json.dumps({"phase": "kernel_check", "kernel": "+".join(names if len(pairs) > 1 else names[:1]),
-                              "edge": True, "dtype": dname, "bhq": bhq, "bhk": bhk, "S": S, "d": d, "causal": causal,
+                fail(f"{'+'.join(names)} vs plain at the edge {shape} {dname}: {bad}, {res}, {edge}, {share}, "
+                     f"lse {lse_err}")
+            print(json.dumps({"phase": "kernel_check", "kernel": "+".join(names), "edge": True, "dtype": dname,
+                              "bhq": bhq, "bhk": bhk, "S": S, "d": d, "causal": causal,
                               "max_abs_err": {key: float((a.float() - b.float()).abs().max()) for key, a, b in pairs},
                               "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
+                              "edge_err": edge, "edge_f32_atol": EDGE_F32_ATOL,
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
                               "misaligned_bitwise": True, "check": "pass"}), flush=True)
 
@@ -981,12 +1024,21 @@ def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
 def flash_cores(name: str) -> dict:
     """What a flash wrapper's kernel multiplies on, by dtype: every bfloat16
     launch runs an mma.sync body (flash_fwd_tc.cuh, flash_bwd_tc.cuh), every
-    float32 launch its CUDA-core body in flash_attention.cu."""
+    float32 launch a CUDA-core body (the forward in flash_attention.cu, dq
+    and dk/dv in flash_bwd_f32.cuh)."""
     return {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores"}
 
 
 def flash_sources(name: str) -> dict:
-    return {"float32": FLASH_SOURCE, "bfloat16": FWD_TC_SOURCE if name.endswith("_fwd") else BWD_TC_SOURCE}
+    fwd = name.endswith("_fwd")
+    return {"float32": FLASH_SOURCE if fwd else BWD_F32_SOURCE, "bfloat16": FWD_TC_SOURCE if fwd else BWD_TC_SOURCE}
+
+
+def flash_bodies(name: str) -> dict:
+    """The CUDA kernel template that each dtype's launch of a flash wrapper runs."""
+    kind = "fwd" if name.endswith("_fwd") else "bwd_dq" if name.endswith("_dq") else "bwd_dkv"
+    return {"float32": "flash_fwd_kernel" if kind == "fwd" else f"flash_{kind}_f32_kernel",
+            "bfloat16": f"flash_{kind}_bf16_kernel"}
 
 
 def ptxas_report(log: str, word: str) -> list:
@@ -1023,15 +1075,16 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
 
     f32 = time_flash(names, *main, torch.float32, 20)
     bf16 = time_flash(names, *main, torch.bfloat16, 20)
-    at_bench = time_flash(names, *bench, torch.bfloat16, 5) if bench else {}
+    at_bench = {dt: time_flash(names, *bench, getattr(torch, dt), 5) for dt in ("float32", "bfloat16")
+                if bench}
     gqa = ", enable_gqa=True" if main[0] != main[1] else ""
     lib = [f"scaled_dot_product_attention(is_causal=True{gqa}) forward"] + \
         [f"scaled_dot_product_attention(is_causal=True{gqa}) backward: dq, dk and dv together"] * 2
     rows = []
     for name, line, lib_call in zip(names, replaces, lib):
         rows.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE, "cores": flash_cores(name),
-            "sources": flash_sources(name),
+            "name": name, "route": "cuda", "source": flash_sources(name)["float32"], "cores": flash_cores(name),
+            "sources": flash_sources(name), "bodies": flash_bodies(name),
             "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
             "launches_per_step": launches[name] // LM_STEPS, "max_abs_err": errs["float32"][name][0],
             "row_rel_err": errs["float32"][name][1],
@@ -1039,7 +1092,7 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
             "bfloat16": {**bf16[name], "max_abs_err": errs["bfloat16"][name][0],
                          "row_rel_err": errs["bfloat16"][name][1],
                          **({"launches": launches_bf16[name]} if launches_bf16 else {})},
-            **({"bench_shape_bfloat16": at_bench[name]} if bench else {}), "check": "pass",
+            **{f"bench_shape_{dt}": timed[name] for dt, timed in at_bench.items()}, "check": "pass",
         })
     return rows
 
@@ -1377,8 +1430,8 @@ def pos_rows(launches: dict, errs: dict) -> list:
     rows = []
     for name, line, lib_call in zip(POS_KERNELS, (235, 264, 298), lib):
         rows.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE, "cores": flash_cores(name),
-            "sources": flash_sources(name),
+            "name": name, "route": "cuda", "source": flash_sources(name)["float32"], "cores": flash_cores(name),
+            "sources": flash_sources(name), "bodies": flash_bodies(name),
             "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
             "max_abs_err": max(e[name] for e in errs["float32"].values()), **mix(f32[name]),
             "shape": list(POS_MAIN), "causal": True, "mix": POS_MIX, "blocks": f32[name], "library_call": lib_call,
@@ -1417,7 +1470,7 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if any(word in line for word in ("entry function", "registers", "spill", "error")):
             print("ptxas:", line.strip())
-    for kernel, source in TC_KERNELS.items():
+    for kernel, source in {**TC_KERNELS, **F32_KERNELS}.items():
         print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
                           "instances": ptxas_report(_build.build_info["log"], kernel)}), flush=True)
 

@@ -48,14 +48,15 @@
 // kernels take bhq and bhk, and nothing else of the head layout.  Multi-head
 // attention is g = 1.  K/V are never repeated in memory.
 //
-// Which body runs: every float32 launch runs the CUDA-core bodies below.
-// Every bfloat16 launch runs a tensor-core body (mma.sync), each with its
-// own note: the forward of all three wrappers (flash_fwd, flash_gqa_fwd,
-// flash_pos_fwd) flash_fwd_bf16_kernel in flash_fwd_tc.cuh, routed by
-// fwd_launch; dq and dk/dv of all three (flash_bwd_*, flash_gqa_bwd_*,
-// flash_pos_bwd_*) flash_bwd_dq_bf16_kernel and flash_bwd_dkv_bf16_kernel
-// in flash_bwd_tc.cuh, routed by dq_launch and dkv_launch.  No bfloat16
-// instance of the CUDA-core bodies is built.
+// Which body runs, by dtype, for all three wrappers (flash_*, flash_gqa_*,
+// flash_pos_*), each body with its own note.  float32: the forward
+// flash_fwd_kernel below (CUDA cores), routed by fwd_launch; dq and dk/dv
+// flash_bwd_dq_f32_kernel and flash_bwd_dkv_f32_kernel in
+// flash_bwd_f32.cuh (CUDA cores), routed by dq_launch and dkv_launch.
+// bfloat16, on the tensor cores (mma.sync): the forward
+// flash_fwd_bf16_kernel in flash_fwd_tc.cuh; dq and dk/dv
+// flash_bwd_dq_bf16_kernel and flash_bwd_dkv_bf16_kernel in
+// flash_bwd_tc.cuh.  No bfloat16 instance of a float32 body is built.
 //
 // Semantics: top-left causal (a query at row i sees keys 0..i) or full
 // attention over (S, d) rows; storage float32 or bfloat16, all
@@ -73,28 +74,26 @@
 // the tensor cores (989 TFLOP/s) the forward at this shape is bytes-bound
 // (flash_fwd_tc.cuh), dq and dk/dv still compute-bound.  The grouped
 // launches at the grouped LM's shape, (bhq, bhk) = (64, 16), do the same
-// FLOPs over fewer K/V bytes.  Grouped dk/dv has bhk * ceil(S/64) blocks
-// (256 there, on 132 SMs at one block an SM), each g times the work of a
-// multi-head block, so it fills the card less evenly than the multi-head
-// grid of 1024 blocks.  The CUDA-core bodies spend their effort on being
-// right and simple:
-//   * one block of 256 threads per (batch*head, 64-row tile); the TPU's
-//     sequential grid axis becomes a loop inside the block: over key tiles
-//     for the forward and dq (one block per query row and tile), over the g
-//     query heads of the group and, in each, over query tiles for dk/dv (one
-//     block per K/V row and key tile, one float32 accumulator for the whole
-//     group, cast once at the end, in the order of the reference's nq_inner
-//     sweep: head by head, tile by tile).  Nothing crosses blocks, so there
-//     are no atomics and the results repeat bit for bit;
-//   * the causal skip of the reference (l.149-151, 350-352, 395-397) is the
-//     loop's bounds; heavy causal tiles are launched first;
-//   * tiles are 64 x 64, not the TPU's 512 x 512: they are staged in shared
-//     memory as float32 (the largest, dk/dv at d = 128, takes 220 KB of the
-//     227 KB a block may use) and each thread holds a 4 x 4 patch of every
-//     64 x 64 product in registers, fed by 16-byte shared-memory reads;
+// FLOPs over fewer K/V bytes.
+//
+// The float32 forward, flash_fwd_kernel, is the port's first body, built
+// to be right and simple; the backward bodies it shared its helpers with
+// were redesigned for the card (flash_bwd_f32.cuh):
+//   * one block of 256 threads per (batch*head, 64-query tile); the TPU's
+//     sequential grid axis becomes a loop inside the block over the key
+//     tiles.  Nothing crosses blocks, so there are no atomics and the
+//     results repeat bit for bit;
+//   * the causal skip of the reference (l.149-151) is the loop's bounds;
+//     heavy causal tiles are launched first;
+//   * tiles are 64 x 64, not the TPU's 512 x 512, staged in shared memory
+//     as float32, Q and K transposed (load_tile, one 4-byte load an
+//     element); each thread holds a 4 x 4 patch of every 64 x 64 product in
+//     registers (mm_patch), fed by 16-byte shared-memory reads;
 //   * the ragged last tile is masked inside the kernel (rows >= S load as
 //     zeros, keys >= S are masked); S is never padded in device memory.
-// wgmma/TMA pipelines for the tensor-core bodies are later work.
+// What holds it back (0.50 ms against a 0.13 ms bound): the transposed
+// stores of load_tile conflict 4 ways on the banks, loads and products do
+// not overlap, and the 4 x 4 patch spends 2 shared reads on 16 FFMA.
 //
 // The positions kernels at the ring step's shape, (B*H, Sq, Sk, d) = (16,
 // 2048, 2048, 64), count only the (q, k) pairs they must compute: a past
@@ -221,8 +220,6 @@ struct StaticMask {
   __device__ __forceinline__ bool key_live(int, int) const { return true; }
   // dk/dv: key tile ik is read by query tiles [query_begin(ik), nq)
   __device__ __forceinline__ int query_begin(int ik) const { return causal ? ik : 0; }
-  __device__ __forceinline__ int key_bound(int) const { return 0; }
-  __device__ __forceinline__ bool query_live(int, int) const { return true; }
   // the bfloat16 forward (flash_fwd_tc.cuh), by warps of 16 query rows:
   // (min, max) position of the warp's rows from r0, and of the keys of tile k0
   __device__ __forceinline__ int2 fwd_warp_span(int r0) const { return make_int2(r0, r0 + 15); }
@@ -303,11 +300,6 @@ struct PosMask {
     return kmin < s_valid && (!causal || kmin <= qmax);
   }
   __device__ __forceinline__ int query_begin(int) const { return 0; }
-  __device__ __forceinline__ int key_bound(int k0) const { return masked ? tile_min(kpos, k0, Sk) : 0; }
-  __device__ __forceinline__ bool query_live(int q0, int kmin) const {
-    if (!masked) return true;
-    return kmin < s_valid && (!causal || kmin <= tile_max(qpos, q0, Sq));
-  }
   // the bfloat16 forward (flash_fwd_tc.cuh), by warps of 16 query rows:
   // (min, max) position of the warp's rows from r0 below Sq (lanes 0-15 and
   // 16-31 read the same 16), and of the keys of tile k0 below Sk: one read
@@ -349,20 +341,12 @@ struct PosMask {
 
 #include "flash_fwd_tc.cuh"  // the bfloat16 forward: flash_fwd_bf16_kernel
 #include "flash_bwd_tc.cuh"  // the bfloat16 backward: flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel
+#include "flash_bwd_f32.cuh"  // the float32 backward: flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel
 
 template <int D>
 constexpr size_t fwd_smem() {  // qt, kt [D][TS]; vs [BK][D + PAD]; pt [BK][TS]
   return sizeof(float) * (2 * D * TS + BK * (D + PAD) + BK * TS);
 }
-template <int D>
-constexpr size_t dq_smem() {  // qt, dot, kt, vt [D][TS]; ks [BK][D + PAD]; dst [BK][TS]
-  return sizeof(float) * (4 * D * TS + BK * (D + PAD) + BK * TS);
-}
-template <int D>
-constexpr size_t dkv_smem() {  // kt, vt, qt, dot [D][TS]; qs, dos [BQ][D + PAD]; pt [BQ][TS]; lse, dd [BQ]
-  return sizeof(float) * (4 * D * TS + 2 * BQ * (D + PAD) + BQ * TS + 2 * BQ);
-}
-
 
 template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -462,200 +446,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <typename T, int D, typename Mask>
-__global__ void __launch_bounds__(THREADS, 2)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                        T* __restrict__ dq, int d, int group, float scale, const Mask mask) {
-  constexpr int NG = D / 64;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);
-  float* dot = qt + D * TS;
-  float* kt = dot + D * TS;
-  float* vt = kt + D * TS;
-  float* ks = vt + D * TS;
-  float* dst = ks + BK * (D + PAD);
-
-  const int Sq = mask.q_rows(), Sk = mask.k_rows();
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int bh = int(blockIdx.x) / nq;  // the query row; its K/V row is bh / group
-  const int iq = nq - 1 - int(blockIdx.x % nq);
-  const int q0 = iq * BQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = int64_t(bh) * Sq * d, kv_base = int64_t(bh / group) * Sk * d;
-  q += base;
-  k += kv_base;
-  v += kv_base;
-  dout += base;
-  lse += int64_t(bh) * Sq;
-  dd += int64_t(bh) * Sq;
-
-  load_tile<T, D>(q, q0, Sq, d, nullptr, qt);
-  load_tile<T, D>(dout, q0, Sq, d, nullptr, dot);
-  float lse_r[4], dd_r[4], acc[4][NG * 4];
-  int qp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < Sq ? lse[row] : 0.f;
-    dd_r[i] = row < Sq ? dd[row] : 0.f;
-    qp[i] = mask.q_pos(row);
-#pragma unroll
-    for (int j = 0; j < NG * 4; ++j) acc[i][j] = 0.f;
-  }
-
-  const int qmax = mask.query_bound(q0);
-  const int nk = mask.key_end(iq);
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * BK;
-    if (!mask.key_live(k0, qmax)) continue;
-    __syncthreads();
-    load_tile<T, D>(k, k0, Sk, d, ks, kt);
-    load_tile<T, D>(v, k0, Sk, d, nullptr, vt);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_patch<1, D>(s, qt, TS, kt, TS, ty, tx);    // Q K^T
-    mm_patch<1, D>(dp, dot, TS, vt, TS, ty, tx);  // dO V^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx * 4 + j;
-      const int kp = mask.k_pos(col);
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = mask.dead(qp[i], kp, col) ? 0.f : expf(s[i][j] * scale - lse_r[i]);
-        ds[i] = round_to<T>(p * (dp[i][j] - dd_r[i]) * scale);  // dS, rounded to K's type
-      }
-      *reinterpret_cast<float4*>(dst + (tx * 4 + j) * TS + ty * 4) = make_float4(ds[0], ds[1], ds[2], ds[3]);
-    }
-    __syncthreads();
-    mm_patch<NG, BK>(acc, dst, TS, ks, D + PAD, ty, tx);  // dS K
-  }
-
-  dq += base;  // offset here, as the forward's outputs
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = g * 64 + tx * 4 + j;
-        if (c < d) dq[int64_t(row) * d + c] = from_f32<T>(acc[i][g * 4 + j]);
-      }
-  }
-}
-
-template <typename T, int D, typename Mask>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-                         T* __restrict__ dk, T* __restrict__ dv, int d, int group, float scale, const Mask mask) {
-  constexpr int NG = D / 64;
-  extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);
-  float* vt = kt + D * TS;
-  float* qt = vt + D * TS;
-  float* dot = qt + D * TS;
-  float* qs = dot + D * TS;
-  float* dos = qs + BQ * (D + PAD);
-  float* pt = dos + BQ * (D + PAD);
-  float* lse_s = pt + BQ * TS;
-  float* dd_s = lse_s + BQ;
-
-  const int Sq = mask.q_rows(), Sk = mask.k_rows();
-  const int nk = (Sk + BK - 1) / BK;
-  const int bh = int(blockIdx.x) / nk;  // the K/V row; its query rows are bh * group + h
-  const int ik = int(blockIdx.x % nk);  // under causal the first key tiles have the most work
-  const int k0 = ik * BK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t base = int64_t(bh) * Sk * d;
-  k += base;
-  v += base;
-
-  load_tile<T, D>(k, k0, Sk, d, nullptr, kt);
-  load_tile<T, D>(v, k0, Sk, d, nullptr, vt);
-  float dk_acc[4][NG * 4], dv_acc[4][NG * 4];
-  int kp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    kp[i] = mask.k_pos(k0 + ty * 4 + i);
-#pragma unroll
-    for (int j = 0; j < NG * 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  }
-
-  // each query head of the group, and in it the query tiles that see this
-  // key tile: from query_begin on, those that are live
-  const int kmin = mask.key_bound(k0);
-  const int nq = (Sq + BQ - 1) / BQ;
-  for (int h = 0; h < group; ++h) {
-    const int64_t qrow = int64_t(bh) * group + h;
-    const T* __restrict__ qh = q + qrow * Sq * int64_t(d);
-    const T* __restrict__ doh = dout + qrow * Sq * int64_t(d);
-    for (int iq = mask.query_begin(ik); iq < nq; ++iq) {
-      const int q0 = iq * BQ;
-      if (!mask.query_live(q0, kmin)) continue;  // the same decision in every warp
-      __syncthreads();
-      load_tile<T, D>(qh, q0, Sq, d, qs, qt);
-      load_tile<T, D>(doh, q0, Sq, d, dos, dot);
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < Sq ? lse[qrow * Sq + row] : 0.f;
-        dd_s[threadIdx.x] = row < Sq ? dd[qrow * Sq + row] : 0.f;
-      }
-      __syncthreads();
-      // this thread's patch: key rows k0 + ty*4 + i, query columns q0 + tx*4 + j
-      float st[4][4] = {}, dpt[4][4] = {};
-      mm_patch<1, D>(st, kt, TS, qt, TS, ty, tx);    // (Q K^T)^T
-      mm_patch<1, D>(dpt, vt, TS, dot, TS, ty, tx);  // (dO V^T)^T
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = q0 + tx * 4 + j;
-        const int qp = mask.q_pos(col);
-        const float lse_c = lse_s[tx * 4 + j], dd_c = dd_s[tx * 4 + j];
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // query rows past Sq are zero padding: they take part in nothing
-          const bool dead = col >= Sq || mask.dead(qp, kp[i], k0 + ty * 4 + i);
-          p[i] = dead ? 0.f : expf(st[i][j] * scale - lse_c);
-          st[i][j] = p[i] * (dpt[i][j] - dd_c) * scale;  // now dS^T
-        }
-        *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) =  // P, rounded to dO's type
-            make_float4(round_to<T>(p[0]), round_to<T>(p[1]), round_to<T>(p[2]), round_to<T>(p[3]));
-      }
-      __syncthreads();
-      mm_patch<NG, BQ>(dv_acc, pt, TS, dos, D + PAD, ty, tx);  // P^T dO
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)  // dS, rounded to Q's type
-        *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) = make_float4(
-            round_to<T>(st[0][j]), round_to<T>(st[1][j]), round_to<T>(st[2][j]), round_to<T>(st[3][j]));
-      __syncthreads();
-      mm_patch<NG, BQ>(dk_acc, pt, TS, qs, D + PAD, ty, tx);  // dS^T Q
-    }
-  }
-
-  dk += base;
-  dv += base;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= Sk) continue;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = g * 64 + tx * 4 + j;
-        if (c < d) {
-          dk[int64_t(row) * d + c] = from_f32<T>(dk_acc[i][g * 4 + j]);
-          dv[int64_t(row) * d + c] = from_f32<T>(dv_acc[i][g * 4 + j]);
-        }
-      }
-  }
-}
-
 // Blocks of a grid over ``rows`` rows of n positions in 64-row tiles.
 int64_t tiles_of(int64_t rows, int n) { return rows * ((int64_t(n) + 63) / 64); }
 
@@ -683,12 +473,13 @@ int launch(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int64_t
 // Query heads per K/V row; launch checks the rows before it launches.
 int group_of(int64_t bhq, int64_t bhk) { return bhk > 0 ? int(bhq / bhk) : 0; }
 
-// The bfloat16 kernels on the tensor cores take VEC (16-byte loads and
-// stores) where d % 8 == 0 and every operand is 16-byte aligned, else go
-// element by element.
-template <typename... P>
+// The tensor-core kernels and the float32 backward take VEC (16-byte loads
+// and stores) where a row is whole 16-byte chunks, d % E == 0 for E
+// elements in 16 bytes (8 bfloat16, 4 float32), and every operand is
+// 16-byte aligned, else go element by element.
+template <int E, typename... P>
 bool vec_ok(int d, const P*... ptrs) {
-  return d % 8 == 0 && ((reinterpret_cast<uintptr_t>(ptrs) | ...) % 16) == 0;
+  return d % E == 0 && ((reinterpret_cast<uintptr_t>(ptrs) | ...) % 16) == 0;
 }
 
 using B = __nv_bfloat16;
@@ -699,7 +490,7 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out, float* ls
   const int64_t blocks = tiles_of(bhq, mask.q_rows());
   const int g = group_of(bhq, bhk);
   if constexpr (std::is_same_v<T, B>) {
-    const auto kern = vec_ok(d, q, k, v, out) ? flash_fwd_bf16_kernel<D, true, Mask>
+    const auto kern = vec_ok<8>(d, q, k, v, out) ? flash_fwd_bf16_kernel<D, true, Mask>
                                               : flash_fwd_bf16_kernel<D, false, Mask>;
     return launch(kern, fwd_bf16_smem<D>(), 32 * kFwdWarps, blocks, bhq, bhk, mask, stream,
                   static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<B*>(out),
@@ -711,41 +502,48 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out, float* ls
   }
 }
 
-// bfloat16 dq and dk/dv run on the tensor cores (flash_bwd_tc.cuh)
+// bfloat16 dq and dk/dv run on the tensor cores (flash_bwd_tc.cuh), float32 on
+// the CUDA cores (flash_bwd_f32.cuh)
 template <typename T, int D, typename Mask>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
               void* dq, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {
   const int64_t blocks = tiles_of(bhq, mask.q_rows());
   const int g = group_of(bhq, bhk);
   if constexpr (std::is_same_v<T, B>) {
-    const auto kern = vec_ok(d, q, k, v, dout, dq) ? flash_bwd_dq_bf16_kernel<D, true, Mask>
+    const auto kern = vec_ok<8>(d, q, k, v, dout, dq) ? flash_bwd_dq_bf16_kernel<D, true, Mask>
                                                    : flash_bwd_dq_bf16_kernel<D, false, Mask>;
     return launch(kern, dq_bf16_smem<D>(), 32 * kBwdWarps, blocks, bhq, bhk, mask, stream,
                   static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
                   static_cast<const B*>(dout), lse, dd, static_cast<B*>(dq), int(bhq), d, g, scale, mask);
   } else {
-    return launch(flash_bwd_dq_kernel<T, D, Mask>, dq_smem<D>(), THREADS, blocks, bhq, bhk, mask, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), lse, dd, static_cast<T*>(dq), d, g, scale, mask);
+    const auto kern = vec_ok<4>(d, q, k, v, dout, dq) ? flash_bwd_dq_f32_kernel<D, true, Mask>
+                                                      : flash_bwd_dq_f32_kernel<D, false, Mask>;
+    return launch(kern, dq_f32_smem<D>(), kF32Threads, blocks, bhq, bhk, mask, stream,
+                  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                  static_cast<const float*>(dout), lse, dd, static_cast<float*>(dq), int(bhq), d, g, scale, mask);
   }
 }
 
 template <typename T, int D, typename Mask>
 int dkv_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
                void* dk, void* dv, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {
-  const int64_t blocks = tiles_of(bhk, mask.k_rows());
   const int g = group_of(bhq, bhk);
   if constexpr (std::is_same_v<T, B>) {
-    const auto kern = vec_ok(d, q, k, v, dout, dk, dv) ? flash_bwd_dkv_bf16_kernel<D, true, Mask>
+    const int64_t blocks = tiles_of(bhk, mask.k_rows());
+    const auto kern = vec_ok<8>(d, q, k, v, dout, dk, dv) ? flash_bwd_dkv_bf16_kernel<D, true, Mask>
                                                        : flash_bwd_dkv_bf16_kernel<D, false, Mask>;
     return launch(kern, dkv_bf16_smem<D>(), 32 * kBwdWarps, blocks, bhq, bhk, mask, stream,
                   static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
                   static_cast<const B*>(dout), lse, dd, static_cast<B*>(dk), static_cast<B*>(dv), int(bhk), d, g,
                   scale, mask);
   } else {
-    return launch(flash_bwd_dkv_kernel<T, D, Mask>, dkv_smem<D>(), THREADS, blocks, bhq, bhk, mask, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), lse, dd, static_cast<T*>(dk), static_cast<T*>(dv), d, g, scale, mask);
+    const int64_t blocks = bhk * ((int64_t(mask.k_rows()) + kDkvKeys - 1) / kDkvKeys);
+    const auto kern = vec_ok<4>(d, q, k, v, dout, dk, dv) ? flash_bwd_dkv_f32_kernel<D, true, Mask>
+                                                          : flash_bwd_dkv_f32_kernel<D, false, Mask>;
+    return launch(kern, dkv_f32_smem<D>(), kF32Threads, blocks, bhq, bhk, mask, stream,
+                  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                  static_cast<const float*>(dout), lse, dd, static_cast<float*>(dk), static_cast<float*>(dv),
+                  int(bhk), d, g, scale, mask);
   }
 }
 

@@ -22,8 +22,9 @@ once.
 
 The CUDA source, with its design and its bound on the card, is
 ``csrc/flash_attention.cu``.  Which body runs depends on the dtype: every
-float32 launch runs its CUDA-core bodies; every bfloat16 launch runs a
-tensor-core body (``mma.sync`` bf16 products with float32 accumulation),
+float32 launch runs a CUDA-core body in full float32, the forward in
+``csrc/flash_attention.cu``, dq and dk/dv in ``csrc/flash_bwd_f32.cuh``;
+every bfloat16 launch runs a tensor-core body (``mma.sync`` bf16 products with float32 accumulation),
 each with its own note: the forward of ``flash_fwd``, ``flash_gqa_fwd`` and
 ``flash_pos_fwd`` ``csrc/flash_fwd_tc.cuh``, dq and dk/dv of the three
 kinds of wrapper ``csrc/flash_bwd_tc.cuh``.

@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Time the multi-head flash-attention kernels of one checkout on a CUDA card.
+"""Time the flash-attention kernels and the LM training steps of one checkout on a CUDA card.
 
     python3 scripts/flash_ab.py [--root DIR] [--reps N]
 
 Imports ``heat_tpu_torch`` from DIR (a checkout of this repository; by
 default the one holding this script), builds its kernels there, and prints
 one JSON line: the card (nvidia-smi's name and power limit), DIR, and the
-ms per launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at
-the LM training step's attention, (B*H, S, d) = (64, 1024, 64) causal, in
-float32 and bfloat16, timed with CUDA events by ``chip_smoke.time_flash``
-(this checkout's).  It then runs ``chip_smoke.py``'s bfloat16 LM training
-phase (``lm_train_bf16``) on DIR's package, printing the step time, the
-flash share and one step against the plain attention, held to
-``BF16_STEP_*`` as in ``chip_smoke.py``, so a checkout that breaks the
-bound fails.  Two checkouts compare only within one run on one card, run in
-turns:
+ms per launch, in float32 and bfloat16, timed with CUDA events by this
+checkout's ``chip_smoke.time_flash`` and ``chip_smoke.time_pos``, of
 
-    for r in OLD . . OLD; do python3 scripts/flash_ab.py --root $r; done
+- ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the LM training
+  step's attention, (B*H, S, d) = (64, 1024, 64) causal;
+- ``flash_gqa_*`` at the grouped LM's, (64 query, 16 K/V rows, 1024, 64);
+- ``flash_pos_*`` at the ring step's diagonal, past and dead blocks,
+  (16, 2048, 2048, 64), and their mean over the ring's mix of blocks.
+
+It then runs two of ``chip_smoke.py``'s training phases on DIR's package,
+each with its step time, the flash share of a profiled step, and one step
+against the plain attention held to ``chip_smoke.py``'s bounds, so a
+checkout that breaks them fails: the multi-head LM in float32
+(``lm_train``, 20 steps, ``STEP_*``) and cast to bfloat16
+(``lm_train_bf16``, 10 steps, ``BF16_STEP_*``).  Two checkouts compare only within one run on one card, run in turns,
+the parent unpacked by ``git archive`` under ``build/`` (which git
+ignores):
+
+    mkdir -p build/parent && git archive PARENT | tar -x -C build/parent  # PARENT: the commit before the change
+    for r in build/parent . . build/parent; do python3 scripts/flash_ab.py --root $r; done
 """
 
 from __future__ import annotations
@@ -44,23 +53,37 @@ def main() -> int:
         print("flash_ab: needs a CUDA card", file=sys.stderr)
         return 2
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")  # this checkout's
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     import heat_tpu_torch
 
     if Path(heat_tpu_torch.__file__).resolve().parents[1] != root:
         raise RuntimeError(f"imported {heat_tpu_torch.__file__}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    mix = sum(cs.POS_MIX.values())
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
-        rows = chip_smoke.time_flash(chip_smoke.MHA_KERNELS, *chip_smoke.FLASH_MAIN, dtype, args.reps)
-        times[str(dtype).replace("torch.", "")] = {name: row["ms"] for name, row in rows.items()}
-    print(json.dumps({"card": smi, "root": str(root), "shape": list(chip_smoke.FLASH_MAIN), "causal": True,
-                      "ms": times}), flush=True)
+        row = {}
+        for names, shape in ((cs.MHA_KERNELS, cs.FLASH_MAIN), (cs.GQA_KERNELS, cs.GQA_MAIN)):
+            row.update({name: r["ms"] for name, r in cs.time_flash(names, *shape, dtype, args.reps).items()})
+        for name, blocks in cs.time_pos(dtype, max(args.reps // 2, 1)).items():
+            row[name] = {"mix": sum(cs.POS_MIX[b] * blocks[b]["ms"] for b in cs.POS_MIX) / mix,
+                         **{b: blocks[b]["ms"] for b in blocks}}
+        times[str(dtype).replace("torch.", "")] = row
+    print(json.dumps({"card": smi, "root": str(root), "shapes": {"mha": list(cs.FLASH_MAIN), "gqa": list(cs.GQA_MAIN),
+                                                                  "positions": list(cs.POS_MAIN)},
+                      "causal": True, "ms": times}), flush=True)
     heat_tpu_torch.use_device("gpu")
-    chip_smoke.lm_train_bf16(heat_tpu_torch)
+    label = "TransformerLM training"
+    lm, opt, _, batch = cs.lm_train(heat_tpu_torch, cs.LM, cs.MHA_KERNELS, label)
+    cs.profile_training_step(heat_tpu_torch, lm, opt, batch, label)
+    cs.lm_step_vs_plain(heat_tpu_torch, lm, batch, cs.MHA_KERNELS, "TransformerLM")
+    del lm, opt, batch
+    torch.cuda.empty_cache()
+    cs.lm_train_bf16(heat_tpu_torch)
     return 0
 
 

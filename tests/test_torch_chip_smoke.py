@@ -1,8 +1,9 @@
 """chip_smoke.py's host-side parts, on the CPU: the ptxas report it prints
-for the bfloat16 tensor-core kernels, what each flash row of its ``kernels``
-line says runs each dtype, the differing share of its edge-shape checks
-(and why the edges need it: at one row dq and dk are float32 noise), and
-its refusal to run without a card."""
+for the bfloat16 tensor-core kernels and the float32 backward, what each
+flash row of its ``kernels`` line says runs each dtype, the differing share
+and the float32 criterion of its edge-shape checks (and why the edges need
+them: at one row dq and dk are float32 noise), and its refusal to run
+without a card."""
 
 import importlib.util
 import subprocess
@@ -48,6 +49,18 @@ ptxas info    : Function properties for _ZN51_GLOBAL__N__3234eb43_18_flash_atten
 ptxas info    : Used 243 registers, used 1 barriers
 """
 
+# the same for the float32 backward on the CUDA cores: a dq and a dk/dv instance
+PTXAS_F32_LOG = """== flash_attention.cu
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63823flash_bwd_dq_f32_kernelILi64ELb1ENS_10StaticMaskEEEvPKfS4_S4_S4_S4_S4_PfiiifT1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63823flash_bwd_dq_f32_kernelILi64ELb1ENS_10StaticMaskEEEvPKfS4_S4_S4_S4_S4_PfiiifT1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63824flash_bwd_dkv_f32_kernelILi128ELb0ENS_7PosMaskEEEvPKfS4_S4_S4_S4_S4_PfS5_iiifT1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63824flash_bwd_dkv_f32_kernelILi128ELb0ENS_7PosMaskEEEvPKfS4_S4_S4_S4_S4_PfS5_iiifT1_
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 16 bytes cumulative stack size
+"""
+
 
 @pytest.fixture(scope="module")
 def chip_smoke():
@@ -66,29 +79,50 @@ def test_ptxas_report_reads_each_bf16_forward_instance(chip_smoke):
 
 
 def test_ptxas_report_reads_each_bf16_backward_instance(chip_smoke):
-    """Each backward template's instances, and none of the other's."""
+    """Each backward template's instances, and none of the other's, for
+    the bfloat16 bodies and for the float32 ones (the sibling map
+    F32_KERNELS, whose ptxas lines chip_smoke.py prints beside them)."""
     assert chip_smoke.ptxas_report(PTXAS_BWD_LOG, "flash_bwd_dq_bf16_kernel") == [
         {"D": 64, "vec": True, "mask": "StaticMask", "spill_stores": 0, "spill_loads": 0, "registers": 160}]
     assert chip_smoke.ptxas_report(PTXAS_BWD_LOG, "flash_bwd_dkv_bf16_kernel") == [
         {"D": 128, "vec": False, "mask": "PosMask", "spill_stores": 0, "spill_loads": 0, "registers": 243}]
-    assert chip_smoke.ptxas_report(PTXAS_LOG, "flash_bwd_dq_bf16_kernel") == []  # the float32 dq is not one
+    assert chip_smoke.ptxas_report(PTXAS_LOG, "flash_bwd_dq_bf16_kernel") == []  # the old float32 dq is not one
     assert set(chip_smoke.TC_KERNELS) == {"flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                                           "flash_bwd_dkv_bf16_kernel"}
     assert all((REPO / path).is_file() for path in chip_smoke.TC_KERNELS.values())
+    # the float32 backward
+    assert chip_smoke.ptxas_report(PTXAS_F32_LOG, "flash_bwd_dq_f32_kernel") == [
+        {"D": 64, "vec": True, "mask": "StaticMask", "spill_stores": 0, "spill_loads": 0, "registers": 154}]
+    assert chip_smoke.ptxas_report(PTXAS_F32_LOG, "flash_bwd_dkv_f32_kernel") == [
+        {"D": 128, "vec": False, "mask": "PosMask", "spill_stores": 8, "spill_loads": 8, "registers": 255}]
+    assert chip_smoke.ptxas_report(PTXAS_F32_LOG, "flash_bwd_dq_bf16_kernel") == []
+    assert chip_smoke.ptxas_report(PTXAS_BWD_LOG, "flash_bwd_dq_f32_kernel") == []
+    assert set(chip_smoke.F32_KERNELS) == {"flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel"}
+    assert all((REPO / path).is_file() for path in chip_smoke.F32_KERNELS.values())
+    source = (REPO / chip_smoke.BWD_F32_SOURCE).read_text()
+    assert all(f"{name}(" in source for name in chip_smoke.F32_KERNELS)
 
 
 @pytest.mark.parametrize("name", FLASH_NAMES)
 def test_flash_rows_name_each_dtypes_body(chip_smoke, name):
     """Every bfloat16 launch runs on the tensor cores, the forward from
     flash_fwd_tc.cuh, dq and dk/dv from flash_bwd_tc.cuh; float32 on the
-    CUDA cores of flash_attention.cu."""
+    CUDA cores, the forward from flash_attention.cu, dq and dk/dv from
+    flash_bwd_f32.cuh; each named body is defined in its source."""
     cores, sources = chip_smoke.flash_cores(name), chip_smoke.flash_sources(name)
+    bodies = chip_smoke.flash_bodies(name)
     fwd = name.endswith("_fwd")
+    kind = "fwd" if fwd else "bwd_dq" if name.endswith("_dq") else "bwd_dkv"
     assert cores == {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores"}
-    assert sources["float32"] == "heat_tpu_torch/ops/csrc/flash_attention.cu"
+    assert sources["float32"] == ("heat_tpu_torch/ops/csrc/flash_attention.cu" if fwd else
+                                  "heat_tpu_torch/ops/csrc/flash_bwd_f32.cuh")
     assert sources["bfloat16"] == ("heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh" if fwd else
                                    "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh")
+    assert bodies == {"float32": "flash_fwd_kernel" if fwd else f"flash_{kind}_f32_kernel",
+                      "bfloat16": f"flash_{kind}_bf16_kernel"}
     assert all((REPO / path).is_file() for path in sources.values())
+    for dtype, body in bodies.items():
+        assert f"{body}(" in (REPO / sources[dtype]).read_text()
 
 
 def test_forward_edge_checks_stay_inside_the_kernels_limits(chip_smoke):
@@ -147,6 +181,71 @@ def test_one_row_backward_is_float32_noise_whose_bits_follow_the_sum_order(chip_
         assert share > chip_smoke.BF16_DIFF_SHARE  # the plain share counts noise
         assert chip_smoke._share_above_floor(a, b) == 0.0
         assert chip_smoke._row_err(a, b) < 1e-3  # held by the row error instead
+
+
+def test_edge_criterion_passes_float32_noise_and_fails_a_bfloat16_step(chip_smoke):
+    """The float32 edge criterion (_edge_err, _edge_ok) on the plain
+    versions at S = 1, 8 query heads to a K/V head, d = 128, where every
+    row of dq and dk is float32 noise of a cancelled sum: dd summed in two
+    orders (exactly rounded and left to right) gives other bits, noise
+    above FLASH_TOL's 2e-4 of the row floor (what _row_err allows there)
+    and within EDGE_F32_ATOL, so the criterion passes both; an error of one
+    bfloat16 step of a value at the floor (2^-14) in a row below it fails,
+    and so does one bfloat16 step of the largest element of a row that
+    reaches the floor."""
+    rng = np.random.default_rng(0)
+    q, do = (torch.from_numpy(rng.standard_normal((32, 1, 128), dtype=np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((4, 1, 128), dtype=np.float32)) for _ in range(2))
+    scale = 128**-0.5
+    out, lse = fa._torch_flash_gqa_fwd(q, k, v, True, scale)
+    prod = do.double() * out.double()
+    dd_exact = prod.sum(-1).float()
+    dd_seq = torch.zeros(prod.shape[:-1])
+    for i in range(prod.shape[-1]):  # left to right in float32
+        dd_seq = dd_seq + prod[..., i].float()
+    assert not torch.equal(dd_exact, dd_seq)
+    grads = [(fa._torch_flash_gqa_bwd_dq(q, k, v, do, lse, dd, True, scale),
+              *fa._torch_flash_gqa_bwd_dkv(q, k, v, do, lse, dd, True, scale)) for dd in (dd_exact, dd_seq)]
+    floor = chip_smoke.ROW_FLOOR
+    noisy = 0.0
+    for key, a, b in zip(("dq", "dk", "dv"), *grads):
+        above, below = chip_smoke._edge_err(a, b)
+        assert chip_smoke._edge_ok((above, below))
+        if key == "dv":  # the group's dO summed: dd takes no part
+            assert torch.equal(a, b)
+        else:  # no row reaches the floor: all noise
+            assert above == 0.0
+            noisy = max(noisy, below)
+    assert noisy > chip_smoke.FLASH_TOL["float32"]["grad"] * floor  # _row_err would refuse this noise
+    assert chip_smoke._row_err(grads[0][1], grads[1][1]) > chip_smoke.FLASH_TOL["float32"]["grad"]
+    bf16_step = floor * 2.0**-7
+    assert bf16_step > chip_smoke.EDGE_F32_ATOL
+    dq = grads[0][0]
+    off = dq.clone()
+    off[3, 0, 7] += bf16_step
+    assert not chip_smoke._edge_ok(chip_smoke._edge_err(off, dq))
+    # a row that reaches the floor: dv; its largest element one bfloat16 step off
+    dv = grads[0][2]
+    assert float(dv.abs().max()) >= floor
+    i = int(dv.abs().flatten().argmax())
+    off = dv.clone().flatten()
+    off[i] += float(torch.tensor(float(off[i])).to(torch.bfloat16).float().abs()) * 2.0**-8
+    assert not chip_smoke._edge_ok(chip_smoke._edge_err(off.view_as(dv), dv))
+
+
+def test_edge_err_splits_rows_at_the_floor(chip_smoke):
+    """_edge_err: the row error over rows reaching ROW_FLOOR of the
+    tensor's scale (or of 1), the absolute error over the rows below it."""
+    want = torch.tensor([[1.0, -0.5], [2e-3, 1e-3], [0.0, 4.0]])
+    assert chip_smoke._edge_err(want, want) == (0.0, 0.0)
+    got = want.clone()
+    got[1, 0] += 1e-5  # below the floor (2^-7 of 4): absolute
+    got[2, 1] += 4e-4  # above it: 1e-4 of the row's largest value
+    above, below = chip_smoke._edge_err(got, want)
+    assert below == pytest.approx(1e-5, rel=1e-3) and above == pytest.approx(1e-4, rel=1e-3)
+    assert chip_smoke._edge_ok((above, below))
+    assert not chip_smoke._edge_ok((above, 2 * chip_smoke.EDGE_F32_ATOL))
+    assert not chip_smoke._edge_ok((3e-4, below))
 
 
 def test_chip_smoke_without_cuda_exits_2_and_prints_no_result():

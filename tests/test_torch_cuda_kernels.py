@@ -35,6 +35,11 @@ Tolerances:
     multi-head and grouped 4:1 and 8:1, and the ring's blocks; its output
     repeats bit for bit, and an operand off 16-byte alignment (loaded
     element by element into the same shared tiles) gives the same bits.
+  - the float32 dq and dk/dv (the CUDA-core bodies,
+    ``csrc/flash_bwd_f32.cuh``) take the float32 limits over the same
+    shapes, but below 129 rows, where whole rows of dq and dk cancel to
+    float32 noise (below): there rows reaching the row floor take the row
+    error and rows below it chip_smoke.py's EDGE_F32_ATOL (_edge_err).
   - the bfloat16 dq and dk/dv (the tensor-core bodies,
     ``csrc/flash_bwd_tc.cuh``) take the same limits over the forward's
     shapes, but for the differing share: whole rows of dq and dk can cancel
@@ -340,10 +345,13 @@ def test_cuda_bf16_forward_positions_blocks(block, d):
         assert bool(torch.isfinite(lse).all()) and bool((lse > fa.NO_MASS).all())
 
 
-def _assert_bf16_backward(names, q, k, v, do, *args, g_lse=None):
-    """The bfloat16 dq and dk/dv of the wrappers ``names`` against their
-    plain versions, repeated, and again with dO off 16-byte alignment;
-    ``g_lse``, an lse cotangent, folds into dd.  Returns (dq, dk, dv)."""
+def _assert_backward(names, q, k, v, do, *args, g_lse=None):
+    """dq and dk/dv of the wrappers ``names`` against their plain versions,
+    repeated, and again with dO off 16-byte alignment; ``g_lse``, an lse
+    cotangent, folds into dd.  bfloat16: the row error and the share above
+    the row floor; float32: the row error, but below 129 rows chip_smoke's
+    edge criterion (rows below the row floor are float32 noise of a
+    cancelled sum, held to EDGE_F32_ATOL).  Returns (dq, dk, dv)."""
     (fwd, bwd_dq, bwd_dkv), (plain_dq, plain_dkv) = (getattr(fa, n) for n in names), (
         getattr(fa, f"_torch_{n}") for n in names[1:])
     out, lse = fwd(q, k, v, *args)
@@ -358,11 +366,44 @@ def _assert_bf16_backward(names, q, k, v, do, *args, g_lse=None):
     assert {n: fa.launch_counts[n] - before[n] for n in before} == {n: 3 * (n in names[1:]) for n in before}
     assert grads[0].shape == q.shape and grads[1].shape == grads[2].shape == k.shape
     for got, rep, mis, want in zip(grads, again, shifted, plain):
-        assert got.dtype == torch.bfloat16
+        assert got.dtype == q.dtype
         assert torch.equal(got, rep) and torch.equal(got, mis)  # no atomics; element-wise loads, same tiles
-        assert row_err(got, want) <= FLASH_TOL[torch.bfloat16]["grad"]
-        assert _CHIP_SMOKE._share_above_floor(got, want) <= 0.01
+        if q.dtype == torch.bfloat16:
+            assert row_err(got, want) <= FLASH_TOL[torch.bfloat16]["grad"]
+            assert _CHIP_SMOKE._share_above_floor(got, want) <= 0.01
+        elif min(q.shape[1], k.shape[1]) < 129:
+            assert _CHIP_SMOKE._edge_ok(_CHIP_SMOKE._edge_err(got, want))
+        else:
+            assert row_err(got, want) <= FLASH_TOL[torch.float32]["grad"]
     return grads
+
+
+def _backward_case(dtype, seed, d, S, causal, group):
+    """dq and dk/dv in ``dtype`` through flash_bwd_dq and flash_bwd_dkv
+    (group 1) or the grouped wrappers (group query rows to a K/V row), 2
+    K/V rows, by _assert_backward."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((2 * group, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((2, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if group == 1 else (
+        "flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
+    _assert_backward(names, q, k, v, do, causal, d**-0.5)
+
+
+def _backward_block(dtype, seed, block, d):
+    """dq and dk/dv in ``dtype`` of the ring block ``block`` at (4, 300,
+    300, d) with a nonzero lse cotangent, by _assert_backward; the dead
+    block gives exact zeros."""
+    qo, ko, causal, s_valid = BF16_RING_BLOCKS[block]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((4, 300, d), generator=g, device="cuda").to(dtype) for _ in range(4))
+    g_lse = torch.randn((4, 300), generator=g, device="cuda")
+    qpos = torch.arange(qo, qo + 300, dtype=torch.int32, device="cuda")
+    kpos = torch.arange(ko, ko + 300, dtype=torch.int32, device="cuda")
+    grads = _assert_backward(("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv"), q, k, v, do, qpos,
+                             kpos, causal, d**-0.5, s_valid, True, g_lse=g_lse)
+    if block == "dead":
+        assert not any(t.any() for t in grads)
 
 
 @pytest.mark.parametrize("group", [1, 4, 8])
@@ -373,12 +414,7 @@ def test_cuda_bf16_backward_matches_plain_version(d, S, causal, group):
     """The tensor-core dq and dk/dv through flash_bwd_dq and flash_bwd_dkv
     (group 1) and the grouped wrappers (4 or 8 query rows to a K/V row, dk
     and dv summed over the group), 2 K/V rows."""
-    g = torch.Generator(device="cuda").manual_seed(2000 * d + 10 * S + group + causal)
-    q, do = (torch.randn((2 * group, S, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((2, S, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if group == 1 else (
-        "flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
-    _assert_bf16_backward(names, q, k, v, do, causal, d**-0.5)
+    _backward_case(torch.bfloat16, 2000 * d + 10 * S + group + causal, d, S, causal, group)
 
 
 @pytest.mark.parametrize("d", [33, 64, 128])
@@ -387,16 +423,28 @@ def test_cuda_bf16_backward_positions_blocks(block, d):
     """The tensor-core dq and dk/dv under the positions mask, with a nonzero
     lse cotangent: the ring's diagonal, past and dead blocks and full
     attention with pad keys; the dead block gives exact zeros."""
-    qo, ko, causal, s_valid = BF16_RING_BLOCKS[block]
-    g = torch.Generator(device="cuda").manual_seed(3 * d + qo + ko)
-    q, k, v, do = (torch.randn((4, 300, d), generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
-    g_lse = torch.randn((4, 300), generator=g, device="cuda")
-    qpos = torch.arange(qo, qo + 300, dtype=torch.int32, device="cuda")
-    kpos = torch.arange(ko, ko + 300, dtype=torch.int32, device="cuda")
-    grads = _assert_bf16_backward(("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv"), q, k, v, do, qpos,
-                                  kpos, causal, d**-0.5, s_valid, True, g_lse=g_lse)
-    if block == "dead":
-        assert not any(t.any() for t in grads)
+    qo, ko, _, _ = BF16_RING_BLOCKS[block]
+    _backward_block(torch.bfloat16, 3 * d + qo + ko, block, d)
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 15, 127, 129, 1024])
+@pytest.mark.parametrize("d", [8, 33, 64, 100, 128])
+def test_cuda_f32_backward_matches_plain_version(d, S, causal, group):
+    """The float32 dq and dk/dv (the CUDA-core bodies,
+    ``csrc/flash_bwd_f32.cuh``) over the bfloat16 test's shapes: d on and
+    off the 16-byte loads (33), S around the 32- and 64-row tiles."""
+    _backward_case(torch.float32, 3000 * d + 10 * S + group + causal, d, S, causal, group)
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+@pytest.mark.parametrize("block", list(BF16_RING_BLOCKS))
+def test_cuda_f32_backward_positions_blocks(block, d):
+    """The float32 dq and dk/dv under the positions mask, at the bfloat16
+    test's blocks; the dead block gives exact zeros."""
+    qo, ko, _, _ = BF16_RING_BLOCKS[block]
+    _backward_block(torch.float32, 5 * d + qo + ko, block, d)
 
 
 def _gloo_rank(rank, store):
