@@ -6,10 +6,15 @@
 1. Prints the card (nvidia-smi's name and power limit) and builds the CUDA
    kernels from ``heat_tpu_torch/ops/csrc``; prints ptxas's registers and
    spills of each instance of the bfloat16 tensor-core kernels, the forward
-   (``flash_fwd_tc.cuh``), dq and dk/dv (``flash_bwd_tc.cuh``), and of the
-   float32 dq and dk/dv (``flash_bwd_f32.cuh``).
-2. Holds each kernel against its plain PyTorch version at k=64, d=32 on a
-   ragged n=1,000,003, in float32 and bfloat16.
+   (``flash_fwd_tc.cuh``), dq and dk/dv (``flash_bwd_tc.cuh``), of the
+   float32 forward, dq and dk/dv (``flash_f32.cuh``) and of the KMeans
+   kernels (``kmeans.cu``).
+2. Holds each KMeans kernel against its plain PyTorch version at k=64,
+   d=32 on a ragged n=1,000,003, in float32 and bfloat16; then em_stats at
+   its edges (``EM_EDGE_CHECKS``: k of 1 to 200, d of 1 to 128, n of 0, 1,
+   under a slab and off a tile, bfloat16, rows in random order, and one
+   cluster holding 99% of 1e6 rows), each against its plain version and
+   against assign's labels, twice to the same bits.
 3. Drives the main path at the BASELINE width: ``create_clusters`` with
    1e8 x 32 rows at split=0, ``KMeans(64, init="random", max_iter=20).fit``
    and ``predict``, in float32 and in bfloat16.  Each is held to one Lloyd
@@ -35,7 +40,7 @@
    16-byte alignment, to the same bits; d = 256 refused.  Every bfloat16
    launch runs a tensor-core body (``mma.sync``): the forward
    ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``; every float32
-   dq and dk/dv the CUDA-core bodies of ``flash_bwd_f32.cuh``.
+   launch the CUDA-core bodies of ``flash_f32.cuh``.
 5. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
    width of the repo's LM benchmark) in float32 for 20 Adam steps on token
    batches (8, 1025) of repeated random segments: every flash kernel must
@@ -123,12 +128,16 @@ LM_GQA = dict(LM, num_kv_heads=2, positions="rope")
 FLASH_SOURCE = "heat_tpu_torch/ops/csrc/flash_attention.cu"
 FWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh"  # the bfloat16 forward, included by FLASH_SOURCE
 BWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh"  # the bfloat16 dq and dk/dv, included by FLASH_SOURCE
-BWD_F32_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_f32.cuh"  # the float32 dq and dk/dv, included by FLASH_SOURCE
+F32_SOURCE = "heat_tpu_torch/ops/csrc/flash_f32.cuh"  # the float32 forward, dq and dk/dv, included by FLASH_SOURCE
+KMEANS_SOURCE = "heat_tpu_torch/ops/csrc/kmeans.cu"
 # the kernel templates whose instances the ptxas lines report: the tensor-core
-# bodies, and the float32 backward on the CUDA cores
+# bodies, the float32 bodies on the CUDA cores, and the KMeans kernels
 TC_KERNELS = {"flash_fwd_bf16_kernel": FWD_TC_SOURCE, "flash_bwd_dq_bf16_kernel": BWD_TC_SOURCE,
               "flash_bwd_dkv_bf16_kernel": BWD_TC_SOURCE}
-F32_KERNELS = {"flash_bwd_dq_f32_kernel": BWD_F32_SOURCE, "flash_bwd_dkv_f32_kernel": BWD_F32_SOURCE}
+F32_KERNELS = {"flash_fwd_f32_kernel": F32_SOURCE, "flash_bwd_dq_f32_kernel": F32_SOURCE,
+               "flash_bwd_dkv_f32_kernel": F32_SOURCE}
+KMEANS_KERNELS = {"assign_kernel": KMEANS_SOURCE, "em_stats_kernel": KMEANS_SOURCE,
+                  "em_reduce_kernel": KMEANS_SOURCE}
 MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GQA_KERNELS = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv")
 POS_KERNELS = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
@@ -178,6 +187,26 @@ GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
 GQA_MAIN = (64, 16, 1024, 64)  # the grouped LM's: 8 batches of 8 query and 2 K/V heads
 FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
+# em_stats at its edges: (rows, n, k, d, dtype, layout).  k from one cluster
+# to more than a warp's 64-row slab can hold; d of one column, off and on
+# the 32-column register rows, up to 128; n of 0, 1, under one slab and off
+# a tile of slabs (512 rows), and past the rows it is given; "blobs" keeps
+# each cluster's rows contiguous, as create_clusters does (the fold's groups
+# hold one label), "shuffled" puts rows in random order (a run is about a
+# row), and "dominant" gives one cluster 99% of 1e6 rows, a float32 running
+# sum's longest chain
+EM_EDGE_CHECKS = [(100_003, 99_991, 1, 32, "float32", "blobs"), (100_003, 100_003, 3, 32, "float32", "blobs"),
+                  (100_003, 99_991, 61, 32, "float32", "shuffled"), (100_003, 99_991, 200, 32, "float32", "blobs"),
+                  (100_003, 100_003, 64, 1, "float32", "shuffled"), (100_003, 99_991, 64, 33, "float32", "blobs"),
+                  (100_003, 99_991, 64, 64, "float32", "shuffled"), (100_003, 99_991, 64, 100, "float32", "blobs"),
+                  (100_003, 99_991, 64, 128, "float32", "shuffled"), (1000, 0, 64, 32, "float32", "blobs"),
+                  (1000, 1, 64, 32, "float32", "blobs"), (1000, 50, 64, 32, "float32", "shuffled"),
+                  (1000, 5000, 64, 32, "float32", "blobs"),
+                  (1000, 777, 61, 33, "float32", "shuffled"), (777, 777, 3, 100, "float32", "blobs"),
+                  (100_003, 99_991, 61, 100, "bfloat16", "shuffled"), (100_003, 99_991, 64, 32, "bfloat16", "blobs"),
+                  (1_000_000, 1_000_000, 64, 32, "float32", "dominant"),
+                  (1_000_000, 1_000_000, 64, 32, "bfloat16", "dominant")]
+DOMINANT_SHARE = 0.99
 # kernel vs plain version, by _row_err (each row's largest error over that
 # row's largest |plain|).  Both take P at the same running maximum over
 # 64-key tiles and round at the same points, so they differ by float32 sum
@@ -301,12 +330,13 @@ def compare_em(x, c, n, sums_k, counts_k, lab_k, sums_p, counts_p, ties):
     Returns (max abs error against the plain version, against the float64 scatter)."""
     import torch
 
+    k, d = c.shape
     lab = lab_k[:n].long()
-    want_counts = torch.bincount(lab, minlength=K).float()
+    want_counts = torch.bincount(lab, minlength=k).float()
     if not torch.equal(counts_k, want_counts):
         fail("em_stats counts differ from the assign kernel's labels")
-    want = torch.zeros((K, D), dtype=torch.float64, device=x.device)
-    mag = torch.zeros((K, D), dtype=torch.float64, device=x.device)
+    want = torch.zeros((k, d), dtype=torch.float64, device=x.device)
+    mag = torch.zeros((k, d), dtype=torch.float64, device=x.device)
     for s in range(0, n, 1 << 22):
         xb = x[s : min(s + (1 << 22), n)].double()
         want.index_add_(0, lab[s : s + xb.shape[0]], xb)
@@ -324,6 +354,59 @@ def compare_em(x, c, n, sums_k, counts_k, lab_k, sums_p, counts_p, ties):
     if bool((err > allow).any()):
         fail(f"em_stats sums differ from the plain version by {float(err.max())}")
     return float(err.max()), exact
+
+
+def em_edge_inputs(rows: int, k: int, d: int, dtype: str, layout: str, seed: int, device="cuda"):
+    """(x (rows, d) in ``dtype``, centres (k, d) float32) for an em_stats
+    edge check: Gaussian blobs (sd 0.7) around centres of sd 4, each
+    cluster's rows contiguous ("blobs"), in random order ("shuffled"), or
+    DOMINANT_SHARE of them in cluster 0, first and contiguous, at a centre
+    of magnitude ~20 per column ("dominant"), where a float32 running sum
+    of the cluster drifts most."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = torch.randn((k, d), generator=g, device=device) * 4.0
+    if layout == "dominant":
+        c[0] += 20.0
+        big = int(rows * DOMINANT_SHARE)
+        lab = torch.cat([torch.zeros(big, dtype=torch.int64, device=device),
+                         torch.randint(0, k, (rows - big,), generator=g, device=device)])
+    else:
+        lab = torch.randint(0, k, (rows,), generator=g, device=device)
+        if layout == "blobs":
+            lab = lab.sort().values
+    x = (c[lab] + 0.7 * torch.randn((rows, d), generator=g, device=device)).to(getattr(torch, dtype))
+    return x.contiguous(), c.contiguous()
+
+
+def check_em_edges(edges=EM_EDGE_CHECKS) -> None:
+    """em_stats at its edge shapes, each against its plain version and the
+    float64 scatter of assign's labels (compare_em), and twice to the same
+    bits."""
+    import torch
+
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    for rows, n, k, d, dtype, layout in edges:
+        shape = (rows, n, k, d, dtype, layout)
+        x, c = em_edge_inputs(rows, k, d, dtype, layout, seed=rows + n + k + d)
+        sums, counts = kk.fused_em_stats(x, c, n)
+        sums2, counts2 = kk.fused_em_stats(x, c, n)
+        lab, _ = kk.fused_assign(x, c)
+        sums_p, counts_p = kk._torch_em_stats(x, c, n)
+        lab_p, _ = kk._torch_assign(x, c)
+        torch.cuda.synchronize()
+        if not (torch.equal(sums, sums2) and torch.equal(counts, counts2)):
+            fail(f"em_stats does not repeat its bits at {shape}")
+        if tuple(sums.shape) != (k, d) or tuple(counts.shape) != (k,) or float(counts.sum()) != min(n, rows):
+            fail(f"em_stats at {shape}: shapes {tuple(sums.shape)}, {tuple(counts.shape)}, {float(counts.sum())} rows")
+        ties = int((lab[:n] != lab_p[:n]).sum())
+        err, exact = compare_em(x, c, n, sums, counts, lab, sums_p, counts_p, ties)
+        print(json.dumps({"phase": "kernel_check", "kernel": "em_stats", "edge": True, "rows": rows, "n": n, "k": k,
+                          "d": d, "dtype": dtype, "layout": layout, "max_abs_err": err,
+                          "max_abs_err_vs_float64": exact, "near_ties": ties, "sum_rtol": SUM_RTOL,
+                          "repeats_bitwise": True, "check": "pass"}), flush=True)
 
 
 def check_kernels_small(dtype) -> None:
@@ -363,7 +446,8 @@ def check_kernels_small(dtype) -> None:
 
 
 def main_fit(ht, x, label: str, init="random"):
-    """One KMeans fit and predict through the public API, counts zeroed just before."""
+    """One KMeans fit and predict through the public API, counts zeroed just
+    before; returns the estimator, the launch counts and the printed row."""
     import torch
 
     from heat_tpu_torch.ops import kmeans_kernels as kk
@@ -391,13 +475,14 @@ def main_fit(ht, x, label: str, init="random"):
     labels = km.labels_.larray
     if int(labels.min()) < 0 or int(labels.max()) >= K:
         fail(f"{label}: labels out of range")
-    print(json.dumps({
+    row = {
         "phase": "main_path", "fit": label, "n": x.shape[0], "d": D, "k": K, "dtype": str(x.dtype.__name__),
         "init": init, "n_iter": km.n_iter_, "inertia": km.inertia_, "fit_s": fit_s,
         "fit_iter_per_s": km.n_iter_ / fit_s, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "launch_counts": counts,
-    }), flush=True)
-    return km, counts
+    }
+    print(json.dumps(row), flush=True)
+    return km, counts, row
 
 
 def recovered(centers, means, tol: float) -> int:
@@ -407,7 +492,7 @@ def recovered(centers, means, tol: float) -> int:
 
 def recover(ht, x, means, label: str) -> None:
     """A kmeans++ fit must put a centre within RECOVER_TOL of every generating mean."""
-    kp, _ = main_fit(ht, x, label, init="kmeans++")
+    kp, _, _ = main_fit(ht, x, label, init="kmeans++")
     got = recovered(kp.cluster_centers_.larray.float(), means, RECOVER_TOL)
     print(json.dumps({"phase": "main_path_recovery", "fit": label, "init": "kmeans++", "means_within_tol": got,
                       "tol": RECOVER_TOL, "held": True}), flush=True)
@@ -473,7 +558,7 @@ def time_kernels(x, c, launches, err):
     ):
         b_ms, b_by = bound(n, itemsize, em)
         rows.append({
-            "name": name, "route": "cuda", "source": "heat_tpu_torch/ops/csrc/kmeans.cu",
+            "name": name, "route": "cuda", "source": KMEANS_SOURCE,
             "replaces": f"heat_tpu/ops/kmeans_kernels.py:{line}", "launches": launches[name],
             "max_abs_err": err[name][0], "max_abs_err_vs_float64": err[name][1],
             "ms": cuda_ms(run, 5), "plain_ms": cuda_ms(plain, 2),
@@ -1024,35 +1109,30 @@ def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
 def flash_cores(name: str) -> dict:
     """What a flash wrapper's kernel multiplies on, by dtype: every bfloat16
     launch runs an mma.sync body (flash_fwd_tc.cuh, flash_bwd_tc.cuh), every
-    float32 launch a CUDA-core body (the forward in flash_attention.cu, dq
-    and dk/dv in flash_bwd_f32.cuh)."""
+    float32 launch a CUDA-core body (flash_f32.cuh)."""
     return {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores"}
 
 
 def flash_sources(name: str) -> dict:
-    fwd = name.endswith("_fwd")
-    return {"float32": FLASH_SOURCE if fwd else BWD_F32_SOURCE, "bfloat16": FWD_TC_SOURCE if fwd else BWD_TC_SOURCE}
+    return {"float32": F32_SOURCE, "bfloat16": FWD_TC_SOURCE if name.endswith("_fwd") else BWD_TC_SOURCE}
 
 
 def flash_bodies(name: str) -> dict:
     """The CUDA kernel template that each dtype's launch of a flash wrapper runs."""
     kind = "fwd" if name.endswith("_fwd") else "bwd_dq" if name.endswith("_dq") else "bwd_dkv"
-    return {"float32": "flash_fwd_kernel" if kind == "fwd" else f"flash_{kind}_f32_kernel",
-            "bfloat16": f"flash_{kind}_bf16_kernel"}
+    return {"float32": f"flash_{kind}_f32_kernel", "bfloat16": f"flash_{kind}_bf16_kernel"}
 
 
-def ptxas_report(log: str, word: str) -> list:
-    """ptxas's registers and spills for each compiled instance of the
-    kernel template ``word`` (its template arguments read from the mangled
-    name: D, 16-byte loads, mask)."""
+def _ptxas_rows(log: str, args_of) -> list:
+    """ptxas's registers and spills for each compiled kernel whose mangled
+    name ``args_of`` maps to a dict (its template arguments), not None."""
     import re
 
     rows, cur = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            args = re.search(word + r"ILi(\d+)ELb([01])ENS_\d+(\w+?)EE", entry.group(1))
-            cur = {"D": int(args.group(1)), "vec": args.group(2) == "1", "mask": args.group(3)} if args else None
+            cur = args_of(entry.group(1))
             continue
         if cur is None:
             continue
@@ -1064,6 +1144,36 @@ def ptxas_report(log: str, word: str) -> list:
             rows.append({**cur, "registers": int(regs.group(1))})
             cur = None
     return rows
+
+
+def ptxas_report(log: str, word: str) -> list:
+    """ptxas's registers and spills for each compiled instance of the
+    flash kernel template ``word`` (its template arguments read from the
+    mangled name: D, 16-byte loads, mask)."""
+    import re
+
+    def args_of(name):
+        args = re.search(word + r"ILi(\d+)ELb([01])ENS_\d+(\w+?)EE", name)
+        return {"D": int(args.group(1)), "vec": args.group(2) == "1", "mask": args.group(3)} if args else None
+
+    return _ptxas_rows(log, args_of)
+
+
+def kmeans_ptxas_report(log: str, word: str) -> list:
+    """ptxas's registers and spills for each compiled instance of the KMeans
+    kernel ``word``: its template arguments (storage type, DP columns, rows
+    a lane) read from the mangled name, none for a kernel that is not a
+    template (em_reduce_kernel)."""
+    import re
+
+    def args_of(name):
+        args = re.search(r"\d" + word + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)EE", name)
+        if args:
+            return {"dtype": "float32" if args.group(1) == "f" else "bfloat16", "DP": int(args.group(2)),
+                    "RPT": int(args.group(3))}
+        return {} if re.search(r"\d" + word + "E", name) else None
+
+    return _ptxas_rows(log, args_of)
 
 
 def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, launches_bf16=None) -> list:
@@ -1473,10 +1583,14 @@ def main() -> int:
     for kernel, source in {**TC_KERNELS, **F32_KERNELS}.items():
         print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
                           "instances": ptxas_report(_build.build_info["log"], kernel)}), flush=True)
+    for kernel, source in KMEANS_KERNELS.items():
+        print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
+                          "instances": kmeans_ptxas_report(_build.build_info["log"], kernel)}), flush=True)
 
     # 2. kernels against their plain versions
     for dtype in (torch.float32, torch.bfloat16):
         check_kernels_small(dtype)
+    check_em_edges()
     flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN, FWD_EDGE_CHECKS)
     gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN, GQA_FWD_EDGE_CHECKS)
     pos_errs = check_pos_kernels()
@@ -1485,7 +1599,7 @@ def main() -> int:
     gm = torch.Generator().manual_seed(7)
     means = torch.rand((K, D), generator=gm) * 40.0 - 20.0
     x = ht.utils.data.create_clusters(N_MAIN, D, K, means.numpy(), cluster_std=1.0, device="gpu", random_state=0)
-    km, launches = main_fit(ht, x, "float32")
+    km, launches, _ = main_fit(ht, x, "float32")
     means_dev = means.cuda()
     print(json.dumps({"phase": "main_path_recovery", "fit": "float32", "init": "random",
                       "means_within_tol": recovered(km.cluster_centers_.larray.float(), means_dev, RECOVER_TOL),
@@ -1500,7 +1614,7 @@ def main() -> int:
     xb = ht.utils.data.create_clusters(N_MAIN, D, K, means.numpy(), cluster_std=1.0, device="gpu",
                                        random_state=0, dtype=ht.bfloat16)
     del x
-    kb, launches_bf16 = main_fit(ht, xb, "bfloat16")
+    kb, launches_bf16, _ = main_fit(ht, xb, "bfloat16")
     compare_with_torch_path(ht, xb, kb, "bfloat16", atol=2e-2, rtol=2.0**-7)  # plus one bfloat16 ulp
     errs = check_at_main_shape(xb.larray, kb._centers, "bfloat16")
     for row, bf in zip(rows, time_kernels(xb.larray, kb._centers, launches_bf16, errs)):

@@ -34,8 +34,9 @@
 // positions of a tile itself (two per lane and a warp min/max), so the
 // decision is the same in every warp and needs no shared memory or barrier;
 // a skipped tile is not loaded.  A block wholly in the future of its
-// queries still launches and skips every tile: its rows give O = 0 and
-// lse = -1e30, as _finalize writes.
+// queries gives O = 0 and lse = -1e30, as _finalize writes: the float32
+// bodies find so in one pass over the positions and return before they
+// load a tile, the bfloat16 ones skip every tile.
 //
 // Grouped-query attention (GQA) runs the same three kernels: they replace
 // _flash_gqa_fwd_impl (l.871) and _flash_gqa_bwd_impl (l.910), which reuse
@@ -49,14 +50,16 @@
 // attention is g = 1.  K/V are never repeated in memory.
 //
 // Which body runs, by dtype, for all three wrappers (flash_*, flash_gqa_*,
-// flash_pos_*), each body with its own note.  float32: the forward
-// flash_fwd_kernel below (CUDA cores), routed by fwd_launch; dq and dk/dv
-// flash_bwd_dq_f32_kernel and flash_bwd_dkv_f32_kernel in
-// flash_bwd_f32.cuh (CUDA cores), routed by dq_launch and dkv_launch.
-// bfloat16, on the tensor cores (mma.sync): the forward
-// flash_fwd_bf16_kernel in flash_fwd_tc.cuh; dq and dk/dv
-// flash_bwd_dq_bf16_kernel and flash_bwd_dkv_bf16_kernel in
-// flash_bwd_tc.cuh.  No bfloat16 instance of a float32 body is built.
+// flash_pos_*), each body with its own note, routed by fwd_launch,
+// dq_launch and dkv_launch.  float32, on the CUDA cores: the forward
+// flash_fwd_f32_kernel, dq flash_bwd_dq_f32_kernel and dk/dv
+// flash_bwd_dkv_f32_kernel, all in flash_f32.cuh.  bfloat16, on the tensor
+// cores (mma.sync): the forward flash_fwd_bf16_kernel in flash_fwd_tc.cuh;
+// dq and dk/dv flash_bwd_dq_bf16_kernel and flash_bwd_dkv_bf16_kernel in
+// flash_bwd_tc.cuh.  No bfloat16 instance of a float32 body is built, and
+// every body takes 16-byte cp.async loads where a row is whole 16-byte
+// chunks and the operands are 16-byte aligned, element-wise loads into the
+// same tiles otherwise.
 //
 // Semantics: top-left causal (a query at row i sees keys 0..i) or full
 // attention over (S, d) rows; storage float32 or bfloat16, all
@@ -76,24 +79,16 @@
 // launches at the grouped LM's shape, (bhq, bhk) = (64, 16), do the same
 // FLOPs over fewer K/V bytes.
 //
-// The float32 forward, flash_fwd_kernel, is the port's first body, built
-// to be right and simple; the backward bodies it shared its helpers with
-// were redesigned for the card (flash_bwd_f32.cuh):
-//   * one block of 256 threads per (batch*head, 64-query tile); the TPU's
-//     sequential grid axis becomes a loop inside the block over the key
-//     tiles.  Nothing crosses blocks, so there are no atomics and the
-//     results repeat bit for bit;
-//   * the causal skip of the reference (l.149-151) is the loop's bounds;
-//     heavy causal tiles are launched first;
-//   * tiles are 64 x 64, not the TPU's 512 x 512, staged in shared memory
-//     as float32, Q and K transposed (load_tile, one 4-byte load an
-//     element); each thread holds a 4 x 4 patch of every 64 x 64 product in
-//     registers (mm_patch), fed by 16-byte shared-memory reads;
-//   * the ragged last tile is masked inside the kernel (rows >= S load as
-//     zeros, keys >= S are masked); S is never padded in device memory.
-// What holds it back (0.50 ms against a 0.13 ms bound): the transposed
-// stores of load_tile conflict 4 ways on the banks, loads and products do
-// not overlap, and the 4 x 4 patch spends 2 shared reads on 16 FFMA.
+// The design of each body, what bounds it and what holds it back are in its
+// own header's note: flash_f32.cuh (the float32 forward, dq and dk/dv on
+// the CUDA cores: 128-thread blocks, row-major tiles in a two-stage
+// cp.async ring, 8 x 4 register patches, P and dS through warp-private
+// rows), flash_fwd_tc.cuh and flash_bwd_tc.cuh (bfloat16 on the tensor
+// cores).  Every body gives a block one (row, tile of rows), and the TPU's
+// sequential grid axis becomes a loop inside the block, so nothing crosses
+// blocks, there are no atomics and the results repeat bit for bit; the
+// causal skip of the reference (l.149-151) is the loop's bounds, and the
+// heaviest causal tiles go out first.
 //
 // The positions kernels at the ring step's shape, (B*H, Sq, Sk, d) = (16,
 // 2048, 2048, 64), count only the (q, k) pairs they must compute: a past
@@ -123,9 +118,8 @@ constexpr int kErrBadShape = -3;
 
 constexpr int BQ = 64;        // query rows of a tile
 constexpr int BK = 64;        // key rows of a tile (== BQ: the causal bounds below rely on it)
-constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 4 patch of a 64 x 64 product
 constexpr int PAD = 4;        // padding of each shared row, in floats: keeps 16-byte alignment
-constexpr int TS = 64 + PAD;  // stride of a transposed tile [D][64]
+constexpr int TS = 64 + PAD;  // stride of a 64-column tile: P, dS, P^T, dS^T [rows][64]
 constexpr float kNoMass = -1e30f;
 // The bfloat16 forward's block: 4 warps of 16 query rows, one BQ tile, so
 // the masks' key_end and query_bound hold for it; and the blocks an SM that
@@ -138,66 +132,6 @@ template <int D>
 constexpr int kFwdMinBlocks = D == 64 ? 3 : 2;
 
 static_assert(BQ == BK, "the causal loop bounds assume square tiles");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
-
-// float32 -> storage type -> float32: the reference's astype before a GEMM
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
-
-// Rows [r0, r0 + 64) of a row-major (S, d) matrix into shared memory as
-// float32: row-major rm[r][c] (stride D + PAD) and/or transposed tr[c][r]
-// (stride TS).  Rows >= S and columns >= d are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0, int S, int d, float* rm, float* tr) {
-  for (int e = threadIdx.x; e < 64 * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    float v = 0.f;
-    if (r0 + r < S && c < d) v = to_f32(src[int64_t(r0 + r) * d + c]);
-    if (rm) rm[r * (D + PAD) + c] = v;
-    if (tr) tr[c * TS + r] = v;
-  }
-}
-
-// acc[i][g*4 + j] += sum_{k < N} a[k][ty*4 + i] * b[k][g*64 + tx*4 + j]
-template <int NG, int N>
-__device__ __forceinline__ void mm_patch(float (&acc)[4][NG * 4], const float* a, int lda, const float* b, int ldb,
-                                         int ty, int tx) {
-#pragma unroll 8
-  for (int k = 0; k < N; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * lda + ty * 4);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float4 bv = *reinterpret_cast<const float4*>(b + k * ldb + g * 64 + tx * 4);
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][g * 4 + j] = fmaf(ar[i], br[j], acc[i][g * 4 + j]);
-    }
-  }
-}
-
-// reductions over the 16 threads that share a row (lanes differing in tx)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // The mask of the static-offset kernels: one sequence of S rows for q and
 // K/V; a row's position is its index.  The score mask of _masked_scores
@@ -217,7 +151,6 @@ struct StaticMask {
     return causal ? min(nk, iq + 1) : nk;
   }
   __device__ __forceinline__ int query_bound(int) const { return 0; }
-  __device__ __forceinline__ bool key_live(int, int) const { return true; }
   // dk/dv: key tile ik is read by query tiles [query_begin(ik), nq)
   __device__ __forceinline__ int query_begin(int ik) const { return causal ? ik : 0; }
   // the bfloat16 forward (flash_fwd_tc.cuh), by warps of 16 query rows:
@@ -247,13 +180,9 @@ struct StaticMask {
   }
 };
 
-// min / max over the positions [r0, r0 + 64) of a tile that lie below n,
+// max over the positions [r0, r0 + 64) of a tile that lie below n,
 // computed by each warp alone (two entries a lane), so every warp of the
 // block gets the same value without a barrier
-__device__ __forceinline__ int tile_min(const int* __restrict__ pos, int r0, int n) {
-  const int lane = threadIdx.x % 32, a = r0 + lane, b = a + 32;
-  return __reduce_min_sync(0xffffffffu, min(a < n ? pos[a] : INT_MAX, b < n ? pos[b] : INT_MAX));
-}
 __device__ __forceinline__ int tile_max(const int* __restrict__ pos, int r0, int n) {
   const int lane = threadIdx.x % 32, a = r0 + lane, b = a + 32;
   return __reduce_max_sync(0xffffffffu, max(a < n ? pos[a] : INT_MIN, b < n ? pos[b] : INT_MIN));
@@ -294,11 +223,6 @@ struct PosMask {
   }
   __device__ __forceinline__ int key_end(int) const { return (Sk + BK - 1) / BK; }
   __device__ __forceinline__ int query_bound(int q0) const { return masked && causal ? tile_max(qpos, q0, Sq) : 0; }
-  __device__ __forceinline__ bool key_live(int k0, int qmax) const {
-    if (!masked) return true;
-    const int kmin = tile_min(kpos, k0, Sk);
-    return kmin < s_valid && (!causal || kmin <= qmax);
-  }
   __device__ __forceinline__ int query_begin(int) const { return 0; }
   // the bfloat16 forward (flash_fwd_tc.cuh), by warps of 16 query rows:
   // (min, max) position of the warp's rows from r0 below Sq (lanes 0-15 and
@@ -308,7 +232,7 @@ struct PosMask {
   __device__ __forceinline__ int2 fwd_tile_range(int k0) const {
     return masked ? tile_span(kpos, k0, Sk) : make_int2(0, 0);
   }
-  // key_live on the tile's range
+  // _block_live on the tile's range
   __device__ __forceinline__ bool fwd_block_live(int2 keys, int qmax) const {
     return !masked || (keys.x < s_valid && (!causal || keys.x <= qmax));
   }
@@ -341,110 +265,7 @@ struct PosMask {
 
 #include "flash_fwd_tc.cuh"  // the bfloat16 forward: flash_fwd_bf16_kernel
 #include "flash_bwd_tc.cuh"  // the bfloat16 backward: flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel
-#include "flash_bwd_f32.cuh"  // the float32 backward: flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel
-
-template <int D>
-constexpr size_t fwd_smem() {  // qt, kt [D][TS]; vs [BK][D + PAD]; pt [BK][TS]
-  return sizeof(float) * (2 * D * TS + BK * (D + PAD) + BK * TS);
-}
-
-template <typename T, int D, typename Mask>
-__global__ void __launch_bounds__(THREADS, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int d, int group, float scale, const Mask mask) {
-  constexpr int NG = D / 64;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);
-  float* kt = qt + D * TS;
-  float* vs = kt + D * TS;
-  float* pt = vs + BK * (D + PAD);
-
-  const int Sq = mask.q_rows(), Sk = mask.k_rows();
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int bh = int(blockIdx.x) / nq;  // the query row; its K/V row is bh / group
-  const int iq = nq - 1 - int(blockIdx.x % nq);  // longest causal rows first
-  const int q0 = iq * BQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int64_t kv_base = int64_t(bh / group) * Sk * d;
-  q += int64_t(bh) * Sq * d;
-  k += kv_base;
-  v += kv_base;
-
-  load_tile<T, D>(q, q0, Sq, d, nullptr, qt);
-  float m[4], l[4], acc[4][NG * 4];
-  int qp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    qp[i] = mask.q_pos(q0 + ty * 4 + i);
-#pragma unroll
-    for (int j = 0; j < NG * 4; ++j) acc[i][j] = 0.f;
-  }
-
-  const int qmax = mask.query_bound(q0);
-  const int nk = mask.key_end(iq);
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * BK;
-    if (!mask.key_live(k0, qmax)) continue;  // the same decision in every warp
-    __syncthreads();  // the last tile's readers are done
-    load_tile<T, D>(k, k0, Sk, d, nullptr, kt);
-    load_tile<T, D>(v, k0, Sk, d, vs, nullptr);
-    __syncthreads();
-    float s[4][4] = {};
-    mm_patch<1, D>(s, qt, TS, kt, TS, ty, tx);
-    int kp[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kp[j] = mask.k_pos(k0 + tx * 4 + j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = mask.dead(qp[i], kp[j], k0 + tx * 4 + j) ? -INFINITY : s[i][j] * scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // _online_update: rows with no live key so far keep m = -inf
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float safe = isfinite(m_new) ? m_new : 0.f;
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = isfinite(s[i][j]) ? expf(s[i][j] - safe) : 0.f;  // now p
-        ps += s[i][j];
-      }
-      const float corr = isfinite(m[i]) ? expf(m[i] - safe) : 0.f;
-      l[i] = l[i] * corr + row_sum(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NG * 4; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)  // P^T, rounded to V's type
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * TS + ty * 4) =
-          make_float4(round_to<T>(s[0][j]), round_to<T>(s[1][j]), round_to<T>(s[2][j]), round_to<T>(s[3][j]));
-    __syncthreads();
-    mm_patch<NG, BK>(acc, pt, TS, vs, D + PAD, ty, tx);
-  }
-
-  // _finalize; the outputs are offset here, so no 64-bit offset stays live through the loop
-  out += int64_t(bh) * Sq * d;
-  lse += int64_t(bh) * Sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = g * 64 + tx * 4 + j;
-        if (c < d) out[int64_t(row) * d + c] = from_f32<T>(acc[i][g * 4 + j] / den);
-      }
-    if (tx == 0) lse[row] = l[i] > 0.f ? (isfinite(m[i]) ? m[i] : 0.f) + logf(den) : kNoMass;
-  }
-}
+#include "flash_f32.cuh"  // float32: flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel
 
 // Blocks of a grid over ``rows`` rows of n positions in 64-row tiles.
 int64_t tiles_of(int64_t rows, int n) { return rows * ((int64_t(n) + 63) / 64); }
@@ -473,8 +294,7 @@ int launch(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int64_t
 // Query heads per K/V row; launch checks the rows before it launches.
 int group_of(int64_t bhq, int64_t bhk) { return bhk > 0 ? int(bhq / bhk) : 0; }
 
-// The tensor-core kernels and the float32 backward take VEC (16-byte loads
-// and stores) where a row is whole 16-byte chunks, d % E == 0 for E
+// Every kernel takes VEC (16-byte loads and stores) where a row is whole 16-byte chunks, d % E == 0 for E
 // elements in 16 bytes (8 bfloat16, 4 float32), and every operand is
 // 16-byte aligned, else go element by element.
 template <int E, typename... P>
@@ -496,14 +316,16 @@ int fwd_launch(const void* q, const void* k, const void* v, void* out, float* ls
                   static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), static_cast<B*>(out),
                   lse, int(bhq), d, g, scale, mask);
   } else {
-    return launch(flash_fwd_kernel<T, D, Mask>, fwd_smem<D>(), THREADS, blocks, bhq, bhk, mask, stream,
-                  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-                  lse, d, g, scale, mask);
+    const auto kern = vec_ok<4>(d, q, k, v, out) ? flash_fwd_f32_kernel<D, true, Mask>
+                                                 : flash_fwd_f32_kernel<D, false, Mask>;
+    return launch(kern, fwd_f32_smem<D>(), kF32Threads, blocks, bhq, bhk, mask, stream,
+                  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                  static_cast<float*>(out), lse, int(bhq), d, g, scale, mask);
   }
 }
 
 // bfloat16 dq and dk/dv run on the tensor cores (flash_bwd_tc.cuh), float32 on
-// the CUDA cores (flash_bwd_f32.cuh)
+// the CUDA cores (flash_f32.cuh)
 template <typename T, int D, typename Mask>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
               void* dq, int64_t bhq, int64_t bhk, int d, float scale, Mask mask, cudaStream_t stream) {

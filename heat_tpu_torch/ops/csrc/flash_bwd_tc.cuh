@@ -19,7 +19,7 @@
 //     via _flash_pos_bwd_impl (l.636): flash_pos_bwd_dq and
 //     flash_pos_bwd_dkv, under PosMask.
 // They compute what the float32 bodies (flash_bwd_dq_f32_kernel,
-// flash_bwd_dkv_f32_kernel in flash_bwd_f32.cuh) compute, the reference's
+// flash_bwd_dkv_f32_kernel in flash_f32.cuh) compute, the reference's
 // arithmetic: scores
 // S = q.k in float32, P = exp(S * scale - lse) (0 where the mask drops the
 // key), dP = dO.v in float32, dS = P * (dP - dd) * scale in float32 (dd =

@@ -1,89 +1,108 @@
-// The float32 flash-attention backward on Hopper's CUDA cores (sm_90a).
+// The float32 flash-attention bodies on Hopper's CUDA cores (sm_90a): the
+// forward, dq and dk/dv.
 //
 // Included by flash_attention.cu inside its anonymous namespace, after
 // flash_bwd_tc.cuh, whose helpers it calls (smem_u32, cp_async_16,
 // cp_async_4 and the commit/wait pair), and after the mask policies
-// (StaticMask, PosMask) and BQ, BK, PAD, TS.  It has no includes of its own.
+// (StaticMask, PosMask) and BQ, BK, PAD, TS, kNoMass.  It has no includes of
+// its own.
 //
-// flash_bwd_dq_f32_kernel<D, VEC, Mask> is dq and flash_bwd_dkv_f32_kernel
-// <D, VEC, Mask> is dk and dv, for float32 storage in all three of their
-// uses.  They replace the Pallas TPU kernels
-//   _flash_bwd_dq_kernel (heat_tpu/ops/flash_attention.py:339) and
-//     _flash_bwd_dkv_kernel (l.376), via _flash_bwd_impl (l.517): flash_bwd_dq
-//     and flash_bwd_dkv, under StaticMask;
-//   _flash_gqa_bwd_impl (l.910): the same bodies with K/V row bh / group and
-//     dk, dv summed over the group (l.924, 945): flash_gqa_bwd_dq and
-//     flash_gqa_bwd_dkv, under StaticMask;
-//   _flash_pos_bwd_dq_kernel (l.264) and _flash_pos_bwd_dkv_kernel (l.298),
-//     via _flash_pos_bwd_impl (l.636): flash_pos_bwd_dq and
+// flash_fwd_f32_kernel<D, VEC, Mask> is the forward (O and lse),
+// flash_bwd_dq_f32_kernel<D, VEC, Mask> dq and flash_bwd_dkv_f32_kernel
+// <D, VEC, Mask> dk and dv, for float32 storage in all three of their uses.
+// They replace the Pallas TPU kernels
+//   _flash_kernel (heat_tpu/ops/flash_attention.py:132) via _flash_fwd_impl
+//     (l.479), _flash_bwd_dq_kernel (l.339) and _flash_bwd_dkv_kernel
+//     (l.376) via _flash_bwd_impl (l.517): flash_fwd, flash_bwd_dq and
+//     flash_bwd_dkv, under StaticMask;
+//   _flash_gqa_fwd_impl (l.871) and _flash_gqa_bwd_impl (l.910): the same
+//     bodies with K/V row bh / group and dk, dv summed over the group (l.924,
+//     945): flash_gqa_fwd, flash_gqa_bwd_dq and flash_gqa_bwd_dkv, under
+//     StaticMask;
+//   _flash_pos_kernel (l.235), _flash_pos_bwd_dq_kernel (l.264) and
+//     _flash_pos_bwd_dkv_kernel (l.298), via _flash_pos_fwd_impl (l.596) and
+//     _flash_pos_bwd_impl (l.636): flash_pos_fwd, flash_pos_bwd_dq and
 //     flash_pos_bwd_dkv, under PosMask.
 // The arithmetic is the reference's, in full float32 (every product a
-// float32 FFMA, no TF32): S = q.k summed over d in ascending order, P =
-// exp(S * scale - lse) with the product and the difference each rounded
-// as the plain version rounds them (0 where the mask drops the key), dP =
-// dO.v, dS = P * (dP - dd) * scale; then dq = dS.K, dv = P^T.dO and dk =
-// dS^T.Q, each summed in ascending key or query order into one float32
-// accumulator, dk and dv over the group's query heads head by head and
-// tile by tile.  exp is expf, not 2^x on ex2.approx: it keeps the plain
-// version's P to the bit, and at <= 12 instructions a (q, k) pair against
-// 192 (dq) and 256 (dk/dv) FFMA it costs a few percent of the issue slots.
-// Nothing crosses blocks and there are no atomics, so runs repeat bit for
-// bit, and the 16-byte and the element-wise loads fill the same tiles, so
-// the sums do not depend on the load path.
+// float32 FFMA, no TF32): S = q.k summed over d in ascending order.  The
+// forward takes S * scale (-inf where the mask drops the key), the online
+// softmax over 64-key tiles (_online_update: P = exp(s - m) at the running
+// maximum m of the tiles so far, 0 for a dropped key, never exp of -inf;
+// l and O rescaled by exp(m_old - m)), O += P.V summed in ascending key
+// order, and _finalize (O / max(l, 1e-30), lse = m + log(l) or -1e30 where
+// l = 0).  The backward takes P = exp(S * scale - lse) with the product and
+// the difference each rounded as the plain version rounds them (0 where
+// the mask drops the key), dP = dO.v, dS = P * (dP - dd) * scale; then dq =
+// dS.K, dv = P^T.dO and dk = dS^T.Q, each summed in ascending key or query
+// order into one float32 accumulator, dk and dv over the group's query
+// heads head by head and tile by tile.  exp is expf, not 2^x on
+// ex2.approx: it keeps the plain version's P to the bit, and at <= 12
+// instructions a (q, k) pair against 128 (forward), 192 (dq) and 256
+// (dk/dv) FFMA it costs a few percent of the issue slots.  Nothing crosses
+// blocks and there are no atomics, so runs repeat bit for bit, and the
+// 16-byte and the element-wise loads fill the same tiles, so the sums do
+// not depend on the load path.
 //
 // Bound on an H100 SXM (67 TFLOP/s float32 outside the tensor cores,
-// 3.35 TB/s), causal, at 6 (dq) and 8 (dk/dv) FLOP a live (q, k) pair and
-// d: at (B*H, S, d) = (64, 1024, 64), the LM training step's attention, dq
-// is 12.9 GFLOP (0.192 ms) against 42.5 MB (0.013 ms) and dk/dv 17.2 GFLOP
-// (0.256 ms) against 50.9 MB: compute-bound, so the design is about
-// keeping the FMA pipes fed from shared memory.
+// 3.35 TB/s), causal, at 4 (forward), 6 (dq) and 8 (dk/dv) FLOP a live
+// (q, k) pair and d: at (B*H, S, d) = (64, 1024, 64), the LM training
+// step's attention, the forward is 8.6 GFLOP (0.128 ms) against 34 MB
+// (0.010 ms), dq 12.9 GFLOP (0.192 ms) against 42.5 MB (0.013 ms) and
+// dk/dv 17.2 GFLOP (0.256 ms) against 50.9 MB: compute-bound, so the
+// design is about keeping the FMA pipes fed from shared memory.
 // What the design does about it:
-//   * blocks of 128 threads (4 warps).  dq: one block a (query row,
-//     64-query tile), looping over its live 64-key tiles; each thread holds
-//     an 8 x 4 patch of S and dP (queries ty + 8i, keys tx + 16j, with
-//     tx = thread % 16, ty = thread / 16) and 8 x 4 (D = 64) or 8 x 8
-//     outputs of dq.  dk/dv: one block a (K/V row, 32-key tile), looping
-//     over the group's query heads and in each its live 64-query tiles;
-//     each thread holds a 4 x 4 patch of S^T and dP^T (keys ty + 8i,
-//     queries tx + 16j) and 4 x 4 (or 4 x 8) outputs of dk and of dv;
-//   * every tile is row-major in shared memory, rows padded by 4 floats
-//     (the old body's transposed copies are gone).  Products over d read
-//     float4 along d from both operands; products over keys or queries read
-//     dS or P^T as float4 along their rows and K, dO or Q as float4 along
-//     d.  A thread's rows tx + 16j at a row stride of D + 4 floats put a
-//     quarter warp's 16-byte reads on distinct banks; rows ty + 8i are read
-//     by at most two threads' worth of addresses a warp (a broadcast);
-//     each float4 pair feeds 16 FFMA, 12 shared loads to 128 FFMA in dq;
-//   * dS (dq) and P^T, dS^T (dk/dv) go through shared rows that only the
-//     warp that writes them reads (its 16 queries, its 8 keys), so they
-//     need __syncwarp and no block barrier; dq writes dS over the V tile
-//     of the current stage, after one barrier, so it takes no tile of its
-//     own;
-//   * the streamed operand (K and V for dq; Q, dO, lse, dd for dk/dv) sits
-//     in a ring of two stages, the next live tile filled by cp.async while
-//     the current one is used: 16 bytes a thread where d % 4 == 0 and every
-//     operand is 16-byte aligned (VEC), 4 bytes an element otherwise, into
-//     the same tiles.  One block barrier a tile in dk/dv, two in dq;
-//   * shared memory: dq 6 tiles of 64 rows (104 KB at D = 64), dk/dv 2 of
-//     32 keys, 4 of 64 queries and 2 of 32 x 64 (105 KB): two blocks (8
-//     warps) an SM at D = 64, one at D = 128.  32-key dk/dv blocks give the
-//     grouped grid 512 blocks at (64 -> 16, 1024, 64) and the multi-head
-//     one 2048;
+//   * blocks of 128 threads (4 warps).  Forward and dq: one block a (query
+//     row, 64-query tile), looping over its live 64-key tiles; each thread
+//     holds an 8 x 4 patch of S (and dP) (queries ty + 8i, keys tx + 16j,
+//     with tx = thread % 16, ty = thread / 16) and 8 x 4 (D = 64) or 8 x 8
+//     outputs of O or dq.  The forward keeps its 8 queries' running
+//     maximum m, which the 16 lanes of a row reduce by __shfl_xor_sync each
+//     tile, and each lane's own share of the running sum l, reduced across
+//     the row once, at the end.  dk/dv: one
+//     block a (K/V row, 32-key tile), looping over the group's query heads
+//     and in each its live 64-query tiles; each thread holds a 4 x 4 patch
+//     of S^T and dP^T (keys ty + 8i, queries tx + 16j) and 4 x 4 (or 4 x 8)
+//     outputs of dk and of dv;
+//   * every tile is row-major in shared memory, rows padded by 4 floats.
+//     Products over d read float4 along d from both operands; products
+//     over keys or queries read P, dS or P^T as float4 along their rows and
+//     V, K, dO or Q as float4 along d.  A thread's rows tx + 16j at a row
+//     stride of D + 4 floats put a quarter warp's 16-byte reads on distinct
+//     banks; rows ty + 8i are read by at most two threads' worth of
+//     addresses a warp (a broadcast); each float4 pair feeds 16 FFMA, 12
+//     shared loads to 128 FFMA in S;
+//   * P (forward), dS (dq) and P^T, dS^T (dk/dv) go through shared rows that
+//     only the warp that writes them reads (its 16 queries, its 8 keys), so
+//     they need __syncwarp and no block barrier; the forward's P has a tile
+//     of its own, dq writes dS over the V tile of the current stage, after
+//     one barrier;
+//   * the streamed operand (K and V for the forward and dq; Q, dO, lse, dd
+//     for dk/dv) sits in a ring of two stages, the next live tile filled by
+//     cp.async while the current one is used: 16 bytes a thread where
+//     d % 4 == 0 and every operand is 16-byte aligned (VEC), 4 bytes an
+//     element otherwise, into the same tiles.  One block barrier a tile in
+//     the forward and dk/dv, two in dq;
+//   * shared memory: the forward 5 tiles of 64 rows and P (102 KB at
+//     D = 64), dq 6 tiles of 64 rows (104 KB), dk/dv 2 of 32 keys, 4 of 64
+//     queries and 2 of 32 x 64 (105 KB): two blocks (8 warps) an SM at
+//     D = 64, one at D = 128.  32-key dk/dv blocks give the grouped grid 512
+//     blocks at (64 -> 16, 1024, 64) and the multi-head one 2048;
 //   * blocks go out heaviest causal tile first over every row; a tile that
-//     the mask cuts is masked element by element (P = 0 for a dead pair,
-//     never exp of -inf: a row with no live key has lse = -1e30), a full
-//     tile not at all;
+//     the mask cuts is masked element by element, a full tile not at all;
 //   * a PosMask block with no live pair (every key pad or after every
 //     query) finds so in one parallel pass over the positions, writes its
-//     zeros and returns before it loads a tile;
+//     outputs (O = 0 and lse = -1e30, dq = 0, dk = dv = 0) and returns
+//     before it loads a tile;
 //   * any d in [1, 128]: tiles are zero-padded to D = 64 or 128 columns and
 //     rows past the end load as zeros, so S is never padded in memory.
-// What holds it back: both run at about half the FFMA rate (on an NVIDIA
-// H100 80GB HBM3 at 700 W, (64, 1024, 64) causal: dq 0.37 ms, dk/dv 0.58
-// against bounds of 0.19 and 0.26; PERF.md §6), with 8 warps an SM to hide
-// the shared loads' latency and the barriers, a 4 x 4 register patch in
-// dk/dv (8 shared loads to 64 FFMA), and dq and dk/dv each recomputing S
-// and dP.  Variants tried on that card and not kept (PERF.md §6):
+// What holds them back: all three run at about half the FFMA rate (on an
+// NVIDIA H100 80GB HBM3 at 700 W, (64, 1024, 64) causal: dq 0.37 ms, dk/dv
+// 0.58 against bounds of 0.19 and 0.26; the forward's own time and what
+// bounds it are in PERF.md §6), with 8 warps an SM to hide the shared
+// loads' latency and the barriers, the forward's and dq's exp and row
+// reductions between the products, a 4 x 4 register patch in dk/dv (8
+// shared loads to 64 FFMA), and dq and dk/dv each recomputing S and dP.
+// Variants of the backward tried on that card and not kept (PERF.md §6):
 // 3 dk/dv blocks an SM with one stage (faster on the multi-head grid,
 // slower on the grouped one, whose heaviest block then outlasts the
 // rest), 32-query steps at 3 blocks an SM, dk/dv blocks that split S^T
@@ -98,6 +117,10 @@ static_assert(kF32Threads == 2 * BQ && BQ == 64 && BK == 64 && kDkvKeys == 32,
 template <int D>
 constexpr int kF32MinBlocks = D == 64 ? 2 : 1;  // as shared memory allows
 
+template <int D>
+constexpr size_t fwd_f32_smem() {  // sq [BQ][D + PAD]; sk, sv [2][BK][D + PAD]; P [BQ][TS]
+  return sizeof(float) * (5 * BQ * (D + PAD) + BQ * TS);
+}
 template <int D>
 constexpr size_t dq_f32_smem() {  // sq, sdo [BQ][D + PAD]; sk, sv [2][BK][D + PAD]
   return sizeof(float) * 6 * BQ * (D + PAD);
@@ -237,12 +260,12 @@ __device__ __forceinline__ void zero_rows_f32(float* __restrict__ dst, int r0, i
 }
 
 // Does some key of the whole block see a query of the tile whose largest
-// position is qmax (dq), or some query see a key whose smallest position is
-// kmin (dk/dv)?  Exactly what the tile-by-tile liveness finds over all the
+// position is qmax (forward and dq), or some query see a key whose smallest
+// position is kmin (dk/dv)?  Exactly what the tile-by-tile liveness finds over all the
 // tiles, in one parallel pass over the positions, 1024 a round, stopping at
 // the first live round.  StaticMask blocks always have a live tile.
-__device__ __forceinline__ bool dq_block_live(const StaticMask&, int) { return true; }
-__device__ __forceinline__ bool dq_block_live(const PosMask& m, int qmax) {
+__device__ __forceinline__ bool q_block_live(const StaticMask&, int) { return true; }
+__device__ __forceinline__ bool q_block_live(const PosMask& m, int qmax) {
   if (!m.masked) return true;
   for (int base = 0; base < m.Sk; base += 8 * kF32Threads) {
     bool any = false;
@@ -293,6 +316,152 @@ __device__ __forceinline__ float p_of(float s, float scale, float lse) {
   return expf(__fsub_rn(__fmul_rn(s, scale), lse));
 }
 
+// reductions over the 16 lanes that share a row (lanes differing in tx)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int D, bool VEC, typename Mask>
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         float* __restrict__ out, float* __restrict__ lse, int rows, int d, int group, float scale,
+                         const Mask mask) {
+  constexpr int SD = D + PAD, NG = D / 64;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sk = sq + BQ * SD;      // [2][BK][SD]
+  float* sv = sk + 2 * BK * SD;  // [2][BK][SD]
+  float* sp = sv + 2 * BK * SD;  // P [BQ][TS]: a warp writes and reads its own rows ty + 8i only
+
+  const int Sq = mask.q_rows(), Sk = mask.k_rows();
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int iq = nq - 1 - int(blockIdx.x) / rows;  // heaviest causal tiles first, over every row
+  const int bh = int(blockIdx.x) % rows;            // the query row; its K/V row is bh / group
+  const int q0 = iq * BQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  const int qmax = mask.query_bound(q0);
+  if (!q_block_live(mask, qmax)) {  // no live pair: O = 0 and lse = -1e30, as _finalize writes
+    zero_rows_f32<BQ>(out + int64_t(bh) * Sq * d, q0, Sq, d);
+    if (threadIdx.x < BQ && q0 + int(threadIdx.x) < Sq) lse[int64_t(bh) * Sq + q0 + threadIdx.x] = kNoMass;
+    return;
+  }
+  const int64_t kv_base = int64_t(bh / group) * Sk * d;
+  k += kv_base;
+  v += kv_base;
+  const int nk = mask.key_end(iq);
+  auto next_live = [&](int ik, int2& keys) {  // the same in every warp; keys: the tile's (min, max) position
+    for (; ik < nk; ++ik) {
+      keys = mask.fwd_tile_range(ik * BK);
+      if (mask.fwd_block_live(keys, qmax)) break;
+    }
+    return ik;
+  };
+  auto load_kv = [&](int ik, int stage) {
+    load_rows_f32<BK, D, VEC>(sk + stage * BK * SD, k, ik * BK, Sk, d);
+    load_rows_f32<BK, D, VEC>(sv + stage * BK * SD, v, ik * BK, Sk, d);
+  };
+
+  load_rows_f32<BQ, D, VEC>(sq, q + int64_t(bh) * Sq * d, q0, Sq, d);
+  int2 keys, next_keys;
+  int ik = next_live(0, keys);
+  if (ik < nk) load_kv(ik, 0);
+  cp_async_commit();
+  // this thread's rows q0 + ty + 8i: running maximum, the running sum of
+  // this lane's P, position; rows past Sq compute on zeros and are not written
+  float m[8], l[8];
+  int qp[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    qp[i] = mask.q_pos(q0 + ty + 8 * i);
+  }
+  const int2 span = mask.bwd_tile_range(q0);  // the block's query positions (min, max)
+  float acc[1][8][NG * 4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NG * 4; ++j) acc[0][i][j] = 0.f;
+
+  for (int stage = 0; ik < nk; stage ^= 1) {
+    const int k0 = ik * BK;
+    const int nxt = next_live(ik + 1, next_keys);
+    cp_async_wait<0>();  // tile ik (and, the first time, Q) has landed
+    __syncthreads();     // ... for every thread, and every warp is done with the other stage
+    if (nxt < nk) load_kv(nxt, stage ^ 1);
+    cp_async_commit();
+    const float* ks = sk + stage * BK * SD;
+    const float* vs = sv + stage * BK * SD;
+    float s[1][8][4] = {};
+    dot_rows<D, SD, 1, 8>(s, {sq}, {ks}, ty, tx);  // S = Q K^T; element (q0 + ty + 8i, k0 + tx + 16j)
+    // _masked_scores: S * scale, -inf where the mask drops the key
+    if (k0 + BK <= Sk && mask.fwd_tile_full(keys, span)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[0][i][j] = __fmul_rn(s[0][i][j], scale);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const int kp = mask.k_pos(col);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[0][i][j] = mask.dead(qp[i], kp, col) ? -INFINITY : __fmul_rn(s[0][i][j], scale);
+      }
+    }
+    // _online_update, row by row; P into this warp's own rows of the P tile
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float mx = fmaxf(fmaxf(s[0][i][0], s[0][i][1]), fmaxf(s[0][i][2], s[0][i][3]));
+      const float m_new = fmaxf(m[i], row_max(mx));  // rows with no live key so far keep m = -inf
+      const float safe = isfinite(m_new) ? m_new : 0.f;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = isfinite(s[0][i][j]) ? expf(__fsub_rn(s[0][i][j], safe)) : 0.f;
+        sp[(ty + 8 * i) * TS + tx + 16 * j] = p;
+        ps += p;
+      }
+      const float corr = isfinite(m[i]) ? expf(__fsub_rn(m[i], safe)) : 0.f;
+      l[i] = l[i] * corr + ps;  // this lane's share of the row sum: summed over the row's lanes at the end
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NG * 4; ++j) acc[0][i][j] *= corr;
+    }
+    __syncwarp();
+    mul_rows<BK, SD, 1, 8, NG>(acc, {sp}, {vs}, ty, tx);  // O += P V
+    ik = nxt;
+    keys = next_keys;
+  }
+  cp_async_wait<0>();  // no copy outlives the block, also where no tile was live
+  // _finalize
+  float den[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    l[i] = row_sum(l[i]);
+    den[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NG * 4; ++j) acc[0][i][j] /= den[i];
+  }
+  store_rows_f32<8, NG, VEC>(out + int64_t(bh) * Sq * d, acc[0], q0, Sq, d, ty, tx);
+  if (tx == 0) {
+    lse += int64_t(bh) * Sq;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + ty + 8 * i;
+      if (row < Sq) lse[row] = l[i] > 0.f ? (isfinite(m[i]) ? m[i] : 0.f) + logf(den[i]) : kNoMass;
+    }
+  }
+}
+
 template <int D, bool VEC, typename Mask>
 __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -314,7 +483,7 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   const int qmax = mask.query_bound(q0);
-  if (!dq_block_live(mask, qmax)) {  // no live pair: dq = 0
+  if (!q_block_live(mask, qmax)) {  // no live pair: dq = 0
     zero_rows_f32<BQ>(dq + int64_t(bh) * Sq * d, q0, Sq, d);
     return;
   }

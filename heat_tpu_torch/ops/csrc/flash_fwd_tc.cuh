@@ -15,7 +15,7 @@
 //   _flash_pos_kernel (l.235) via _flash_pos_fwd_impl (l.596), with
 //     _masked_scores_pos (l.206) and _block_live (l.225): flash_pos_fwd,
 //     under PosMask.
-// It computes what the float32 body (flash_fwd_kernel) computes, the
+// It computes what the float32 body (flash_fwd_f32_kernel) computes, the
 // reference's arithmetic.  Scores are q.k in float32 times scale, -inf
 // where the mask drops them: top-left causal, keys past the key rows, the
 // positions mask.  After each 64-key tile it takes the running maximum m,

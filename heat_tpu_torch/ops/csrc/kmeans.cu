@@ -32,6 +32,22 @@
 // a second kernel sums the slots in block order (in float64, counts in
 // int64).  No float atomics anywhere, so sums repeat bit for bit run to run
 // on one device.  Rows at index >= n are never read.
+//
+// em_stats runs assign's distance pass (the same stage_rows and
+// assign_rows, so its labels are assign's to the bit) and then folds the
+// slab into the warp's slice (fold_runs), 32 rows at a time, lane t holding
+// columns t + 32c: a group of one label is summed in registers and added
+// once; at d <= 32 a group of few labels and many runs (a blob that two
+// centres split) label by label from registers; else run by run, a run of
+// one label summed in registers and added where it ends.  So a row costs a
+// shared load and an add a column, and the slice's read-modify-writes,
+// whose latency chained one row to the next, fall to one a label or a run
+// of a group: on the BASELINE blobs, which hold each cluster in contiguous
+// rows, one a group; on rows in random order still about one a row.
+// A cluster's rows are added in row order in every case.  The per-warp
+// slices stay: registers (199-255 a thread), not the slices' shared
+// memory, bound the warps an SM (measured on an NVIDIA H100 80GB HBM3 at
+// 700 W: PERF.md §6), and em_reduce takes microseconds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -247,6 +263,98 @@ __global__ void __launch_bounds__(256) assign_kernel(const T* __restrict__ x, co
   }
 }
 
+// Add a sum of rows of label lab, count of them, to the warp's slice:
+// lane t's columns t + 32c of ws (k, DP), and lane 0 the count of wc (k).
+template <int DP, int C>
+__device__ __forceinline__ void flush_sum(float* ws, int* wc, int lab, float (&sum)[C], int count, int lane) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ws[lab * DP + lane + 32 * c] += sum[c];
+    sum[c] = 0.f;
+  }
+  if (lane == 0) atomicAdd(wc + lab, count);  // integer: the same sum in any order
+}
+
+// Fold the slab's rows [0, nr) into the warp's sums ws (k, DP) and counts
+// wc (k), in row order, a group of 32 rows at a time; bi holds each lane's
+// labels (rows lane + 32i).  Lane t sums columns t + 32c in registers and
+// adds each sum to the slice once, so the slice's read-modify-writes, whose
+// latency chains one to the next, fall from one a row to one a label or a
+// run of a group.  A cluster's rows are added in row order, by whichever
+// of three ways the group takes (the choice depends on the labels only):
+//   * one label over all 32 rows: their sum, added once;
+//   * at d <= 32, few labels against many runs (a blob that two centres
+//     split): each label's rows summed from registers, added once each;
+//   * else run by run: a run of rows with one label ends where the
+//     group's next row has another label or there is none, and is added
+//     where it ends.  The rows' values are read U at a time ahead of their
+//     adds (an add's stores would keep later loads behind them).
+// Columns d..DP-1 of the stage are 0, so their sums are too.
+template <int DP, int RPT>
+__device__ __forceinline__ void fold_runs(const float* st, const int (&bi)[RPT], int nr, int lane, float* ws,
+                                          int* wc) {
+  constexpr int XS = DP + 1, C = DP / 32, U = C >= 4 ? 2 : 8 / C;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int rows_i = min(32, nr - 32 * i);  // warp-uniform
+    if (rows_i <= 0) break;
+    const float* rows = st + 32 * i * XS + lane;
+    const int next = __shfl_down_sync(0xffffffffu, bi[i], 1);
+    const unsigned ends = __ballot_sync(0xffffffffu, lane < rows_i && (lane + 1 == rows_i || bi[i] != next));
+    const unsigned peers = __match_any_sync(0xffffffffu, lane < rows_i ? bi[i] : -1);
+    const unsigned leaders = __ballot_sync(0xffffffffu, lane < rows_i && (peers & ((1u << lane) - 1u)) == 0);
+    const int labels = __popc(leaders), runs = __popc(ends);  // warp-uniform
+    float sum[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) sum[c] = 0.f;
+    if (rows_i == 32 && labels == 1) {  // every lane holds the label
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) sum[c] += rows[r * XS + 32 * c];
+      flush_sum<DP, C>(ws, wc, bi[i], sum, 32, lane);
+      continue;
+    }
+    if constexpr (C == 1) {
+      // about 4 instructions a row and label against a read-modify-write's
+      // latency (~60 cycles) a run
+      if (31 * labels <= 24 + 15 * runs) {
+        float xv[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) xv[r] = rows[r * XS];
+        for (unsigned left = leaders; left; left &= left - 1u) {
+          const int first = __ffs(left) - 1;
+          const unsigned mine = __shfl_sync(0xffffffffu, peers, first);
+#pragma unroll
+          for (int r = 0; r < 32; ++r)
+            if ((mine >> r) & 1u) sum[0] += xv[r];
+          flush_sum<DP, C>(ws, wc, __shfl_sync(0xffffffffu, bi[i], first), sum, __popc(mine), lane);
+        }
+        continue;
+      }
+    }
+    int start = 0;  // the open run's first row
+#pragma unroll
+    for (int r0 = 0; r0 < 32; r0 += U) {
+      float xv[U][C];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int c = 0; c < C; ++c) xv[u][c] = rows[(r0 + u) * XS + 32 * c];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) sum[c] += xv[u][c];
+        const int r = r0 + u;
+        if ((ends >> r) & 1u) {  // warp-uniform: the run ends at this row
+          flush_sum<DP, C>(ws, wc, __shfl_sync(0xffffffffu, bi[i], r), sum, r + 1 - start, lane);
+          start = r + 1;
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int DP, int RPT>
 __global__ void __launch_bounds__(256) em_stats_kernel(const T* __restrict__ x, const float* __restrict__ centers,
                                                        int64_t n, int k, int d, bool vec,
@@ -275,20 +383,8 @@ __global__ void __launch_bounds__(256) em_stats_kernel(const T* __restrict__ x, 
     float best[RPT];
     int bi[RPT];
     assign_rows<DP, RPT>(st, cs, cc, k, lane, best, bi);
-    // fold the slab's rows into the warp's sums in row order: lane t owns
-    // columns t, t + 32, ...; lane 0 owns the counts
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int rows_i = min(32, nr - 32 * i);  // warp-uniform
-      for (int src = 0; src < rows_i; ++src) {
-        const int lab = __shfl_sync(0xffffffffu, bi[i], src);
-        const float* xrow = st + (32 * i + src) * XS;
-        float* acc = ws + lab * DP;
-        for (int t = lane; t < d; t += 32) acc[t] += xrow[t];
-        if (lane == 0) wc[lab] += 1;
-      }
-    }
-    __syncwarp();
+    fold_runs<DP, RPT>(st, bi, nr, lane, ws, wc);
+    __syncwarp();  // the slab is restaged next tile
   }
   __syncthreads();
   // merge the warps in warp order into this block's slot

@@ -20,14 +20,14 @@ wrappers ``flash_gqa_fwd``, ``flash_gqa_bwd_dq`` and ``flash_gqa_bwd_dkv``;
 dk and dv sum the group's query heads in one float32 accumulator and round
 once.
 
-The CUDA source, with its design and its bound on the card, is
-``csrc/flash_attention.cu``.  Which body runs depends on the dtype: every
-float32 launch runs a CUDA-core body in full float32, the forward in
-``csrc/flash_attention.cu``, dq and dk/dv in ``csrc/flash_bwd_f32.cuh``;
-every bfloat16 launch runs a tensor-core body (``mma.sync`` bf16 products with float32 accumulation),
-each with its own note: the forward of ``flash_fwd``, ``flash_gqa_fwd`` and
-``flash_pos_fwd`` ``csrc/flash_fwd_tc.cuh``, dq and dk/dv of the three
-kinds of wrapper ``csrc/flash_bwd_tc.cuh``.
+The CUDA source, with its C interface and its bound on the card, is
+``csrc/flash_attention.cu``.  Which body runs depends on the dtype, each
+with its own note: every float32 launch runs a CUDA-core body in full
+float32, the forward, dq and dk/dv of all three kinds of wrapper in
+``csrc/flash_f32.cuh``; every bfloat16 launch runs a tensor-core body
+(``mma.sync`` bf16 products with float32 accumulation), the forward of
+``flash_fwd``, ``flash_gqa_fwd`` and ``flash_pos_fwd`` in
+``csrc/flash_fwd_tc.cuh``, dq and dk/dv in ``csrc/flash_bwd_tc.cuh``.
 A ``torch.autograd.Function`` ties them
 together as the reference's ``jax.custom_vjp`` does: the forward saves
 (q, k, v, out, lse), the backward computes ``dd = rowsum(dO * O)`` in torch

@@ -5,7 +5,11 @@
 counts (k,) of one Lloyd sweep over rows ``[0, n)``.  They replace the
 Pallas kernels ``_assign_kernel`` and ``_em_stats_kernel`` of
 ``heat_tpu/ops/kmeans_kernels.py``; the CUDA source, with its design and
-its bound on the card, is ``csrc/kmeans.cu``.
+its bound on the card, is ``csrc/kmeans.cu``.  ``em_stats`` runs
+``assign``'s distance pass, so its labels are ``assign``'s to the bit, then
+sums each run of rows of one label in registers and adds it to its
+cluster once; each block's partial sums are added in block order in
+float64 by a second kernel, into scratch this wrapper allocates.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor goes to the plain
 version (``_torch_assign``/``_torch_em_stats``), which the tests use and

@@ -1,9 +1,10 @@
 """chip_smoke.py's host-side parts, on the CPU: the ptxas report it prints
-for the bfloat16 tensor-core kernels and the float32 backward, what each
-flash row of its ``kernels`` line says runs each dtype, the differing share
-and the float32 criterion of its edge-shape checks (and why the edges need
-them: at one row dq and dk are float32 noise), and its refusal to run
-without a card."""
+for the bfloat16 tensor-core kernels, the float32 bodies and the KMeans
+kernels, what each flash row of its ``kernels`` line says runs each dtype,
+the differing share and the float32 criterion of its edge-shape checks (and
+why the edges need them: at one row dq and dk are float32 noise), the
+em_stats edge shapes and their comparison on the plain versions, and its
+refusal (and scripts/kmeans_ab.py's) to run without a card."""
 
 import importlib.util
 import subprocess
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from heat_tpu_torch.ops import flash_attention as fa
+from heat_tpu_torch.ops import kmeans_kernels as kk
 
 REPO = Path(__file__).resolve().parents[1]
 FLASH_NAMES = [f"flash_{kind}{k}" for kind in ("", "gqa_", "pos_") for k in ("fwd", "bwd_dq", "bwd_dkv")]
@@ -62,6 +64,38 @@ ptxas info    : Used 255 registers, used 1 barriers, 16 bytes cumulative stack s
 """
 
 
+# the float32 forward on the CUDA cores: two instances, and a dq instance
+PTXAS_F32_FWD_LOG = """== flash_attention.cu
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63820flash_fwd_f32_kernelILi64ELb1ENS_10StaticMaskEEEvPKfS4_S4_PfS5_iiifT1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63820flash_fwd_f32_kernelILi64ELb1ENS_10StaticMaskEEEvPKfS4_S4_PfS5_iiifT1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63823flash_bwd_dq_f32_kernelILi64ELb1ENS_10StaticMaskEEEvPKfS4_S4_S4_S4_S4_PfiiifT1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_attention_cu_9c6df63820flash_fwd_f32_kernelILi128ELb0ENS_7PosMaskEEEvPKfS4_S4_PfS5_iiifT1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 230 registers, used 1 barriers
+"""
+
+# nvcc -Xptxas -v for kmeans.cu: em_stats and assign instances, and em_reduce (not a template)
+PTXAS_KMEANS_LOG = """== kmeans.cu
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97115em_stats_kernelIfLi32ELi2EEEvPKT_PKfliibPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97115em_stats_kernelIfLi32ELi2EEEvPKT_PKfliibPfPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 217 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97115em_stats_kernelI13__nv_bfloat16Li128ELi1EEEvPKT_PKfliibPfPi' for 'sm_90a'
+    96 bytes stack frame, 100 bytes spill stores, 100 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 96 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97113assign_kernelIfLi32ELi2EEEvPKT_PKfliibPiPf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 221 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97116em_reduce_kernelEPKfPKiiiiPfS4_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
 @pytest.fixture(scope="module")
 def chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -97,29 +131,59 @@ def test_ptxas_report_reads_each_bf16_backward_instance(chip_smoke):
         {"D": 128, "vec": False, "mask": "PosMask", "spill_stores": 8, "spill_loads": 8, "registers": 255}]
     assert chip_smoke.ptxas_report(PTXAS_F32_LOG, "flash_bwd_dq_bf16_kernel") == []
     assert chip_smoke.ptxas_report(PTXAS_BWD_LOG, "flash_bwd_dq_f32_kernel") == []
-    assert set(chip_smoke.F32_KERNELS) == {"flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel"}
+    assert set(chip_smoke.F32_KERNELS) == {"flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                                           "flash_bwd_dkv_f32_kernel"}
     assert all((REPO / path).is_file() for path in chip_smoke.F32_KERNELS.values())
-    source = (REPO / chip_smoke.BWD_F32_SOURCE).read_text()
+    source = (REPO / chip_smoke.F32_SOURCE).read_text()
     assert all(f"{name}(" in source for name in chip_smoke.F32_KERNELS)
+
+
+def test_ptxas_report_reads_each_f32_forward_instance(chip_smoke):
+    """The float32 forward's instances (D, 16-byte loads, mask), and none of
+    the float32 dq's or the bfloat16 forward's."""
+    assert chip_smoke.ptxas_report(PTXAS_F32_FWD_LOG, "flash_fwd_f32_kernel") == [
+        {"D": 64, "vec": True, "mask": "StaticMask", "spill_stores": 0, "spill_loads": 0, "registers": 168},
+        {"D": 128, "vec": False, "mask": "PosMask", "spill_stores": 0, "spill_loads": 0, "registers": 230}]
+    assert chip_smoke.ptxas_report(PTXAS_F32_FWD_LOG, "flash_bwd_dq_f32_kernel") == [
+        {"D": 64, "vec": True, "mask": "StaticMask", "spill_stores": 0, "spill_loads": 0, "registers": 154}]
+    assert chip_smoke.ptxas_report(PTXAS_F32_FWD_LOG, "flash_fwd_bf16_kernel") == []
+    assert chip_smoke.ptxas_report(PTXAS_LOG, "flash_fwd_f32_kernel") == []
+
+
+def test_kmeans_ptxas_report_reads_each_instance(chip_smoke):
+    """kmeans_ptxas_report: each instance's storage type, DP and rows a lane
+    from the mangled name; em_reduce_kernel, not a template, with none; a
+    kernel's report holds its own instances only."""
+    log = PTXAS_KMEANS_LOG
+    assert chip_smoke.kmeans_ptxas_report(log, "em_stats_kernel") == [
+        {"dtype": "float32", "DP": 32, "RPT": 2, "spill_stores": 0, "spill_loads": 0, "registers": 217},
+        {"dtype": "bfloat16", "DP": 128, "RPT": 1, "spill_stores": 100, "spill_loads": 100, "registers": 255}]
+    assert chip_smoke.kmeans_ptxas_report(log, "assign_kernel") == [
+        {"dtype": "float32", "DP": 32, "RPT": 2, "spill_stores": 0, "spill_loads": 0, "registers": 221}]
+    assert chip_smoke.kmeans_ptxas_report(log, "em_reduce_kernel") == [
+        {"spill_stores": 0, "spill_loads": 0, "registers": 32}]
+    assert chip_smoke.kmeans_ptxas_report(PTXAS_F32_LOG, "em_stats_kernel") == []
+    assert chip_smoke.kmeans_ptxas_report("", "assign_kernel") == []  # a library loaded from the build cache
+    assert set(chip_smoke.KMEANS_KERNELS) == {"assign_kernel", "em_stats_kernel", "em_reduce_kernel"}
+    source = (REPO / chip_smoke.KMEANS_SOURCE).read_text()
+    assert all(f"{name}(" in source for name in chip_smoke.KMEANS_KERNELS)
 
 
 @pytest.mark.parametrize("name", FLASH_NAMES)
 def test_flash_rows_name_each_dtypes_body(chip_smoke, name):
     """Every bfloat16 launch runs on the tensor cores, the forward from
     flash_fwd_tc.cuh, dq and dk/dv from flash_bwd_tc.cuh; float32 on the
-    CUDA cores, the forward from flash_attention.cu, dq and dk/dv from
-    flash_bwd_f32.cuh; each named body is defined in its source."""
+    CUDA cores, all three from flash_f32.cuh; each named body is defined in
+    its source."""
     cores, sources = chip_smoke.flash_cores(name), chip_smoke.flash_sources(name)
     bodies = chip_smoke.flash_bodies(name)
     fwd = name.endswith("_fwd")
     kind = "fwd" if fwd else "bwd_dq" if name.endswith("_dq") else "bwd_dkv"
     assert cores == {"float32": "CUDA cores", "bfloat16": "mma.sync tensor cores"}
-    assert sources["float32"] == ("heat_tpu_torch/ops/csrc/flash_attention.cu" if fwd else
-                                  "heat_tpu_torch/ops/csrc/flash_bwd_f32.cuh")
+    assert sources["float32"] == "heat_tpu_torch/ops/csrc/flash_f32.cuh"
     assert sources["bfloat16"] == ("heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh" if fwd else
                                    "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh")
-    assert bodies == {"float32": "flash_fwd_kernel" if fwd else f"flash_{kind}_f32_kernel",
-                      "bfloat16": f"flash_{kind}_bf16_kernel"}
+    assert bodies == {"float32": f"flash_{kind}_f32_kernel", "bfloat16": f"flash_{kind}_bf16_kernel"}
     assert all((REPO / path).is_file() for path in sources.values())
     for dtype, body in bodies.items():
         assert f"{body}(" in (REPO / sources[dtype]).read_text()
@@ -255,3 +319,83 @@ def test_chip_smoke_without_cuda_exits_2_and_prints_no_result():
                          timeout=120)
     assert out.returncode == 2
     assert '"ok"' not in out.stdout
+
+
+def test_kmeans_ab_without_cuda_exits_2():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: kmeans_ab.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "kmeans_ab.py")], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2
+    assert '"ms"' not in out.stdout
+
+
+def test_em_edge_checks_cover_the_kernels_edges(chip_smoke):
+    """EM_EDGE_CHECKS: k from 1 to past 64 (1, 3, 61, 64, 200), d of 1,
+    off and on the register rows, up to 128 (1, 33, 64, 100, 128); n of 0,
+    1, under one 64-row slab, off a 512-row tile, and past the rows; both
+    dtypes; rows contiguous by cluster and in random order; one cluster
+    holding DOMINANT_SHARE of 1e6 rows in both dtypes."""
+    edges = chip_smoke.EM_EDGE_CHECKS
+    assert {k for _, _, k, _, _, _ in edges} >= {1, 3, 61, 64, 200}
+    assert {d for _, _, _, d, _, _ in edges} >= {1, 33, 64, 100, 128}
+    ns = {n for _, n, _, _, _, _ in edges}
+    assert {0, 1} <= ns and any(1 < n < 64 for n in ns) and any(n % 512 for n in ns if n > 512)
+    assert any(n > rows for rows, n, *_ in edges)
+    assert {dt for *_, dt, _ in edges} == {"float32", "bfloat16"}
+    assert {lay for *_, lay in edges} == {"blobs", "shuffled", "dominant"}
+    assert {(rows, dt) for rows, _, _, _, dt, lay in edges if lay == "dominant"} == {
+        (1_000_000, "float32"), (1_000_000, "bfloat16")}
+    assert chip_smoke.DOMINANT_SHARE >= 0.99
+    assert all(1 <= d <= kk.MAX_D and k >= 1 and n >= 0 for _, n, k, d, _, _ in edges)
+
+
+@pytest.mark.parametrize("layout", ["blobs", "shuffled", "dominant"])
+def test_em_edge_inputs_lay_out_the_rows(chip_smoke, layout):
+    """em_edge_inputs on the CPU: the shapes and dtype asked for; blobs
+    keep each cluster's rows contiguous (labels ascend), shuffled rows do
+    not (the labels change between neighbouring rows only where blobs
+    overlap, against about every row), and the dominant layout puts
+    DOMINANT_SHARE of the rows first, in cluster 0."""
+    x, c = chip_smoke.em_edge_inputs(4000, 8, 5, "float32", layout, seed=3, device="cpu")
+    assert x.shape == (4000, 5) and c.shape == (8, 5) and x.dtype == c.dtype == torch.float32
+    lab, _ = kk._torch_assign(x, c)
+    steps = int((lab[1:] != lab[:-1]).sum())
+    if layout == "blobs":
+        assert steps < 200
+    elif layout == "shuffled":
+        assert steps > 1000
+    else:
+        big = int(4000 * chip_smoke.DOMINANT_SHARE)
+        assert bool((lab[:big] == 0).all())
+    xb, _ = chip_smoke.em_edge_inputs(100, 3, 33, "bfloat16", layout, seed=3, device="cpu")
+    assert xb.dtype == torch.bfloat16 and xb.shape == (100, 33)
+
+
+@pytest.mark.parametrize("rows,n,k,d,dtype,layout", [(3000, 2999, 1, 32, "float32", "blobs"),
+                                                      (3000, 1000, 61, 33, "float32", "shuffled"),
+                                                      (1000, 5000, 3, 100, "bfloat16", "blobs"),
+                                                      (5000, 5000, 6, 8, "float32", "dominant"),
+                                                      (700, 0, 4, 1, "float32", "shuffled")])
+def test_compare_em_holds_the_plain_version_and_refuses_a_wrong_sum(chip_smoke, rows, n, k, d, dtype, layout):
+    """compare_em, as check_em_edges calls it, on the plain versions at
+    small edge shapes: the plain em_stats against itself and the float64
+    scatter of the plain labels passes; a count off by one, or a sum off by
+    one part in 1e4 of its magnitude, fails."""
+    x, c = chip_smoke.em_edge_inputs(rows, k, d, dtype, layout, seed=rows + k, device="cpu")
+    sums, counts = kk._torch_em_stats(x, c, min(n, rows))
+    lab, _ = kk._torch_assign(x, c)
+    assert float(counts.sum()) == min(n, rows)
+    err, _ = chip_smoke.compare_em(x, c, n, sums, counts, lab, sums, counts, 0)  # raises past SUM_RTOL
+    assert err == 0.0
+    if not n:
+        return
+    moved = counts.clone()
+    moved[int(lab[0])] += 1
+    with pytest.raises(RuntimeError, match="counts"):
+        chip_smoke.compare_em(x, c, n, sums, moved, lab, sums, counts, 0)
+    off = sums.clone()
+    j = int(lab[0])
+    off[j, 0] += 1e-4 * float(x[:n].float()[lab[:n] == j, 0].abs().sum()) + 1e-2
+    with pytest.raises(RuntimeError, match="sums"):
+        chip_smoke.compare_em(x, c, n, off, counts, lab, sums, counts, 0)

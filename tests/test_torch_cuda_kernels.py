@@ -10,6 +10,11 @@ Tolerances:
 - KMeans: labels exactly and counts exactly (no near ties in these blobs);
   min d² to 1e-6 of the expansion's magnitude (|x|² + |c|²) and sums to
   rtol 1e-5, atol 1e-4: the same float32 terms summed in another order.
+  em_stats at its edges (chip_smoke.py's EM_EDGE_CHECKS and
+  check_em_edges): counts exactly those of assign's labels, sums within
+  SUM_RTOL (1e-5) of their magnitude from a float64 scatter of those labels,
+  against the plain version within its near-tie allowance, and the same
+  bits twice.
 - flash attention, by ``row_err`` (each row's largest error over that row's
   largest value):
   - float32: 2e-5 on out, 2e-4 on dq, dk, dv; lse atol 2e-5.  The kernel
@@ -30,13 +35,14 @@ Tolerances:
     the same bodies and rounding points under another mask; a block wholly
     after its queries gives out 0 and lse -1e30 exactly.
   - the bfloat16 forward (the tensor-core body, ``csrc/flash_fwd_tc.cuh``)
-    takes the same limits at every d it takes (8, 33, 100 padded into its
-    64- and 128-column tiles), S around its 64-key and 128-row tiles,
-    multi-head and grouped 4:1 and 8:1, and the ring's blocks; its output
-    repeats bit for bit, and an operand off 16-byte alignment (loaded
-    element by element into the same shared tiles) gives the same bits.
+    and the float32 forward (the CUDA-core body, ``csrc/flash_f32.cuh``)
+    take the same limits at every d they take (8, 33, 100 padded into
+    64- and 128-column tiles), S around the 64-key and 128-row tiles,
+    multi-head and grouped 4:1 and 8:1, and the ring's blocks; the output
+    repeats bit for bit, and q or v off 16-byte alignment (loaded element
+    by element into the same shared tiles) gives the same bits.
   - the float32 dq and dk/dv (the CUDA-core bodies,
-    ``csrc/flash_bwd_f32.cuh``) take the float32 limits over the same
+    ``csrc/flash_f32.cuh``) take the float32 limits over the same
     shapes, but below 129 rows, where whole rows of dq and dk cancel to
     float32 noise (below): there rows reaching the row floor take the row
     error and rows below it chip_smoke.py's EDGE_F32_ATOL (_edge_err).
@@ -285,18 +291,22 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _assert_bf16_forward(fwd, plain, q, k, v, *args):
-    """One bfloat16 forward against its plain version, repeated, and again
-    with q off 16-byte alignment; returns (out, lse)."""
+def _assert_forward(fwd, plain, q, k, v, *args):
+    """One forward against its plain version, repeated, and again with q off
+    16-byte alignment (and, in float32, with v); returns (out, lse).  The
+    row error to FLASH_TOL, and in bfloat16 at most 1% of the elements apart."""
     out, lse = fwd(q, k, v, *args)
     again, lse2 = fwd(q, k, v, *args)
     off, lse3 = fwd(_misaligned(q), k, v, *args)
+    off_v, lse4 = fwd(q, k, _misaligned(v), *args)
     out_p, lse_p = plain(q, k, v, *args)
     torch.cuda.synchronize()
-    assert out.shape == q.shape and out.dtype == torch.bfloat16 and lse.shape == q.shape[:2]
+    assert out.shape == q.shape and out.dtype == q.dtype and lse.shape == q.shape[:2]
     torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
-    assert row_err(out, out_p) <= FLASH_TOL[torch.bfloat16]["out"]
-    assert float((out != out_p).float().mean()) <= 0.01
+    assert row_err(out, out_p) <= FLASH_TOL[q.dtype]["out"]
+    if q.dtype == torch.bfloat16:
+        assert float((out != out_p).float().mean()) <= 0.01
+    assert torch.equal(out, off_v) and torch.equal(lse, lse4)
     assert torch.equal(out, again) and torch.equal(lse, lse2)  # no atomics: the same bits every run
     assert torch.equal(out, off) and torch.equal(lse, lse3)  # element-wise loads fill the same tiles
     return out, lse
@@ -315,9 +325,9 @@ def test_cuda_bf16_forward_matches_plain_version(d, S, causal, group):
     fwd, plain, key = ((fa.flash_fwd, fa._torch_flash_fwd, "flash_fwd") if group == 1 else
                        (fa.flash_gqa_fwd, fa._torch_flash_gqa_fwd, "flash_gqa_fwd"))
     before = dict(fa.launch_counts)
-    _assert_bf16_forward(fwd, plain, q, k, v, causal, d**-0.5)
+    _assert_forward(fwd, plain, q, k, v, causal, d**-0.5)
     assert {name: fa.launch_counts[name] - before[name] for name in before} == {
-        name: 3 * (name == key) for name in before}
+        name: 4 * (name == key) for name in before}
 
 
 # ring blocks at (Sq, Sk) = (300, 300), ragged against both tiles:
@@ -338,11 +348,63 @@ def test_cuda_bf16_forward_positions_blocks(block, d):
     qpos = torch.arange(qo, qo + 300, dtype=torch.int32, device="cuda")
     kpos = torch.arange(ko, ko + 300, dtype=torch.int32, device="cuda")
     args = (qpos, kpos, causal, d**-0.5, s_valid, True)
-    out, lse = _assert_bf16_forward(fa.flash_pos_fwd, fa._torch_flash_pos_fwd, q, k, v, *args)
+    out, lse = _assert_forward(fa.flash_pos_fwd, fa._torch_flash_pos_fwd, q, k, v, *args)
     if block == "dead":
         assert not out.any() and bool((lse == fa.NO_MASS).all())
     else:
         assert bool(torch.isfinite(lse).all()) and bool((lse > fa.NO_MASS).all())
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 15, 127, 129, 1000])
+@pytest.mark.parametrize("d", [8, 33, 64, 100, 128])
+def test_cuda_f32_forward_matches_plain_version(d, S, causal, group):
+    """The float32 forward (the CUDA-core body, ``csrc/flash_f32.cuh``)
+    through flash_fwd (group 1) and flash_gqa_fwd, over the bfloat16
+    forward's shapes: d on and off the 16-byte loads, S around the 64-row
+    tiles; repeated, and with q or v off 16-byte alignment, to the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(4000 * d + 10 * S + group + causal)
+    q = torch.randn((2 * group, S, d), generator=g, device="cuda")
+    k, v = (torch.randn((2, S, d), generator=g, device="cuda") for _ in range(2))
+    fwd, plain, key = ((fa.flash_fwd, fa._torch_flash_fwd, "flash_fwd") if group == 1 else
+                       (fa.flash_gqa_fwd, fa._torch_flash_gqa_fwd, "flash_gqa_fwd"))
+    before = dict(fa.launch_counts)
+    _assert_forward(fwd, plain, q, k, v, causal, d**-0.5)
+    assert {name: fa.launch_counts[name] - before[name] for name in before} == {
+        name: 4 * (name == key) for name in before}
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+@pytest.mark.parametrize("block", list(BF16_RING_BLOCKS))
+def test_cuda_f32_forward_positions_blocks(block, d):
+    """The float32 forward under the positions mask at the ring's blocks;
+    the dead block, which returns before it loads a tile, gives out 0 and
+    lse -1e30 exactly."""
+    qo, ko, causal, s_valid = BF16_RING_BLOCKS[block]
+    g = torch.Generator(device="cuda").manual_seed(7 * d + qo + ko)
+    q, k, v = (torch.randn((4, 300, d), generator=g, device="cuda") for _ in range(3))
+    qpos = torch.arange(qo, qo + 300, dtype=torch.int32, device="cuda")
+    kpos = torch.arange(ko, ko + 300, dtype=torch.int32, device="cuda")
+    out, lse = _assert_forward(fa.flash_pos_fwd, fa._torch_flash_pos_fwd, q, k, v, qpos, kpos, causal, d**-0.5,
+                               s_valid, True)
+    if block == "dead":
+        assert not out.any() and bool((lse == fa.NO_MASS).all())
+    else:
+        assert bool(torch.isfinite(lse).all()) and bool((lse > fa.NO_MASS).all())
+
+
+@pytest.mark.parametrize("case", _CHIP_SMOKE.EM_EDGE_CHECKS, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_em_stats_edges(case):
+    """em_stats at chip_smoke.py's edge shapes (check_em_edges): k of 1 to
+    200, d of 1 to 128, n of 0, 1, under a slab, off a tile and past the
+    rows, bfloat16, rows in random order, one cluster holding 99% of 1e6
+    rows; counts equal to bincount of assign's labels, sums within SUM_RTOL
+    of their float64 scatter, against the plain version, twice to the same
+    bits (the check raises otherwise)."""
+    before = kk.launch_counts["em_stats"]
+    _CHIP_SMOKE.check_em_edges([case])
+    assert kk.launch_counts["em_stats"] == before + 2
 
 
 def _assert_backward(names, q, k, v, do, *args, g_lse=None):
@@ -433,7 +495,7 @@ def test_cuda_bf16_backward_positions_blocks(block, d):
 @pytest.mark.parametrize("d", [8, 33, 64, 100, 128])
 def test_cuda_f32_backward_matches_plain_version(d, S, causal, group):
     """The float32 dq and dk/dv (the CUDA-core bodies,
-    ``csrc/flash_bwd_f32.cuh``) over the bfloat16 test's shapes: d on and
+    ``csrc/flash_f32.cuh``) over the bfloat16 test's shapes: d on and
     off the 16-byte loads (33), S around the 32- and 64-row tiles."""
     _backward_case(torch.float32, 3000 * d + 10 * S + group + causal, d, S, causal, group)
 
