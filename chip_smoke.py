@@ -10,11 +10,14 @@
    float32 forward, dq and dk/dv (``flash_f32.cuh``) and of the KMeans
    kernels (``kmeans.cu``).
 2. Holds each KMeans kernel against its plain PyTorch version at k=64,
-   d=32 on a ragged n=1,000,003, in float32 and bfloat16; then em_stats at
-   its edges (``EM_EDGE_CHECKS``: k of 1 to 200, d of 1 to 128, n of 0, 1,
-   under a slab and off a tile, bfloat16, rows in random order, and one
-   cluster holding 99% of 1e6 rows), each against its plain version and
-   against assign's labels, twice to the same bits.
+   d=32 on a ragged n=1,000,003, in float32 and bfloat16; then both at
+   their edges (``EM_EDGE_CHECKS``: k of 1 to 300, products by wgmma and by
+   mma.sync, d of 1 to 128, n of 0, 1, under a tile and off a block,
+   bfloat16, rows in random order, rows off 16-byte alignment, and one
+   cluster holding 99% of 1e6 rows): assign against its plain version (d2
+   within D2_RTOL, a differing label only at a near tie), em_stats against
+   its plain version and against assign's labels, each twice to the same
+   bits.
 3. Drives the main path at the BASELINE width: ``create_clusters`` with
    1e8 x 32 rows at split=0, ``KMeans(64, init="random", max_iter=20).fit``
    and ``predict``, in float32 and in bfloat16.  Each is held to one Lloyd
@@ -84,7 +87,11 @@
    and not Python's launch) and prints the ``kernels`` line, each flash
    row with the cores, the kernel and the source of its float32 and
    bfloat16 body (the multi-head rows also at the attention benchmark's
-   shape, in both dtypes).
+   shape, in both dtypes); each KMeans row with its products' instruction
+   and the most warps resident on an SM, observed at the main shape by
+   the kernels' residency counter (a ``kmeans_launch`` line a kernel and
+   dtype gives the occupancy calculator's launch and the bound of the
+   float32 FFMA design beside it).
 12. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -108,9 +115,10 @@ N_PLUSPLUS = 1 << 22
 MAX_ITER = 20
 
 # H100 SXM rates (NVIDIA data sheet): float32 outside the tensor cores, bf16
-# dense tensor cores, HBM3
+# and TF32 dense tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # cuda_ms's device sleep: cycles a second at the H100's largest SM clock
 # (1980 MHz; a lower clock only sleeps longer), at most 50 ms a timing
@@ -187,14 +195,18 @@ GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
 GQA_MAIN = (64, 16, 1024, 64)  # the grouped LM's: 8 batches of 8 query and 2 K/V heads
 FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
-# em_stats at its edges: (rows, n, k, d, dtype, layout).  k from one cluster
-# to more than a warp's 64-row slab can hold; d of one column, off and on
-# the 32-column register rows, up to 128; n of 0, 1, under one slab and off
-# a tile of slabs (512 rows), and past the rows it is given; "blobs" keeps
-# each cluster's rows contiguous, as create_clusters does (the fold's groups
+# assign and em_stats at their edges: (rows, n, k, d, dtype, layout).  k from
+# one cluster to past a 64-centre chunk, off the n8 tiles (1, 3, 9, 61,
+# 127), and past what wgmma's centres hold in shared memory, so mma.sync
+# takes the products (300 at d = 32; 64 at d = 128 in float32; 127 at d =
+# 100 in bfloat16); d of one column, 8, off and on the 32-, 64- and
+# 128-column tiles (33, 36, 100), up to 128; n of 0, 1, under one 32-row
+# tile and off a block's tiles, and past the rows it is given; "blobs" keeps
+# each cluster's rows contiguous, as create_clusters does (the fold's tiles
 # hold one label), "shuffled" puts rows in random order (a run is about a
 # row), and "dominant" gives one cluster 99% of 1e6 rows, a float32 running
-# sum's longest chain
+# sum's longest chain; "+offset" starts x one element into its buffer, off
+# 16-byte alignment, so the tiles are filled element by element
 EM_EDGE_CHECKS = [(100_003, 99_991, 1, 32, "float32", "blobs"), (100_003, 100_003, 3, 32, "float32", "blobs"),
                   (100_003, 99_991, 61, 32, "float32", "shuffled"), (100_003, 99_991, 200, 32, "float32", "blobs"),
                   (100_003, 100_003, 64, 1, "float32", "shuffled"), (100_003, 99_991, 64, 33, "float32", "blobs"),
@@ -205,7 +217,11 @@ EM_EDGE_CHECKS = [(100_003, 99_991, 1, 32, "float32", "blobs"), (100_003, 100_00
                   (1000, 777, 61, 33, "float32", "shuffled"), (777, 777, 3, 100, "float32", "blobs"),
                   (100_003, 99_991, 61, 100, "bfloat16", "shuffled"), (100_003, 99_991, 64, 32, "bfloat16", "blobs"),
                   (1_000_000, 1_000_000, 64, 32, "float32", "dominant"),
-                  (1_000_000, 1_000_000, 64, 32, "bfloat16", "dominant")]
+                  (1_000_000, 1_000_000, 64, 32, "bfloat16", "dominant"),
+                  (100_003, 99_991, 9, 36, "float32", "shuffled"), (100_003, 99_991, 127, 100, "bfloat16", "blobs"),
+                  (100_003, 99_991, 64, 8, "float32", "blobs"), (100_003, 99_991, 300, 32, "float32", "shuffled"),
+                  (100_003, 99_991, 64, 32, "float32", "shuffled+offset"),
+                  (100_003, 99_991, 64, 32, "bfloat16", "blobs+offset"), (1000, 20, 9, 32, "bfloat16", "shuffled")]
 DOMINANT_SHARE = 0.99
 # kernel vs plain version, by _row_err (each row's largest error over that
 # row's largest |plain|).  Both take P at the same running maximum over
@@ -289,13 +305,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _kmeans_bytes(n: int, itemsize: int, em: bool) -> int:
+    """Bytes a KMeans kernel moves once on n rows: x, the centres, and its
+    outputs (labels and d2, or the sums and counts)."""
+    return n * D * itemsize + K * D * 4 + ((K * D + K) * 4 if em else n * 8)
+
+
 def bound(n: int, itemsize: int, em: bool):
-    """(bound_ms, bound_by): bytes moved once over HBM rate vs. float32 FMAs over peak."""
-    out_bytes = (K * D + K) * 4 if em else n * 8
-    nbytes = n * D * itemsize + K * D * 4 + out_bytes
-    ops = 2 * n * K * D + (n * D if em else 0)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    """(bound_ms, bound_by) of a KMeans kernel on n rows: the larger of the
+    bytes moved once over the HBM rate and the split-TF32 products over the
+    TF32 tensor-core rate (three products of 2nkd FLOP for float32 x, two
+    for bfloat16 x, which TF32 holds exactly)."""
+    t_bytes = _kmeans_bytes(n, itemsize, em) / PEAK_BYTES
+    t_ops = (3 if itemsize == 4 else 2) * 2 * n * K * D / PEAK_TF32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ffma_bound(n: int, itemsize: int, em: bool) -> float:
+    """The KMeans kernels' bound before their products moved to the tensor
+    cores, in ms: the bytes against the same work as float32 FFMAs (the
+    products and, for em_stats, the nd adds of its sums)."""
+    t_ffma = (2 * n * K * D + (n * D if em else 0)) / PEAK_F32_FLOPS
+    return max(_kmeans_bytes(n, itemsize, em) / PEAK_BYTES, t_ffma) * 1e3
 
 
 def compare_assign(x, c, lab_k, d2_k, lab_p, d2_p):
@@ -357,14 +388,16 @@ def compare_em(x, c, n, sums_k, counts_k, lab_k, sums_p, counts_p, ties):
 
 
 def em_edge_inputs(rows: int, k: int, d: int, dtype: str, layout: str, seed: int, device="cuda"):
-    """(x (rows, d) in ``dtype``, centres (k, d) float32) for an em_stats
-    edge check: Gaussian blobs (sd 0.7) around centres of sd 4, each
-    cluster's rows contiguous ("blobs"), in random order ("shuffled"), or
-    DOMINANT_SHARE of them in cluster 0, first and contiguous, at a centre
-    of magnitude ~20 per column ("dominant"), where a float32 running sum
-    of the cluster drifts most."""
+    """(x (rows, d) in ``dtype``, centres (k, d) float32) for an edge check:
+    Gaussian blobs (sd 0.7) around centres of sd 4, each cluster's rows
+    contiguous ("blobs"), in random order ("shuffled"), or DOMINANT_SHARE of
+    them in cluster 0, first and contiguous, at a centre of magnitude ~20 per
+    column ("dominant"), where a float32 running sum of the cluster drifts
+    most.  A layout ending in "+offset" gives the same x as a contiguous view
+    one element into a flat buffer: off 16-byte alignment."""
     import torch
 
+    layout, _, shift = layout.partition("+")
     g = torch.Generator(device=device).manual_seed(seed)
     c = torch.randn((k, d), generator=g, device=device) * 4.0
     if layout == "dominant":
@@ -377,13 +410,19 @@ def em_edge_inputs(rows: int, k: int, d: int, dtype: str, layout: str, seed: int
         if layout == "blobs":
             lab = lab.sort().values
     x = (c[lab] + 0.7 * torch.randn((rows, d), generator=g, device=device)).to(getattr(torch, dtype))
+    if shift == "offset":
+        buf = torch.empty(rows * d + 1, dtype=x.dtype, device=device)
+        buf[1:] = x.flatten()
+        x = buf[1:].view(rows, d)
     return x.contiguous(), c.contiguous()
 
 
 def check_em_edges(edges=EM_EDGE_CHECKS) -> None:
-    """em_stats at its edge shapes, each against its plain version and the
-    float64 scatter of assign's labels (compare_em), and twice to the same
-    bits."""
+    """assign and em_stats at their edge shapes: assign against its plain
+    version (compare_assign: d2 within D2_RTOL, a label that differs only
+    at a near tie within TIE_RTOL), em_stats against its plain version and
+    the float64 scatter of assign's labels (compare_em), each twice to the
+    same bits."""
     import torch
 
     from heat_tpu_torch.ops import kmeans_kernels as kk
@@ -393,20 +432,26 @@ def check_em_edges(edges=EM_EDGE_CHECKS) -> None:
         x, c = em_edge_inputs(rows, k, d, dtype, layout, seed=rows + n + k + d)
         sums, counts = kk.fused_em_stats(x, c, n)
         sums2, counts2 = kk.fused_em_stats(x, c, n)
-        lab, _ = kk.fused_assign(x, c)
+        lab, d2 = kk.fused_assign(x, c)
+        lab2, d22 = kk.fused_assign(x, c)
         sums_p, counts_p = kk._torch_em_stats(x, c, n)
-        lab_p, _ = kk._torch_assign(x, c)
+        lab_p, d2_p = kk._torch_assign(x, c)
         torch.cuda.synchronize()
         if not (torch.equal(sums, sums2) and torch.equal(counts, counts2)):
             fail(f"em_stats does not repeat its bits at {shape}")
+        if not (torch.equal(lab, lab2) and torch.equal(d2, d22)):
+            fail(f"assign does not repeat its bits at {shape}")
         if tuple(sums.shape) != (k, d) or tuple(counts.shape) != (k,) or float(counts.sum()) != min(n, rows):
             fail(f"em_stats at {shape}: shapes {tuple(sums.shape)}, {tuple(counts.shape)}, {float(counts.sum())} rows")
+        mism, near, d2_err = compare_assign(x, c, lab, d2, lab_p, d2_p)
         ties = int((lab[:n] != lab_p[:n]).sum())
         err, exact = compare_em(x, c, n, sums, counts, lab, sums_p, counts_p, ties)
-        print(json.dumps({"phase": "kernel_check", "kernel": "em_stats", "edge": True, "rows": rows, "n": n, "k": k,
-                          "d": d, "dtype": dtype, "layout": layout, "max_abs_err": err,
-                          "max_abs_err_vs_float64": exact, "near_ties": ties, "sum_rtol": SUM_RTOL,
-                          "repeats_bitwise": True, "check": "pass"}), flush=True)
+        print(json.dumps({"phase": "kernel_check", "kernel": "assign+em_stats", "edge": True, "rows": rows, "n": n,
+                          "k": k, "d": d, "dtype": dtype, "layout": layout,
+                          "products": kk.launch_config(k, d, x.dtype)["products"],
+                          "assign_max_abs_err": d2_err, "label_mismatches": mism, "near_ties": near,
+                          "max_abs_err": err, "max_abs_err_vs_float64": exact, "em_near_ties": ties,
+                          "sum_rtol": SUM_RTOL, "repeats_bitwise": True, "check": "pass"}), flush=True)
 
 
 def check_kernels_small(dtype) -> None:
@@ -565,6 +610,31 @@ def time_kernels(x, c, launches, err):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 2), "check": "pass",
         })
     return rows
+
+
+def kmeans_launch(x, c) -> dict:
+    """Each KMeans kernel's launch at the main path's shape, by name: its
+    products' instruction and the most warps resident on an SM, observed
+    (``kmeans_kernels.resident_warps``: each warp counts itself live on its
+    SM).  Prints, by kernel, the occupancy calculator's launch beside the
+    most and the fewest warps an SM observed, over the SMs the launch used,
+    and the bound of the float32 FFMA design (ffma_bound)."""
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    out = {}
+    for name, run, em in (("assign", lambda: kk.fused_assign(x, c), False),
+                          ("em_stats", lambda: kk.fused_em_stats(x, c), True)):
+        calc = kk.launch_config(K, D, x.dtype, em=em)
+        used = kk.resident_warps(run)
+        if not used:
+            fail(f"{name}: no warp counted itself resident")
+        out[name] = {"products": calc["products"], "resident_warps": max(used)}
+        print(json.dumps({"phase": "kmeans_launch", "kernel": name, "dtype": str(x.dtype).replace("torch.", ""),
+                          "n": x.shape[0], "k": K, "d": D, "occupancy_calculator": calc,
+                          "resident_warps_measured": max(used), "resident_warps_measured_min": min(used),
+                          "sms_used": len(used), "ffma_bound_ms": ffma_bound(x.shape[0], x.element_size(), em)}),
+              flush=True)
+    return out
 
 
 def _rel_err(got, want) -> float:
@@ -1161,16 +1231,16 @@ def ptxas_report(log: str, word: str) -> list:
 
 def kmeans_ptxas_report(log: str, word: str) -> list:
     """ptxas's registers and spills for each compiled instance of the KMeans
-    kernel ``word``: its template arguments (storage type, DP columns, rows
-    a lane) read from the mangled name, none for a kernel that is not a
-    template (em_reduce_kernel)."""
+    kernel ``word``: its template arguments (storage type, DP columns, the
+    products' instruction: wgmma or mma.sync) read from the mangled name,
+    none for a kernel that is not a template (em_reduce_kernel)."""
     import re
 
     def args_of(name):
-        args = re.search(r"\d" + word + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)EE", name)
+        args = re.search(r"\d" + word + r"I(f|13__nv_bfloat16)Li(\d+)ELb([01])EE", name)
         if args:
             return {"dtype": "float32" if args.group(1) == "f" else "bfloat16", "DP": int(args.group(2)),
-                    "RPT": int(args.group(3))}
+                    "products": "wgmma" if args.group(3) == "1" else "mma.sync"}
         return {} if re.search(r"\d" + word + "E", name) else None
 
     return _ptxas_rows(log, args_of)
@@ -1610,6 +1680,9 @@ def main() -> int:
     recover(ht, x, means_dev, "float32_kmeans++")
 
     rows = time_kernels(x.larray, km._centers, launches, check_at_main_shape(x.larray, km._centers, "float32"))
+    launch = kmeans_launch(x.larray, km._centers)
+    for row in rows:
+        row.update(launch[row["name"]])
 
     xb = ht.utils.data.create_clusters(N_MAIN, D, K, means.numpy(), cluster_std=1.0, device="gpu",
                                        random_state=0, dtype=ht.bfloat16)
@@ -1617,9 +1690,11 @@ def main() -> int:
     kb, launches_bf16, _ = main_fit(ht, xb, "bfloat16")
     compare_with_torch_path(ht, xb, kb, "bfloat16", atol=2e-2, rtol=2.0**-7)  # plus one bfloat16 ulp
     errs = check_at_main_shape(xb.larray, kb._centers, "bfloat16")
+    launch_bf16 = kmeans_launch(xb.larray, kb._centers)
     for row, bf in zip(rows, time_kernels(xb.larray, kb._centers, launches_bf16, errs)):
         row["bfloat16"] = {key: bf[key] for key in ("launches", "max_abs_err", "max_abs_err_vs_float64", "ms",
                                                      "plain_ms", "bound_ms", "bound_by", "library_ms", "check")}
+        row["bfloat16"].update(launch_bf16[row["name"]])
     del xb
 
     xp = ht.utils.data.create_clusters(N_PLUSPLUS, D, K, means.numpy(), cluster_std=1.0, device="gpu",

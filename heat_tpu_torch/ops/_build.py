@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
-__all__ = ["load", "BUILD_DIR", "CSRC"]
+__all__ = ["load", "load_variant", "BUILD_DIR", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "heat_tpu_torch"
@@ -48,23 +48,23 @@ def _sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: List[Path]) -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+def _digest(sources: List[Path], flags: List[str]) -> str:
+    h = hashlib.sha256(" ".join(flags + LINK_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):  # the headers the sources include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _build(target: Path, sources: List[Path]) -> None:
+def _build(target: Path, sources: List[Path], flags: List[str]) -> str:
+    """Compile and link ``sources`` into ``target``; the compiler's output."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}"
-    t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{src.stem}.{target.stem}.{tag}.o" for src in sources]
     procs = [
         subprocess.Popen(
-            [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *flags, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,
@@ -91,11 +91,10 @@ def _build(target: Path, sources: List[Path]) -> None:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, target)  # atomic: concurrent ranks may build at once
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = "\n".join(logs)
+    return "\n".join(logs)
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare_kmeans(lib: ctypes.CDLL) -> None:
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     lib.heat_kmeans_assign.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr]
     lib.heat_kmeans_assign.restype = i32
@@ -103,8 +102,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_kmeans_em_grid.restype = i32
     lib.heat_kmeans_em_stats.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
     lib.heat_kmeans_em_stats.restype = i32
+    lib.heat_kmeans_launch_config.argtypes = [i32, i32, i32, i32, i32, ptr]
+    lib.heat_kmeans_launch_config.restype = i32
     lib.heat_kmeans_strerror.argtypes = [i32]
     lib.heat_kmeans_strerror.restype = ctypes.c_char_p
+    lib.heat_kmeans_residency.argtypes = [i32, i32, ptr, i32]
+    lib.heat_kmeans_residency.restype = i32
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    _declare_kmeans(lib)
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     f32 = ctypes.c_float
     # (device, operand and output pointers, bhq, bhk, S, d, bf16, scale, causal, stream)
     tail = [i64, i64, i32, i32, i32, f32, i32, ptr]
@@ -131,11 +139,28 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         sources = _sources()
-        target = BUILD_DIR / f"libheat_tpu_torch_{_digest(sources)}.so"
+        target = BUILD_DIR / f"libheat_tpu_torch_{_digest(sources, COMPILE_FLAGS)}.so"
         if not target.exists():
-            _build(target, sources)
+            t0 = time.perf_counter()
+            build_info["log"] = _build(target, sources, COMPILE_FLAGS)
+            build_info["seconds"] = time.perf_counter() - t0
         lib = ctypes.CDLL(str(target))
         _declare(lib)
         build_info["library"] = str(target)
         _lib = lib
     return _lib
+
+
+def load_variant(source: Path) -> ctypes.CDLL:
+    """A library of the one KMeans source ``source``, a variant of
+    ``csrc/kmeans.cu`` that a measurement script wrote, built beside the
+    package's library; the kernels' wrappers keep calling the library
+    ``load()`` returns."""
+    source = Path(source)
+    h = hashlib.sha256(_digest([source], COMPILE_FLAGS).encode() + str(source.resolve()).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"libheat_kmeans_variant_{h}.so"
+    if not target.exists():
+        _build(target, [source], COMPILE_FLAGS)
+    lib = ctypes.CDLL(str(target))
+    _declare_kmeans(lib)
+    return lib

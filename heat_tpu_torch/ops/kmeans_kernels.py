@@ -5,7 +5,11 @@
 counts (k,) of one Lloyd sweep over rows ``[0, n)``.  They replace the
 Pallas kernels ``_assign_kernel`` and ``_em_stats_kernel`` of
 ``heat_tpu/ops/kmeans_kernels.py``; the CUDA source, with its design and
-its bound on the card, is ``csrc/kmeans.cu``.  ``em_stats`` runs
+its bound on the card, is ``csrc/kmeans.cu``.  Both take x.c on the tensor
+cores as split-TF32 products (x and c each a sum of two TF32 parts, three
+products in float32, two for bfloat16 x, which TF32 holds exactly: about
+2^-21 of |x||c|, against 2^-11 for one TF32 product), on 32-row tiles that
+an asynchronous copy ring brings into shared memory.  ``em_stats`` runs
 ``assign``'s distance pass, so its labels are ``assign``'s to the bit, then
 sums each run of rows of one label in registers and adds it to its
 cluster once; each block's partial sums are added in block order in
@@ -15,21 +19,28 @@ A CUDA tensor launches the kernel or raises; a CPU tensor goes to the plain
 version (``_torch_assign``/``_torch_em_stats``), which the tests use and
 which the kernels are held against on the card.  Both compute
 ``d² = (‖x‖² + ‖c‖²) − 2x·c`` in float32, clamp it at 0 and then take the
-argmin, lowest index first.  ``launch_counts`` counts kernel launches.
+argmin, lowest index first; the plain versions take x·c in full float32.
+``launch_counts`` counts kernel launches; ``launch_config`` reports the
+launch the library picks (warps a block, ring stages, and the resident
+warps an SM that the CUDA runtime's occupancy calculator gives it);
+``resident_warps`` observes the warps resident on each SM while a call runs.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 
-__all__ = ["fused_assign", "fused_em_stats", "launch_counts", "sq_dist_blocks"]
+__all__ = ["fused_assign", "fused_em_stats", "launch_config", "launch_counts", "resident_warps",
+           "sq_dist_blocks"]
 
 # kernel launches since the last reset, one count per kernel
 launch_counts = {"assign": 0, "em_stats": 0}
 
-MAX_D = 128  # rows are held in registers, padded to 32, 64 or 128 columns
+MAX_D = 128  # row tiles and centres are padded to 32, 64 or 128 columns
 BLOCK = 1 << 20  # rows per step of the torch paths: bounds their (rows, k) temporaries
 
 
@@ -129,6 +140,39 @@ def fused_em_stats(x: torch.Tensor, centers: torch.Tensor, n=None):
     _raise_on(lib, rc, "em_stats")
     launch_counts["em_stats"] += 1
     return sums, counts
+
+
+def launch_config(k: int, d: int, dtype=torch.float32, em: bool = False) -> dict:
+    """The launch ``fused_assign`` (or, with ``em``, ``fused_em_stats``)
+    makes on the current card for ``k`` centres of width ``d``: the
+    tensor-core instruction of its products (``wgmma`` where the centres'
+    TF32 parts fit in shared memory, else ``mma.sync``), warps a block, row
+    tiles in each warp's copy ring, blocks and warps resident on an SM (the
+    CUDA runtime's occupancy calculator) and shared bytes a block."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    rc = lib.heat_kmeans_launch_config(torch.cuda.current_device(), k, d, int(dtype == torch.bfloat16), int(em), out)
+    _raise_on(lib, rc, "em_stats" if em else "assign")
+    wg, warps, stages, blocks, smem = out
+    return {"products": "wgmma" if wg else "mma.sync", "warps": warps, "stages": stages, "blocks_per_sm": blocks,
+            "resident_warps": blocks * warps, "smem_bytes": smem}
+
+
+def resident_warps(run) -> list:
+    """The most warps of ``assign`` and ``em_stats`` live at once on each SM
+    while ``run()`` launches them on the current card, one entry for each SM
+    that held any: each warp counts itself on its SM (``kmeans.cu``'s
+    residency counter, on only during this call)."""
+    lib = _build.load()
+    device = torch.cuda.current_device()
+    peak = (ctypes.c_int * 1024)()
+    _raise_on(lib, lib.heat_kmeans_residency(device, 1, peak, len(peak)), "residency")
+    try:
+        run()
+    finally:
+        rc = lib.heat_kmeans_residency(device, 0, peak, len(peak))
+    _raise_on(lib, rc, "residency")
+    return [v for v in peak if v > 0]
 
 
 def _torch_assign(x: torch.Tensor, centers: torch.Tensor):

@@ -12,7 +12,8 @@ counts zeroed just before), one Lloyd step against the torch path's and the
 fit's inertia against it (``compare_with_torch_path``), both kernels
 against their plain versions on the fitted centres
 (``check_at_main_shape``), then ``assign`` and ``em_stats`` timed with CUDA
-events (``time_kernels``).  It prints one JSON line: the card (nvidia-smi's
+events (``time_kernels``).  The kernels are built before the first fit, so
+no fit's seconds hold the build.  It prints one JSON line: the card (nvidia-smi's
 name and power limit), DIR, each kernel's ms per launch and the fit's
 seconds and iterations per second, by dtype.  A checkout that fails a check
 fails the run.  Two checkouts compare only within one run on one card, run
@@ -57,6 +58,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     ht.use_device("gpu")
+    from heat_tpu_torch.ops import _build
+
+    _build.load()  # built here, not inside the first timed fit
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     means = torch.rand((cs.K, cs.D), generator=torch.Generator().manual_seed(7)) * 40.0 - 20.0

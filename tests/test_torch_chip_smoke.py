@@ -3,8 +3,9 @@ for the bfloat16 tensor-core kernels, the float32 bodies and the KMeans
 kernels, what each flash row of its ``kernels`` line says runs each dtype,
 the differing share and the float32 criterion of its edge-shape checks (and
 why the edges need them: at one row dq and dk are float32 noise), the
-em_stats edge shapes and their comparison on the plain versions, and its
-refusal (and scripts/kmeans_ab.py's) to run without a card."""
+KMeans edge shapes and their comparisons (assign's and em_stats') on the
+plain versions, the KMeans kernels' bound, and its refusal (and
+scripts/kmeans_ab.py's) to run without a card."""
 
 import importlib.util
 import subprocess
@@ -78,18 +79,19 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3234eb43_18_flash_att
 ptxas info    : Used 230 registers, used 1 barriers
 """
 
-# nvcc -Xptxas -v for kmeans.cu: em_stats and assign instances, and em_reduce (not a template)
+# nvcc -Xptxas -v for kmeans.cu: em_stats and assign instances (storage
+# type, DP, products by wgmma or not), and em_reduce (not a template)
 PTXAS_KMEANS_LOG = """== kmeans.cu
-ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97115em_stats_kernelIfLi32ELi2EEEvPKT_PKfliibPfPi' for 'sm_90a'
-ptxas info    : Function properties for _ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97115em_stats_kernelIfLi32ELi2EEEvPKT_PKfliibPfPi
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__5cebfc58_9_kmeans_cu_9a3ece1715em_stats_kernelIfLi32ELb1EEEvPKT_PKfliibiPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN41_GLOBAL__N__5cebfc58_9_kmeans_cu_9a3ece1715em_stats_kernelIfLi32ELb1EEEvPKT_PKfliibiPfPi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 217 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97115em_stats_kernelI13__nv_bfloat16Li128ELi1EEEvPKT_PKfliibPfPi' for 'sm_90a'
+ptxas info    : Used 138 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__5cebfc58_9_kmeans_cu_9a3ece1715em_stats_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_PKfliibiPfPi' for 'sm_90a'
     96 bytes stack frame, 100 bytes spill stores, 100 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 96 bytes cumulative stack size
-ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97113assign_kernelIfLi32ELi2EEEvPKT_PKfliibPiPf' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__5cebfc58_9_kmeans_cu_9a3ece1713assign_kernelIfLi32ELb1EEEvPKT_PKfliibiPiPf' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 221 registers, used 1 barriers
+ptxas info    : Used 148 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__cabd9633_9_kmeans_cu_f5b8f97116em_reduce_kernelEPKfPKiiiiPfS4_' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 32 registers, used 0 barriers
@@ -151,15 +153,17 @@ def test_ptxas_report_reads_each_f32_forward_instance(chip_smoke):
 
 
 def test_kmeans_ptxas_report_reads_each_instance(chip_smoke):
-    """kmeans_ptxas_report: each instance's storage type, DP and rows a lane
-    from the mangled name; em_reduce_kernel, not a template, with none; a
-    kernel's report holds its own instances only."""
+    """kmeans_ptxas_report: each instance's storage type, DP and products'
+    instruction (wgmma or mma.sync) from the mangled name; em_reduce_kernel,
+    not a template, with none; a kernel's report holds its own instances
+    only."""
     log = PTXAS_KMEANS_LOG
     assert chip_smoke.kmeans_ptxas_report(log, "em_stats_kernel") == [
-        {"dtype": "float32", "DP": 32, "RPT": 2, "spill_stores": 0, "spill_loads": 0, "registers": 217},
-        {"dtype": "bfloat16", "DP": 128, "RPT": 1, "spill_stores": 100, "spill_loads": 100, "registers": 255}]
+        {"dtype": "float32", "DP": 32, "products": "wgmma", "spill_stores": 0, "spill_loads": 0, "registers": 138},
+        {"dtype": "bfloat16", "DP": 128, "products": "mma.sync", "spill_stores": 100, "spill_loads": 100,
+         "registers": 255}]
     assert chip_smoke.kmeans_ptxas_report(log, "assign_kernel") == [
-        {"dtype": "float32", "DP": 32, "RPT": 2, "spill_stores": 0, "spill_loads": 0, "registers": 221}]
+        {"dtype": "float32", "DP": 32, "products": "wgmma", "spill_stores": 0, "spill_loads": 0, "registers": 148}]
     assert chip_smoke.kmeans_ptxas_report(log, "em_reduce_kernel") == [
         {"spill_stores": 0, "spill_loads": 0, "registers": 32}]
     assert chip_smoke.kmeans_ptxas_report(PTXAS_F32_LOG, "em_stats_kernel") == []
@@ -330,20 +334,78 @@ def test_kmeans_ab_without_cuda_exits_2():
     assert '"ms"' not in out.stdout
 
 
+def _kmeans_probe():
+    spec = importlib.util.spec_from_file_location("kmeans_probe", REPO / "scripts" / "kmeans_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_kmeans_probe_variants_apply_to_the_kernel_source():
+    """scripts/kmeans_probe.py's variants each find their text once in
+    kmeans.cu: no_epilogue drops the clamp-then-argmin and keeps the
+    products, no_products drops both products calls and keeps the
+    epilogue, mma_sync turns wgmma off, copies_first swaps configure's
+    ranking; each variant is timed once each way; a text the source does
+    not hold is refused."""
+    probe = _kmeans_probe()
+    src = (REPO / "heat_tpu_torch" / "ops" / "csrc" / "kmeans.cu").read_text()
+    out = {name: probe.variant_source(src, subs) for name, subs in probe.VARIANTS.items()}
+    assert out["kept"] == src
+    assert "bi[mt][h] = j + 1;" not in out["no_epilogue"] and "products_wgmma<T, DP>(st," in out["no_epilogue"]
+    assert "products_wgmma<T, DP>(st," not in out["no_products"] and "products_mma<T, DP>(st," not in out[
+        "no_products"] and "bi[mt][h] = j + 1;" in out["no_products"]
+    assert "return false;" in out["mma_sync"] and "flight > best_flight ||" in out["copies_first"]
+    assert set(probe.EXACT) == {"kept", "mma_sync", "copies_first"}
+    assert sorted(probe.ORDER) == sorted(2 * list(probe.VARIANTS)) and probe.ORDER == probe.ORDER[::-1]
+    with pytest.raises(RuntimeError, match="0 copies"):
+        probe.variant_source(src, [("no such text", "")])
+
+
+def test_kmeans_residency_counter_brackets_both_kernels():
+    """kmeans.cu's residency counter is the first statement and the last of
+    assign_kernel and em_stats_kernel, entering and leaving."""
+    src = (REPO / "heat_tpu_torch" / "ops" / "csrc" / "kmeans.cu").read_text()
+    for kernel in ("assign_kernel(", "em_stats_kernel("):
+        body = src[src.index(kernel):]
+        body = body[body.index("{") + 1:body.index("\n}\n")]
+        assert body.lstrip().startswith("count_resident(true);")
+        assert body.rstrip().endswith("count_resident(false);")
+
+
+def test_kmeans_probe_without_cuda_exits_2():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: kmeans_probe.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "kmeans_probe.py")], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2
+    assert '"ms"' not in out.stdout
+
+
 def test_em_edge_checks_cover_the_kernels_edges(chip_smoke):
-    """EM_EDGE_CHECKS: k from 1 to past 64 (1, 3, 61, 64, 200), d of 1,
-    off and on the register rows, up to 128 (1, 33, 64, 100, 128); n of 0,
-    1, under one 64-row slab, off a 512-row tile, and past the rows; both
-    dtypes; rows contiguous by cluster and in random order; one cluster
-    holding DOMINANT_SHARE of 1e6 rows in both dtypes."""
+    """EM_EDGE_CHECKS, where assign and em_stats are both held: k from 1 to
+    past a 64-centre chunk, off the n8 tiles (1, 3, 9, 61, 64, 127, 200,
+    300); k past what wgmma's centres hold in shared memory, so mma.sync
+    takes the products (300 at d = 32, 64 at d = 128, 127 at d = 100); d of
+    1, 8, off and on the 32-, 64- and 128-column tiles (33, 36, 100), up to
+    128; n of 0, 1, under one 32-row tile, off a block's tiles, and past the
+    rows; both dtypes; rows contiguous by cluster and in random order; rows
+    off 16-byte alignment in both dtypes, at d = 32 where they would
+    otherwise take 16-byte copies; one cluster holding DOMINANT_SHARE of 1e6
+    rows in both dtypes."""
     edges = chip_smoke.EM_EDGE_CHECKS
-    assert {k for _, _, k, _, _, _ in edges} >= {1, 3, 61, 64, 200}
-    assert {d for _, _, _, d, _, _ in edges} >= {1, 33, 64, 100, 128}
+    assert {k for _, _, k, _, _, _ in edges} >= {1, 3, 9, 61, 64, 127, 200, 300}
+    assert {k % 8 for _, _, k, _, _, _ in edges} >= {1, 3, 5, 7}
+    assert {d for _, _, _, d, _, _ in edges} >= {1, 8, 33, 36, 64, 100, 128}
+    assert {(k, d) for _, _, k, d, dt, _ in edges if dt == "float32"} >= {(300, 32), (64, 128)}
+    assert (127, 100, "bfloat16") in {(k, d, dt) for _, _, k, d, dt, _ in edges}
     ns = {n for _, n, _, _, _, _ in edges}
-    assert {0, 1} <= ns and any(1 < n < 64 for n in ns) and any(n % 512 for n in ns if n > 512)
+    assert {0, 1} <= ns and any(1 < n < 32 for n in ns) and any(n % 512 for n in ns if n > 512)
     assert any(n > rows for rows, n, *_ in edges)
     assert {dt for *_, dt, _ in edges} == {"float32", "bfloat16"}
-    assert {lay for *_, lay in edges} == {"blobs", "shuffled", "dominant"}
+    assert {lay.partition("+")[0] for *_, lay in edges} == {"blobs", "shuffled", "dominant"}
+    assert {(d, dt) for _, _, _, d, dt, lay in edges if lay.endswith("+offset")} == {
+        (32, "float32"), (32, "bfloat16")}
     assert {(rows, dt) for rows, _, _, _, dt, lay in edges if lay == "dominant"} == {
         (1_000_000, "float32"), (1_000_000, "bfloat16")}
     assert chip_smoke.DOMINANT_SHARE >= 0.99
@@ -399,3 +461,51 @@ def test_compare_em_holds_the_plain_version_and_refuses_a_wrong_sum(chip_smoke, 
     off[j, 0] += 1e-4 * float(x[:n].float()[lab[:n] == j, 0].abs().sum()) + 1e-2
     with pytest.raises(RuntimeError, match="sums"):
         chip_smoke.compare_em(x, c, n, off, counts, lab, sums, counts, 0)
+
+
+def test_em_edge_inputs_offset_view_is_off_alignment(chip_smoke):
+    """A "+offset" layout: the same rows as the plain layout, contiguous,
+    starting one element into their buffer, so off 16-byte alignment."""
+    for dtype in ("float32", "bfloat16"):
+        x, c = chip_smoke.em_edge_inputs(300, 5, 32, dtype, "shuffled", seed=4, device="cpu")
+        xo, co = chip_smoke.em_edge_inputs(300, 5, 32, dtype, "shuffled+offset", seed=4, device="cpu")
+        assert torch.equal(x, xo) and torch.equal(c, co)
+        assert xo.is_contiguous() and xo.data_ptr() % 16 != 0
+
+
+def test_kmeans_bound_is_the_bytes_at_the_main_shape(chip_smoke):
+    """bound() at the main path's n = 1e8, d = 32, k = 64: the bytes moved
+    once at 3.35 TB/s exceed the split-TF32 products at 495 TFLOP/s (three
+    in float32, two in bfloat16), so all four kernels are bound by bytes:
+    assign 4.06 / 2.15 ms, em_stats 3.82 / 1.91 ms (float32 / bfloat16).
+    The same work as float32 FFMAs (ffma_bound, the bound before the
+    tensor cores): 6.11 and 6.16 ms."""
+    want = {(False, 4): 4.06, (False, 2): 2.15, (True, 4): 3.82, (True, 2): 1.91}
+    for (em, itemsize), ms in want.items():
+        b_ms, b_by = chip_smoke.bound(chip_smoke.N_MAIN, itemsize, em)
+        assert round(b_ms, 2) == ms and b_by == "bytes"
+        assert round(chip_smoke.ffma_bound(chip_smoke.N_MAIN, itemsize, em), 2) == (6.16 if em else 6.11)
+        products = (3 if itemsize == 4 else 2) * 2 * chip_smoke.N_MAIN * chip_smoke.K * chip_smoke.D
+        assert products / chip_smoke.PEAK_TF32_FLOPS * 1e3 < b_ms
+
+
+@pytest.mark.parametrize("rows,k,d,dtype", [(3000, 64, 32, "float32"), (2000, 9, 36, "float32"),
+                                            (1000, 61, 100, "bfloat16"), (500, 1, 8, "float32")])
+def test_compare_assign_passes_near_ties_and_refuses_far_labels(chip_smoke, rows, k, d, dtype):
+    """compare_assign, as check_em_edges calls it, on the plain version at
+    small edge shapes: against itself it passes; a d2 off by 1e-4 of |x|^2
+    + |c|^2 fails, and so does a label moved to a centre that is not a near
+    tie."""
+    x, c = chip_smoke.em_edge_inputs(rows, k, d, dtype, "shuffled", seed=rows + k, device="cpu")
+    lab, d2 = kk._torch_assign(x, c)
+    assert chip_smoke.compare_assign(x, c, lab, d2, lab, d2) == (0, 0, 0.0)
+    scale = float(x[0].float().square().sum() + c[int(lab[0])].square().sum())
+    off = d2.clone()
+    off[0] += 1e-4 * scale
+    with pytest.raises(RuntimeError, match="d2 row"):
+        chip_smoke.compare_assign(x, c, lab, off, lab, d2)
+    if k > 1:
+        moved = lab.clone()
+        moved[0] = (int(lab[0]) + 1) % k
+        with pytest.raises(RuntimeError, match="near tie"):
+            chip_smoke.compare_assign(x, c, moved, d2, lab, d2)

@@ -10,11 +10,14 @@ Tolerances:
 - KMeans: labels exactly and counts exactly (no near ties in these blobs);
   min d² to 1e-6 of the expansion's magnitude (|x|² + |c|²) and sums to
   rtol 1e-5, atol 1e-4: the same float32 terms summed in another order.
-  em_stats at its edges (chip_smoke.py's EM_EDGE_CHECKS and
-  check_em_edges): counts exactly those of assign's labels, sums within
-  SUM_RTOL (1e-5) of their magnitude from a float64 scatter of those labels,
-  against the plain version within its near-tie allowance, and the same
-  bits twice.
+  assign and em_stats at their edges (chip_smoke.py's EM_EDGE_CHECKS and
+  check_em_edges): assign's d2 within D2_RTOL (1e-5) of |x|^2 + |c|^2 and a
+  label apart from the plain version's only at a near tie (TIE_RTOL);
+  em_stats' counts exactly those of assign's labels, sums within SUM_RTOL
+  (1e-5) of their magnitude from a float64 scatter of those labels, against
+  the plain version within its near-tie allowance; both the same bits twice.
+  The products are split TF32 on the tensor cores (wgmma, or mma.sync past
+  the k that wgmma's centres fit), about 2^-21 of |x||c|.
 - flash attention, by ``row_err`` (each row's largest error over that row's
   largest value):
   - float32: 2e-5 on out, 2e-4 on dq, dk, dv; lse atol 2e-5.  The kernel
@@ -396,15 +399,91 @@ def test_cuda_f32_forward_positions_blocks(block, d):
 
 @pytest.mark.parametrize("case", _CHIP_SMOKE.EM_EDGE_CHECKS, ids=lambda c: "-".join(map(str, c)))
 def test_cuda_em_stats_edges(case):
-    """em_stats at chip_smoke.py's edge shapes (check_em_edges): k of 1 to
-    200, d of 1 to 128, n of 0, 1, under a slab, off a tile and past the
-    rows, bfloat16, rows in random order, one cluster holding 99% of 1e6
-    rows; counts equal to bincount of assign's labels, sums within SUM_RTOL
-    of their float64 scatter, against the plain version, twice to the same
-    bits (the check raises otherwise)."""
-    before = kk.launch_counts["em_stats"]
+    """assign and em_stats at chip_smoke.py's edge shapes (check_em_edges):
+    k of 1 to 300, the products by wgmma and by mma.sync, d of 1 to 128, n
+    of 0, 1, under a tile, off a block and past the rows, bfloat16, rows in
+    random order, rows off 16-byte alignment, one cluster holding 99% of 1e6
+    rows; assign's d2 within D2_RTOL and labels apart only at near ties; em
+    counts equal to bincount of assign's labels, sums within SUM_RTOL of
+    their float64 scatter, against the plain version; both twice to the
+    same bits (the check raises otherwise)."""
+    before = dict(kk.launch_counts)
     _CHIP_SMOKE.check_em_edges([case])
-    assert kk.launch_counts["em_stats"] == before + 2
+    assert kk.launch_counts["em_stats"] == before["em_stats"] + 2
+    assert kk.launch_counts["assign"] == before["assign"] + 2
+
+
+# the largest k each kernel took before its products moved to the tensor
+# cores, by d (its shared-memory layout then): none may fall
+OLD_K_LIMITS = {32: (1696, 848), 64: (828, 414), 128: (416, 208)}
+# the largest k of (assign, em_stats) now, by d and dtype, as kmeans.cu's
+# source note and ROADMAP R6 state them: one centre more raises
+NEW_K_LIMITS = {(32, torch.float32): (1720, 862), (64, torch.float32): (856, 428),
+                (128, torch.float32): (416, 208), (32, torch.bfloat16): (1736, 869),
+                (64, torch.bfloat16): (872, 436), (128, torch.bfloat16): (432, 216)}
+
+
+@pytest.mark.parametrize("limits", ["old", "new"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", sorted(OLD_K_LIMITS))
+def test_cuda_kmeans_kernels_launch_at_the_old_k_limits(d, dtype, limits):
+    """assign at its largest k and em_stats at its own, before the tensor
+    cores ("old") and as stated now ("new"), each against its plain version
+    (chip_smoke's compare_assign and compare_em), by mma.sync: these k are
+    past what wgmma's centres hold.  At the new limits, one centre more
+    raises the shared-memory error in both kernels."""
+    k_assign, k_em = OLD_K_LIMITS[d] if limits == "old" else NEW_K_LIMITS[d, dtype]
+    x, c = _CHIP_SMOKE.em_edge_inputs(3000, k_assign + 1, d, str(dtype).replace("torch.", ""), "shuffled", seed=d)
+    ca = c[:k_assign].contiguous()
+    lab, d2 = kk.fused_assign(x, ca)
+    lab_p, d2_p = kk._torch_assign(x, ca)
+    _CHIP_SMOKE.compare_assign(x, ca, lab, d2, lab_p, d2_p)
+    ce = c[:k_em].contiguous()
+    sums, counts = kk.fused_em_stats(x, ce)
+    lab_e, _ = kk.fused_assign(x, ce)
+    sums_p, counts_p = kk._torch_em_stats(x, ce, x.shape[0])
+    lab_ep, _ = kk._torch_assign(x, ce)
+    _CHIP_SMOKE.compare_em(x, ce, x.shape[0], sums, counts, lab_e, sums_p, counts_p, int((lab_e != lab_ep).sum()))
+    for k, em in ((k_assign, False), (k_em, True)):
+        assert kk.launch_config(k, d, dtype, em=em)["products"] == "mma.sync"
+    if limits == "new":
+        with pytest.raises(RuntimeError, match="shared-memory layout"):
+            kk.fused_assign(x, c)
+        with pytest.raises(RuntimeError, match="shared-memory layout"):
+            kk.fused_em_stats(x, c[:k_em + 1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_both_kernels_take_the_same_products_at_every_k(dtype):
+    """Both kernels pick wgmma or mma.sync by the same rule, so em_stats'
+    counts are bincount of assign's labels on either side of the switch
+    (k = 256 and 257 at d = 32 in float32), and each launch takes whole
+    warpgroups under wgmma."""
+    switch = {torch.float32: 256, torch.bfloat16: 263}[dtype]
+    for k in (switch, switch + 1):
+        a, e = kk.launch_config(k, 32, dtype), kk.launch_config(k, 32, dtype, em=True)
+        assert a["products"] == e["products"] == ("wgmma" if k == switch else "mma.sync")
+        if a["products"] == "wgmma":
+            assert a["warps"] % 4 == 0 and e["warps"] % 4 == 0
+        x, c = _CHIP_SMOKE.em_edge_inputs(5000, k, 32, str(dtype).replace("torch.", ""), "shuffled", seed=k)
+        lab, _ = kk.fused_assign(x, c)
+        _, counts = kk.fused_em_stats(x, c)
+        assert torch.equal(counts, torch.bincount(lab.long(), minlength=k).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kmeans_resident_warps_equal_the_occupancy_calculator(dtype):
+    """The warps each kernel's launch holds on an SM at once, counted by the
+    warps themselves (resident_warps), reach what the occupancy calculator
+    gives the launch (launch_config), on every SM the launch used, at a grid
+    of every resident block; the counter is off outside the call."""
+    x, c = _CHIP_SMOKE.em_edge_inputs(4_000_000, 64, 32, str(dtype).replace("torch.", ""), "blobs", seed=3)
+    for run, em in ((lambda: kk.fused_assign(x, c), False), (lambda: kk.fused_em_stats(x, c), True)):
+        used = kk.resident_warps(run)
+        assert used and set(used) == {kk.launch_config(64, 32, dtype, em=em)["resident_warps"]}
+        assert len(used) == torch.cuda.get_device_properties(0).multi_processor_count
+        run()
+        assert kk.resident_warps(lambda: None) == []
 
 
 def _assert_backward(names, q, k, v, do, *args, g_lse=None):
