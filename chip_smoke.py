@@ -28,7 +28,23 @@
    So a ``kmeans++`` fit on the same 1e8 rows, and one at n = 2**22, must
    recover every generating mean.  The launch counts are zeroed just before
    each fit and read just after it.
-4. Holds the three flash-attention kernels against their plain versions,
+4. ``ht.matmul`` (BASELINE config 0): two (n, n) float32
+   ``ht.random.randn(..., split=0)`` on the card multiplied at world size
+   1, n = 4096 (BASELINE's shape) and 16384 (the north star's: 3 GiB for a,
+   b and the result), each held against a float64 product of the same
+   tensors (``MATMUL_RTOL``) and bit for bit against ``torch.matmul`` of the
+   local tensors, timed beside it (TFLOP/s, the share of the float32 peak,
+   peak memory), and profiled: the same device kernels as ``torch.matmul``
+   and no copy.  Then 2 spawned ranks on this card over gloo: all nine
+   (a.split, b.split) cases at 4096^2 and the vector products, each split
+   held against the JAX package's table; ``matmul_summa`` at 4096^2 and
+   ragged (4099 x 4097 x 4095); ``resplit_`` 0 -> 1 -> None -> 0 exactly;
+   ``+`` with mismatched splits and beside a replicated operand; ``sum``,
+   ``max`` and ``cumsum`` along both axes; each gathered and held against
+   the world-1 result on the card (``MATMUL_2R_RTOL``).  Rank 0 prints the
+   SUMMA and gather routes' times, the communicator's traffic and each
+   collective's transport: 2 processes on ONE card, not a multi-card figure.
+5. Holds the three flash-attention kernels against their plain versions,
    through the multi-head wrappers and through the grouped-query ones
    (query heads : K/V heads 8:2, 8:1 and 4:4): float32 and bfloat16, causal
    and full, d = 8, 33, 64, 100 and 128, ragged S (1000, 129) and S = 1024,
@@ -44,29 +60,29 @@
    launch runs a tensor-core body (``mma.sync``): the forward
    ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``; every float32
    launch the CUDA-core bodies of ``flash_f32.cuh``.
-5. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
+6. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=1024)`` (the
    width of the repo's LM benchmark) in float32 for 20 Adam steps on token
    batches (8, 1025) of repeated random segments: every flash kernel must
    launch 8 x 20 times, the grouped ones none, and the loss must fall.  Then
    one step through the kernels against one step through their plain
    versions (substituted here with ``unittest.mock.patch``), loss and every
    gradient.
-6. Generates 448 tokens after a (8, 64) prompt with the weights in
+7. Generates 448 tokens after a (8, 64) prompt with the weights in
    bfloat16, greedily: no flash kernel may launch.  Decoding is held against
    the bfloat16 forward over the prompt, which launches the forward kernel
    once per block.
-7. Does 5 and 6 again for the grouped-query LM, the same width with
+8. Does 6 and 7 again for the grouped-query LM, the same width with
    ``num_kv_heads=2, positions="rope"`` (four query heads to a K/V head):
    its training launches each grouped kernel 8 x 20 times and the
    multi-head ones none, and it decodes from a cache of 2 K/V heads.
-8. Holds the three positions kernels of ring attention's block against
+9. Holds the three positions kernels of ring attention's block against
    their plain versions: float32 and bfloat16, d = 8, 33, 64, 100 and 128,
    the ring step's diagonal, past and dead blocks at (B*H, Sq, Sk, d) =
    (16, 2048, 2048, 64) and ragged at (4, 300, 300), rectangular, ragged,
    one-row, one-key, pad-key and unmasked blocks, with a nonzero lse
    cotangent folded into dd; every kernel twice to the same bits, and again
    with k off 16-byte alignment.
-9. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=4096, comm=comm)``
+10. Trains ``TransformerLM(32768, 512, 8, depth=8, max_len=4096, comm=comm)``
    sequence-parallel over 2 ranks: two spawned processes on this one card in
    a gloo group (NCCL refuses two ranks on one card; the ring's sends stage
    CUDA tensors through host memory), 20 float32 Adam steps on (2, 4097)-token
@@ -76,13 +92,13 @@
    world-1 step of the same weights on the card (the static flash
    kernels), and a ring step under the profiler on rank 0.  A child that
    fails, or does not report within the time limit, fails the run.
-10. Trains the multi-head LM of 5 cast to bfloat16, 10 Adam steps on
-   batches of 5's shape: each step launches each multi-head flash kernel 8
+11. Trains the multi-head LM of 6 cast to bfloat16, 10 Adam steps on
+   batches of 6's shape: each step launches each multi-head flash kernel 8
    times (the bfloat16 forward, dq and dk/dv on the tensor cores) and no
    other, and the loss must fall; the median step, the flash share of a
    profiled step, and one step through the kernels against one through
    their plain versions (loss and every gradient, ``BF16_STEP_*``).
-11. Times each kernel, its plain version and a library call at the main
+12. Times each kernel, its plain version and a library call at the main
    paths' shapes (CUDA events behind a device sleep, so the device's time
    and not Python's launch) and prints the ``kernels`` line, each flash
    row with the cores, the kernel and the source of its float32 and
@@ -92,7 +108,7 @@
    the kernels' residency counter (a ``kmeans_launch`` line a kernel and
    dtype gives the occupancy calculator's launch and the bound of the
    float32 FFMA design beside it).
-12. Ends with the line ``{"ok": true, "device": {...}}``.
+13. Ends with the line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without CUDA it exits 2 at once.
@@ -106,6 +122,7 @@ import socket
 import subprocess
 import sys
 import time
+import warnings
 
 K, D = 64, 32
 N_MAIN = 100_000_000
@@ -273,6 +290,18 @@ DECODE_RTOL = 0.05
 TIE_RTOL = 1e-5  # a label may differ where the plain top-2 gap is <= TIE_RTOL * |x|^2
 D2_RTOL = 1e-5  # |d2 - plain d2| <= D2_RTOL * (|x|^2 + |c|^2): float32 rounding of the expansion
 SUM_RTOL = 1e-5  # em sums vs. an exact float64 scatter of the same labels
+# ht.matmul (BASELINE config 0): square float32 products split 0 x split 0 at
+# BASELINE's 4096 and the north star's 16384 (3 GiB for a, b and the result);
+# the two-rank phase at 4096 and SUMMA at a ragged shape too
+MATMUL_SIZES = (4096, 16384)
+MATMUL_RTOL = 1e-5  # max |C - C64| / max |C64|: full float32 (TF32 products give ~1e-3)
+MATMUL_2R, MATMUL_RAGGED = 4096, (4099, 4097, 4095)
+MATMUL_2R_RTOL = 1e-5  # the same measure against world size 1: partial products over K halves summed
+# the JAX package's result splits of the two-rank cases (heat_tpu/linalg/basics.py::_matmul_result_split)
+MATMUL_SPLITS = {"None,None": None, "0,None": 0, "1,None": 0, "None,0": 1, "None,1": 1, "0,0": 0, "0,1": 0,
+                 "1,0": 1, "1,1": 1, "vector @ matrix 0,1": 0, "matrix @ vector 1,0": None}
+MATMUL_COLLECTIVES = ("Allreduce", "Allgather", "Alltoall", "ReduceScatter", "Bcast", "Reduce", "Scatter", "Gather",
+                      "Send", "Exscan", "Scan")
 RECOVER_TOL = 0.05  # kmeans++ fits: distance of each generating mean to its fitted centre
 INERTIA_RTOL = 1e-6  # the fit's inertia may pass the one-step inertia by float64 sum rounding only
 
@@ -1521,6 +1550,204 @@ def ring_train() -> dict:
     return {key: r0["launch_counts"][key] for key in POS_KERNELS}
 
 
+# ---------------------------------------------------------------------- #
+# ht.matmul (BASELINE config 0)
+# ---------------------------------------------------------------------- #
+def matmul_check(got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+def launched_kernels(fn) -> list:
+    """The names of every device activity of one ``fn()`` (torch.profiler),
+    sorted: kernels and any memory copies or sets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def matmul_world_one(ht, smi: str) -> None:
+    """``ht.matmul`` of two (n, n) float32 ``ht.random.randn(..., split=0)``
+    on the card at world size 1, n in MATMUL_SIZES: held against a float64
+    product of the same tensors (MATMUL_RTOL) and, bit for bit, against
+    ``torch.matmul`` of the local tensors; timed beside it; the same device
+    kernels as ``torch.matmul`` and no copy."""
+    import torch
+
+    for n in MATMUL_SIZES:
+        ht.random.seed(n)
+        a = ht.random.randn(n, n, split=0)
+        b = ht.random.randn(n, n, split=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()  # a, b and what earlier phases keep
+        c = ht.matmul(a, b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if c.shape != (n, n) or c.split != 0 or not c.larray.is_cuda or c.dtype is not ht.float32:
+            fail(f"ht.matmul at {n}: shape {c.shape}, split {c.split}, device {c.larray.device}, {c.dtype}")
+        if not bool(torch.isfinite(c.larray).all()):
+            fail(f"ht.matmul at {n}: non-finite values")
+        err = matmul_check(c.larray, torch.matmul(a.larray.double(), b.larray.double()))
+        if not err <= MATMUL_RTOL:
+            fail(f"ht.matmul at {n} vs float64: {err} > {MATMUL_RTOL}")
+        if not torch.equal(c.larray, torch.matmul(a.larray, b.larray)):
+            fail(f"ht.matmul at {n} differs from torch.matmul of the local tensors")
+        del c
+        torch.cuda.empty_cache()
+        kernels, plain = launched_kernels(lambda: ht.matmul(a, b)), launched_kernels(
+            lambda: torch.matmul(a.larray, b.larray))
+        if kernels != plain or any("copy" in k.lower() or "memcpy" in k.lower() for k in kernels):
+            fail(f"ht.matmul at {n} launched {kernels}, torch.matmul {plain}")
+        reps = max(3, int(2e12 / n ** 3))
+        ms = cuda_ms(lambda: ht.matmul(a, b), reps)
+        torch_ms = cuda_ms(lambda: torch.matmul(a.larray, b.larray), reps)
+        flops = 2.0 * n ** 3
+        print(json.dumps({
+            "phase": "main_path", "path": "ht.matmul (BASELINE config 0)", "shape": [n, n, n], "dtype": "float32",
+            "splits": [0, 0], "result_split": 0, "world": 1, "cuda_ms": ms, "torch_matmul_ms": torch_ms,
+            "tflops": flops / ms / 1e9, "share_of_f32_peak": flops / (ms * 1e-3) / PEAK_F32_FLOPS,
+            "max_memory_allocated": peak, "allocated_before": before, "operand_bytes": 2 * a.larray.nbytes,
+            "rel_err_vs_float64": err, "rel_tol": MATMUL_RTOL,
+            "bitwise_equal_to_torch_matmul": True, "kernels": kernels, "card": smi}), flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def _wall_ms(fn, comm, reps: int) -> float:
+    """ms a call of ``fn`` on every rank: host clock over ``reps`` calls
+    between barriers, the card synchronised (the gloo transfers block the
+    host, so CUDA events behind a device sleep would not time them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    comm.Barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    comm.Barrier()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def matmul_rank(rank: int, port: int, out_q) -> None:
+    """One of 2 ranks on this card over gloo: every matmul split case at
+    4096^2 and the vector products, ``matmul_summa`` (ragged too),
+    ``resplit_``, mismatched-split and broadcast ``+``, and ``sum``, ``max``,
+    ``cumsum`` along both axes, each gathered and held against the world-1
+    result on the card; the SUMMA and gather routes timed, with the
+    communicator's traffic and transports."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        n = MATMUL_2R
+        g = torch.Generator(device="cuda").manual_seed(11)
+        A = torch.randn(n, n, generator=g, device="cuda")
+        B = torch.randn(n, n, generator=g, device="cuda")
+        v = torch.randn(n, generator=g, device="cuda")
+        want = torch.matmul(A, B)  # ht.matmul at world size 1, bit for bit (the world-1 phase)
+        res = {"rank": rank, "errs": {}, "splits": {}}
+
+        def gathered(x):
+            if not x.larray.is_cuda:
+                fail(f"rank {rank}: a result left the card: {x.larray.device}")
+            return x.resplit(None).larray
+
+        for sa in (None, 0, 1):
+            for sb in (None, 0, 1):
+                c = ht.matmul(ht.array(A, split=sa), ht.array(B, split=sb))
+                res["splits"][f"{sa},{sb}"] = c.split
+                res["errs"][f"matmul {sa},{sb}"] = matmul_check(gathered(c), want)
+        for name, (x, sx, y, sy, ref) in {
+                "vector @ matrix 0,1": (v, 0, B, 1, torch.matmul(v, B)),
+                "matrix @ vector 1,0": (A, 1, v, 0, torch.matmul(A, v))}.items():
+            c = ht.matmul(ht.array(x, split=sx), ht.array(y, split=sy))
+            res["splits"][name] = c.split
+            res["errs"][name] = matmul_check(gathered(c), ref)
+        for shape in ((n, n, n), MATMUL_RAGGED):
+            gr = torch.Generator(device="cuda").manual_seed(sum(shape))
+            x = torch.randn(shape[0], shape[1], generator=gr, device="cuda")
+            y = torch.randn(shape[1], shape[2], generator=gr, device="cuda")
+            c = ht.linalg.matmul_summa(ht.array(x, split=0), ht.array(y, split=0))
+            res["splits"][f"summa {shape}"] = c.split
+            res["errs"][f"summa {shape}"] = matmul_check(gathered(c), torch.matmul(x, y))
+
+        x = ht.array(A, split=0)
+        exact = []
+        for axis in (1, None, 0):
+            x.resplit_(axis)
+            exact.append(x.split == axis and torch.equal(gathered(x), A))
+        res["resplit_exact"] = exact
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res["errs"]["+ mismatched splits 0,1"] = matmul_check(
+                gathered(ht.array(A, split=0) + ht.array(B, split=1)), A + B)
+        res["errs"]["+ split 0 and replicated"] = matmul_check(gathered(ht.array(A, split=0) + ht.array(B)), A + B)
+        res["errs"]["+ row vector split 0"] = matmul_check(gathered(ht.array(A, split=1) + ht.array(v, split=0)),
+                                                           A + v)
+        for axis in (0, 1):
+            x = ht.array(A, split=0)
+            res["errs"][f"sum axis {axis}"] = matmul_check(gathered(ht.sum(x, axis=axis)), A.sum(axis))
+            res["errs"][f"max axis {axis}"] = matmul_check(gathered(ht.max(x, axis=axis)), A.amax(axis))
+            res["errs"][f"cumsum axis {axis}"] = matmul_check(gathered(ht.cumsum(x, axis)), A.cumsum(axis))
+
+        a, b = ht.array(A, split=0), ht.array(B, split=0)
+        comm.reset_traffic()
+        ht.linalg.matmul_summa(a, b)
+        res["summa_traffic"] = comm.traffic()
+        comm.reset_traffic()
+        ht.matmul(a, b, method="gspmd")
+        res["gather_traffic"] = comm.traffic()
+        res["summa_ms"] = _wall_ms(lambda: ht.linalg.matmul_summa(a, b), comm, 3)
+        res["gather_ms"] = _wall_ms(lambda: ht.matmul(a, b, method="gspmd"), comm, 3)
+        res["transport"] = {op: comm.transport(A, op) for op in MATMUL_COLLECTIVES}
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def matmul_two_ranks(smi: str) -> None:
+    """The two-rank matmul phase: 2 processes on this card over gloo; checks
+    what each reports and prints rank 0's line."""
+    results = spawn_ranks(matmul_rank, 2, RING_TIMEOUT_S)
+    for rank, res in sorted(results.items()):
+        bad = {k: e for k, e in res["errs"].items() if not e <= MATMUL_2R_RTOL}
+        if bad:
+            fail(f"rank {rank}: against world size 1 beyond {MATMUL_2R_RTOL}: {bad}")
+        for case, split in res["splits"].items():
+            want = MATMUL_SPLITS.get(case, 0)
+            if split != want:
+                fail(f"rank {rank}: matmul {case} split {split}, the table says {want}")
+        if res["resplit_exact"] != [True, True, True]:
+            fail(f"rank {rank}: resplit_ 0 -> 1 -> None -> 0 not exact: {res['resplit_exact']}")
+    r0 = results[0]
+    flops = 2.0 * MATMUL_2R ** 3
+    print(json.dumps({
+        "phase": "matmul_two_ranks", "note": "2 processes on ONE card over gloo: not a multi-card figure",
+        "shape": [MATMUL_2R] * 3, "dtype": "float32", "ragged_summa": list(MATMUL_RAGGED),
+        "rel_tol": MATMUL_2R_RTOL, "worst_rel_err": max(max(r["errs"].values()) for r in results.values()),
+        "errs_rank0": r0["errs"], "splits": r0["splits"], "resplit_exact": r0["resplit_exact"],
+        "summa_ms": r0["summa_ms"], "gather_route_ms": r0["gather_ms"],
+        "summa_tflops_both_ranks": flops / r0["summa_ms"] / 1e9, "gather_tflops_both_ranks": flops / r0["gather_ms"] / 1e9,
+        "summa_traffic": r0["summa_traffic"], "gather_traffic": r0["gather_traffic"], "transport": r0["transport"],
+        "card": smi}), flush=True)
+
+
 def pos_bound(kernel: str, B: int, Sq: int, Sk: int, d: int, live_pairs: int, itemsize: int):
     """(bound_ms, bound_by) of one positions launch: FLOP of its live (q, k)
     pairs at the dtype's peak vs every input read and output written once.
@@ -1701,8 +1928,14 @@ def main() -> int:
                                        random_state=1)
     recover(ht, xp, means_dev, "float32_kmeans++_2^22")
     del xp
+    torch.cuda.empty_cache()
 
-    # 4. the LMs, multi-head and grouped-query: training, one step against
+    # 4. ht.matmul (BASELINE config 0): world size 1 at 4096^2 and 16384^2,
+    # then 2 ranks on this card over gloo
+    matmul_world_one(ht, smi)
+    matmul_two_ranks(smi)
+
+    # 5. the LMs, multi-head and grouped-query: training, one step against
     # the plain versions, generation
     launches = {}
     for cfg, kernels, label in ((LM, MHA_KERNELS, "TransformerLM"),
@@ -1716,7 +1949,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the multi-head LM trained in bfloat16: every bfloat16 kernel on the tensor cores
     launches_bf16 = lm_train_bf16(ht)
-    # 5. the sequence-parallel LM over 2 ranks on this card
+    # 6. the sequence-parallel LM over 2 ranks on this card
     launches.update(ring_train())
 
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
@@ -1724,7 +1957,7 @@ def main() -> int:
     rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
     rows += pos_rows(launches, pos_errs)
 
-    # 6. the kernels line and the result
+    # 7. the kernels line and the result
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

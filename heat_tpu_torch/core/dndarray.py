@@ -6,12 +6,14 @@ With ``split=None`` every process holds the whole array; with ``split=k``
 process ``r`` holds the ``comm.chunk(gshape, k, r)`` slice of axis ``k``.
 An array made by slicing a split array may be unbalanced
 (``balanced=False``): its ranks' extents then come from the ranks, not from
-``chunk``.
+``chunk``.  ``redistribute_`` moves rows to any chunk map, ``balance_`` to
+``chunk``'s, and ``resplit_`` to another split axis (by the communicator's
+Alltoall), in place.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +21,7 @@ import torch
 from . import types
 from .communication import Communication
 from .devices import Device
+from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray"]
 
@@ -130,13 +133,58 @@ class DNDarray:
             t = t.float()
         return t.cpu().numpy()
 
-    def astype(self, dtype) -> "DNDarray":
-        """A copy of this array cast to ``dtype`` (same split, device and communicator)."""
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def astype(self, dtype, copy: bool = True) -> "DNDarray":
+        """This array cast to ``dtype`` (same split, device and communicator):
+        a copy, or with ``copy=False`` this array, its local tensor replaced."""
         dtype = types.canonical_heat_type(dtype)
-        t = self.__array.to(dtype.torch_type(), copy=True)
-        return DNDarray(t, self.__gshape, dtype, self.__split, self.__device, self.__comm, self.__balanced)
+        t = self.__array.to(dtype.torch_type(), copy=copy)
+        if copy:
+            return DNDarray(t, self.__gshape, dtype, self.__split, self.__device, self.__comm, self.__balanced)
+        self.__array, self.__dtype = t, dtype
+        return self
+
+    def tolist(self, keepsplit: bool = False) -> List:
+        """The global array as nested Python lists."""
+        return self.numpy().tolist()
+
+    def item(self):
+        """The one element of a one-element array, as a Python scalar."""
+        if self.size != 1:
+            raise ValueError("only one-element DNDarrays can be converted to scalars")
+        t = self.__array if not self.is_distributed() else torch.from_numpy(self.numpy())
+        return t.reshape(()).item()
+
+    def __bool__(self) -> bool:
+        return bool(self.item())
+
+    def __int__(self) -> int:
+        return int(self.item())
+
+    def __float__(self) -> float:
+        return float(self.item())
+
+    def __complex__(self) -> complex:
+        return complex(self.item())
+
+    def __index__(self) -> int:
+        if not issubclass(self.__dtype, (types.integer, types.bool)):
+            raise TypeError("only integer scalar arrays can be used as an index")
+        return int(self.item())
+
+    @property
+    def T(self) -> "DNDarray":
+        """The transpose (all axes reversed)."""
+        from ..linalg import basics
+
+        return basics.transpose(self)
 
     def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
         return self.__gshape[0]
 
     def __repr__(self) -> str:
@@ -144,6 +192,68 @@ class DNDarray:
             f"DNDarray(gshape={self.__gshape}, dtype=ht.{self.__dtype.__name__}, "
             f"split={self.__split}, device={self.__device}, lshape={self.lshape})"
         )
+
+    # ------------------------------------------------------------------ #
+    # distribution
+    # ------------------------------------------------------------------ #
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """HeAT's criterion: the ranks' extents along the split axis differ by
+        at most 1.  A ``chunk`` layout always passes; otherwise (or with
+        ``force_check``) the ranks' extents are gathered."""
+        if not self.is_distributed():
+            return True
+        if self.__balanced and not force_check:
+            return True
+        counts = self.__comm._extents(self.__array, self.__split)
+        return max(counts) - min(counts) <= 1
+
+    def balance_(self) -> None:
+        """Redistribute in place to ``chunk``'s layout (the first n % size
+        ranks one row more), which every factory makes."""
+        if self.is_distributed() and not self.__balanced:
+            self.redistribute_(target_map=self.__comm.lshape_map(self.__gshape, self.__split))
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> None:
+        """Move rows along the split axis, in place, from the layout
+        ``lshape_map`` (every rank's local shape; gathered when not given) to
+        ``target_map`` (``chunk``'s when not given): each rank sends the rows
+        of its range that fall in another rank's target range."""
+        if self.__split is None:
+            return
+        split = self.__split
+        counts = self.counts_displs()[0] if lshape_map is None else [int(c) for c in np.asarray(lshape_map)[:, split]]
+        chunk = self.__comm.lshape_map(self.__gshape, split)
+        target = chunk if target_map is None else np.asarray(target_map)
+        target = [int(c) for c in target[:, split]]
+        self.__array = self.__comm.redistribute(self.__array, split, counts, target)
+        self.__balanced = target == [int(c) for c in chunk[:, split]]
+
+    def _resplit_tensor(self, axis: Optional[int]) -> torch.Tensor:
+        counts = None if self.__balanced or self.__split is None else self.counts_displs()[0]
+        return self.__comm.resplit(self.__array, self.__gshape, self.__split, axis, counts)
+
+    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
+        """Redistribute in place to split axis ``axis`` (None: every rank the
+        whole array): split to split by one Alltoall, split to None by an
+        Allgatherv, None to split by a local slice.  The result takes
+        ``chunk``'s layout."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis == self.__split:
+            return self
+        self.__array = self._resplit_tensor(axis)
+        self.__split, self.__balanced = axis, True
+        return self
+
+    def resplit(self, axis: Optional[int] = None) -> "DNDarray":
+        """A copy of this array split along ``axis`` (see :meth:`resplit_`)."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis == self.__split:
+            return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, axis, self.__device, self.__comm,
+                            self.__balanced)
+        t = self._resplit_tensor(axis)
+        if t is self.__array:
+            t = t.clone()
+        return DNDarray(t, self.__gshape, self.__dtype, axis, self.__device, self.__comm, True)
 
     # ------------------------------------------------------------------ #
     # indexing along axis 0

@@ -18,7 +18,23 @@ from .devices import sanitize_device
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis, sanitize_shape
 
-__all__ = ["arange", "array", "asarray", "empty", "full", "ones", "zeros"]
+__all__ = [
+    "arange",
+    "array",
+    "asarray",
+    "empty",
+    "empty_like",
+    "eye",
+    "full",
+    "full_like",
+    "linspace",
+    "logspace",
+    "meshgrid",
+    "ones",
+    "ones_like",
+    "zeros",
+    "zeros_like",
+]
 
 
 # The 64-bit types and what the reference makes of them on ingest: JAX with
@@ -159,3 +175,127 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     idx = torch.arange(off, off + cnt, device=tdev, dtype=torch.float64)
     t = (start + idx * step).to(dtype.torch_type())
     return DNDarray(t, (num,), dtype, split, device, comm, True)
+
+
+def _like(proto, factory, dtype, split, device, comm, **kw) -> DNDarray:
+    if not isinstance(proto, DNDarray):
+        proto = array(proto)
+    return factory(
+        proto.shape,
+        dtype=dtype if dtype is not None else proto.dtype,
+        split=split if split is not None else proto.split,
+        device=device if device is not None else proto.device,
+        comm=comm if comm is not None else proto.comm,
+        **kw,
+    )
+
+
+def zeros_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    return _like(a, zeros, dtype, split, device, comm)
+
+
+def ones_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    return _like(a, ones, dtype, split, device, comm)
+
+
+def empty_like(a, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    return _like(a, empty, dtype, split, device, comm)
+
+
+def full_like(a, fill_value, dtype=None, split=None, device=None, comm=None, order="C") -> DNDarray:
+    return _like(a, full, dtype, split, device, comm, fill_value=fill_value)
+
+
+def _spaced(start, stop, num: int, endpoint: bool, split, device, comm):
+    """This rank's chunk of ``num`` evenly spaced float64 values (the last
+    exactly ``stop`` with ``endpoint``), and its metadata."""
+    num = int(num)
+    if num < 0:
+        raise ValueError(f"Number of samples, {num}, must be non-negative")
+    device, tdev, comm = _sanitize(device, comm)
+    split = sanitize_axis((num,), split)
+    off, (cnt,), _ = comm.chunk((num,), split)
+    div = (num - 1) if endpoint else num
+    step = (float(stop) - float(start)) / div if div > 0 else 0.0
+    idx = torch.arange(off, off + cnt, device=tdev, dtype=torch.float64)
+    t = float(start) + idx * step
+    if endpoint and num > 1 and off + cnt == num:
+        t[-1] = float(stop)
+    return t, step, split, device, comm
+
+
+def linspace(start, stop, num: int = 50, endpoint: bool = True, retstep: bool = False, dtype=None, split=None,
+             device=None, comm=None):
+    """``num`` evenly spaced values over [start, stop] (float32 unless
+    ``dtype``); each rank computes its own chunk."""
+    t, step, split, device, comm = _spaced(start, stop, num, endpoint, split, device, comm)
+    dtype = types.canonical_heat_type(types.float32 if dtype is None else dtype)
+    res = DNDarray(t.to(dtype.torch_type()), (int(num),), dtype, split, device, comm, True)
+    return (res, step) if retstep else res
+
+
+def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """``base ** linspace(start, stop, num)``; each rank computes its own chunk."""
+    t, _, split, device, comm = _spaced(start, stop, num, endpoint, split, device, comm)
+    dtype = types.canonical_heat_type(types.float32 if dtype is None else dtype)
+    return DNDarray(torch.pow(float(base), t).to(dtype.torch_type()), (int(num),), dtype, split, device, comm, True)
+
+
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """The (n, m) identity; each rank builds its chunk of rows or columns."""
+    if isinstance(shape, (int, np.integer)):
+        n, m = int(shape), int(shape)
+    else:
+        shape = sanitize_shape(shape)
+        n, m = (shape[0], shape[0]) if len(shape) == 1 else shape[:2]
+    dtype = types.canonical_heat_type(dtype)
+    device, tdev, comm = _sanitize(device, comm)
+    split = sanitize_axis((n, m), split)
+    _, _, (rows, cols) = comm.chunk((n, m), split)
+    r = torch.arange(rows.start, rows.stop, device=tdev)
+    c = torch.arange(cols.start, cols.stop, device=tdev)
+    t = (r[:, None] == c[None, :]).to(dtype.torch_type())
+    return DNDarray(t, (n, m), dtype, split, device, comm, True)
+
+
+def meshgrid(*arrays, indexing: str = "xy") -> list:
+    """Coordinate matrices from vectors.  Where an input is split, every
+    output is split along the axis along which that input varies (the JAX
+    package's rule); each rank builds its chunk from its slice of that
+    vector and the other vectors whole."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing!r}")
+    proto = next((a for a in arrays if isinstance(a, DNDarray)), None)
+    device = proto.device if proto is not None else None
+    comm = proto.comm if proto is not None else None
+    vecs = [a if isinstance(a, DNDarray) else array(a, device=device, comm=comm) for a in arrays]
+    n = len(vecs)
+
+    def out_axis(i):
+        return 1 - i if indexing == "xy" and n >= 2 and i in (0, 1) else i
+
+    split_in = next((i for i, a in enumerate(arrays) if isinstance(a, DNDarray) and a.split is not None), None)
+    out_split = None if split_in is None else out_axis(split_in)
+    shape = [0] * n
+    for i, v in enumerate(vecs):
+        shape[out_axis(i)] = v.shape[0]
+    locals_ = []
+    for i, v in enumerate(vecs):
+        t = v.larray if not v.is_distributed() else torch.as_tensor(v.numpy(), device=v.larray.device)
+        if out_split is not None and out_axis(i) == out_split:
+            if v.is_distributed() and v.balanced:
+                t = v.larray
+            else:
+                t = t[vecs[0].comm.chunk(tuple(shape), out_split)[2][out_split]]
+        locals_.append(t.reshape(-1))
+    lshape = [0] * n
+    for i, t in enumerate(locals_):
+        lshape[out_axis(i)] = t.numel()
+    ref, outs = vecs[0], []
+    for i, t in enumerate(locals_):  # each output keeps its vector's dtype
+        view = [1] * n
+        view[out_axis(i)] = -1
+        o = t.reshape(view).expand(lshape).contiguous()
+        outs.append(DNDarray(o, tuple(shape), types.canonical_heat_type(o.dtype), out_split, ref.device, ref.comm,
+                             True))
+    return outs

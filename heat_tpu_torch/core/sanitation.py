@@ -25,8 +25,8 @@ def sanitize_out(
 ) -> None:
     """Validate an ``out=`` buffer against the expected result metadata.
 
-    The reference resplits a buffer whose split differs; ``resplit_`` is not
-    ported yet, so such a buffer is refused."""
+    A buffer whose split differs is refused here; the ops' ``out=`` path
+    resplits it first, with the reference's warning."""
     sanitize_in(out)
     if tuple(out.shape) != tuple(output_shape):
         raise ValueError(f"Expecting output buffer of shape {tuple(output_shape)}, got {out.shape}")

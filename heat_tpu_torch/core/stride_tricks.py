@@ -6,12 +6,17 @@ from typing import Tuple, Union
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape"]
 
 
 def broadcast_shape(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...]) -> Tuple[int, ...]:
     """The NumPy-broadcast result shape of two shapes (raises on mismatch)."""
     return np.broadcast_shapes(tuple(shape_a), tuple(shape_b))
+
+
+def broadcast_shapes(*shapes) -> Tuple[int, ...]:
+    """The NumPy-broadcast result shape of any number of shapes."""
+    return np.broadcast_shapes(*shapes)
 
 
 def sanitize_axis(

@@ -1,0 +1,417 @@
+"""Distributed linear algebra basics (reference: ``heat_tpu/linalg/basics.py``).
+
+``matmul`` keeps the JAX package's result-split table (``_matmul_result_split``)
+and runs, for each case, the communication that GSPMD chose there; every
+local product is one ``torch.matmul`` (cuBLAS on the card).  ``matmul_summa``
+is the SUMMA ring: b's row blocks go round the ranks by ``Isend`` while each
+rank multiplies the block it holds, the next block's transfer posted before
+this block's product.  Float32 products stay in full float32: nothing here
+turns on TF32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..core import types
+from ..core._operations import Reduction, _local_op, _narrow, _reduce_op, _wrap
+from ..core.dndarray import DNDarray
+from ..core.sanitation import sanitize_in
+
+__all__ = [
+    "dot",
+    "matmul",
+    "matmul_summa",
+    "matrix_norm",
+    "norm",
+    "outer",
+    "trace",
+    "transpose",
+    "tril",
+    "triu",
+    "vdot",
+    "vector_norm",
+]
+
+
+def _matmul_result_split(sa: Optional[int], sb: Optional[int], nd_out: int) -> Optional[int]:
+    """The JAX package's result-split table for 2-D matmul, as its code has
+    it: (None, None) -> None; (0, None), (1, None), (0, 0), (0, 1) -> row;
+    (None, 0), (None, 1), (1, 0), (1, 1) -> col."""
+    row, col = nd_out - 2, nd_out - 1
+    if sa is None and sb is None:
+        return None
+    if sa == 0 and sb is None:
+        return row
+    if sa == 1 and sb is None:
+        return row
+    if sa is None and sb == 0:
+        return col if nd_out >= 2 else None
+    if sa is None and sb == 1:
+        return col
+    if sa == 0:
+        return row
+    return col
+
+
+# Measured SUMMA-vs-gather winners: {(platform, p): N_cross}, where the ring
+# wins for 2-D split0 x split0 products whose smallest dimension is >= N_cross.
+# An entry goes in only from a measurement on cards, named in PERF.md; the
+# JAX package's ("cpu", 8) entry was measured on its CPU mesh and does not
+# carry over.  ("gpu", 4): float32 on four H100s over NCCL
+# (scripts/summa_multicard.py), the gather route ahead at 4096^2 and 8192^2,
+# the ring 45.04 against 46.90 ms at 16384^2.
+_SUMMA_DISPATCH: Dict[Tuple[str, int], int] = {("gpu", 4): 16384}
+
+
+def _summa_wins(a: DNDarray, b: DNDarray) -> bool:
+    """The measured-table test of ``matmul(method='auto')``."""
+    if a.ndim != 2 or b.ndim != 2 or a.split != 0 or b.split != 0 or a.comm.size <= 1:
+        return False
+    cross = _SUMMA_DISPATCH.get((a.device.device_type, a.comm.size))
+    return cross is not None and min(*a.shape, *b.shape) >= cross
+
+
+def _common(x: torch.Tensor, y: torch.Tensor):
+    """Both tensors in their promoted dtype (no copy where they agree)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
+def _role(x: DNDarray, k_axis: int) -> Optional[str]:
+    """How ``x`` is split as a matmul operand: along its contracted axis
+    ``'k'``, its other matrix axis ``'mn'``, or not at all."""
+    if not x.is_distributed():
+        return None
+    if x.split == k_axis:
+        return "k"
+    return "mn"
+
+
+def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, method: str = "auto") -> DNDarray:
+    """Matrix product of split arrays (numpy ``matmul`` semantics).
+
+    The result's split is the JAX package's (``_matmul_result_split``; 1-D
+    operands as its l.158-161).  Each split case runs its own collectives
+    around one local ``torch.matmul`` (m: a's rows, k: the contracted axis,
+    n: b's columns)::
+
+        a \\ b   None             k (b rows)           n (b cols)
+        None    local            partial, RS on col   local
+        m       local            SUMMA or gather b    gather b (n)
+        k       partial, RS row  partial, RS on col   gather a (k)
+
+    A partial product runs over this rank's K slice (a replicated operand
+    sliced to the split one's K range, two split ones on one K map), then
+    ``ReduceScatter`` onto the result's split, or an ``Allreduce`` where the
+    result is replicated.  An operand split along a batch axis is gathered
+    first.  ``method``: ``'auto'`` takes the SUMMA ring for the m x k case
+    where ``_SUMMA_DISPATCH`` says it wins on this (platform, p), else the
+    gather route; ``'gspmd'`` forces the table's route and ``'summa'`` the
+    ring.  ``allow_resplit`` is accepted and ignored, as in the JAX package.
+    """
+    sanitize_in(a)
+    sanitize_in(b)
+    if method not in ("auto", "gspmd", "summa"):
+        raise ValueError(f"method must be 'auto', 'gspmd' or 'summa', got {method!r}")
+    if method == "summa" or (method == "auto" and _summa_wins(a, b)):
+        return matmul_summa(a, b)
+    ka, kb = a.ndim - 1, max(b.ndim - 2, 0)
+    if a.shape[ka] != b.shape[kb]:
+        raise ValueError(f"matmul: shapes {a.shape} and {b.shape} not aligned")
+    nd = max(a.ndim, b.ndim) - (a.ndim == 1) - (b.ndim == 1)
+    if a.ndim == 1 and b.ndim == 1:
+        split = None
+    elif a.ndim == 1:
+        split = None if b.split is None else (nd - 1 if b.split == b.ndim - 1 else None)
+    elif b.ndim == 1:
+        split = None if a.split is None else (nd - 1 if a.split == a.ndim - 2 else None)
+    else:
+        sa = None if a.split is None else (0 if a.split == a.ndim - 2 else (1 if a.split == a.ndim - 1 else None))
+        sb = None if b.split is None else (0 if b.split == b.ndim - 2 else (1 if b.split == b.ndim - 1 else None))
+        split = _matmul_result_split(sa, sb, nd)
+    # an operand split along a batch axis is gathered first
+    if a.is_distributed() and a.ndim > 2 and a.split < a.ndim - 2:
+        a = a.resplit(None)
+    if b.is_distributed() and b.ndim > 2 and b.split < b.ndim - 2:
+        b = b.resplit(None)
+    ra, rb = _role(a, ka), _role(b, kb)
+    comm = a.comm
+    gshape = torch.broadcast_shapes(a.gshape[:-2], b.gshape[:-2]) if a.ndim > 1 and b.ndim > 1 else ()
+    gshape = tuple(gshape) + ((a.shape[-2],) if a.ndim > 1 else ()) + ((b.shape[-1],) if b.ndim > 1 else ())
+    al, bl = _common(a.larray, b.larray)
+
+    if ra is None and rb is None:
+        return _wrap(torch.matmul(al, bl), gshape, split, a)
+    if ra == "mn" and rb is None:
+        return _wrap(torch.matmul(al, bl), gshape, split, a, a.balanced)
+    if ra is None and rb == "mn":
+        return _wrap(torch.matmul(al, bl), gshape, split, a, b.balanced)
+    if ra == "mn" and rb == "mn":  # rows of a, columns of b: gather b's columns
+        bl = comm.Allgatherv(bl, b.split, counts=b.counts_displs()[0])
+        return _wrap(torch.matmul(al, bl), gshape, split, a, a.balanced)
+    if ra == "k" and rb == "mn":  # columns of a (K), columns of b: gather a's K
+        al = comm.Allgatherv(al, a.split, counts=a.counts_displs()[0])
+        return _wrap(torch.matmul(al, bl), gshape, split, a, b.balanced)
+    if ra == "mn" and rb == "k":  # rows of a, rows of b (K): gather b's K
+        bl = comm.Allgatherv(bl, b.split, counts=b.counts_displs()[0])
+        return _wrap(torch.matmul(al, bl), gshape, split, a, a.balanced)
+
+    # the K axis is split: a partial product over this rank's K slice
+    rank = comm.rank
+    if ra == "k" and rb == "k":
+        ca, cb = a.counts_displs()[0], b.counts_displs()[0]
+        if list(ca) != list(cb):
+            bl = comm.redistribute(bl, b.split, cb, ca)
+    elif ra == "k":
+        counts, displs = a.counts_displs()
+        bl = bl.narrow(kb, displs[rank], counts[rank])
+    else:
+        counts, displs = b.counts_displs()
+        al = al.narrow(ka, displs[rank], counts[rank])
+    partial = torch.matmul(al, bl)
+    if split is None:
+        return _wrap(comm.Allreduce(partial), gshape, None, a)
+    return _wrap(comm.ReduceScatter(partial, axis=split), gshape, split, a)
+
+
+def matmul_summa(a: DNDarray, b: DNDarray) -> DNDarray:
+    """The SUMMA ring for 2-D operands split along rows (others are resplit
+    to 0 first): a's row block stays, b's row blocks rotate one rank down
+    the ring (``Isend``, shift -1), and each rank adds the product of the
+    block it holds with the matching columns of its a rows, taken at the
+    block's source rank's displacement.  Blocks of uneven HeAT chunks travel
+    zero-padded to the largest (zero K rows add nothing).  The next rotation
+    is posted before this step's product, so the transfer overlaps the
+    GEMM.  The result is split along rows, as a's."""
+    sanitize_in(a)
+    sanitize_in(b)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError("matmul_summa requires 2-D operands")
+    (M, K), (K2, N) = a.shape, b.shape
+    if K != K2:
+        raise ValueError(f"shapes {a.shape} and {b.shape} not aligned")
+    a0 = a if a.split == 0 else a.resplit(0)
+    b0 = b if b.split == 0 else b.resplit(0)
+    comm = a.comm
+    al, bl = _common(a0.larray, b0.larray)
+    if not comm.is_distributed():
+        return _wrap(torch.matmul(al, bl), (M, N), 0, a)
+    counts, displs = b0.counts_displs()
+    p, rank = comm.size, comm.rank
+    width = max(counts)
+    rot = bl if bl.shape[0] == width else torch.cat([bl, bl.new_zeros((width - bl.shape[0], N))])
+    acc = None
+    for step in range(p):
+        src = (rank + step) % p
+        nxt = comm.Isend(rot, shift=-1) if step + 1 < p else None
+        a_cols = al.narrow(1, displs[src], counts[src])
+        block = rot.narrow(0, 0, counts[src])
+        acc = torch.matmul(a_cols, block) if acc is None else acc.addmm_(a_cols, block)
+        if nxt is not None:
+            rot = nxt.wait()
+    return _wrap(acc, (M, N), 0, a, a0.balanced)
+
+
+def dot(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
+    """Dot product: 1-D . 1-D gives a scalar (an Allreduce where split);
+    else :func:`matmul`."""
+    r = matmul(a, b, method="gspmd")
+    if out is not None:
+        out.larray.copy_(r.larray)
+        return out
+    return r
+
+
+def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
+    """conj(x1) . x2 over the flattened arrays (a replicated scalar)."""
+    from ..core import arithmetics
+
+    if x1.shape != x2.shape:
+        x1, x2 = x1.resplit(None), x2.resplit(None)
+        t = torch.vdot(*_common(x1.larray.reshape(-1), x2.larray.reshape(-1)))
+        return _wrap(_narrow(t, x1.larray, x2.larray), (), None, x1)
+    conj = _local_op(torch.conj_physical, x1) if issubclass(x1.dtype, types.complexfloating) else x1
+    return arithmetics.sum(arithmetics.mul(conj, x2))
+
+
+def outer(a: DNDarray, b: DNDarray, out=None, split=None) -> DNDarray:
+    """Outer product of the flattened vectors; split 0 (a's rows) where an
+    input is split and ``split`` is not given.  Each rank builds its chunk
+    from its slice of one vector and the other whole."""
+    if split is None:
+        split = 0 if (a.split is not None or b.split is not None) else None
+    n, m = a.size, b.size
+
+    def whole(x):
+        return x.resplit(None).larray.reshape(-1) if x.is_distributed() else x.larray.reshape(-1)
+
+    def chunk(x, length):
+        if x.is_distributed() and x.ndim == 1 and x.balanced:
+            return x.larray
+        return whole(x)[a.comm.chunk((length,), 0)[2][0]]
+
+    if split is None or not a.comm.is_distributed():
+        u, v = whole(a), whole(b)
+    elif split == 0:
+        u, v = chunk(a, n), whole(b)
+    else:
+        u, v = whole(a), chunk(b, m)
+    u, v = _common(u, v)
+    r = _wrap(torch.outer(u, v), (n, m), split, a)
+    if out is not None:
+        out.larray.copy_(r.larray)
+        return out
+    return r
+
+
+def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> DNDarray:
+    """Sum along a diagonal (a replicated result).  Split along one of the
+    two axes, each rank sums the diagonal's part in its chunk and the parts
+    are Allreduced."""
+    axis1, axis2 = axis1 % a.ndim, axis2 % a.ndim
+    if a.is_distributed() and a.split not in (axis1, axis2):
+        a = a.resplit(None)
+    t = a.larray
+    shift = 0
+    if a.is_distributed():
+        off = a.counts_displs()[1][a.comm.rank]
+        shift = off if a.split == axis1 else -off
+    want = torch.int32 if not (t.is_floating_point() or t.is_complex()) else t.dtype
+    res = torch.diagonal(t, offset=offset + shift, dim1=axis1, dim2=axis2).sum(-1).to(want)
+    if a.is_distributed():
+        res = a.comm.Allreduce(res.contiguous())
+    if dtype is not None:
+        res = res.to(types.canonical_heat_type(dtype).torch_type())
+    r = _wrap(res, tuple(res.shape), None, a)
+    if out is not None:
+        out.larray.copy_(r.larray)
+        return out
+    return r
+
+
+def transpose(a: DNDarray, axes=None) -> DNDarray:
+    """Permute axes; the split axis moves with its dimension, and each rank
+    permutes its own chunk (a copy, no communication)."""
+    sanitize_in(a)
+    if axes is None:
+        axes = tuple(reversed(range(a.ndim)))
+    axes = tuple(int(ax) % a.ndim for ax in axes)
+    t = a.larray.permute(axes).clone(memory_format=torch.contiguous_format)
+    split = axes.index(a.split) if a.split is not None else None
+    return _wrap(t, tuple(a.gshape[ax] for ax in axes), split, a, a.balanced)
+
+
+def _tri(fn, m: DNDarray, k: int) -> DNDarray:
+    """``fn`` (tril or triu) of each rank's chunk, the diagonal shifted by
+    the chunk's offset along a split matrix axis."""
+    shift = 0
+    if m.is_distributed() and m.split >= m.ndim - 2:
+        off = m.counts_displs()[1][m.comm.rank]
+        shift = off if m.split == m.ndim - 2 else -off
+    return _wrap(fn(m.larray, diagonal=k + shift), m.gshape, m.split, m, m.balanced)
+
+
+def tril(m: DNDarray, k: int = 0) -> DNDarray:
+    return _tri(torch.tril, m, k)
+
+
+def triu(m: DNDarray, k: int = 0) -> DNDarray:
+    return _tri(torch.triu, m, k)
+
+
+# ---------------------------------------------------------------------- #
+# norms: reductions over the ranks' partials
+# ---------------------------------------------------------------------- #
+def _absf(t: torch.Tensor) -> torch.Tensor:
+    """|t| as a float (float32 for integers and bools)."""
+    t = t.abs()
+    return t if t.is_floating_point() else t.to(torch.float32)
+
+
+def _real_float(dt: torch.dtype) -> torch.dtype:
+    return torch.empty((), dtype=dt).abs().dtype if dt.is_floating_point or dt.is_complex else torch.float32
+
+
+def _vector_reduction(ord) -> Tuple[Reduction, Optional[float]]:
+    """The reduction of a vector ``ord``-norm and the root taken after it."""
+    if ord is None or ord == 2:
+        return Reduction(lambda t, d, k: torch.sum(_absf(t) ** 2, dim=d, keepdim=k), "sum", _real_float), 2.0
+    if ord == float("inf"):
+        return Reduction(lambda t, d, k: torch.amax(_absf(t), dim=d, keepdim=k), "max", _real_float), None
+    if ord == float("-inf"):
+        return Reduction(lambda t, d, k: torch.amin(_absf(t), dim=d, keepdim=k), "min", _real_float), None
+    if ord == 0:
+        return Reduction(lambda t, d, k: torch.sum((t != 0).to(torch.float32), dim=d, keepdim=k), "sum",
+                         _real_float), None
+    if ord == 1:
+        return Reduction(lambda t, d, k: torch.sum(_absf(t), dim=d, keepdim=k), "sum", _real_float), None
+    p = float(ord)
+    return Reduction(lambda t, d, k: torch.sum(_absf(t) ** p, dim=d, keepdim=k), "sum", _real_float), p
+
+
+def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=2) -> DNDarray:
+    """The vector ``ord``-norm over ``axis`` (all axes for None); over the
+    split axis the ranks' partial sums (or extrema) are Allreduced."""
+    red, root = _vector_reduction(ord)
+    res = _reduce_op(red, x, axis=axis, keepdims=keepdims)
+    if root is not None:
+        res = _local_op(lambda t: t ** (1.0 / root), res)
+    return res
+
+
+def _matrix_norm(x: DNDarray, axis, keepdims: bool, ord) -> DNDarray:
+    r0, r1 = (a % x.ndim for a in axis)
+    if ord in ("fro", "f"):
+        return vector_norm(x, axis=(r0, r1), keepdims=keepdims, ord=2)
+    if ord in (1, -1, float("inf"), float("-inf")):
+        inner, outer_ax = (r0, r1) if ord in (1, -1) else (r1, r0)
+        sums = _reduce_op(Reduction(lambda t, d, k: torch.sum(_absf(t), dim=d, keepdim=k), "sum", _real_float), x,
+                          axis=inner, keepdims=keepdims)
+        ext = "max" if ord in (1, float("inf")) else "min"
+        fn = torch.amax if ext == "max" else torch.amin
+        return _reduce_op(Reduction(lambda t, d, k: fn(t, dim=d, keepdim=k), ext), sums,
+                          axis=outer_ax if keepdims else outer_ax - (inner < outer_ax), keepdims=keepdims)
+    # 2, -2, 'nuc': singular values of whole matrices
+    if x.is_distributed() and x.split in (r0, r1):
+        x = x.resplit(None)
+    t = x.larray if x.larray.is_floating_point() or x.larray.is_complex() else x.larray.to(torch.float32)
+    res = torch.linalg.matrix_norm(t, ord=ord, dim=(r0, r1), keepdim=keepdims)
+    split = None if x.split in (r0, r1) else x.split
+    if split is not None and not keepdims:
+        split -= sum(1 for a in (r0, r1) if a < split)
+    return _wrap(res, tuple(x.gshape[i] if i not in (r0, r1) else 1 for i in range(x.ndim) if keepdims or
+                            i not in (r0, r1)), split, x, x.balanced)
+
+
+def matrix_norm(x: DNDarray, axis=None, keepdims: bool = False, ord="fro") -> DNDarray:
+    """The matrix ``ord``-norm over the two ``axis`` (the last two for None);
+    replicated, as in the JAX package."""
+    if axis is None:
+        if x.ndim < 2:
+            raise ValueError("matrix_norm requires at least 2 dimensions")
+        axis = (x.ndim - 2, x.ndim - 1)
+    res = _matrix_norm(x, axis, keepdims, ord)
+    return res.resplit(None) if res.split is not None else res
+
+
+def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
+    """Vector or matrix norm (numpy semantics); the result keeps the (shifted)
+    split where ``axis`` does not reduce it."""
+    if axis is None:
+        if ord is None or x.ndim == 1:
+            return vector_norm(x, axis=None, keepdims=keepdims, ord=2 if ord is None else ord)
+        if x.ndim == 2:
+            return _matrix_norm(x, (0, 1), keepdims, ord)
+        raise ValueError("Improper number of dimensions to norm.")
+    if isinstance(axis, int) or len(axis) == 1:
+        return vector_norm(x, axis=axis, keepdims=keepdims, ord=2 if ord is None else ord)
+    return _matrix_norm(x, tuple(axis), keepdims, "fro" if ord is None else ord)
+
+
+DNDarray.__matmul__ = lambda self, other: matmul(self, other)
+DNDarray.transpose = transpose
+DNDarray.tril = lambda self, k=0: tril(self, k)
+DNDarray.triu = lambda self, k=0: triu(self, k)

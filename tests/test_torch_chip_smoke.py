@@ -509,3 +509,36 @@ def test_compare_assign_passes_near_ties_and_refuses_far_labels(chip_smoke, rows
         moved[0] = (int(lab[0]) + 1) % k
         with pytest.raises(RuntimeError, match="near tie"):
             chip_smoke.compare_assign(x, c, moved, d2, lab, d2)
+
+
+def test_matmul_split_table_is_the_reference_table(chip_smoke):
+    """The two-rank phase holds each matmul split against MATMUL_SPLITS: the
+    reference's ``_matmul_result_split`` for the nine cases and its 1-D rule
+    for the vector products."""
+    import heat_tpu
+
+    from heat_tpu.linalg.basics import _matmul_result_split
+
+    for sa in (None, 0, 1):
+        for sb in (None, 0, 1):
+            assert chip_smoke.MATMUL_SPLITS[f"{sa},{sb}"] == _matmul_result_split(sa, sb, 2)
+    v, m = heat_tpu.ones(8, split=0), heat_tpu.ones((8, 8), split=1)
+    assert chip_smoke.MATMUL_SPLITS["vector @ matrix 0,1"] == heat_tpu.matmul(v, m).split
+    assert chip_smoke.MATMUL_SPLITS["matrix @ vector 1,0"] == heat_tpu.matmul(m, v).split
+
+
+def test_matmul_check_measures_against_the_largest_entry(chip_smoke):
+    want = torch.tensor([[4.0, -2.0], [1.0, 0.5]])
+    assert chip_smoke.matmul_check(want, want) == 0.0
+    assert chip_smoke.matmul_check(want + torch.tensor([[0.0, 4e-5], [0.0, 0.0]]), want) == pytest.approx(1e-5, rel=1e-2)
+    # TF32 products (10 mantissa bits) miss MATMUL_RTOL by two orders
+    tf32 = want * (1 + 2.0**-11)
+    assert chip_smoke.matmul_check(tf32, want) > 10 * chip_smoke.MATMUL_RTOL
+
+
+def test_summa_multicard_without_cuda_exits_2():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: summa_multicard.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "summa_multicard.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and '"ok"' not in out.stdout

@@ -591,15 +591,21 @@ def test_cuda_f32_backward_positions_blocks(block, d):
 def _gloo_rank(rank, store):
     """One of two processes on cuda:0 in a gloo group: the communicator's
     collectives on CUDA tensors, each result on the card with the right
-    values.  gloo's own send/recv refuse CUDA buffers, so ``Send`` stages
-    them through host memory; its collectives take them as they are."""
+    values, and each collective's transport: gloo's own send/recv refuse
+    CUDA buffers, so ``Send``, ``Exscan`` and ``Scan`` stage them through
+    host memory; its collectives take them as they are (all_to_all_single,
+    reduce_scatter, gather, scatter, reduce and barrier too).  Then
+    ``ht.matmul`` of CUDA DNDarrays stays on the card."""
     import heat_tpu_torch as ht
 
     ht.core.bootstrap.init_distributed(f"file://{store}", world_size=2, rank=rank, backend="gloo", timeout_s=60)
     try:
         comm = ht.core.communication.get_comm()
         x = torch.tensor([rank, 10 + rank], dtype=torch.float32, device="cuda")
-        assert comm.transport(x) == "gloo-host-staged"
+        for op in ("Allreduce", "Allgather", "Alltoall", "ReduceScatter", "Bcast", "Reduce", "Scatter", "Gather"):
+            assert comm.transport(x, op) == "gloo", op
+        for op in ("Send", "Exscan", "Scan"):
+            assert comm.transport(x, op) == "gloo-host-staged", op
         got = comm.Send(x, shift=1)
         assert got.is_cuda and got.tolist() == [1 - rank, 11 - rank]
         total = comm.Allreduce(x.clone())
@@ -608,15 +614,41 @@ def _gloo_rank(rank, store):
         assert root.is_cuda and root.tolist() == [1, 11]
         parts = comm.Allgather(x)
         assert all(p.is_cuda for p in parts) and [p.tolist() for p in parts] == [[0, 10], [1, 11]]
+        block = torch.arange(6, dtype=torch.float32, device="cuda").reshape(2, 3) + 100 * rank
+        results = {
+            "Alltoall": (comm.Alltoall(block, 1, 0), [[0, 1], [3, 4], [100, 101], [103, 104]] if rank == 0 else
+                         [[2], [5], [102], [105]]),
+            "ReduceScatter": (comm.ReduceScatter(block, 1), [[100, 102], [106, 108]] if rank == 0 else [[104], [110]]),
+            "Exscan": (comm.Exscan(x), [0, 0] if rank == 0 else [0, 10]),
+            "Scan": (comm.Scan(x), [0, 10] if rank == 0 else [1, 21]),
+            "Reduce": (comm.Reduce(x.clone(), root=0), [1, 21] if rank == 0 else [0, 0]),
+            "Scatter": (comm.Scatter(block, root=0, axis=1), [[0, 1], [3, 4]] if rank == 0 else [[2], [5]]),
+            "Gather": (comm.Gather(x[:rank + 1], root=1), [0, 0, 0] if rank == 0 else [0, 1, 11]),
+            "Allgatherv": (comm.Allgatherv(x[:rank + 1]), [0, 1, 11]),
+            "Isend": (comm.Wait(comm.Isend(x, 1)), [1 - rank, 11 - rank]),
+        }
+        for name, (out, want) in results.items():
+            assert out.is_cuda and out.tolist() == want, (name, out, want)
+        comm.Barrier()
+        a = torch.arange(35, dtype=torch.float32, device="cuda").reshape(7, 5) / 7
+        b = torch.arange(20, dtype=torch.float32, device="cuda").reshape(5, 4) / 5
+        for sa, sb in ((0, 0), (1, 0), (None, 1), (0, 1)):
+            c = ht.matmul(ht.array(a, split=sa), ht.array(b, split=sb))
+            assert c.larray.is_cuda and c.device == "gpu"
+            torch.testing.assert_close(c.resplit(None).larray, a @ b, rtol=1e-5, atol=1e-5)
+        s = ht.linalg.matmul_summa(ht.array(a, split=0), ht.array(b, split=0))
+        assert s.larray.is_cuda
+        torch.testing.assert_close(s.resplit(None).larray, a @ b, rtol=1e-5, atol=1e-5)
         torch.distributed.barrier()
     finally:
         ht.core.bootstrap.finalize_distributed()
 
 
 def test_cuda_collectives_under_gloo_on_one_card(tmp_path):
-    """The ring's transport on one card: two gloo ranks on cuda:0 (NCCL
-    refuses two ranks on one card) shift, reduce, broadcast and gather
-    CUDA tensors through the communicator."""
+    """The communicator's transport on one card: two gloo ranks on cuda:0
+    (NCCL refuses two ranks on one card) run every collective on CUDA
+    tensors, and ``ht.matmul`` of CUDA DNDarrays, through the
+    communicator."""
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp_path / "store"))) for r in range(2)]
     for p in procs:
@@ -628,3 +660,19 @@ def test_cuda_collectives_under_gloo_on_one_card(tmp_path):
             p.kill()
             p.join(5)
     assert [p.exitcode for p in procs] == [0, 0]
+
+
+def test_cuda_matmul_stays_on_the_card():
+    """At world size 1 ``ht.matmul`` of CUDA DNDarrays is one
+    ``torch.matmul`` of the local tensors on the card, bit for bit, in full
+    float32 (TF32 left off)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn(300, 200, generator=g, device="cuda")
+    b = torch.randn(200, 100, generator=g, device="cuda")
+    for sa, sb in ((0, 0), (None, 1), (1, None)):
+        c = htt.matmul(htt.array(a, split=sa), htt.array(b, split=sb))
+        assert c.larray.is_cuda and c.device == "gpu" and c.dtype is htt.float32
+        assert torch.equal(c.larray, a @ b)
+    err = float((a @ b - (a.double() @ b.double())).abs().max() / (a.double() @ b.double()).abs().max())
+    assert err < 1e-5
