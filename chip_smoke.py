@@ -44,6 +44,28 @@
    the world-1 result on the card (``MATMUL_2R_RTOL``).  Rank 0 prints the
    SUMMA and gather routes' times, the communicator's traffic and each
    collective's transport: 2 processes on ONE card, not a multi-card figure.
+4b. Tall-skinny QR/SVD (BASELINE config 1) at its full size: float32
+   ``ht.random.randn(1e6, 256, split=0)`` at world size 1 through
+   ``ht.linalg.qr`` by CholeskyQR2 ('auto') and Householder, ``mode='r'``
+   and ``ht.linalg.svd``: each timed (host clock, the card synchronised:
+   CholeskyQR2 reads one flag on the host), its TFLOP/s by the standard
+   count (4mn^2 - 4n^3/3) and by the products the route executes
+   (``qr_flops``), its peak memory and kernels under the profiler, and held
+   against float64 on the card (``QR_TOL``: ||A - QR|| / ||A||, max |Q^T Q -
+   I|, tril(R, -1) = 0, S against ``svdvals`` of A in float64); 'auto'
+   again with the caller's matmul precision at "high" (TF32), which the
+   products must not take and must restore; the Gram's and a Q product's
+   GEMM alone; ``solve_triangular`` (blocked and native) and ``cg`` at
+   4096^2 against float64 solves.  Then ``ht.spatial.cdist`` (direct and
+   quadratic expansion), ``manhattan`` and ``rbf`` (sigma = sqrt(2d)) of x, y
+   32768 x 32 split 0 (a 4 GiB result each), on 256 sampled rows against
+   float64 (relative, but the expansion's), timed
+   beside the bound and ``torch.cdist``.  Then the same linear algebra on 2
+   spawned ranks on this card over gloo (``linalg_cases``: every split pair
+   of ``cdist`` and ``cdist_ring``, ``tsqr`` and its replicated path,
+   ``svd``, ``hsvd_rank``, the blocked ``solve_triangular``, ``cg``, a
+   boolean mask at split 0), each held against world size 1 on this card
+   (``LINALG_2R_TOL``).
 5. Holds the three flash-attention kernels against their plain versions,
    through the multi-head wrappers and through the grouped-query ones
    (query heads : K/V heads 8:2, 8:1 and 4:4): float32 and bfloat16, causal
@@ -302,6 +324,22 @@ MATMUL_SPLITS = {"None,None": None, "0,None": 0, "1,None": 0, "None,0": 1, "None
                  "1,0": 1, "1,1": 1, "vector @ matrix 0,1": 0, "matrix @ vector 1,0": None}
 MATMUL_COLLECTIVES = ("Allreduce", "Allgather", "Alltoall", "ReduceScatter", "Bcast", "Reduce", "Scatter", "Gather",
                       "Send", "Exscan", "Scan")
+# tall-skinny QR/SVD (BASELINE config 1): float32 randn 1e6 x 256, split=0, at full size
+QR_SHAPE = (1_000_000, 256)
+QR_TOL = 1e-4  # the reference's tests' limits (tests/test_linalg.py): ||A - QR|| / ||A||, |Q^T Q - I|, S
+QR_CHECK_ROWS = 1 << 17  # rows a block of the float64 checks
+SOLVE_N = 4096  # solve_triangular and cg on an SPD system of this size
+SOLVE_RTOL = 1e-4  # max |x - x64| / max |x64|
+# cdist at KMeans' width: x, y 32768 x 32 float32, split=0 (a 4 GiB result)
+CDIST_SHAPE = (32768, 32)
+CDIST_SAMPLE = 256  # rows held against float64
+CDIST_RTOL = 1e-5  # the direct form, manhattan: |d - d64| <= CDIST_RTOL * d64
+CDIST_EXPANSION_ATOL = 1e-4  # the quadratic expansion: |d - d64| <= this times the largest distance
+RBF_SIGMA = 8.0  # sqrt(2d): exp(-d^2 / 2 sigma^2) of randn rows is near e^-1/2, spread over (0, 1]; held by CDIST_RTOL
+# the two-rank linear algebra phase: ragged shapes, each against world size 1 on the card
+LINALG_2R_TOL = 1e-5  # max |got - want| / max |want|, factors sign-aligned
+LINALG_2R_CDIST = ((1001, 32), (777, 32))
+LINALG_2R_QR, LINALG_2R_REPLICATED = (4099, 64), (100, 64)
 RECOVER_TOL = 0.05  # kmeans++ fits: distance of each generating mean to its fitted centre
 INERTIA_RTOL = 1e-6  # the fit's inertia may pass the one-step inertia by float64 sum rounding only
 
@@ -1849,6 +1887,404 @@ def pos_rows(launches: dict, errs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------- #
+# tall-skinny QR/SVD (BASELINE config 1), the solvers, and cdist
+# ---------------------------------------------------------------------- #
+def qr_flops(m: int, n: int, world: int = 1) -> dict:
+    """Operation counts of a QR of an (m, n) matrix over ``world`` ranks: the
+    standard counts of Householder's R and Q (LAPACK's geqrf + orgqr, 4mn^2
+    - 4n^3/3) and of R alone (2mn^2 - 2n^3/3), and what the port's routes
+    execute in m.n^2 products of 2mn^2 each: CholeskyQR2 two Grams and two
+    Q products (four), without Q one less (the second round forms no Q),
+    the SVD one more (U = Q U_R); the Householder route the standard count.
+    On more than one rank TSQR's merge adds Q1 Q2 to every route with a Q
+    (one rank skips the merge)."""
+    product = 2.0 * m * n * n
+    merge = product if world > 1 else 0.0
+    standard = 4.0 * m * n * n - 4.0 * n ** 3 / 3
+    return {"standard": standard, "standard_r": 2.0 * m * n * n - 2.0 * n ** 3 / 3,
+            "cholqr2": 4 * product + merge, "cholqr2_r": 3 * product, "svd": 5 * product + merge,
+            "householder": standard + merge}
+
+
+def qr_errors(a, q, r, s=None, rows: int = QR_CHECK_ROWS) -> dict:
+    """||A - Q R||_F / ||A||_F (with ``s``: ||A - Q diag(s) R||, an SVD's
+    U, S and V^T), max |Q^T Q - I| and, for a QR, max |tril(R, -1)|; in
+    float64 over blocks of ``rows`` rows (no float64 copy of A or Q)."""
+    import torch
+
+    r64 = r.double() if s is None else s.double()[:, None] * r.double()
+    resid = norm = 0.0
+    gram = torch.zeros((q.shape[1], q.shape[1]), dtype=torch.float64, device=q.device)
+    for lo in range(0, a.shape[0], rows):
+        ab, qb = a[lo: lo + rows].double(), q[lo: lo + rows].double()
+        resid += float((ab - qb @ r64).square().sum())
+        norm += float(ab.square().sum())
+        gram += qb.T @ qb
+    eye = torch.eye(gram.shape[0], dtype=torch.float64, device=gram.device)
+    errs = {"rel_err": (resid / norm) ** 0.5, "orth_err": float((gram - eye).abs().max())}
+    if s is None:
+        errs["tril_max"] = float(torch.tril(r, -1).abs().max()) if r.shape[0] > 1 else 0.0
+    return errs
+
+
+def align_signs(r, r_ref):
+    """D = sign(diag R) sign(diag R_ref): the QR of one matrix is unique up
+    to the signs of R's diagonal, so Q D and D R match Q_ref and R_ref."""
+    import torch
+
+    k = min(r.shape)
+    d = torch.sign(torch.diagonal(r)[:k]) * torch.sign(torch.diagonal(r_ref)[:k])
+    return torch.where(d == 0, torch.ones_like(d), d)
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+def kernel_times(fn, reps: int = 3) -> list:
+    """Each CUDA kernel of ``fn()`` with its device ms a call and launches a
+    call (torch.profiler over ``reps`` calls), by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return [{"kernel": e.key[:120], "ms": e.self_device_time_total / 1e3 / reps, "launches": e.count / reps}
+            for e in sorted(evts, key=lambda e: -e.self_device_time_total)]
+
+
+def wall_ms(fn, reps: int) -> float:
+    """ms a call of ``fn`` by the host clock, the card synchronised: for
+    calls that read a flag on the host mid-way (CholeskyQR2's check, cg's
+    residual), whose device time has host gaps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def qr_main(ht, smi: str) -> None:
+    """BASELINE config 1 at full size, world size 1: ``ht.linalg.qr`` by
+    CholeskyQR2 ('auto') and Householder, ``mode='r'``, and
+    ``ht.linalg.svd`` of float32 ``ht.random.randn(1e6, 256, split=0)``,
+    each timed (host clock, the card synchronised), its TFLOP/s by the
+    standard count and by the route's executed products, its peak memory,
+    its kernels under the profiler, and held against float64 on the card
+    (QR_TOL); 'auto' again with the caller's matmul precision at "high"
+    (TF32), which the products must not take; the Gram's and a Q
+    product's GEMM alone; then solve_triangular and cg at SOLVE_N."""
+    import torch
+
+    m, n = QR_SHAPE
+    flops = qr_flops(m, n)
+    ht.random.seed(1)
+    a = ht.random.randn(m, n, split=0)
+    s64 = torch.linalg.svdvals(a.larray.double())
+    routes = {
+        "qr auto (CholeskyQR2)": (lambda: ht.linalg.qr(a), flops["cholqr2"], flops["standard"]),
+        "qr householder": (lambda: ht.linalg.qr(a, method="householder"), flops["householder"], flops["standard"]),
+        "qr auto mode='r'": (lambda: ht.linalg.qr(a, mode="r"), flops["cholqr2_r"], flops["standard_r"]),
+        "svd": (lambda: ht.linalg.svd(a), flops["svd"], flops["standard"] + 2.0 * m * n * n),
+    }
+    for label, (fn, executed, standard) in routes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        row = {"phase": "main_path", "path": f"ht.linalg.{label} (BASELINE config 1)", "shape": [m, n],
+               "dtype": "float32", "split": 0, "world": 1}
+        if label == "svd":
+            u, s, v = res
+            errs = qr_errors(a.larray, u.larray, v.larray.T, s=s.larray)
+            errs["s_rel_err"] = rel_max(s.larray, s64)
+            if u.split != 0 or v.split is not None or not u.larray.is_cuda:
+                fail(f"svd: U split {u.split}, V split {v.split}, device {u.larray.device}")
+        elif res.Q is None:
+            r = res.R.larray
+            errs = {"s_rel_err": rel_max(torch.linalg.svdvals(r.double()), s64),
+                    "tril_max": float(torch.tril(r, -1).abs().max())}
+        else:
+            if res.Q.split != 0 or res.R.split is not None or not res.Q.larray.is_cuda:
+                fail(f"{label}: Q split {res.Q.split}, R split {res.R.split}, device {res.Q.larray.device}")
+            errs = qr_errors(a.larray, res.Q.larray, res.R.larray)
+            errs["s_rel_err"] = rel_max(torch.linalg.svdvals(res.R.larray.double()), s64)
+        del res
+        bad = {k: e for k, e in errs.items() if not (e <= QR_TOL if k != "tril_max" else e == 0.0)}
+        if bad:
+            fail(f"{label} vs float64 beyond {QR_TOL}: {bad}")
+        ms = wall_ms(fn, 3)
+        row.update({"ms": ms, "tflops_standard": standard / ms / 1e9, "tflops_executed": executed / ms / 1e9,
+                    "flops_standard": standard, "flops_executed": executed, "peak_mem_bytes": peak,
+                    "input_bytes": a.larray.nbytes, "errors_vs_float64": errs, "tol": QR_TOL,
+                    "kernels": kernel_times(fn, 2)[:6], "card": smi})
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+    # the caller's TF32: the products must stay in full float32, and the setting must come back
+    torch.set_float32_matmul_precision("high")
+    try:
+        q, r = ht.linalg.qr(a)
+        kept = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    errs = qr_errors(a.larray, q.larray, r.larray)
+    del q, r
+    print(json.dumps({"phase": "qr_under_tf32_precision", "caller_precision": "high", "precision_after": kept,
+                      "errors_vs_float64": errs, "tol": QR_TOL}), flush=True)
+    if kept != "high" or not errs["orth_err"] <= QR_TOL or not errs["rel_err"] <= QR_TOL:
+        fail(f"qr under the caller's 'high' precision: {errs}, precision after {kept}")
+
+    x, eye = a.larray, torch.eye(n, device="cuda")
+    gram = lambda: x.T @ x  # noqa: E731
+    prod = lambda: x @ eye  # noqa: E731
+    for label, fn in (("gram x^T x", gram), ("q product x L^-T", prod)):
+        ms = cuda_ms(fn, 5)
+        print(json.dumps({"phase": "qr_gemm", "gemm": label, "shape": [m, n], "ms": ms,
+                          "tflops": 2.0 * m * n * n / ms / 1e9, "share_of_f32_peak": 2.0 * m * n * n / (ms * 1e-3)
+                          / PEAK_F32_FLOPS, "kernels": kernel_times(fn, 2), "card": smi}), flush=True)
+    del a, x
+    torch.cuda.empty_cache()
+    solver_main(ht, smi)
+
+
+def solver_main(ht, smi: str) -> None:
+    """``solve_triangular`` (blocked and native) and ``cg`` on SOLVE_N^2
+    float32 systems on the card, against float64 solves (SOLVE_RTOL)."""
+    import torch
+
+    n = SOLVE_N
+    g = torch.Generator(device="cuda").manual_seed(4)
+    mat = torch.randn(n, n, generator=g, device="cuda")
+    b = torch.randn(n, generator=g, device="cuda")
+    upper = torch.triu(mat, 1) / n ** 0.5 + n ** 0.5 * torch.eye(n, device="cuda")  # diagonally dominant
+    spd = mat @ mat.T / n + torch.eye(n, device="cuda")
+    rows = []
+    want = torch.linalg.solve_triangular(upper.double(), b.double()[:, None], upper=True)[:, 0]
+    for blocked in (True, False):
+        fn = lambda: ht.linalg.solve_triangular(ht.array(upper, split=0), ht.array(b, split=0), blocked=blocked)  # noqa
+        rows.append({"solver": f"solve_triangular blocked={blocked}", "rel_err": rel_max(fn().larray, want),
+                     "ms": wall_ms(fn, 3)})
+    want = torch.linalg.solve(spd.double(), b.double())
+    tol = 1e-4 * float(b.norm())
+    fn = lambda: ht.linalg.cg(ht.array(spd, split=0), ht.array(b, split=0), tol=tol)  # noqa: E731
+    rows.append({"solver": "cg", "tol": tol, "rel_err": rel_max(fn().larray, want), "ms": wall_ms(fn, 3)})
+    print(json.dumps({"phase": "solvers", "n": n, "dtype": "float32", "split": 0, "world": 1, "rows": rows,
+                      "rtol": SOLVE_RTOL, "card": smi}), flush=True)
+    bad = [r for r in rows if not r["rel_err"] <= SOLVE_RTOL]
+    if bad:
+        fail(f"solvers vs float64 beyond {SOLVE_RTOL}: {bad}")
+
+
+def cdist_bound_ms(n: int, m: int, d: int) -> tuple:
+    """The least time of an (n, m) float32 distance matrix of d features:
+    the result written once (and x, y read once) at PEAK_BYTES, against 2nmd
+    operations at PEAK_F32_FLOPS; (ms, "bytes" or "operations")."""
+    bytes_ms = 4.0 * (n * m + (n + m) * d) / PEAK_BYTES * 1e3
+    ops_ms = 2.0 * n * m * d / PEAK_F32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def within_rtol(got, want, rtol: float = CDIST_RTOL) -> bool:
+    """|got - want| <= rtol |want| at every entry, ``want`` in float64."""
+    return bool(((got.double() - want).abs() <= rtol * want.abs()).all())
+
+
+def rbf_want(d64, sigma: float = RBF_SIGMA):
+    """The RBF kernel exp(-d^2 / 2 sigma^2) of float64 distances."""
+    return (-d64.square() / (2.0 * sigma * sigma)).exp()
+
+
+def cdist_main(ht, smi: str) -> None:
+    """``ht.spatial.cdist`` (direct and quadratic expansion), ``manhattan``
+    and ``rbf`` (at RBF_SIGMA) of x, y float32 CDIST_SHAPE split 0 at world
+    size 1 (a 4 GiB result each): held on CDIST_SAMPLE rows against float64
+    (CDIST_RTOL of each entry; the expansion CDIST_EXPANSION_ATOL of the
+    largest distance), timed (CUDA events), beside the bound and
+    ``torch.cdist``."""
+    import torch
+
+    n, d = CDIST_SHAPE
+    ht.random.seed(2)
+    x, y = ht.random.randn(n, d, split=0), ht.random.randn(n, d, split=0)
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:CDIST_SAMPLE].to("cuda")
+    xs, y64 = x.larray[idx].double(), y.larray.double()
+    d64 = torch.cdist(xs, y64)
+    bound, by = cdist_bound_ms(n, n, d)
+    funcs = {
+        "cdist": (lambda: ht.spatial.cdist(x, y), d64, within_rtol),
+        "cdist quadratic_expansion": (lambda: ht.spatial.cdist(x, y, quadratic_expansion=True), d64,
+                                      lambda g, w: float((g.double() - w).abs().max())
+                                      <= CDIST_EXPANSION_ATOL * float(w.max())),
+        "manhattan": (lambda: ht.spatial.manhattan(x, y), torch.cdist(xs, y64, p=1.0), within_rtol),
+        "rbf": (lambda: ht.spatial.rbf(x, y, sigma=RBF_SIGMA), rbf_want(d64), within_rtol),
+    }
+    for label, (fn, want, ok) in funcs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        if res.shape != (n, n) or res.split != 0 or not res.larray.is_cuda:
+            fail(f"{label}: shape {res.shape}, split {res.split}, device {res.larray.device}")
+        got = res.larray[idx]
+        err = (got.double() - want).abs()
+        passed = ok(got, want)
+        worst, worst_rel = float(err.max()), float((err / want.abs()).max())
+        del res
+        torch.cuda.empty_cache()
+        ms = cuda_ms(fn, 3)
+        library = None
+        if label in ("cdist", "manhattan"):
+            p = 2.0 if label == "cdist" else 1.0
+            library = cuda_ms(lambda: torch.cdist(x.larray, y.larray, p=p), 3)
+        print(json.dumps({"phase": "main_path", "path": f"ht.spatial.{label}", "shape": [n, n, d],
+                          "dtype": "float32", "split": 0, "world": 1, "ms": ms, "bound_ms": bound, "bound_by": by,
+                          "torch_cdist_ms": library, "max_abs_err_sampled": worst, "max_rel_err_sampled": worst_rel,
+                          "sampled_rows": CDIST_SAMPLE,
+                          "peak_mem_bytes": peak, "kernels": kernel_times(fn, 1)[:3], "card": smi}), flush=True)
+        if not passed:
+            fail(f"{label} vs float64 on {CDIST_SAMPLE} rows: worst {worst} (relative {worst_rel})")
+        torch.cuda.empty_cache()
+    del x, y
+    torch.cuda.empty_cache()
+
+
+def linalg_cases(ht) -> dict:
+    """The two-rank phase's calls on the card, from inputs drawn on the card
+    from one seed: ``cdist`` and ``cdist_ring`` at every (x.split, y.split)
+    pair, ``tsqr`` (LINALG_2R_QR, and LINALG_2R_REPLICATED, whose ranks hold
+    fewer rows than columns: the replicated path), ``svd``, ``hsvd_rank`` of
+    an exact-rank input, the blocked ``solve_triangular``, ``cg`` (40 steps)
+    and a boolean mask at split 0.  Each result gathered, as a CPU tensor;
+    with the mask's split and this rank's rows."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+
+    def whole(x):
+        if not x.larray.is_cuda:
+            fail(f"a result left the card: {x.larray.device}")
+        return (x.resplit(None) if x.is_distributed() else x).larray.cpu()
+
+    X = torch.randn(*LINALG_2R_CDIST[0], generator=g, device="cuda")
+    Y = torch.randn(*LINALG_2R_CDIST[1], generator=g, device="cuda")
+    for name, fn in (("cdist", ht.spatial.cdist), ("cdist_ring", ht.spatial.cdist_ring)):
+        for sx in (None, 0, 1):
+            for sy in (None, 0, 1):
+                out[f"{name} {sx},{sy}"] = whole(fn(ht.array(X, split=sx), ht.array(Y, split=sy)))
+    for shape in (LINALG_2R_QR, LINALG_2R_REPLICATED):
+        q, r = ht.linalg.tsqr(ht.array(torch.randn(*shape, generator=g, device="cuda"), split=0))
+        out[f"tsqr {shape}"] = [whole(q), whole(r)]
+    u, s, v = ht.linalg.svd(ht.array(torch.randn(*LINALG_2R_QR, generator=g, device="cuda"), split=0))
+    out["svd"] = [whole(u), whole(s), whole(v)]
+    k = 8
+    left = torch.linalg.qr(torch.randn(1000, k, generator=g, device="cuda"))[0]
+    right = torch.linalg.qr(torch.randn(60, k, generator=g, device="cuda"))[0]
+    low = left * torch.arange(2 * k, k, -1, device="cuda") @ right.T
+    u, s, v, _ = ht.linalg.hsvd_rank(ht.array(low, split=0), k, compute_sv=True)
+    out["hsvd_rank"] = [whole(u), whole(s), whole(v)]
+    n = 512
+    mat = torch.randn(n, n, generator=g, device="cuda")
+    b = torch.randn(n, generator=g, device="cuda")
+    up = torch.triu(mat, 1) / n ** 0.5 + n ** 0.5 * torch.eye(n, device="cuda")  # diagonally dominant
+    out["solve_triangular blocked"] = whole(ht.linalg.solve_triangular(ht.array(up, split=0), ht.array(b, split=0),
+                                                                        blocked=True))
+    spd = mat @ mat.T / n + torch.eye(n, device="cuda")
+    out["cg"] = whole(ht.linalg.cg(ht.array(spd, split=0), ht.array(b, split=0), maxit=40, tol=0.0))
+    xr = ht.array(torch.arange(LINALG_2R_CDIST[0][0], device="cuda", dtype=torch.float32), split=0)
+    sel = xr[xr > 600]
+    out["mask"] = whole(sel)
+    out["mask_split"], out["mask_lshape"] = sel.split, list(sel.lshape)
+    return out
+
+
+def compare_linalg(got: dict, want: dict) -> dict:
+    """rel_max of each two-rank result against world size 1's: QR factors
+    with their signs aligned (``align_signs``), SVDs by S and U diag(S) V^T
+    (U and V are unique only up to signs and rotations within clusters of
+    singular values)."""
+    errs = {}
+    for name, w in want.items():
+        gv = got[name]
+        if name.startswith("mask_"):
+            continue
+        if name.startswith("tsqr"):
+            d = align_signs(gv[1], w[1])
+            errs[f"{name} R"] = rel_max(d[:, None] * gv[1], w[1])
+            errs[f"{name} Q"] = rel_max(gv[0] * d, w[0])
+        elif name in ("svd", "hsvd_rank"):
+            errs[f"{name} S"] = rel_max(gv[1], w[1])
+            errs[f"{name} U S V^T"] = rel_max(gv[0] * gv[1] @ gv[2].T, w[0] * w[1] @ w[2].T)
+        else:
+            errs[name] = rel_max(gv, w)
+    return errs
+
+
+def _tensors_as(res: dict, conv) -> dict:
+    """``res`` with each tensor (alone or in a list) passed through ``conv``."""
+    return {k: [conv(t) for t in v] if isinstance(v, list) and v and not isinstance(v[0], int) else
+            (conv(v) if not isinstance(v, (int, list, type(None))) else v) for k, v in res.items()}
+
+
+def linalg_rank(rank: int, port: int, out_q) -> None:
+    """One of 2 ranks on this card over gloo: ``linalg_cases``, reported."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    torch.set_float32_matmul_precision("highest")
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        res = _tensors_as(linalg_cases(ht), lambda t: t.numpy())  # by value: a shared tensor dies with its rank
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def linalg_two_ranks(ht, smi: str) -> None:
+    """The two-rank linear algebra phase: ``linalg_cases`` at world size 1
+    on this card, then in 2 processes on this card over gloo, each rank's
+    results held against world size 1's (LINALG_2R_TOL; the mask exactly,
+    split 0); prints rank 0's line."""
+    want = linalg_cases(ht)
+    results = spawn_ranks(linalg_rank, 2, RING_TIMEOUT_S)
+    errs = {}
+    import torch
+
+    for rank, res in sorted(results.items()):
+        res = _tensors_as(res, torch.from_numpy)
+        errs[rank] = compare_linalg(res, want)
+        bad = {k: e for k, e in errs[rank].items() if not e <= LINALG_2R_TOL}
+        if bad:
+            fail(f"rank {rank}: against world size 1 beyond {LINALG_2R_TOL}: {bad}")
+        if res["mask_split"] != 0 or not bool((res["mask"] == want["mask"]).all()):
+            fail(f"rank {rank}: the boolean mask at split 0: split {res['mask_split']}")
+    print(json.dumps({"phase": "linalg_two_ranks", "note": "2 processes on ONE card over gloo, against world size 1",
+                      "tol": LINALG_2R_TOL, "worst_rel_err": max(max(e.values()) for e in errs.values()),
+                      "errs_rank0": errs[0], "mask_lshape": [results[r]["mask_lshape"] for r in (0, 1)],
+                      "card": smi}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1935,7 +2371,15 @@ def main() -> int:
     matmul_world_one(ht, smi)
     matmul_two_ranks(smi)
 
-    # 5. the LMs, multi-head and grouped-query: training, one step against
+    # 5. tall-skinny QR/SVD (BASELINE config 1) at 1e6 x 256, the solvers,
+    # cdist at 32768^2 x 32, then 2 ranks on this card over gloo
+    t0 = time.perf_counter()
+    qr_main(ht, smi)
+    cdist_main(ht, smi)
+    linalg_two_ranks(ht, smi)
+    print(json.dumps({"phase": "linalg_seconds", "seconds": time.perf_counter() - t0}), flush=True)
+
+    # 6. the LMs, multi-head and grouped-query: training, one step against
     # the plain versions, generation
     launches = {}
     for cfg, kernels, label in ((LM, MHA_KERNELS, "TransformerLM"),
@@ -1949,7 +2393,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the multi-head LM trained in bfloat16: every bfloat16 kernel on the tensor cores
     launches_bf16 = lm_train_bf16(ht)
-    # 6. the sequence-parallel LM over 2 ranks on this card
+    # 7. the sequence-parallel LM over 2 ranks on this card
     launches.update(ring_train())
 
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
@@ -1957,7 +2401,7 @@ def main() -> int:
     rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
     rows += pos_rows(launches, pos_errs)
 
-    # 7. the kernels line and the result
+    # 8. the kernels line and the result
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

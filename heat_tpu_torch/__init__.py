@@ -4,7 +4,9 @@ HeAT's design: a ``DNDarray`` is this process's local ``torch.Tensor`` plus
 its global shape and split axis, and a communicator over
 ``torch.distributed`` (gloo on the CPU, NCCL on the card) issues the
 collectives.  ``import heat_tpu_torch as ht`` reads like ``heat_tpu``.
-``x @ y`` (``ht.matmul``) multiplies split arrays, and
+``x @ y`` (``ht.matmul``) multiplies split arrays, ``ht.qr`` and ``ht.svd``
+factor tall-skinny ones (TSQR), ``ht.spatial.cdist`` takes pairwise
+distances, and
 ``ht.parallel.ring_attention`` runs attention over a sequence split across
 the ranks.
 Arrays live on the card (``'gpu'``) unless the caller asks for the CPU.
@@ -16,6 +18,9 @@ from .core import random
 from . import linalg
 from .linalg import matmul, dot, transpose, norm
 from .linalg.basics import matmul_summa, matrix_norm, outer, trace, tril, triu, vdot, vector_norm
+from .linalg.qr import qr
+from .linalg.svdtools import svd
+from . import spatial
 from . import cluster
 from . import nn
 from . import optim

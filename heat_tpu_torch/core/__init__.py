@@ -1,5 +1,5 @@
 """Core: types, devices, the communicator, DNDarray, factories, the op
-dispatch core and the element-wise and reduction surface."""
+dispatch core, the element-wise and reduction surface, and tile views."""
 
 from .constants import *
 from . import constants
@@ -30,4 +30,6 @@ from .statistics import *
 from . import statistics
 from .base import *
 from .bootstrap import *
+from .tiling import *
+from . import tiling
 from . import random

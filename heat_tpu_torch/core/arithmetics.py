@@ -236,17 +236,29 @@ def float_power(t1, t2) -> DNDarray:
 
 
 def ldexp(t1, t2) -> DNDarray:
-    """Elementwise ``t1 * 2**t2`` (numpy ``ldexp``)."""
+    """Elementwise ``t1 * 2**t2`` (numpy ``ldexp``): the exponent must be an
+    integer or a bool, as in the JAX package."""
     def fn(a, b):
         dev = (a if isinstance(a, torch.Tensor) else b).device
-        return torch.ldexp(_float(torch.as_tensor(a, device=dev)), torch.as_tensor(b, device=dev))
+        e = torch.as_tensor(b, device=dev)
+        if e.is_floating_point() or e.is_complex():
+            raise ValueError(f"ldexp not supported for a {e.dtype} exponent; it takes integers")
+        return torch.ldexp(_float(torch.as_tensor(a, device=dev)), _int32(e))
 
     return _binary_op(fn, t1, t2)
 
 
+def _heaviside(a, b):
+    """0 below zero, 1 above, ``b`` at zero and at nan (the JAX package's
+    ``heaviside``), in the floating result type (float32 for integers and
+    bools)."""
+    x, h = _floating(a, b)
+    return torch.where(x < 0, torch.zeros_like(h), torch.where(x > 0, torch.ones_like(h), h))
+
+
 def heaviside(t1, t2) -> DNDarray:
-    """Heaviside step function with ``t2`` as the value at 0."""
-    return _binary_op(lambda a, b: torch.heaviside(*_tensors(a, b)), t1, t2)
+    """Heaviside step function with ``t2`` as the value at 0 (and at nan)."""
+    return _binary_op(_heaviside, t1, t2)
 
 
 def bitwise_and(t1, t2) -> DNDarray:
@@ -261,12 +273,23 @@ def bitwise_xor(t1, t2) -> DNDarray:
     return _binary_op(torch.bitwise_xor, t1, t2)
 
 
+def _shift(op):
+    """A shift whose two bool operands compute as int32, as in the JAX package."""
+
+    def fn(a, b):
+        if _is_bool(a) and _is_bool(b):
+            a, b = _int32(a), _int32(b)
+        return op(a, b)
+
+    return fn
+
+
 def left_shift(t1, t2) -> DNDarray:
-    return _binary_op(torch.bitwise_left_shift, t1, t2)
+    return _binary_op(_shift(torch.bitwise_left_shift), t1, t2)
 
 
 def right_shift(t1, t2) -> DNDarray:
-    return _binary_op(torch.bitwise_right_shift, t1, t2)
+    return _binary_op(_shift(torch.bitwise_right_shift), t1, t2)
 
 
 def nextafter(t1, t2) -> DNDarray:
@@ -286,7 +309,8 @@ negative = neg
 
 
 def pos(x, out=None) -> DNDarray:
-    return _local_op(torch.positive, x, out=out)
+    """Elementwise ``+x`` (a copy; bools too)."""
+    return _local_op(lambda t: t.clone() if t.dtype == torch.bool else torch.positive(t), x, out=out)
 
 
 positive = pos
@@ -530,46 +554,58 @@ def ediff1d(x, to_end=None, to_begin=None) -> DNDarray:
     return _layout(res, (builtins.sum(counts),), 0, x, counts)
 
 
+def _trap(ext: torch.Tensor, axis: int, xs, dx: float, orred: builtins.bool) -> torch.Tensor:
+    """The trapezoid sum along ``axis`` as the JAX package forms it: each
+    neighbour pair added in ``ext``'s dtype (integers wrap; with ``orred``
+    the pair of 0/1 bools is or'ed), times ``dx``/2 or the sample points'
+    differences over 2, then summed.  Fewer than two rows give 0."""
+    n = ext.shape[axis]
+    hi, lo = ext.narrow(axis, builtins.min(1, n), builtins.max(n - 1, 0)), ext.narrow(axis, 0, builtins.max(n - 1, 0))
+    pair = hi | lo if orred else hi + lo
+    if xs is None:
+        return torch.sum(pair * (0.5 * dx), dim=axis)
+    d = torch.diff(xs, dim=axis if xs.ndim > 1 else 0)
+    if xs.ndim == 1 and ext.ndim > 1:
+        shape = [1] * ext.ndim
+        shape[axis] = d.shape[0]
+        d = d.reshape(shape)
+    return torch.sum(pair * d * 0.5, dim=axis)
+
+
 def trapz(y, x=None, dx: float = 1.0, axis: int = -1) -> DNDarray:
-    """Trapezoidal-rule integral along ``axis``.  Along the split axis each
-    rank integrates its rows and the next rank's first row, and the ranks'
-    parts are summed (Allreduce)."""
+    """Trapezoidal-rule integral along ``axis``, by the JAX package's formula
+    (neighbour sums in ``y``'s dtype: uint8 wraps as numpy's does, bools
+    or).  Along the split axis each rank integrates its rows and the next
+    rank's first row, and the ranks' parts are summed (Allreduce)."""
     axis = sanitize_axis(y.shape, axis)
     if isinstance(x, DNDarray) and x.ndim == 1:
         x = torch.as_tensor(x.numpy() if x.is_distributed() else x.larray, device=y.larray.device)
     elif x is not None and not isinstance(x, (DNDarray, torch.Tensor)):
         x = torch.as_tensor(np.asarray(x), device=y.larray.device)
+    orred = y.larray.dtype == torch.bool
     if y.split != axis or not y.is_distributed():
         if isinstance(x, DNDarray):
             from ._operations import _localize
 
             x = _localize(x, y.split, y.ndim, y)
-        t = torch.trapezoid(y.larray, x=x, dim=axis) if x is not None else torch.trapezoid(y.larray, dx=dx, dim=axis)
-        t = _narrow(t, y.larray)
+        t = _narrow(_trap(y.larray.to(torch.uint8) if orred else y.larray, axis, x, dx, orred), y.larray)
         split = None if y.split in (None, axis) else y.split - (y.split > axis)
         gshape = y.gshape[:axis] + y.gshape[axis + 1:]
         return DNDarray(t, gshape, types.canonical_heat_type(t.dtype), split, y.device, y.comm, y.balanced)
     y = _balanced(y)
     counts, displs = y.counts_displs()
     rank = y.comm.rank
-    t = y.larray
+    t = y.larray.to(torch.uint8) if orred else y.larray  # bools travel as uint8
     nxt = _halo(t, axis, counts, y.comm)
     ext = torch.cat([t, nxt], dim=axis) if nxt is not None else t
+    xs = None
     if isinstance(x, DNDarray):  # sample points laid out as y
         x = _balanced(x).larray
         xn = _halo(x, axis, counts, y.comm)
         xs = torch.cat([x, xn], dim=axis) if xn is not None else x
     elif x is not None:
         xs = x[displs[rank]: displs[rank] + ext.shape[axis]]
-    if ext.shape[axis] < 2:
-        shape = list(ext.shape)
-        del shape[axis]
-        part = torch.zeros(shape, dtype=_float(ext).dtype, device=ext.device)
-    elif x is not None:
-        part = torch.trapezoid(ext, x=xs, dim=axis)
-    else:
-        part = torch.trapezoid(ext, dx=dx, dim=axis)
-    part = y.comm.Allreduce(_narrow(part, t).contiguous())
+    part = y.comm.Allreduce(_narrow(_trap(ext, axis, xs, dx, orred), y.larray).contiguous())
     return DNDarray(part, y.gshape[:axis] + y.gshape[axis + 1:], types.canonical_heat_type(part.dtype), None,
                     y.device, y.comm, True)
 

@@ -271,14 +271,75 @@ class DNDarray:
         out[mine] = t[idx[mine] - off]
         return self.__comm.Allreduce(out)
 
+    def _bool_mask(self, key) -> Optional[torch.Tensor]:
+        """This rank's part of the boolean index ``key`` (a numpy array, list,
+        ``torch.Tensor`` or DNDarray of bools) over the leading axes: the
+        rows of this rank's chunk along a split axis 0, else the whole mask;
+        None where ``key`` is not boolean."""
+        key = np.asarray(key) if isinstance(key, list) else key
+        if isinstance(key, DNDarray):
+            boolean = key.dtype is types.bool
+        elif isinstance(key, torch.Tensor):
+            boolean = key.dtype == torch.bool
+        else:
+            boolean = isinstance(key, np.ndarray) and key.dtype == np.bool_
+        if not boolean:
+            return None
+        shape = tuple(key.shape)
+        if len(shape) == 0 or shape != self.__gshape[: len(shape)]:
+            raise IndexError(f"boolean index of shape {shape} does not match the indexed array's {self.__gshape}")
+        tdev = self.__array.device
+        local = self.is_distributed() and self.__split == 0
+        if isinstance(key, DNDarray):
+            if local:
+                mask = key if key.split == 0 else key.resplit(0)
+                counts, mine = mask.counts_displs()[0], self.counts_displs()[0]
+                return self.__comm.redistribute(mask.larray, 0, counts, mine).to(tdev)
+            return (key.resplit(None) if key.is_distributed() else key).larray.to(tdev)
+        mask = torch.as_tensor(key, device=tdev)
+        if local:
+            counts, displs = self.counts_displs()
+            rank = self.__comm.rank
+            mask = mask[displs[rank] : displs[rank] + counts[rank]]
+        return mask
+
+    def _masked(self, mask: torch.Tensor, rest) -> "DNDarray":
+        """The elements where ``mask`` (from :meth:`_bool_mask`) is True, as
+        the JAX package selects them (``_result_split_of_key``): split 0 stays
+        split 0, its ranks selecting from their own rows (an unbalanced
+        result whose length is the sum of the ranks' counts); a split axis
+        behind the mask's axes shifts to follow them; a split axis under the
+        mask is gathered first."""
+        nd, split = mask.ndim, self.__split
+        if split is not None and 0 < split < nd and self.is_distributed():
+            return self.resplit(None)._masked(mask, rest)
+        t = self.__array[mask]
+        t = t[(slice(None),) + rest] if rest else t
+        tail = tuple(t.shape[1:])
+        if split is None or (0 < split < nd):
+            return DNDarray(t, (t.shape[0],) + tail, self.__dtype, None, self.__device, self.__comm, True)
+        if split > 0:  # behind the mask: the rows are local, the split axis moves
+            gshape = (t.shape[0],) + self.__gshape[nd:]
+            return DNDarray(t, gshape, self.__dtype, split - nd + 1, self.__device, self.__comm, self.__balanced)
+        if not self.is_distributed():
+            return DNDarray(t, (t.shape[0],) + tail, self.__dtype, 0, self.__device, self.__comm, True)
+        counts = self.__comm._extents(t, 0)
+        gshape = (sum(counts),) + tail
+        chunk = self.__comm.counts_displs_shape(gshape, 0)[0]
+        return DNDarray(t, gshape, self.__dtype, 0, self.__device, self.__comm, list(counts) == list(chunk))
+
     def __getitem__(self, key) -> "DNDarray":
-        """Rows along axis 0: an int, a slice, or a 1-D sequence of indices,
-        optionally followed by indices of the trailing axes."""
+        """Rows along axis 0: an int, a slice, a 1-D sequence of indices or a
+        boolean mask over the leading axes (numpy, list, ``torch.Tensor`` or
+        DNDarray), optionally followed by indices of the trailing axes."""
         rest = ()
         if isinstance(key, tuple):
             key, rest = key[0], key[1:]
             if self.__split not in (None, 0) and rest:
                 raise NotImplementedError("indexing trailing axes of an array split along axis > 0 is not ported yet")
+        mask = self._bool_mask(key)
+        if mask is not None:
+            return self._masked(mask, rest)
         n = self.__gshape[0]
         tdev = self.__array.device
         if isinstance(key, slice):

@@ -54,9 +54,16 @@ def sqrt(x, out=None) -> DNDarray:
     return _local_op(torch.sqrt, x, out=out)
 
 
+def _rsqrt(t: torch.Tensor) -> torch.Tensor:
+    if not (t.is_floating_point() or t.is_complex()):
+        raise TypeError(f"rsqrt does not accept dtype {t.dtype}; it takes floating and complex arrays, as in the JAX "
+                        "package")
+    return torch.rsqrt(t)
+
+
 def rsqrt(x, out=None) -> DNDarray:
-    """1/sqrt(x)."""
-    return _local_op(lambda t: torch.rsqrt(_float(t)), x, out=out)
+    """1/sqrt(x) of a floating or complex array."""
+    return _local_op(_rsqrt, x, out=out)
 
 
 def square(x, out=None) -> DNDarray:

@@ -95,7 +95,7 @@ def array(
             raise TypeError("invalid data of type object")
         if dtype is None:
             npa = narrow_64bit(npa)
-        t = torch.from_numpy(np.array(npa, order="C", copy=not npa.flags.writeable))
+        t = torch.from_numpy(np.array(npa, order="C", copy=None if npa.flags.writeable else True))
     device, tdev, comm = _sanitize(device, comm)
     if dtype is not None:
         dtype = types.canonical_heat_type(dtype)

@@ -93,7 +93,7 @@ def isposinf(x, out=None) -> DNDarray:
 
 
 def logical_and(t1, t2) -> DNDarray:
-    return _binary_op(torch.logical_and, t1, t2)
+    return _binary_op(lambda a, b: torch.logical_and(*_tensors(a, b)), t1, t2)
 
 
 def logical_not(x, out=None) -> DNDarray:
@@ -101,11 +101,11 @@ def logical_not(x, out=None) -> DNDarray:
 
 
 def logical_or(t1, t2) -> DNDarray:
-    return _binary_op(torch.logical_or, t1, t2)
+    return _binary_op(lambda a, b: torch.logical_or(*_tensors(a, b)), t1, t2)
 
 
 def logical_xor(t1, t2) -> DNDarray:
-    return _binary_op(torch.logical_xor, t1, t2)
+    return _binary_op(lambda a, b: torch.logical_xor(*_tensors(a, b)), t1, t2)
 
 
 def signbit(x, out=None) -> DNDarray:
@@ -148,10 +148,22 @@ def array_equiv(a1, a2) -> bool:
 
 def isin(element, test_elements, assume_unique: bool = False, invert: bool = False) -> DNDarray:
     """Elementwise membership of ``element`` in ``test_elements`` (which every
-    rank holds whole); split as ``element``."""
-    tests = test_elements.numpy() if isinstance(test_elements, DNDarray) else np.asarray(test_elements)
-    dev = element.larray.device
-    return _local_op(lambda t: torch.isin(t, torch.as_tensor(tests, device=dev), invert=invert), element)
+    rank holds whole), compared in the two's promoted dtype (so uint8 254 is
+    not -2); split as ``element``."""
+    if isinstance(test_elements, DNDarray):
+        tests = (test_elements.resplit(None) if test_elements.is_distributed() else test_elements).larray
+    else:  # as the JAX package takes numpy and Python data: 64 bits narrowed to 32
+        from .factories import narrow_64bit
+
+        tests = torch.as_tensor(narrow_64bit(np.asarray(test_elements)))
+
+    def fn(t):
+        tt = tests.to(t.device).reshape(-1)
+        dt = torch.promote_types(t.dtype, tt.dtype)
+        dt = torch.uint8 if dt == torch.bool else dt  # torch.isin takes no bools
+        return torch.isin(t.to(dt), tt.to(dt), invert=invert)
+
+    return _local_op(fn, element)
 
 
 def in1d(ar1, ar2, assume_unique: bool = False, invert: bool = False) -> DNDarray:

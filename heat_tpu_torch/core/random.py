@@ -2,8 +2,10 @@
 
 Every draw takes a fresh ``torch.Generator`` on the target device, seeded
 from ``(seed, counter, rank)``: the counter advances once per draw, and each
-rank draws only its own chunk.  The numbers differ from ``jax.random``'s
-from the same seed, and a draw depends on the world size (it is not
+rank draws only its own chunk of a split array.  A replicated draw
+(``split=None``) is seeded as rank 0's on every rank, so that every rank
+holds the same array.  The numbers differ from ``jax.random``'s from the
+same seed, and a split draw depends on the world size (it is not
 split-invariant); tests make their inputs with numpy instead.
 """
 
@@ -57,7 +59,7 @@ def _generate(sampler, shape, dtype, split, device, comm) -> DNDarray:
     comm = sanitize_comm(comm)
     device = sanitize_device(device)
     tdev = device.torch_device
-    g = generator(__seed, __counter, comm.rank, device=tdev)
+    g = generator(__seed, __counter, comm.rank if split is not None else 0, device=tdev)
     __counter += 1
     lshape = comm.chunk(shape, split)[1]
     t = sampler(lshape, dtype=dtype.torch_type(), device=tdev, generator=g)

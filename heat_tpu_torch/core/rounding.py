@@ -94,8 +94,7 @@ def _round(decimals):
         if not (t.is_floating_point() or t.is_complex()):
             if decimals >= 0:
                 return t.clone()
-            step = 10 ** (-decimals)
-            return (torch.round(t.double() / step) * step).to(t.dtype)
+            raise NotImplementedError("rounding integers to decimals < 0 is not supported, as in the JAX package")
         return torch.round(t, decimals=decimals)
 
     return fn
@@ -123,16 +122,22 @@ def _no_bool(fn):
     return inner
 
 
+def _nan_kept(fn):
+    """``fn`` with nan mapped to nan (torch's sign of nan is 0, numpy's and
+    the JAX package's nan)."""
+    return lambda t: torch.where(torch.isnan(t), t, fn(t)) if t.is_floating_point() else fn(t)
+
+
 def sgn(x, out=None) -> DNDarray:
-    """Sign (complex: x/|x|)."""
-    return _local_op(_no_bool(torch.sgn), x, out=out)
+    """Sign (complex: x/|x|); nan stays nan."""
+    return _local_op(_no_bool(_nan_kept(torch.sgn)), x, out=out)
 
 
 def sign(x, out=None) -> DNDarray:
-    """Sign; for complex inputs the sign of the real part."""
+    """Sign; for complex inputs the sign of the real part; nan stays nan."""
     if issubclass(x.dtype, types.complexfloating):
-        return _local_op(lambda t: torch.sign(t.real).to(t.dtype), x, out=out)
-    return _local_op(_no_bool(torch.sign), x, out=out)
+        return _local_op(lambda t: _nan_kept(torch.sign)(t.real).to(t.dtype), x, out=out)
+    return _local_op(_no_bool(_nan_kept(torch.sign)), x, out=out)
 
 
 def trunc(x, out=None) -> DNDarray:

@@ -6,11 +6,14 @@ local product is one ``torch.matmul`` (cuBLAS on the card).  ``matmul_summa``
 is the SUMMA ring: b's row blocks go round the ranks by ``Isend`` while each
 rank multiplies the block it holds, the next block's transfer posted before
 this block's product.  Float32 products stay in full float32: nothing here
-turns on TF32.
+turns on TF32.  Integer products on the card, where torch has no integer
+GEMM, are exact float64 products of 16-bit halves (``_int_matmul``), and a
+bool product is the or of ands, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -80,6 +83,63 @@ def _common(x: torch.Tensor, y: torch.Tensor):
     return x.to(dt), y.to(dt)
 
 
+@contextlib.contextmanager
+def _full_float32():
+    """Float32 products in full float32 inside, whatever the caller set
+    (``torch.set_float32_matmul_precision("high")`` would give TF32 GEMMs),
+    through torch's ``fp32_precision`` flag; the caller's setting is
+    restored on the way out."""
+    flags = torch.backends.cuda.matmul
+    old = flags.fp32_precision
+    flags.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        flags.fp32_precision = old
+
+
+# K rows a chunk of ``_int_matmul``: 2K products of 16-bit halves stay below 2^53
+_EXACT_K = 1 << 20
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two integer tensors of one dtype of at most 32 bits,
+    wrapping as the JAX package's ``jnp.matmul`` does (modulo 2^32, then to
+    the dtype's width), computed exactly from float64 products, since the
+    card has no integer GEMM.  Each operand, read as unsigned 32-bit, splits
+    into 16-bit halves hi and lo, and a.b = (hi_a.lo_b + lo_a.hi_b).2^16 +
+    lo_a.lo_b (mod 2^32): two float64 GEMMs a chunk of ``_EXACT_K`` rows of
+    K, each of whose sums of integer products stays below 2^53."""
+    dt = a.dtype
+    bits = torch.iinfo(dt).bits
+    if bits > 32:
+        raise TypeError(f"matmul of {dt} operands on the card is not supported: it has no integer GEMM, and the exact "
+                        "float64 route covers integers of at most 32 bits")
+    kb = 0 if b.ndim == 1 else b.ndim - 2
+    acc = None
+    for k0 in range(0, max(a.shape[-1], 1), _EXACT_K):
+        ak = a.narrow(-1, k0, min(_EXACT_K, a.shape[-1] - k0)).to(torch.int64) & 0xFFFFFFFF
+        bk = b.narrow(kb, k0, min(_EXACT_K, b.shape[kb] - k0)).to(torch.int64) & 0xFFFFFFFF
+        a_lo, a_hi = (ak & 0xFFFF).double(), (ak >> 16).double()
+        b_lo, b_hi = (bk & 0xFFFF).double(), (bk >> 16).double()
+        low = torch.matmul(a_lo, b_lo).to(torch.int64)
+        mid = torch.matmul(torch.cat([a_hi, a_lo], -1), torch.cat([b_lo, b_hi], kb)).to(torch.int64)
+        part = (((mid & 0xFFFF) << 16) + low) & 0xFFFFFFFF
+        acc = part if acc is None else (acc + part) & 0xFFFFFFFF
+    acc = acc & ((1 << bits) - 1)
+    if dt.is_signed:
+        acc = torch.where(acc >= 1 << (bits - 1), acc - (1 << bits), acc)
+    return acc.to(dt)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul`` of two tensors of one dtype; an integer product on
+    the card, where torch has no integer GEMM, by :func:`_int_matmul`."""
+    if a.is_cuda and not (a.is_floating_point() or a.is_complex()):
+        return _int_matmul(a, b)
+    return torch.matmul(a, b)
+
+
 def _role(x: DNDarray, k_axis: int) -> Optional[str]:
     """How ``x`` is split as a matmul operand: along its contracted axis
     ``'k'``, its other matrix axis ``'mn'``, or not at all."""
@@ -116,6 +176,9 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, method: str = 
     sanitize_in(b)
     if method not in ("auto", "gspmd", "summa"):
         raise ValueError(f"method must be 'auto', 'gspmd' or 'summa', got {method!r}")
+    if a.dtype is types.bool and b.dtype is types.bool:  # the or of ands, as in the JAX package
+        c = matmul(a.astype(types.int32), b.astype(types.int32), allow_resplit, method)
+        return _local_op(lambda t: t != 0, c)
     if method == "summa" or (method == "auto" and _summa_wins(a, b)):
         return matmul_summa(a, b)
     ka, kb = a.ndim - 1, max(b.ndim - 2, 0)
@@ -144,20 +207,20 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, method: str = 
     al, bl = _common(a.larray, b.larray)
 
     if ra is None and rb is None:
-        return _wrap(torch.matmul(al, bl), gshape, split, a)
+        return _wrap(_mm(al, bl), gshape, split, a)
     if ra == "mn" and rb is None:
-        return _wrap(torch.matmul(al, bl), gshape, split, a, a.balanced)
+        return _wrap(_mm(al, bl), gshape, split, a, a.balanced)
     if ra is None and rb == "mn":
-        return _wrap(torch.matmul(al, bl), gshape, split, a, b.balanced)
+        return _wrap(_mm(al, bl), gshape, split, a, b.balanced)
     if ra == "mn" and rb == "mn":  # rows of a, columns of b: gather b's columns
         bl = comm.Allgatherv(bl, b.split, counts=b.counts_displs()[0])
-        return _wrap(torch.matmul(al, bl), gshape, split, a, a.balanced)
+        return _wrap(_mm(al, bl), gshape, split, a, a.balanced)
     if ra == "k" and rb == "mn":  # columns of a (K), columns of b: gather a's K
         al = comm.Allgatherv(al, a.split, counts=a.counts_displs()[0])
-        return _wrap(torch.matmul(al, bl), gshape, split, a, b.balanced)
+        return _wrap(_mm(al, bl), gshape, split, a, b.balanced)
     if ra == "mn" and rb == "k":  # rows of a, rows of b (K): gather b's K
         bl = comm.Allgatherv(bl, b.split, counts=b.counts_displs()[0])
-        return _wrap(torch.matmul(al, bl), gshape, split, a, a.balanced)
+        return _wrap(_mm(al, bl), gshape, split, a, a.balanced)
 
     # the K axis is split: a partial product over this rank's K slice
     rank = comm.rank
@@ -171,7 +234,7 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, method: str = 
     else:
         counts, displs = b.counts_displs()
         al = al.narrow(ka, displs[rank], counts[rank])
-    partial = torch.matmul(al, bl)
+    partial = _mm(al, bl)
     if split is None:
         return _wrap(comm.Allreduce(partial), gshape, None, a)
     return _wrap(comm.ReduceScatter(partial, axis=split), gshape, split, a)
@@ -198,7 +261,7 @@ def matmul_summa(a: DNDarray, b: DNDarray) -> DNDarray:
     comm = a.comm
     al, bl = _common(a0.larray, b0.larray)
     if not comm.is_distributed():
-        return _wrap(torch.matmul(al, bl), (M, N), 0, a)
+        return _wrap(_mm(al, bl), (M, N), 0, a)
     counts, displs = b0.counts_displs()
     p, rank = comm.size, comm.rank
     width = max(counts)
@@ -209,7 +272,12 @@ def matmul_summa(a: DNDarray, b: DNDarray) -> DNDarray:
         nxt = comm.Isend(rot, shift=-1) if step + 1 < p else None
         a_cols = al.narrow(1, displs[src], counts[src])
         block = rot.narrow(0, 0, counts[src])
-        acc = torch.matmul(a_cols, block) if acc is None else acc.addmm_(a_cols, block)
+        if acc is None:
+            acc = _mm(a_cols, block)
+        elif acc.is_floating_point() or acc.is_complex():
+            acc.addmm_(a_cols, block)
+        else:
+            acc.add_(_mm(a_cols, block))
         if nxt is not None:
             rot = nxt.wait()
     return _wrap(acc, (M, N), 0, a, a0.balanced)

@@ -542,3 +542,96 @@ def test_summa_multicard_without_cuda_exits_2():
     out = subprocess.run([sys.executable, str(REPO / "scripts" / "summa_multicard.py")], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 2 and '"ok"' not in out.stdout
+
+
+def test_qr_flops_at_config_1(chip_smoke):
+    """The counts the config-1 phase divides by: the standard 4mn^2 - 4n^3/3
+    (~262 GFLOP at 1e6 x 256) and CholeskyQR2's four executed m.n^2
+    products at world size 1 (~524 GFLOP); mode 'r' three, the SVD five;
+    on four ranks TSQR's merge adds one product to each route with a Q."""
+    m, n = chip_smoke.QR_SHAPE
+    f = chip_smoke.qr_flops(m, n)
+    assert (m, n) == (1_000_000, 256)
+    assert f["standard"] == pytest.approx(262.12e9, rel=1e-4)
+    assert f["cholqr2"] == 4 * 2.0 * m * n * n == pytest.approx(524.288e9)
+    assert f["cholqr2_r"] == 3 * 2.0 * m * n * n and f["svd"] == 5 * 2.0 * m * n * n
+    assert f["standard_r"] == pytest.approx(f["standard"] / 2)
+    assert f["householder"] == f["standard"]
+    f4 = chip_smoke.qr_flops(m, n, world=4)
+    assert f4["cholqr2"] == 5 * 2.0 * m * n * n and f4["svd"] == 6 * 2.0 * m * n * n
+    assert f4["cholqr2_r"] == f["cholqr2_r"] and f4["householder"] == f["standard"] + 2.0 * m * n * n
+
+
+def test_qr_errors_hold_a_factorization_and_refuse_a_wrong_one(chip_smoke):
+    """The float64 checks of the config-1 phase, over blocks of rows: a
+    float32 QR passes QR_TOL; a Q whose columns lean on each other by one
+    part in 1e3 (as TF32 Grams leave them) fails the orthogonality; an
+    SVD's U, S, V^T take the same measure."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(5000, 16, generator=g)
+    q, r = torch.linalg.qr(a)
+    errs = chip_smoke.qr_errors(a, q, r, rows=1024)
+    assert errs["rel_err"] < 1e-6 and errs["orth_err"] < 1e-5 and errs["tril_max"] == 0.0
+    bad = chip_smoke.qr_errors(a, q + 1e-3 * q.roll(1, dims=1), r, rows=1024)
+    assert bad["orth_err"] > chip_smoke.QR_TOL
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    errs = chip_smoke.qr_errors(a, u, vh, s=s, rows=999)
+    assert errs["rel_err"] < 1e-6 and errs["orth_err"] < 1e-5 and "tril_max" not in errs
+
+
+def test_align_signs_recovers_a_flipped_factorization(chip_smoke):
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn(300, 8, generator=g)
+    q, r = torch.linalg.qr(a)
+    flip = torch.tensor([1.0, -1, -1, 1, 1, -1, 1, -1])
+    d = chip_smoke.align_signs(flip[:, None] * r, r)
+    assert torch.equal(d, flip)
+    assert chip_smoke.rel_max(q * flip * d, q) == 0.0
+    assert chip_smoke.rel_max(d[:, None] * (flip[:, None] * r), r) == 0.0
+
+
+def test_cdist_bound_is_the_result_written_once(chip_smoke):
+    """32768^2 float32 distances of 32 features: the 4 GiB result at 3.35
+    TB/s (1.28 ms) outlasts 2nmd operations at 67 TFLOP/s (1.03 ms)."""
+    n, d = chip_smoke.CDIST_SHAPE
+    ms, by = chip_smoke.cdist_bound_ms(n, n, d)
+    assert by == "bytes" and ms == pytest.approx(4.0 * (n * n + 2 * n * d) / 3.35e12 * 1e3)
+    assert ms == pytest.approx(1.28, rel=1e-2)
+    assert 2.0 * n * n * d / 67e12 * 1e3 == pytest.approx(1.03, rel=1e-2)
+    assert chip_smoke.cdist_bound_ms(4096, 4096, 128)[1] == "operations"
+
+
+def _tf32(t):
+    """float32 rounded to TF32's 10 mantissa bits (to nearest)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("quadratic_expansion", [False, True])
+def test_rbf_check_passes_float32_and_refuses_tf32_and_bfloat16(chip_smoke, quadratic_expansion):
+    """The cdist phase's rbf check (RBF_SIGMA, CDIST_RTOL of each entry) at
+    its width: the port's float32 rbf of randn rows passes by either form;
+    the kernel of the same rows rounded to TF32 (the expansion's GEMM as
+    TF32 takes it) or to bfloat16, then computed in float64, fails."""
+    import heat_tpu_torch as htt
+
+    g = torch.Generator().manual_seed(0)
+    d = chip_smoke.CDIST_SHAPE[1]
+    assert chip_smoke.RBF_SIGMA == pytest.approx((2.0 * d) ** 0.5)
+    x, y = torch.randn(256, d, generator=g), torch.randn(512, d, generator=g)
+    want = chip_smoke.rbf_want(torch.cdist(x.double(), y.double()))
+    assert 0.05 < float(want.median()) < 0.95
+    got = htt.spatial.rbf(htt.array(x, split=0, device="cpu"), htt.array(y, device="cpu"),
+                          sigma=chip_smoke.RBF_SIGMA, quadratic_expansion=quadratic_expansion).larray
+    assert chip_smoke.within_rtol(got, want)
+    for rounded in (_tf32(x), _tf32(y)), (x.bfloat16().float(), y.bfloat16().float()):
+        lower = chip_smoke.rbf_want(torch.cdist(rounded[0].double(), rounded[1].double()))
+        assert not chip_smoke.within_rtol(lower, want)
+
+
+def test_tsqr_multicard_without_cuda_exits_2():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tsqr_multicard.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "tsqr_multicard.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and '"ok"' not in out.stdout

@@ -639,6 +639,16 @@ def _gloo_rank(rank, store):
         s = ht.linalg.matmul_summa(ht.array(a, split=0), ht.array(b, split=0))
         assert s.larray.is_cuda
         torch.testing.assert_close(s.resplit(None).larray, a @ b, rtol=1e-5, atol=1e-5)
+        gi = torch.Generator(device="cuda").manual_seed(9)
+        ia = torch.randint(-2**31, 2**31 - 1, (7, 5), generator=gi, dtype=torch.int32, device="cuda")
+        ib = torch.randint(-2**31, 2**31 - 1, (5, 4), generator=gi, dtype=torch.int32, device="cuda")
+        want = ia.cpu().numpy() @ ib.cpu().numpy()
+        for sa, sb in ((0, 0), (1, 0)):
+            c = ht.matmul(ht.array(ia, split=sa), ht.array(ib, split=sb))
+            assert c.larray.is_cuda and c.dtype is ht.int32
+            np.testing.assert_array_equal(c.resplit(None).larray.cpu().numpy(), want)
+        s = ht.linalg.matmul_summa(ht.array(ia, split=0), ht.array(ib, split=0))
+        np.testing.assert_array_equal(s.resplit(None).larray.cpu().numpy(), want)
         torch.distributed.barrier()
     finally:
         ht.core.bootstrap.finalize_distributed()
@@ -676,3 +686,78 @@ def test_cuda_matmul_stays_on_the_card():
         assert torch.equal(c.larray, a @ b)
     err = float((a @ b - (a.double() @ b.double())).abs().max() / (a.double() @ b.double()).abs().max())
     assert err < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint8, np.int16, np.int8])
+def test_cuda_integer_matmul_is_exact_and_wraps_as_numpy(dtype):
+    """torch has no integer GEMM on the card: ``ht.matmul`` of integer CUDA
+    DNDarrays takes exact float64 products of 16-bit halves
+    (``basics._int_matmul``) and wraps as the reference's ``jnp.matmul``
+    and numpy's integer product do; bool @ bool is the or of ands; int64
+    raises a TypeError."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(int(info.bits))
+    a = rng.integers(info.min, info.max, (300, 1000), endpoint=True).astype(dtype)
+    b = rng.integers(info.min, info.max, (1000, 70), endpoint=True).astype(dtype)
+    want = a @ b
+    for sa, sb in ((0, 0), (None, None), (1, 0)):
+        c = htt.matmul(htt.array(torch.from_numpy(a).cuda(), split=sa), htt.array(torch.from_numpy(b).cuda(), split=sb))
+        assert c.larray.is_cuda and c.dtype.__name__ == np.dtype(dtype).name
+        np.testing.assert_array_equal(c.numpy(), want)
+    from heat_tpu_torch.linalg import basics
+
+    basics_k = basics._EXACT_K
+    basics._EXACT_K = 256  # K in four chunks, each exact
+    try:
+        np.testing.assert_array_equal(basics._int_matmul(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+                                      .cpu().numpy(), want)
+    finally:
+        basics._EXACT_K = basics_k
+    p, q = rng.random((50, 40)) > 0.7, rng.random((40, 30)) > 0.7
+    got = htt.matmul(htt.array(torch.from_numpy(p).cuda(), split=0), htt.array(torch.from_numpy(q).cuda(), split=0))
+    assert got.larray.is_cuda and got.dtype is htt.bool
+    np.testing.assert_array_equal(got.numpy(), (p.astype(np.int64) @ q.astype(np.int64)) > 0)
+    with pytest.raises(TypeError):
+        htt.matmul(htt.array(torch.ones(4, 4, dtype=torch.int64, device="cuda")),
+                   htt.array(torch.ones(4, 4, dtype=torch.int64, device="cuda")))
+
+
+def test_cuda_qr_svd_cdist_and_solvers_stay_on_the_card():
+    """The linear algebra of the config-1 path at a small size on the card,
+    under TF32 matmul precision set by the caller: every result on the
+    card, in full float32 (within 1e-4 of float64), and the caller's
+    precision restored."""
+    flags = torch.backends.cuda.matmul
+    old = flags.fp32_precision
+    flags.fp32_precision = "tf32"
+    try:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        a = torch.randn(4099, 64, generator=g, device="cuda")
+        for method in ("auto", "householder"):
+            q, r = htt.linalg.qr(htt.array(a, split=0), method=method)
+            assert q.larray.is_cuda and r.larray.is_cuda and flags.fp32_precision == "tf32"
+            qd, rd = q.larray.double(), r.larray.double()
+            assert float((qd @ rd - a.double()).norm() / a.double().norm()) < 1e-5
+            assert float((qd.T @ qd - torch.eye(64, device="cuda", dtype=torch.float64)).abs().max()) < 1e-4
+        u, s, v = htt.linalg.svd(htt.array(a, split=0))
+        s64 = torch.linalg.svdvals(a.double())
+        assert u.larray.is_cuda and float((s.larray.double() - s64).abs().max() / s64.max()) < 1e-5
+        x, y = torch.randn(500, 32, generator=g, device="cuda"), torch.randn(300, 32, generator=g, device="cuda")
+        d64 = torch.cdist(x.double(), y.double())
+        for expand in (False, True):
+            d = htt.spatial.cdist(htt.array(x, split=0), htt.array(y), quadratic_expansion=expand)
+            assert d.larray.is_cuda and float((d.larray.double() - d64).abs().max() / d64.max()) < 1e-5
+        m = torch.randn(256, 256, generator=g, device="cuda")
+        spd = m @ m.T / 256 + torch.eye(256, device="cuda")
+        bvec = torch.randn(256, generator=g, device="cuda")
+        sol = htt.linalg.cg(htt.array(spd, split=0), htt.array(bvec, split=0), tol=1e-5)
+        want = torch.linalg.solve(spd.double(), bvec.double())
+        assert sol.larray.is_cuda and float((sol.larray.double() - want).abs().max() / want.abs().max()) < 1e-4
+        up = torch.triu(m) + 16 * torch.eye(256, device="cuda")
+        for blocked in (True, False):
+            t = htt.linalg.solve_triangular(htt.array(up, split=0), htt.array(bvec, split=0), blocked=blocked)
+            want = torch.linalg.solve_triangular(up.double(), bvec.double()[:, None], upper=True)[:, 0]
+            assert t.larray.is_cuda and float((t.larray.double() - want).abs().max() / want.abs().max()) < 1e-5
+        assert flags.fp32_precision == "tf32"
+    finally:
+        flags.fp32_precision = old
