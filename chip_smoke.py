@@ -66,6 +66,30 @@
    ``svd``, ``hsvd_rank``, the blocked ``solve_triangular``, ``cg``, a
    boolean mask at split 0), each held against world size 1 on this card
    (``LINALG_2R_TOL``).
+4c. Data-parallel training (BASELINE configs 3 and 4).  Config 3 at world
+   size 1: 60000 x 784 MNIST-shaped float32 rows made on the card from a
+   seed (class-dependent bumps), split 0, ``examples/nn_mnist_demo.py``'s
+   MLP through ``DataParallel`` with Adam lr 1e-3 and
+   ``DataLoader(batch_size=256, shuffle=True)``, 3 epochs: the loss falls,
+   train accuracy passes 0.9, and a ``make_train_step`` step is the plain
+   torch step bit for bit; samples/s, the median step and the device's
+   idle share.  Config 4's model at world size 1: ``resnet50()`` (1000
+   classes) on one synthetic (64, 3, 224, 224) batch, ``DataParallel`` with
+   SGD lr 0.05, momentum 0.9, 20 steps in torch's default precision (TF32
+   convolutions): the loss on it falls; images/s, the median step, peak memory
+   and one profiled step's top kernels with cuDNN's convolution share.
+   Then 2 spawned ranks on this card over gloo, in IEEE float32: one
+   ``DataParallel`` SGD step of the MLP on a ragged 257-row global batch and
+   of ResNet-50 on 2 x 8 images (the global batch's BatchNorm), each against
+   world size 1 (the loss and, for the MLP, every parameter, ``DP_2R_RTOL``;
+   ResNet-50's parameters after the same step in float64,
+   ``DP_2R_F64_RTOL``, since in float32 the world-1 step itself lies ~7e-2
+   from float64 on BatchNorm biases whose gradients cancel); ``DASO`` on
+   ResNet-50 as 2 groups x 1, 8 images a rank, 8 steps (warmup 2,
+   ``global_skip`` 4, ``stale_steps`` 1) against a one-process emulation of
+   the same schedule, and ``consolidated_params`` against the ranks' mean;
+   the communicators' traffic and transport (2 processes on ONE card, not a
+   multi-card figure).
 5. Holds the three flash-attention kernels against their plain versions,
    through the multi-head wrappers and through the grouped-query ones
    (query heads : K/V heads 8:2, 8:1 and 4:4): float32 and bfloat16, causal
@@ -340,6 +364,18 @@ RBF_SIGMA = 8.0  # sqrt(2d): exp(-d^2 / 2 sigma^2) of randn rows is near e^-1/2,
 LINALG_2R_TOL = 1e-5  # max |got - want| / max |want|, factors sign-aligned
 LINALG_2R_CDIST = ((1001, 32), (777, 32))
 LINALG_2R_QR, LINALG_2R_REPLICATED = (4099, 64), (100, 64)
+# the data-parallel phase (4c): BASELINE config 3 (the MNIST MLP) and config 4 (ResNet-50)
+MNIST_N, MNIST_BATCH, MNIST_EPOCHS, MNIST_LR, MNIST_ACC = 60000, 256, 3, 1e-3, 0.9
+R50_BATCH, R50_STEPS, R50_LR, R50_MOMENTUM, R50_CLASSES = 64, 20, 0.05, 0.9, 1000
+DP_2R_MLP_ROWS, DP_2R_R50_ROWS = 257, 8  # the MLP's ragged global batch; ResNet-50's rows a rank
+DASO_2R = dict(total_local_comm_size=1, warmup_steps=2, global_skip=4, stale_steps=1)  # 2 groups x 1
+DASO_2R_STEPS = 8
+DP_2R_RTOL = 1e-5  # max |got - want| / max |want| of the loss and every parameter, IEEE float32
+# ResNet-50's parameters after the two-rank step are held in float64: in float32 the world-1 step
+# itself lies ~7e-2 (relative) from the float64 step on BatchNorm biases whose gradients cancel
+# (measured on the CPU at 224^2, 16 images), and the two-rank step as far
+DP_2R_F64_RTOL = 1e-9
+CONV_WORDS = ("conv", "fprop", "dgrad", "wgrad", "winograd", "cudnn", "implicit")  # cuDNN's convolution kernels
 RECOVER_TOL = 0.05  # kmeans++ fits: distance of each generating mean to its fitted centre
 INERTIA_RTOL = 1e-6  # the fit's inertia may pass the one-step inertia by float64 sum rounding only
 
@@ -1424,16 +1460,16 @@ def check_pos_kernels() -> dict:
 def _ring_step(ht, lm, comm, batch, lo: int, hi: int):
     """One sequence-parallel step's forward and backward on this rank's
     positions [lo, hi) of ``batch`` (B, S + 1): the loss is the global mean
-    (the local sum, Allreduced, over the global token count) and every
-    gradient is summed over the ranks.  Returns the loss."""
+    (the local sum, Allreduced, over the global token count) and the
+    gradients are summed over the ranks by the bucketed sync.  Returns the
+    loss."""
     inp, tgt = batch[:, :-1][:, lo:hi], batch[:, 1:][:, lo:hi]
     logits = lm(inp)
     local = ht.nn.functional.cross_entropy(logits.reshape(-1, LM["vocab_size"]), tgt.reshape(-1), reduction="sum")
     count = batch.shape[0] * (batch.shape[1] - 1)
     lm.zero_grad(set_to_none=True)
     (local / count).backward()
-    for p in lm.parameters():
-        comm.Allreduce(p.grad)
+    ht.core.collectives.bucketed_grad_allreduce(comm, [p.grad for p in lm.parameters()], op="sum")
     return float(comm.Allreduce(local.detach().clone())) / count
 
 
@@ -2285,6 +2321,347 @@ def linalg_two_ranks(ht, smi: str) -> None:
                       "card": smi}), flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# data-parallel training (BASELINE configs 3 and 4)
+# ---------------------------------------------------------------------- #
+def mnist_synthetic(n: int, seed: int):
+    """MNIST-shaped data made on the card from a seeded generator: (n, 28,
+    28) float32 images in [0, 1] whose class k is a Gaussian bump where
+    ``heat_tpu/utils/data/mnist.py::_synthetic`` puts it, plus noise 0.05,
+    and (n,) int32 labels."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    labels = torch.randint(0, 10, (n,), generator=g, device="cuda")
+    grid = torch.arange(28.0, device="cuda")
+    cx, cy = 4 + 2.2 * (labels % 5).float(), 7 + 11 * (labels // 5).float()
+    imgs = torch.exp(-((grid[None, None, :] - cx[:, None, None]) ** 2 + (grid[None, :, None] - cy[:, None, None]) ** 2)
+                     / 14.0)
+    imgs += 0.05 * torch.randn(imgs.shape, generator=g, device="cuda")
+    return imgs.clamp_(0.0, 1.0), labels.to(torch.int32)
+
+
+def mnist_model(ht):
+    """``examples/nn_mnist_demo.py``'s model: Flatten, 784-128-64-10 with ReLU."""
+    return ht.nn.Sequential(ht.nn.Flatten(), ht.nn.Linear(784, 128), ht.nn.ReLU(), ht.nn.Linear(128, 64),
+                            ht.nn.ReLU(), ht.nn.Linear(64, 10))
+
+
+def max_rel_err(got: dict, want: dict) -> tuple:
+    """(name, max |got - want| / max |want|) of the worst of two state dicts."""
+    return max(((n, float((got[n].double() - w.double()).abs().max() / w.double().abs().max().clamp_min(1e-30)))
+                for n, w in want.items()), key=lambda t: t[1])
+
+
+def _plain_step(model, opt, x, y, loss_fn):
+    opt.zero_grad()
+    loss = loss_fn(model(x), y)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def config3_world_one(ht, smi: str) -> None:
+    """BASELINE config 3 at world size 1: the MLP on 60000 MNIST-shaped
+    rows, Adam, DataLoader(batch_size=256, shuffle=True), 3 epochs; the
+    loss falls and train accuracy passes MNIST_ACC; one make_train_step step
+    is one plain torch step, bit for bit."""
+    import copy
+
+    import torch
+
+    ce = ht.nn.functional.cross_entropy
+    x, y = mnist_synthetic(MNIST_N, 3)
+    torch.manual_seed(0)
+    model = mnist_model(ht)
+    plain = copy.deepcopy(model)
+    dp = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer("adam", lr=MNIST_LR))
+    step = dp.make_train_step(ce)
+    popt = torch.optim.Adam(plain.parameters(), lr=MNIST_LR)
+    for b in range(2):
+        rows = slice(b * MNIST_BATCH, (b + 1) * MNIST_BATCH)
+        loss, loss_plain = step(x[rows], y[rows]), _plain_step(plain, popt, x[rows], y[rows], ce)
+        same = torch.equal(loss, loss_plain) and all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                                                      plain.parameters()))
+        if not same:
+            fail(f"config 3: a DataParallel step at world size 1 is not the plain torch step's bits (step {b + 1})")
+    torch.manual_seed(0)
+    model = mnist_model(ht)
+    dp = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer("adam", lr=MNIST_LR))
+    step = dp.make_train_step(ce)
+    loader = ht.utils.data.DataLoader(ht.utils.data.Dataset(ht.array(x, split=0), labels=ht.array(y, split=0)),
+                                      batch_size=MNIST_BATCH, shuffle=True)
+    torch.cuda.synchronize()
+    losses, step_s, epoch_s = [], [], []
+    for _ in range(MNIST_EPOCHS):
+        t_epoch = time.perf_counter()
+        for xb, yb in loader:
+            t0 = time.perf_counter()
+            losses.append(float(step(xb, yb)))
+            step_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t_epoch)
+    with torch.no_grad():
+        acc = float((dp.eval()(x).argmax(1) == y).float().mean())
+    dp.train()
+    xb, yb = x[:MNIST_BATCH], y[:MNIST_BATCH]
+    prof = profile_row(lambda: [step(xb, yb) for _ in range(20)], "config 3 MLP, 20 DataParallel steps")
+    per_epoch = len(loader)
+    first, last = losses[:per_epoch], losses[-per_epoch:]
+    median = sorted(step_s)[len(step_s) // 2]
+    print(json.dumps({
+        "phase": "main_path", "path": "DataParallel MLP on MNIST-shaped data (BASELINE config 3), world size 1",
+        "rows": MNIST_N, "batch": MNIST_BATCH, "epochs": MNIST_EPOCHS, "optimizer": "adam", "lr": MNIST_LR,
+        "steps": len(losses), "precision": "float32, matmul TF32 off (torch's default)",
+        "samples_per_s": MNIST_N * MNIST_EPOCHS / sum(epoch_s), "step_ms_median": median * 1e3,
+        "epoch_s": epoch_s, "first_epoch_loss": sum(first) / len(first), "last_epoch_loss": sum(last) / len(last),
+        "train_accuracy": acc, "device_idle_share": prof["device_idle_share"], "profile": prof,
+        "step_vs_plain_torch": "bit for bit", "card": smi}), flush=True)
+    if not all(v == v for v in losses) or not sum(last) < sum(first):
+        fail(f"config 3: the loss did not fall: {sum(first) / len(first)} -> {sum(last) / len(last)}")
+    if not acc > MNIST_ACC:
+        fail(f"config 3: train accuracy {acc} <= {MNIST_ACC}")
+
+
+def conv_profile(fn, label: str) -> dict:
+    """One profiled call of ``fn``: the top device kernels and cuDNN's
+    convolutions' share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    if busy <= 0:
+        fail(f"{label}: the profiler saw no device time")
+    conv = sum(ms for name, ms, _ in kernels if any(w in name.lower() for w in CONV_WORDS))
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    return {"phase": "where_time_goes", "path": label, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3), "conv_ms": conv, "conv_share_of_busy": conv / busy,
+            "top_kernels": [{"name": n[:120], "ms": round(ms, 3), "launches": c} for n, ms, c in top]}
+
+
+def config4_world_one(ht, smi: str) -> None:
+    """BASELINE config 4's model at world size 1: ``resnet50()`` (1000
+    classes) on one synthetic (64, 3, 224, 224) float32 batch, random
+    labels, DataParallel with SGD lr 0.05, momentum 0.9, 20 steps in
+    torch's default precision (TF32 convolutions): the loss on the batch
+    falls (at this rate from scratch it first jumps, then falls steadily;
+    on two alternating random batches it does not fall reliably)."""
+    import torch
+
+    torch.manual_seed(0)
+    model = ht.nn.models.resnet50()
+    dp = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer("sgd", lr=R50_LR, momentum=R50_MOMENTUM))
+    step = dp.make_train_step(ht.nn.functional.cross_entropy)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    batch = (torch.randn(R50_BATCH, 3, 224, 224, generator=g, device="cuda"),
+             torch.randint(0, R50_CLASSES, (R50_BATCH,), generator=g, device="cuda"))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default for the timed run
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for i in range(R50_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(*batch)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        prof = conv_profile(lambda: step(*batch), "ResNet-50 DataParallel step, batch 64, TF32 convolutions")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    median = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(json.dumps({
+        "phase": "main_path", "path": "DataParallel ResNet-50 (BASELINE config 4's model), world size 1",
+        "params": sum(p.numel() for p in model.parameters()), "batch": [R50_BATCH, 3, 224, 224],
+        "classes": R50_CLASSES, "optimizer": "sgd", "lr": R50_LR, "momentum": R50_MOMENTUM, "steps": R50_STEPS,
+        "precision": "float32, TF32 convolutions (torch's default), matmul TF32 off",
+        "first_step_ms": step_s[0] * 1e3, "step_ms_median": median * 1e3, "images_per_s": R50_BATCH / median,
+        "peak_mem_bytes": peak, "losses": [round(v, 4) for v in losses], "card": smi}), flush=True)
+    print(json.dumps(prof), flush=True)
+    if not all(v == v for v in losses) or not losses[-1] < losses[0]:
+        fail(f"config 4: the ResNet-50 loss did not fall: {losses}")
+
+
+def _daso_emulation(ht, x, y, rows: int, steps: int):
+    """DASO over 2 groups of 1 in one process: two replicas from seed 3,
+    each trains on its half of every global batch, then the schedule of
+    DASO_2R (full average in warmup; every global_skip steps an average
+    snapshotted and blended stale_steps later at weight 0.5)."""
+    import copy
+
+    import torch
+
+    torch.manual_seed(3)
+    reps = [ht.nn.models.resnet50()]
+    reps.append(copy.deepcopy(reps[0]))
+    opts = [torch.optim.SGD(m.parameters(), lr=R50_LR, momentum=R50_MOMENTUM) for m in reps]
+    pending, w = None, 0.5
+    for t in range(1, steps + 1):
+        for r, (m, opt) in enumerate(zip(reps, opts)):
+            m.train()
+            _plain_step(m, opt, x[t - 1][r * rows:(r + 1) * rows], y[t - 1][r * rows:(r + 1) * rows],
+                        ht.nn.functional.cross_entropy)
+        params = [list(m.parameters()) for m in reps]
+        with torch.no_grad():
+            if t <= DASO_2R["warmup_steps"]:
+                for a, b in zip(*params):
+                    avg = (a + b) / 2
+                    a.copy_(avg)
+                    b.copy_(avg)
+            else:
+                if pending is not None and t >= pending[1]:
+                    for reps_p in params:
+                        for p, avg in zip(reps_p, pending[0]):
+                            p.copy_((1.0 - w) * p + w * avg)
+                    pending = None
+                if t % DASO_2R["global_skip"] == 0 and pending is None:
+                    pending = ([(a + b) / 2 for a, b in zip(*params)], t + DASO_2R["stale_steps"])
+    return reps
+
+
+def dp_rank(rank: int, port: int, out_q) -> None:
+    """One rank of the two-rank data-parallel phase (a spawned process):
+    config 3's MLP and ResNet-50, one DataParallel step each against world
+    size 1 on this card; DASO over 2 groups x 1 against its one-process
+    emulation; all in IEEE float32 (``_full_float32``)."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.linalg.basics import _full_float32
+    from heat_tpu_torch.optim.dp_optimizer import _drain
+
+    torch.backends.cudnn.deterministic = True  # the same convolution algorithms on both sides of each check
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        ce = ht.nn.functional.cross_entropy
+        res = {"rank": rank}
+        with _full_float32():
+            # config 3's MLP: one step on a ragged global batch (129 | 128 rows)
+            x, y = mnist_synthetic(DP_2R_MLP_ROWS, 5)
+            sl = comm.chunk(x.shape, 0)[2][0]
+            torch.manual_seed(1 + rank)  # each rank its own weights: DataParallel broadcasts rank 0's
+            model = mnist_model(ht)
+            comm.reset_traffic()
+            t0 = time.perf_counter()
+            # SGD, not config 3's Adam: Adam's first step is lr * g / (|g| + eps), +-lr for
+            # every gradient above eps, whose sign float32 noise decides where g is ~0
+            loss = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer(
+                "sgd", lr=R50_LR, momentum=R50_MOMENTUM)).make_train_step(ce)(x[sl], y[sl])
+            torch.cuda.synchronize()
+            res["mlp_step_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.manual_seed(1)
+            one = mnist_model(ht)
+            loss_one = _plain_step(one, torch.optim.SGD(one.parameters(), lr=R50_LR, momentum=R50_MOMENTUM), x, y,
+                                   ce)
+            res["mlp"] = {"rows": list(sl.indices(DP_2R_MLP_ROWS))[:2], "loss_rel_err": float(
+                abs(loss - loss_one) / abs(loss_one)), "worst": max_rel_err(model.state_dict(), one.state_dict()),
+                "traffic": comm.traffic(), "transport": {op: comm.transport(loss, op) for op in
+                                                         ("Allreduce", "Allgather", "Bcast")}}
+            del model, one
+            # ResNet-50: one step, 8 images a rank, the global batch's BatchNorm; in
+            # float32 (loss held, parameters reported) and in float64 (parameters held)
+            g = torch.Generator(device="cuda").manual_seed(6)
+            rows = 2 * DP_2R_R50_ROWS
+            x = torch.randn(rows, 3, 224, 224, generator=g, device="cuda")
+            y = torch.randint(0, R50_CLASSES, (rows,), generator=g, device="cuda")
+            mine = slice(rank * DP_2R_R50_ROWS, (rank + 1) * DP_2R_R50_ROWS)
+            states = {}
+            for dtype in (torch.float32, torch.float64):
+                torch.manual_seed(2 + rank)
+                model = ht.nn.models.resnet50().to(dtype)
+                comm.reset_traffic()
+                t0 = time.perf_counter()
+                loss = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer(
+                    "sgd", lr=R50_LR, momentum=R50_MOMENTUM)).make_train_step(ce)(x[mine].to(dtype), y[mine])
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                torch.manual_seed(2)
+                one = ht.nn.models.resnet50().to(dtype)
+                loss_one = _plain_step(one, torch.optim.SGD(one.parameters(), lr=R50_LR, momentum=R50_MOMENTUM),
+                                       x.to(dtype), y, ce)
+                states[dtype] = (model.state_dict(), one.state_dict())
+                res[f"r50_{str(dtype)[6:]}"] = {
+                    "step_ms": step_ms, "loss_rel_err": float(abs(loss - loss_one) / abs(loss_one)),
+                    "worst": max_rel_err(model.state_dict(), one.state_dict()), "traffic": comm.traffic()}
+                del model, one
+            # float32's distance from float64 at world size 1 and over 2 ranks
+            (dp32, one32), (_, one64) = states[torch.float32], states[torch.float64]
+            res["r50_float32"]["world_one_vs_float64"] = max_rel_err(one32, one64)
+            res["r50_float32"]["two_ranks_vs_float64"] = max_rel_err(dp32, one64)
+            del states, dp32, one32, one64
+            # DASO: 2 groups x 1, 8 steps of 8 images a rank
+            xs = [torch.randn(rows, 3, 224, 224, generator=g, device="cuda") for _ in range(DASO_2R_STEPS)]
+            ys = [torch.randint(0, R50_CLASSES, (rows,), generator=g, device="cuda") for _ in range(DASO_2R_STEPS)]
+            torch.manual_seed(3 + rank)
+            model = ht.nn.models.resnet50()
+            daso = ht.optim.DASO(ht.optim.DataParallelOptimizer("sgd", lr=R50_LR, momentum=R50_MOMENTUM), **DASO_2R)
+            daso.init(model)
+            losses, step_ms = [], []
+            for t in range(DASO_2R_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(daso.step(ce, xs[t][mine], ys[t][mine])))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            consolidated = daso.consolidated_params()
+            _drain(daso._pending)  # the average dispatched at the last step
+            flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+            mean = sum(comm.Allgather(flat)) / 2
+            off, worst_mean = 0, 0.0
+            for name, p in consolidated.items():
+                ref = mean[off: off + p.numel()].view_as(p)
+                worst_mean = max(worst_mean, float((p - ref).abs().max() / ref.abs().max().clamp_min(1e-30)))
+                off += p.numel()
+            emulated = _daso_emulation(ht, xs, ys, DP_2R_R50_ROWS, DASO_2R_STEPS)[rank]
+            res["daso"] = {"losses": losses, "step_ms": step_ms, "worst": max_rel_err(model.state_dict(),
+                                                                                       emulated.state_dict()),
+                           "consolidated_vs_mean": worst_mean, "dcn_traffic": daso.dcn.traffic(),
+                           "groups": [list(daso.ici.ranks), list(daso.dcn.ranks)],
+                           "devices": sorted({str(p.device) for p in model.parameters()})}
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def data_parallel_two_ranks(smi: str) -> None:
+    """The two-rank data-parallel phase: 2 processes on this card over gloo;
+    checks what each reports against DP_2R_RTOL and prints rank 0's line."""
+    results = spawn_ranks(dp_rank, 2, RING_TIMEOUT_S)
+    for rank, res in sorted(results.items()):
+        for key, rtol in (("mlp", DP_2R_RTOL), ("r50_float64", DP_2R_F64_RTOL), ("daso", DP_2R_RTOL)):
+            worst = res[key]["worst"]
+            if not worst[1] <= rtol or not res[key].get("loss_rel_err", 0.0) <= rtol:
+                fail(f"rank {rank}: {key} against world size 1 (DASO: its emulation) beyond {rtol}: "
+                     f"{worst}, loss {res[key].get('loss_rel_err')}")
+        if not res["r50_float32"]["loss_rel_err"] <= DP_2R_RTOL:
+            fail(f"rank {rank}: the float32 ResNet-50 loss against world size 1: {res['r50_float32']}")
+        if not res["daso"]["consolidated_vs_mean"] <= DP_2R_RTOL:
+            fail(f"rank {rank}: consolidated_params is not the ranks' mean: {res['daso']['consolidated_vs_mean']}")
+        if res["daso"]["devices"] != ["cuda:0"]:
+            fail(f"rank {rank}: DASO's parameters left the card: {res['daso']['devices']}")
+    r0 = results[0]
+    print(json.dumps({
+        "phase": "data_parallel_two_ranks", "note": "2 processes on ONE card over gloo: not a multi-card figure",
+        "precision": "IEEE float32 (_full_float32: matmul and cuDNN convolutions)", "rtol": DP_2R_RTOL,
+        "mlp": {"rows": DP_2R_MLP_ROWS, "step_ms": r0["mlp_step_ms"], **r0["mlp"]},
+        "resnet50_float32": {"rows_per_rank": DP_2R_R50_ROWS, **r0["r50_float32"]},
+        "resnet50_float64": {"rows_per_rank": DP_2R_R50_ROWS, "rtol": DP_2R_F64_RTOL, **r0["r50_float64"]},
+        "daso": {**DASO_2R, "steps": DASO_2R_STEPS, **r0["daso"], "rank1_worst": results[1]["daso"]["worst"]},
+        "card": smi}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2378,6 +2755,15 @@ def main() -> int:
     cdist_main(ht, smi)
     linalg_two_ranks(ht, smi)
     print(json.dumps({"phase": "linalg_seconds", "seconds": time.perf_counter() - t0}), flush=True)
+
+    # 5b. data-parallel training: config 3's MLP and config 4's ResNet-50 at
+    # world size 1, then 2 ranks on this card over gloo
+    t0 = time.perf_counter()
+    config3_world_one(ht, smi)
+    config4_world_one(ht, smi)
+    torch.cuda.empty_cache()
+    data_parallel_two_ranks(smi)
+    print(json.dumps({"phase": "data_parallel_seconds", "seconds": time.perf_counter() - t0}), flush=True)
 
     # 6. the LMs, multi-head and grouped-query: training, one step against
     # the plain versions, generation

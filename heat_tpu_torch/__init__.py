@@ -8,13 +8,15 @@ collectives.  ``import heat_tpu_torch as ht`` reads like ``heat_tpu``.
 factor tall-skinny ones (TSQR), ``ht.spatial.cdist`` takes pairwise
 distances, and
 ``ht.parallel.ring_attention`` runs attention over a sequence split across
-the ranks.
+the ranks, and ``ht.nn.DataParallel`` and ``ht.optim.DASO`` train a model
+data-parallel over the ranks.
 Arrays live on the card (``'gpu'``) unless the caller asks for the CPU.
 """
 
 from .core import *
 from . import core
 from .core import random
+from .core.collectives import set_grad_bucket_budget, get_grad_bucket_budget
 from . import linalg
 from .linalg import matmul, dot, transpose, norm
 from .linalg.basics import matmul_summa, matrix_norm, outer, trace, tril, triu, vdot, vector_norm

@@ -33,3 +33,4 @@ from .bootstrap import *
 from .tiling import *
 from . import tiling
 from . import random
+from . import collectives

@@ -20,6 +20,13 @@ Every collective passes through one accounting choke point
 (:meth:`Communication._account`): calls and wire bytes per collective name,
 the payload times the JAX package's traffic factor of that collective
 (``traffic()``).
+
+:meth:`Communication.Split` makes subgroup communicators (MPI's
+``comm.Split(color, key)``) over ``torch.distributed.new_group``: every
+rank of the world creates every group, in one order.  ``Iallreduce``,
+``Ireduce_scatter`` and ``Iallgather`` return a request whose ``wait()``
+gives the result; under NCCL the wait orders the current stream after the
+collective without blocking the host.
 """
 
 from __future__ import annotations
@@ -50,10 +57,15 @@ _OPS = {
 
 class Communication:
     """A communicator over the world process group when one is initialized,
-    and over a world of one process otherwise."""
+    and over a world of one process otherwise; or, made by :meth:`Split`,
+    over a subgroup (``group``) of the world's ranks ``ranks``, in their
+    order."""
 
-    def __init__(self):
+    def __init__(self, group=None, ranks: Optional[Sequence[int]] = None):
         self._traffic: Dict[str, Dict[str, int]] = {}
+        self.group = group
+        self._ranks = None if ranks is None else tuple(int(r) for r in ranks)
+        self._splits: Dict = {}  # (color, key) of every rank -> the communicator Split made
 
     @property
     def _active(self) -> bool:
@@ -62,12 +74,25 @@ class Communication:
     @property
     def size(self) -> int:
         """Number of processes (the reference's ``comm.size``)."""
+        if self._ranks is not None:
+            return len(self._ranks)
         return dist.get_world_size() if self._active else 1
 
     @property
     def rank(self) -> int:
         """This process's rank in the group."""
+        if self._ranks is not None:
+            return self._ranks.index(dist.get_rank()) if self._active else 0
         return dist.get_rank() if self._active else 0
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The world ranks of this communicator's processes, in its rank order."""
+        return self._ranks if self._ranks is not None else tuple(range(self.size))
+
+    def _world_rank(self, rank: int) -> int:
+        """The world rank of this communicator's ``rank`` (a collective's root or peer)."""
+        return self.ranks[rank]
 
     def is_distributed(self) -> bool:
         return self.size > 1
@@ -134,9 +159,14 @@ class Communication:
         package builds from Allreduce and Bcast, take those factors under
         their own names.  At world size 1 every collective is the identity
         and nothing is counted."""
+        self._account_bytes(name, int(round(x.numel() * x.element_size() * factor)))
+
+    def _account_bytes(self, name: str, nbytes: int) -> None:
+        """Count one call of ``name`` moving ``nbytes`` wire bytes (the
+        bucketed sync accounts its stages here, telescoped)."""
         entry = self._traffic.setdefault(name, {"calls": 0, "bytes": 0})
         entry["calls"] += 1
-        entry["bytes"] += int(round(x.numel() * x.element_size() * factor))
+        entry["bytes"] += int(nbytes)
 
     def traffic(self) -> Dict[str, Dict[str, int]]:
         """``{collective: {"calls": n, "bytes": wire bytes}}`` since the last
@@ -156,7 +186,7 @@ class Communication:
         if self.is_distributed():
             p = self.size
             self._account("Allreduce", x, 2.0 * (p - 1) / p)
-            dist.all_reduce(x, op=_OPS[op])
+            dist.all_reduce(x, op=_OPS[op], group=self.group)
         return x
 
     def Bcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
@@ -164,7 +194,7 @@ class Communication:
         if self.is_distributed():
             p = self.size
             self._account("Bcast", x, 2.0 * (p - 1) / p)
-            dist.broadcast(x, src=root)
+            dist.broadcast(x, src=self._world_rank(root), group=self.group)
         return x
 
     def Reduce(self, x: torch.Tensor, root: int = 0, op: str = "sum") -> torch.Tensor:
@@ -177,7 +207,7 @@ class Communication:
         p = self.size
         self._account("Reduce", x, 2.0 * (p - 1) / p)
         buf = x if self.rank == root else x.clone()
-        dist.reduce(buf, dst=root, op=_OPS[op])
+        dist.reduce(buf, dst=self._world_rank(root), op=_OPS[op], group=self.group)
         return x if self.rank == root else torch.zeros_like(x)
 
     def Allgather(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -186,7 +216,7 @@ class Communication:
             return [x]
         self._account("Allgather", x, self.size - 1)
         out = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(out, x.contiguous())
+        dist.all_gather(out, x.contiguous(), group=self.group)
         return out
 
     def Allgatherv(self, x: torch.Tensor, axis: int = 0, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -255,7 +285,7 @@ class Communication:
         send_sizes = [pc.numel() * item for pc in pieces]
         recv_sizes = [math.prod(sh) * item for sh in shapes]
         recv = send.new_empty(sum(recv_sizes))
-        dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
+        dist.all_to_all_single(recv, send, recv_sizes, send_sizes, group=self.group)
         return [part.view(like.dtype).reshape(sh) for part, sh in zip(torch.split(recv, recv_sizes), shapes)]
 
     def ReduceScatter(self, x: torch.Tensor, axis: int = 0, op: str = "sum") -> torch.Tensor:
@@ -273,7 +303,7 @@ class Communication:
         width = max(counts)
         pieces = [_pad_rows(piece, width) for piece in torch.split(x.movedim(axis, 0), list(counts))]
         out = torch.empty_like(pieces[0])
-        dist.reduce_scatter(out, pieces, op=_OPS[op])
+        dist.reduce_scatter(out, pieces, op=_OPS[op], group=self.group)
         return out[: counts[self.rank]].movedim(0, axis).contiguous()
 
     def Scatter(self, x: torch.Tensor, root: int = 0, axis: int = 0) -> torch.Tensor:
@@ -290,7 +320,7 @@ class Communication:
         xm = x.movedim(axis, 0)
         out = x.new_empty((width,) + tuple(xm.shape[1:]))
         pieces = [_pad_rows(piece, width) for piece in torch.split(xm, list(counts))] if self.rank == root else None
-        dist.scatter(out, pieces, src=root)
+        dist.scatter(out, pieces, src=self._world_rank(root), group=self.group)
         return out[: counts[self.rank]].movedim(0, axis).contiguous()
 
     def Gather(self, x: torch.Tensor, root: int = 0, axis: int = 0) -> torch.Tensor:
@@ -304,7 +334,7 @@ class Communication:
         self._account("Gather", x, self.size - 1)
         xm = _pad_rows(x.movedim(axis, 0), max(counts))
         parts = [torch.empty_like(xm) for _ in range(self.size)] if self.rank == root else None
-        dist.gather(xm, parts, dst=root)
+        dist.gather(xm, parts, dst=self._world_rank(root), group=self.group)
         shape = (sum(counts),) + tuple(xm.shape[1:])
         if self.rank != root:
             return x.new_zeros(shape).movedim(0, axis).contiguous()
@@ -324,7 +354,8 @@ class Communication:
         if staged:
             buf = buf.cpu()
         recv = torch.empty_like(buf)
-        ops = [dist.P2POp(dist.isend, buf, (rank + shift) % p), dist.P2POp(dist.irecv, recv, (rank - shift) % p)]
+        ops = [dist.P2POp(dist.isend, buf, self._world_rank((rank + shift) % p), self.group),
+               dist.P2POp(dist.irecv, recv, self._world_rank((rank - shift) % p), self.group)]
         return _Shift(recv, dist.batch_isend_irecv(ops), x.device if staged else None, buf)
 
     def Send(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
@@ -351,10 +382,10 @@ class Communication:
             buf = buf.cpu()
         ops, recv = [], None
         if dst is not None:
-            ops.append(dist.P2POp(dist.isend, buf, dst))
+            ops.append(dist.P2POp(dist.isend, buf, self._world_rank(dst), self.group))
         if src is not None:
             recv = torch.empty_like(buf)
-            ops.append(dist.P2POp(dist.irecv, recv, src))
+            ops.append(dist.P2POp(dist.irecv, recv, self._world_rank(src), self.group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -414,7 +445,117 @@ class Communication:
     def Barrier(self) -> None:
         """Every rank waits for all the others."""
         if self.is_distributed():
-            dist.barrier()
+            dist.barrier(group=self.group)
+
+    # ------------------------------------------------------------------ #
+    # subgroups and asynchronous collectives
+    # ------------------------------------------------------------------ #
+    def Split(self, color: int, key: Optional[int] = None) -> "Communication":
+        """MPI's ``comm.Split``: the ranks that pass the same ``color`` form
+        one new communicator, ranked by ``key`` (default: the rank here).
+        Collective: every rank calls it, and every rank creates every group
+        (``torch.distributed.new_group``, in the order of the colors), as
+        NCCL and gloo require.  torch ranks a group's members in world-rank
+        order, so ``key`` must order them the same way.  Splitting by the
+        same colors and keys again returns the same communicator.  Only the
+        world communicator splits."""
+        key = self.rank if key is None else int(key)
+        if not self.is_distributed():
+            return Communication(self.group, self._ranks)
+        if self.group is not None:
+            raise NotImplementedError("Split of a subgroup communicator: split the world communicator")
+        mine = torch.tensor([int(color), key], dtype=torch.int64, device=self._scratch_device())
+        table = [tuple(int(v) for v in t.tolist()) for t in self._raw_allgather(mine)]
+        if tuple(table) in self._splits:
+            return self._splits[tuple(table)]
+        groups = {}
+        for world_rank, (c, k) in enumerate(table):
+            groups.setdefault(c, []).append((k, world_rank))
+        made = None
+        for c in sorted(groups):
+            members = [r for _, r in sorted(groups[c])]
+            if members != sorted(members):
+                raise ValueError(f"Split: key orders color {c}'s ranks as {members}; torch ranks a group's "
+                                 "members in world-rank order")
+            group = dist.new_group(members)
+            if c == int(color):
+                made = Communication(group, members)
+        self._splits[tuple(table)] = made
+        return made
+
+    def _scratch_device(self) -> torch.device:
+        """Where a small control tensor of this communicator lives: the
+        card under NCCL alone, else the host."""
+        backend = str(dist.get_backend(self.group)).lower()
+        if "nccl" in backend and "gloo" not in backend:
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def _raw_allgather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        out = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(out, x, group=self.group)
+        return out
+
+    def _ialltoall_rows(self, send: torch.Tensor, recv: torch.Tensor, send_counts: Sequence[int],
+                        recv_counts: Sequence[int]) -> "_Request":
+        """Rows ``send_counts[r]`` of ``send`` (in rank order) go to rank r;
+        ``recv`` takes ``recv_counts[s]`` rows from each rank s, in rank
+        order: one asynchronous ``all_to_all_single``, accounted as an
+        ``Alltoall``.  ``wait()`` gives ``recv``."""
+        p = self.size
+        if p == 1:
+            recv.copy_(send)
+            return _Request(recv)
+        self._account("Alltoall", send, (p - 1) / p)
+        return _Request(recv, dist.all_to_all_single(recv, send, list(map(int, recv_counts)),
+                                                     list(map(int, send_counts)), group=self.group, async_op=True))
+
+    def Iallreduce(self, x: torch.Tensor, op: str = "sum", account: bool = True) -> "_Request":
+        """:meth:`Allreduce` without waiting: reduces ``x`` in place and
+        returns a request whose ``wait()`` gives ``x``.  ``account=False``
+        leaves the call out of :meth:`traffic` (the bucketed sync accounts
+        its stages itself, on the caller's communicator)."""
+        if op not in _OPS:
+            raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
+        if not self.is_distributed():
+            return _Request(x)
+        if account:
+            p = self.size
+            self._account("Allreduce", x, 2.0 * (p - 1) / p)
+        return _Request(x, dist.all_reduce(x, op=_OPS[op], group=self.group, async_op=True))
+
+    def Ireduce_scatter(self, x: torch.Tensor, op: str = "sum", account: bool = True) -> "_Request":
+        """``x`` (1-D, its length a multiple of the size) reduced over the
+        ranks, of which rank r keeps the r-th of ``size`` equal pieces;
+        ``wait()`` gives that piece.  ``account`` as in :meth:`Iallreduce`."""
+        if op not in _OPS:
+            raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
+        p = self.size
+        if x.ndim != 1 or x.numel() % p:
+            raise ValueError(f"Ireduce_scatter takes a 1-D tensor of a multiple of {p} elements, got {tuple(x.shape)}")
+        if p == 1:
+            return _Request(x)
+        if account:
+            self._account("ReduceScatter", x, (p - 1) / p)
+        out = x.new_empty(x.numel() // p)
+        return _Request(out, dist.reduce_scatter(out, list(x.chunk(p)), op=_OPS[op], group=self.group,
+                                                 async_op=True))
+
+    def Iallgather(self, x: torch.Tensor, out: Optional[torch.Tensor] = None, account: bool = True) -> "_Request":
+        """Every rank's 1-D ``x`` (one length on all ranks) concatenated in
+        rank order, into ``out`` where given; ``wait()`` gives the
+        concatenation.  ``account`` as in :meth:`Iallreduce`."""
+        if x.ndim != 1:
+            raise ValueError(f"Iallgather takes a 1-D tensor, got {tuple(x.shape)}")
+        p = self.size
+        if out is None:
+            out = x.new_empty(x.numel() * p)
+        if p == 1:
+            out.copy_(x)
+            return _Request(out)
+        if account:
+            self._account("Allgather", x, p - 1)
+        return _Request(out, dist.all_gather(list(out.chunk(p)), x, group=self.group, async_op=True))
 
     # ------------------------------------------------------------------ #
     # redistribution (the reference's resplit, by Alltoall)
@@ -484,7 +625,7 @@ class Communication:
         return "nccl" if x.is_cuda and self._nccl() else "gloo"
 
     def _nccl(self) -> bool:
-        return "nccl" in str(dist.get_backend()).lower()
+        return "nccl" in str(dist.get_backend(self.group)).lower()
 
     def _host_staged(self, x: torch.Tensor, op: str = "Send") -> bool:
         """A CUDA tensor in a process group with no CUDA backend (gloo alone),
@@ -506,6 +647,23 @@ class _Shift:
         if self._device is not None:  # host-staged: back to the card
             self._recv, self._device = self._recv.to(self._device), None
         return self._recv
+
+    Wait = wait
+
+
+class _Request:
+    """An asynchronous collective's request: ``wait()`` (or ``Wait``)
+    completes it and returns its result tensor.  Under NCCL the wait
+    makes the current stream wait for the collective; the host goes on."""
+
+    def __init__(self, result: torch.Tensor, work=None):
+        self._result, self._work = result, work
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._result
 
     Wait = wait
 

@@ -85,17 +85,21 @@ def _common(x: torch.Tensor, y: torch.Tensor):
 
 @contextlib.contextmanager
 def _full_float32():
-    """Float32 products in full float32 inside, whatever the caller set
-    (``torch.set_float32_matmul_precision("high")`` would give TF32 GEMMs),
-    through torch's ``fp32_precision`` flag; the caller's setting is
-    restored on the way out."""
-    flags = torch.backends.cuda.matmul
-    old = flags.fp32_precision
-    flags.fp32_precision = "ieee"
+    """Float32 products and convolutions in full float32 inside, whatever
+    the caller set (``torch.set_float32_matmul_precision("high")`` would
+    give TF32 GEMMs, and cuDNN's float32 convolutions take TF32 by
+    default), through torch's ``fp32_precision`` flags of
+    ``backends.cuda.matmul`` and ``backends.cudnn.conv``; the caller's
+    settings are restored on the way out."""
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+    old = [f.fp32_precision for f in flags]
+    for f in flags:
+        f.fp32_precision = "ieee"
     try:
         yield
     finally:
-        flags.fp32_precision = old
+        for f, o in zip(flags, old):
+            f.fp32_precision = o
 
 
 # K rows a chunk of ``_int_matmul``: 2K products of 16-bit halves stay below 2^53

@@ -1,4 +1,5 @@
-"""Functional ops of the transformer path, ``ht.nn.functional`` (reference: ``heat_tpu/nn/functional.py``)."""
+"""Functional ops, ``ht.nn.functional`` (reference: ``heat_tpu/nn/functional.py``): the losses of the
+training paths and the transformer's attention."""
 
 from __future__ import annotations
 
@@ -8,19 +9,34 @@ import torch
 
 from ..ops.flash_attention import _dense_attention, flash_attention, flash_attention_gqa
 
-__all__ = ["cross_entropy", "scaled_dot_product_attention"]
+__all__ = ["cross_entropy", "l1_loss", "mse_loss", "nll_loss", "scaled_dot_product_attention"]
+
+
+def _reduce(v: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return v.mean()
+    if reduction == "sum":
+        return v.sum()
+    return v
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
     """Softmax cross-entropy with integer class targets; ``reduction`` is
     ``'mean'``, ``'sum'`` or ``'none'``."""
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
-    if reduction == "mean":
-        return nll.mean()
-    if reduction == "sum":
-        return nll.sum()
-    return nll
+    return nll_loss(torch.log_softmax(logits, dim=-1), targets, reduction)
+
+
+def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    """Negative log-likelihood of integer class targets under ``log_probs``."""
+    return _reduce(-log_probs.gather(-1, targets[..., None].long())[..., 0], reduction)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    return _reduce((pred - target) ** 2, reduction)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+    return _reduce((pred - target).abs(), reduction)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None, is_causal: bool = False, scale=None,

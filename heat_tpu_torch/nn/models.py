@@ -1,4 +1,4 @@
-"""Transformer models (reference: ``heat_tpu/nn/models.py``).
+"""Models (reference: ``heat_tpu/nn/models.py``): the transformers, the MLP and the ResNets.
 
 ``TransformerLM`` is the GPT-style causal language model of the reference:
 token embedding + positions + pre-norm causal blocks + final LayerNorm +
@@ -14,8 +14,15 @@ With ``comm=`` every block's attention runs on the sequence-parallel ring
 (the positions kernels), and ``forward`` takes this rank's block of the
 sequence.  A training step over the ranks does explicitly what the
 reference's sharded program does implicitly: the loss is the global mean
-(the local sum, Allreduced, over the global token count) and each
-parameter's gradient is summed over the ranks with ``comm.Allreduce``.
+(the local sum, Allreduced, over the global token count) and the
+gradients are summed over the ranks by the bucketed sync
+(``core.collectives.bucketed_grad_allreduce(..., op="sum")``).
+
+``mlp`` and the ResNets (``resnet``, ``resnet18``, ``resnet34``,
+``resnet50``) build the reference's layer order and shapes from the
+vision layers of ``nn.modules``: ``resnet50()`` is the DASO baseline's
+model, 1000 classes at width 64, whose stem pools with ``MaxPool2d(3,
+stride=2)`` and no padding, as the reference's does (torchvision's pads).
 """
 
 from __future__ import annotations
@@ -27,9 +34,92 @@ import torch
 
 from ..parallel.ring_attention import sequence_lengths
 from .attention import MultiheadAttention
-from .modules import GELU, Dropout, Embedding, LayerNorm, Linear, Sequential, _device
+from .modules import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout, Embedding, Flatten, LayerNorm, Linear,
+                      MaxPool2d, ReLU, Residual, Sequential, _device)
 
-__all__ = ["transformer_encoder", "TransformerLM"]
+__all__ = ["mlp", "resnet", "resnet18", "resnet34", "resnet50", "resnet50_ish", "transformer_encoder",
+           "TransformerLM"]
+
+
+def _basic_block(cin: int, cout: int, stride: int = 1, device=None) -> Sequential:
+    """ResNet-v1 basic block: two 3x3 convolutions, each with BatchNorm."""
+    body = Sequential(Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False, device=device),
+                      BatchNorm2d(cout, device=device), ReLU(),
+                      Conv2d(cout, cout, 3, stride=1, padding=1, bias=False, device=device),
+                      BatchNorm2d(cout, device=device))
+    shortcut = None
+    if stride != 1 or cin != cout:
+        shortcut = Sequential(Conv2d(cin, cout, 1, stride=stride, bias=False, device=device),
+                              BatchNorm2d(cout, device=device))
+    return Sequential(Residual(body, shortcut), ReLU())
+
+
+def _bottleneck_block(cin: int, cmid: int, stride: int = 1, expansion: int = 4, device=None) -> Sequential:
+    """ResNet-v1 bottleneck: 1x1 reduce, 3x3 (the stride), 1x1 expand (x4)."""
+    cout = cmid * expansion
+    body = Sequential(Conv2d(cin, cmid, 1, bias=False, device=device), BatchNorm2d(cmid, device=device), ReLU(),
+                      Conv2d(cmid, cmid, 3, stride=stride, padding=1, bias=False, device=device),
+                      BatchNorm2d(cmid, device=device), ReLU(),
+                      Conv2d(cmid, cout, 1, bias=False, device=device), BatchNorm2d(cout, device=device))
+    shortcut = None
+    if stride != 1 or cin != cout:
+        shortcut = Sequential(Conv2d(cin, cout, 1, stride=stride, bias=False, device=device),
+                              BatchNorm2d(cout, device=device))
+    return Sequential(Residual(body, shortcut), ReLU())
+
+
+def resnet(stage_sizes=(2, 2, 2, 2), width: int = 64, num_classes: int = 10, in_channels: int = 3,
+           stem_pool: bool = False, device=None) -> Sequential:
+    """A ResNet-v1 of basic blocks ((2, 2, 2, 2): ResNet-18's stages) with a
+    3x3 stem."""
+    layers = [Conv2d(in_channels, width, 3, stride=1, padding=1, bias=False, device=device),
+              BatchNorm2d(width, device=device), ReLU()]
+    if stem_pool:
+        layers.append(MaxPool2d(2))
+    cin = width
+    for stage, n_blocks in enumerate(stage_sizes):
+        cout = width * 2 ** stage
+        for b in range(n_blocks):
+            layers.append(_basic_block(cin, cout, stride=2 if (b == 0 and stage > 0) else 1, device=device))
+            cin = cout
+    layers += [AdaptiveAvgPool2d(1), Flatten(), Linear(cin, num_classes, device=device)]
+    return Sequential(*layers)
+
+
+def resnet18(num_classes: int = 10, in_channels: int = 3, device=None) -> Sequential:
+    return resnet((2, 2, 2, 2), 64, num_classes, in_channels, device=device)
+
+
+def resnet34(num_classes: int = 1000, in_channels: int = 3, device=None) -> Sequential:
+    return resnet((3, 4, 6, 3), 64, num_classes, in_channels, stem_pool=True, device=device)
+
+
+def resnet50(num_classes: int = 1000, in_channels: int = 3, width: int = 64, device=None) -> Sequential:
+    """ResNet-50: a 7x7 stride-2 stem, ``MaxPool2d(3, stride=2)`` without
+    padding, bottleneck blocks in (3, 4, 6, 3) stages, the pooled head."""
+    layers = [Conv2d(in_channels, width, 7, stride=2, padding=3, bias=False, device=device),
+              BatchNorm2d(width, device=device), ReLU(), MaxPool2d(3, stride=2)]
+    cin = width
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        cmid = width * 2 ** stage
+        for b in range(n_blocks):
+            layers.append(_bottleneck_block(cin, cmid, stride=2 if (b == 0 and stage > 0) else 1, device=device))
+            cin = cmid * 4
+    layers += [AdaptiveAvgPool2d(1), Flatten(), Linear(cin, num_classes, device=device)]
+    return Sequential(*layers)
+
+
+resnet50_ish = resnet34  # the reference's older name for its basic-block ResNet-34
+
+
+def mlp(sizes=(784, 256, 128, 10), device=None) -> Sequential:
+    """Linear layers of ``sizes`` with ReLU between (BASELINE config 3's MLP)."""
+    layers = []
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        layers.append(Linear(a, b, device=device))
+        if i < len(sizes) - 2:
+            layers.append(ReLU())
+    return Sequential(*layers)
 
 
 def _ffn(embed_dim: int, mlp_ratio: int, device=None) -> Sequential:

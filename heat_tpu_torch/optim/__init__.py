@@ -1,3 +1,4 @@
-"""Optimizers (reference: ``heat_tpu/optim/``)."""
+"""Optimizers (reference: ``heat_tpu/optim/``): the data-parallel optimizer, DASO and the learning-rate schedules."""
 
-from .dp_optimizer import DataParallelOptimizer
+from .dp_optimizer import DASO, SGD, Adam, AdamW, DataParallelOptimizer
+from . import lr_scheduler

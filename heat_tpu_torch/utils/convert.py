@@ -12,6 +12,11 @@ is: the module built from the same ``num_kv_heads`` has that shape.  A pytree pa
 the module's parameter name by joining its keys with dots
 (``blocks[0]["mha"]["out_proj"]["weight"]`` is ``blocks.0.mha.out_proj.weight``);
 the empty entries of parameter-free layers (``GELU``'s ``()``) have none.
+``mlp_from_reference`` and ``resnet_from_reference`` do the same for the
+vision models: Sequential lists, ``Residual``'s ``body``/``shortcut``, and
+BatchNorm's ``running_*`` leaves into the module's buffers (``to_reference``
+gives them back).  ``daso_from_reference`` takes the reference DASO's
+parameters stacked over its groups: rank r loads group r // ici.
 Nothing here imports JAX.
 """
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ..cluster.kmeans import KMeans
+from ..nn import models
 from ..nn.attention import MultiheadAttention
 from ..nn.models import TransformerLM
 from ..core import factories
@@ -31,7 +37,10 @@ from ..core.dndarray import DNDarray
 
 __all__ = [
     "array_from_numpy",
+    "daso_from_reference",
     "kmeans_from_reference",
+    "mlp_from_reference",
+    "resnet_from_reference",
     "multihead_attention_from_reference",
     "to_reference",
     "transformer_lm_from_reference",
@@ -105,11 +114,21 @@ def _load(module: torch.nn.Module, params) -> torch.nn.Module:
     return module
 
 
+def _reference_state(module: torch.nn.Module):
+    """The module's parameters and its ``running_*`` buffers (the
+    reference keeps BatchNorm's running statistics in its pytree)."""
+    yield from module.named_parameters()
+    for name, b in module.named_buffers():
+        if name.rsplit(".", 1)[-1].startswith("running_"):
+            yield name, b
+
+
 def to_reference(module: torch.nn.Module):
-    """The module's parameters as a reference pytree of numpy arrays
-    (bfloat16 as float32): the inverse of the ``*_from_reference`` functions."""
+    """The module's parameters (and BatchNorm's running buffers) as a
+    reference pytree of numpy arrays (bfloat16 as float32): the inverse of
+    the ``*_from_reference`` functions."""
     return _unflatten({name: p.detach().cpu().float().numpy() if p.dtype == torch.bfloat16
-                       else p.detach().cpu().numpy() for name, p in module.named_parameters()})
+                       else p.detach().cpu().numpy() for name, p in _reference_state(module)})
 
 
 def transformer_lm_from_reference(params, **config) -> TransformerLM:
@@ -124,3 +143,28 @@ def multihead_attention_from_reference(params, **config) -> MultiheadAttention:
     """A ``MultiheadAttention(**config)`` holding the reference module's
     parameters (in_proj_weight, in_proj_bias, out_proj)."""
     return _load(MultiheadAttention(**config), params)
+
+
+def mlp_from_reference(params, sizes=(784, 256, 128, 10), device=None) -> torch.nn.Module:
+    """``nn.models.mlp(sizes)`` holding the reference ``mlp``'s parameters."""
+    return _load(models.mlp(sizes, device=device), params)
+
+
+def resnet_from_reference(params, arch: str = "resnet", device=None, **config) -> torch.nn.Module:
+    """``nn.models.<arch>(**config)`` (``'resnet'``, ``'resnet18'``,
+    ``'resnet34'`` or ``'resnet50'``) holding the reference model's
+    parameters and BatchNorm running statistics."""
+    if arch not in ("resnet", "resnet18", "resnet34", "resnet50"):
+        raise ValueError(f"arch must be resnet, resnet18, resnet34 or resnet50, got {arch!r}")
+    return _load(getattr(models, arch)(device=device, **config), params)
+
+
+def daso_from_reference(stacked, module: torch.nn.Module, comm: Optional[Communication] = None,
+                        ici: int = 1) -> torch.nn.Module:
+    """Load the reference DASO's per-group replicas (``DASO.parameters``:
+    every leaf stacked over the groups) into ``module``: rank r takes group
+    ``r // ici``.  Returns ``module``."""
+    from ..core.communication import sanitize_comm
+
+    g = sanitize_comm(comm).rank // int(ici)
+    return _load(module, _unflatten({k: np.asarray(v)[g] for k, v in _flatten(stacked).items()}))

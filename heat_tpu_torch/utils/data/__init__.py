@@ -2,3 +2,4 @@
 
 from . import spherical
 from .spherical import create_spherical_dataset, create_clusters
+from .datatools import Dataset, DataLoader, dataset_shuffle, dataset_ishuffle

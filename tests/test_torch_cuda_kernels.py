@@ -761,3 +761,107 @@ def test_cuda_qr_svd_cdist_and_solvers_stay_on_the_card():
         assert flags.fp32_precision == "tf32"
     finally:
         flags.fp32_precision = old
+
+
+def _data_parallel_rank(rank, store):
+    """One of two gloo processes on cuda:0: DataParallel (hooked buckets,
+    then ``overlap_sync``, at least two buckets each) and DASO (2 groups x 1) on a
+    small ResNet.  Every tensor handed to a collective, every bucket buffer
+    and every DASO snapshot is a CUDA tensor, and nothing inside the
+    bucketed sync reads a tensor back to the host."""
+    import torch.distributed as dist
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import collectives
+
+    ht.core.bootstrap.init_distributed(f"file://{store}", world_size=2, rank=rank, backend="gloo", timeout_s=60)
+    seen, in_sync = {"collective": set(), "bucket": set()}, [0]
+
+    def record(fn, kind):
+        def wrapped(*args, **kwargs):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            tensors += [t for a in args if isinstance(a, (list, tuple)) for t in a if isinstance(t, torch.Tensor)]
+            # floating data only: Split's colour table is an int64 control message, on the host under gloo
+            seen[kind].update(str(t.device) for t in tensors if t.is_floating_point())
+            out = fn(*args, **kwargs)
+            if kind == "bucket" and isinstance(out, torch.Tensor):
+                seen[kind].add(str(out.device))
+            return out
+        return wrapped
+
+    def syncing(fn):
+        def wrapped(*args, **kwargs):
+            in_sync[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                in_sync[0] -= 1
+        return wrapped
+
+    def no_host(name):
+        orig = getattr(torch.Tensor, name)
+
+        def guarded(self, *args, **kwargs):
+            if in_sync[0]:
+                raise AssertionError(f"Tensor.{name} inside the bucketed sync")
+            return orig(self, *args, **kwargs)
+        return guarded
+
+    for name in ("all_reduce", "reduce_scatter", "all_gather", "broadcast"):
+        setattr(dist, name, record(getattr(dist, name), "collective"))
+    collectives._flatten = record(collectives._flatten, "bucket")
+    for name in ("bucketed_grad_allreduce", "dispatch_bucket_allreduce", "dispatch_bucket_averages",
+                 "consume_bucket_averages", "bucketed_param_sync", "dispatch_all_bucket_averages"):
+        setattr(collectives, name, syncing(getattr(collectives, name)))
+    collectives._GradBucket.wait = syncing(collectives._GradBucket.wait)
+    for name in ("cpu", "numpy", "tolist", "item"):
+        setattr(torch.Tensor, name, no_host(name))
+    try:
+        ht.use_device("gpu")
+        ce = ht.nn.functional.cross_entropy
+        g = torch.Generator(device="cuda").manual_seed(rank)
+        x = torch.randn(6, 3, 16, 16, generator=g, device="cuda")
+        y = torch.randint(0, 5, (6,), generator=g, device="cuda")
+        for overlap in (False, True):
+            torch.manual_seed(rank)
+            model = ht.nn.models.resnet((1, 1), width=8, num_classes=5)
+            budget = sum(p.numel() * 4 for p in model.parameters()) // 2 + 1
+            dp = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer("sgd", lr=0.1, momentum=0.9),
+                                    overlap_sync=overlap, grad_bucket_bytes=budget)
+            assert dp._plan.n_buckets >= 2
+            loss = dp.make_train_step(ce)(x, y)
+            assert loss.is_cuda
+            assert all(p.is_cuda and p.grad.is_cuda for p in model.parameters())
+            assert all(b.is_cuda for b in model.buffers())
+        torch.manual_seed(rank)
+        model = ht.nn.models.resnet((1, 1), width=8, num_classes=5)
+        daso = ht.optim.DASO(ht.optim.DataParallelOptimizer("sgd", lr=0.1), total_local_comm_size=1,
+                             warmup_steps=1, global_skip=2, stale_steps=1, overlap_sync=True)
+        daso.init(model)
+        for _ in range(4):
+            assert daso.step(ce, x, y).is_cuda
+        assert daso._pending is None or all(f.flat.is_cuda for f in daso._pending[0][1])
+        assert all(p.is_cuda for p in daso.consolidated_params().values())
+        assert seen["collective"] == {"cuda:0"}, seen
+        assert seen["bucket"] == {"cuda:0"}, seen
+        dist.barrier()
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def test_cuda_data_parallel_and_daso_stay_on_the_card(tmp_path):
+    """DataParallel's and DASO's parameters, gradients, buckets and
+    snapshots are CUDA tensors, every collective of data takes CUDA tensors
+    (under NCCL: no host copy), and the bucketed sync reads nothing back to
+    the host (two gloo ranks on cuda:0; NCCL refuses two ranks on one card)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_data_parallel_rank, args=(r, str(tmp_path / "store"))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    assert [p.exitcode for p in procs] == [0, 0]
