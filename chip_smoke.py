@@ -28,6 +28,26 @@
    So a ``kmeans++`` fit on the same 1e8 rows, and one at n = 2**22, must
    recover every generating mean.  The launch counts are zeroed just before
    each fit and read just after it.
+3b. The array core's indexing at the sizes users index, at world size 1:
+   X = 1e8 x 32 float32 split 0 (config 2's rows) and A = 16384^2 float32
+   at split 0 and 1 (config 0's operand).  ``X[idx]`` (1e6 random rows),
+   ``X[::2]``, ``X[::-1]``, ``X[:, 3]``, ``X[m]`` (m = ``X[:, 0] > 0``),
+   ``where(X > 0, X, 0)``, ``nonzero(m)``, ``X[m] = 0``, ``X[idx] = Y`` (Y
+   split 0); ``A[:, 100:200]``, ``A[5]``, ``A[:, ::2]``, ``A[A < 0] = 0``
+   (split 1), ``fill_diagonal(0)``; ``identity``, ``tri`` and ``vander`` at
+   16384.  Each result bit for bit torch's own indexing of the same tensor,
+   its split INDEX_SPLITS' (the JAX package's rule), timed (CUDA events)
+   beside its bytes bound (``index_bytes``: reads at 32-byte sectors plus
+   writes, at 3.35 TB/s).  ``str(X)``: its wall time and the bytes the
+   profiler saw copied to the host, at most STR_EDGE_BYTES (the edges).
+   Then 2 spawned ranks on this card over gloo: every key kind on ragged
+   (1001, 7) split 0, (7, 1001) split 1 and (13, 6, 5) at each split,
+   ``__setitem__`` with each value kind, ``where``, ``nonzero``,
+   ``fill_diagonal`` and ``str``, each exactly world size 1's (values with
+   the sign of zero, gshape, split); then, on the two ranks at X's size,
+   ``X[idx] = Y`` (its Alltoall bytes exactly the rows that change rank
+   with their int64 positions) and ``X[::-1] = column``, each bit for bit
+   torch's own assignment on each rank's rows, and timed.
 4. ``ht.matmul`` (BASELINE config 0): two (n, n) float32
    ``ht.random.randn(..., split=0)`` on the card multiplied at world size
    1, n = 4096 (BASELINE's shape) and 16384 (the north star's: 3 GiB for a,
@@ -348,6 +368,20 @@ MATMUL_SPLITS = {"None,None": None, "0,None": 0, "1,None": 0, "None,0": 1, "None
                  "1,0": 1, "1,1": 1, "vector @ matrix 0,1": 0, "matrix @ vector 1,0": None}
 MATMUL_COLLECTIVES = ("Allreduce", "Allgather", "Alltoall", "ReduceScatter", "Bcast", "Reduce", "Scatter", "Gather",
                       "Send", "Exscan", "Scan")
+# the indexing phase: X of BASELINE config 2's shape (1e8 x 32 float32, split
+# 0; X[idx] picks INDEX_PICK random rows) and A of config 0's (16384^2 float32,
+# split 0 and 1); a read costs whole 32-byte sectors
+INDEX_PICK, INDEX_A, SECTOR = 1_000_000, 16384, 32
+# the JAX package's result splits (heat_tpu/core/dndarray.py::_result_split_of_key,
+# heat_tpu/core/indexing.py) of the phase's operations, "<operation> @ <the source's split>"
+INDEX_SPLITS = {"X[idx] @ 0": 0, "X[::2] @ 0": 0, "X[::-1] @ 0": 0, "X[:, 3] @ 0": 0, "X[m] @ 0": 0,
+                "X[m] = 0 @ 0": 0, "X[idx] = Y @ 0": 0, "where(X > 0, X, 0) @ 0": 0, "nonzero(m) @ 0": 0,
+                "A[:, 100:200] @ 0": 0, "A[:, 100:200] @ 1": 1, "A[5] @ 0": None, "A[5] @ 1": 0,
+                "A[:, ::2] @ 0": 0, "A[:, ::2] @ 1": 1, "A[A < 0] = 0 @ 1": 1, "A.fill_diagonal(0) @ 0": 0,
+                "A.fill_diagonal(0) @ 1": 1, "identity @ 0": 0, "tri @ 0": 0, "vander @ 0": 0}
+STR_EDGE_BYTES = 4096  # str(X) may copy its 7 x 7 edges to the host, never more than this
+# the two-rank indexing phase: ragged arrays on HeAT's uneven chunks, with their splits
+INDEX_2R = {"rows": ((1001, 7), (0,)), "cols": ((7, 1001), (1,)), "cube": ((13, 6, 5), (0, 1, 2))}
 # tall-skinny QR/SVD (BASELINE config 1): float32 randn 1e6 x 256, split=0, at full size
 QR_SHAPE = (1_000_000, 256)
 QR_TOL = 1e-4  # the reference's tests' limits (tests/test_linalg.py): ||A - QR|| / ||A||, |Q^T Q - I|, S
@@ -2322,6 +2356,411 @@ def linalg_two_ranks(ht, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# indexing (the array core's indexing surface; no kernel of its own)
+# ---------------------------------------------------------------------- #
+def _sectors(start: int, nbytes: int) -> int:
+    """Bytes of the 32-byte sectors that a contiguous read of ``nbytes``
+    bytes at byte ``start`` touches."""
+    if nbytes <= 0:
+        return 0
+    return ((start + nbytes - 1) // SECTOR - start // SECTOR + 1) * SECTOR
+
+
+def index_bytes(op: str, n: int, d: int, k: int = 0, nnz: int = 0, item: int = 4) -> tuple:
+    """(bytes read, at 32-byte sectors; bytes written) of the phase's
+    operation ``op`` on an (n, d) array of ``item``-byte elements (rows that
+    start on a sector, as X's 128-byte and A's 64 KiB rows do): each input
+    read once and each output written once, ``k`` rows picked by an int64
+    index, ``nnz`` the True count of the operation's mask."""
+    row, size = _sectors(0, d * item), d * item
+    return {
+        "X[idx]": (k * 8 + k * row, k * size),
+        "X[::2]": (-(-n // 2) * row, -(-n // 2) * size),
+        "X[::-1]": (n * row, n * size),
+        "X[:, 3]": (n * _sectors(3 * item, item), n * item),
+        "X[m]": (n + nnz * row, nnz * size),
+        "X[m] = 0": (n, nnz * size),
+        "X[idx] = Y": (k * 8 + k * row, k * size),
+        "where(X > 0, X, 0)": (n * row, n * size),
+        "nonzero(m)": (n, nnz * 4),
+        "A[:, 100:200]": (n * _sectors(100 * item, 100 * item), n * 100 * item),
+        "A[5]": (row, size),
+        "A[:, ::2]": (n * row, n * (d // 2) * item),  # 8-byte stride: every sector of every row
+        "A[A < 0] = 0": (n * row, nnz * item),
+        "A.fill_diagonal(0)": (0, min(n, d) * item),
+        "identity": (0, n * size),
+        "tri": (0, n * size),
+        "vander": (n * item, n * size),
+    }[op]
+
+
+def index_bound_ms(op: str, *args, **kwargs) -> float:
+    """The least time of ``op``: its bytes (:func:`index_bytes`) at the
+    card's memory rate."""
+    read, write = index_bytes(op, *args, **kwargs)
+    return (read + write) / PEAK_BYTES * 1e3
+
+
+def d2h_bytes(fn) -> tuple:
+    """(bytes the profiler saw copied from the card to the host during
+    ``fn()``, the number of such copies): the ``bytes`` of each device-to-host
+    memcpy in torch.profiler's trace."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    if any("bytes" not in e.get("args", {}) for e in copies):
+        fail(f"a device-to-host copy in the trace names no bytes: {copies[:2]}")
+    return sum(int(e["args"]["bytes"]) for e in copies), len(copies)
+
+
+def _index_row(label: str, split, fn, want_fn, reps: int, bound_args: tuple, smi: str, **bound_kw) -> None:
+    """Check one operation of the phase (``fn()``'s result on the card, bit
+    for bit ``want_fn()``, torch's own indexing of the same tensor, of
+    INDEX_SPLITS' split; both freed before the timing), time it
+    (``cuda_ms``) and print it beside its bytes bound."""
+    import torch
+
+    key = f"{label} @ {split}"
+    got, want = fn(), want_fn()
+    if not got.larray.is_cuda:
+        fail(f"indexing {key}: the result left the card ({got.larray.device})")
+    if got.split != INDEX_SPLITS[key] or tuple(got.shape) != tuple(want.shape):
+        fail(f"indexing {key}: split {got.split}, shape {got.shape}; the table says {INDEX_SPLITS[key]}, torch "
+             f"{tuple(want.shape)}")
+    if got.larray.dtype != want.dtype or not torch.equal(got.larray, want):
+        fail(f"indexing {key}: differs from torch's own indexing")
+    result_split, shape = got.split, list(got.shape)
+    del got, want
+    ms = cuda_ms(fn, reps)
+    read, written = index_bytes(label, *bound_args, **bound_kw)
+    bound = index_bound_ms(label, *bound_args, **bound_kw)
+    print(json.dumps({"phase": "indexing", "op": label, "split": split, "result_split": result_split, "shape": shape,
+                      "ms": ms, "bytes_read": read, "bytes_written": written, "bound_ms": bound,
+                      "share_of_bound": bound / ms, "bitwise_equal_to_torch": True, "card": smi}), flush=True)
+
+
+def indexing_world_one(ht, smi: str) -> None:
+    """The indexing phase at world size 1: X = 1e8 x 32 float32 split 0 and
+    A = 16384^2 float32 at split 0 and 1, every result held bit for bit
+    against torch's own indexing of the same local tensor and its split
+    against INDEX_SPLITS, timed beside its bytes bound; ``str(X)``'s wall
+    time and the bytes it copies to the host."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n, d = N_MAIN, D
+    ht.random.seed(13)
+    X = ht.random.randn(n, d, split=0)
+    xl = X.larray
+    g = torch.Generator(device="cuda").manual_seed(13)
+    idx = torch.randint(0, n, (INDEX_PICK,), generator=g, device="cuda")
+    k = INDEX_PICK
+    _index_row("X[idx]", 0, lambda: X[idx], lambda: xl[idx], 5, (n, d), smi, k=k)
+    _index_row("X[::2]", 0, lambda: X[::2], lambda: xl[::2].clone(), 3, (n, d), smi)
+    _index_row("X[::-1]", 0, lambda: X[::-1], lambda: xl.flip(0), 3, (n, d), smi)
+    _index_row("X[:, 3]", 0, lambda: X[:, 3], lambda: xl[:, 3].clone(), 5, (n, d), smi)
+    m = X[:, 0] > 0
+    ml = xl[:, 0] > 0
+    nnz = int(ml.sum())
+    _index_row("X[m]", 0, lambda: X[m], lambda: xl[ml], 3, (n, d), smi, nnz=nnz)
+    _index_row("where(X > 0, X, 0)", 0, lambda: ht.where(X > 0, X, 0), lambda: torch.where(xl > 0, xl, 0), 3,
+               (n, d), smi)
+    _index_row("nonzero(m)", 0, lambda: ht.nonzero(m), lambda: torch.nonzero(ml).reshape(-1).to(torch.int32), 3,
+               (n, d), smi, nnz=nnz)
+    t0 = time.perf_counter()
+    text = str(X)
+    str_s = time.perf_counter() - t0
+    copied, copies = d2h_bytes(lambda: str(X))
+    if "..." not in text or not 0 < copied <= STR_EDGE_BYTES:
+        fail(f"str(X) copied {copied} bytes to the host in {copies} copies (at most {STR_EDGE_BYTES}: the edges)")
+    print(json.dumps({"phase": "indexing", "op": "str(X)", "split": 0, "wall_ms": str_s * 1e3,
+                      "device_to_host_bytes": copied, "device_to_host_copies": copies, "chars": len(text),
+                      "card": smi}), flush=True)
+
+    want = xl.clone()
+    want[ml] = 0
+
+    def masked_zero():
+        X[m] = 0
+        return X
+
+    _index_row("X[m] = 0", 0, masked_zero, lambda: want, 3, (n, d), smi, nnz=nnz)
+    pick = torch.randperm(n, generator=g, device="cuda")[:k]  # unique: one write a row
+    Y = ht.array(torch.randn(k, d, generator=g, device="cuda"), split=0)
+    want[pick] = Y.larray
+
+    def rows_set():
+        X[pick] = Y
+        return X
+
+    _index_row("X[idx] = Y", 0, rows_set, lambda: want, 3, (n, d), smi, k=k)
+    del X, xl, want, m, ml, Y, pick, idx
+    torch.cuda.empty_cache()
+
+    na = INDEX_A
+    for split in (0, 1):
+        ht.random.seed(na + split)
+        A = ht.random.randn(na, na, split=split)
+        al = A.larray
+        _index_row("A[:, 100:200]", split, lambda: A[:, 100:200], lambda: al[:, 100:200].clone(), 10, (na, na), smi)
+        _index_row("A[5]", split, lambda: A[5], lambda: al[5].clone(), 10, (na, na), smi)
+        _index_row("A[:, ::2]", split, lambda: A[:, ::2], lambda: al[:, ::2].clone(), 10, (na, na), smi)
+        if split == 1:
+            want = al.clone()
+            neg = int((al < 0).sum())
+            want[want < 0] = 0
+
+            def clip():
+                A[A < 0] = 0
+                return A
+
+            _index_row("A[A < 0] = 0", split, clip, lambda: want, 5, (na, na), smi, nnz=neg)
+        want = A.larray.clone()
+        want.fill_diagonal_(0)
+        _index_row("A.fill_diagonal(0)", split, lambda: A.fill_diagonal(0), lambda: want, 10, (na, na), smi)
+        del A, al, want
+    v = torch.linspace(-1.0, 1.0, na, device="cuda")
+    powers = torch.arange(na - 1, -1, -1, device="cuda", dtype=v.dtype)
+    for label, fn, want_fn in (
+            ("identity", lambda: ht.identity(na, split=0), lambda: torch.eye(na, device="cuda")),
+            ("tri", lambda: ht.tri(na, split=0), lambda: torch.ones(na, na, device="cuda").tril()),
+            ("vander", lambda: ht.vander(ht.array(v, split=0)), lambda: torch.pow(v[:, None], powers[None, :]))):
+        _index_row(label, 0, fn, want_fn, 5, (na, na), smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "indexing_world_one", "seconds": time.perf_counter() - t_phase,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(), "card": smi}), flush=True)
+
+
+def index_cases(ht) -> dict:
+    """The two-rank phase's calls on the card, from arrays drawn on the card
+    from one seed (INDEX_2R, with a -0.0): every key kind at each split
+    (ints, slices of any step, Ellipsis, None, integer arrays as lists,
+    numpy, tensors and split DNDarrays, broadcast index arrays, boolean
+    masks over every run of axes), ``__setitem__`` with each value kind (a
+    Python scalar, numpy, a tensor, a DNDarray at each split), ``where``,
+    ``nonzero``, ``fill_diagonal`` and ``str``.  Each result gathered to the
+    host as (value, shape, split)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    data = {name: torch.randn(*shape, generator=g, device="cuda") for name, (shape, _) in INDEX_2R.items()}
+    data["rows"][3, 2] = -0.0
+    out = {}
+
+    def keep(name, x):
+        if isinstance(x, str):
+            out[name] = x
+            return
+        if not x.larray.is_cuda:
+            fail(f"{name}: a result left the card ({x.larray.device})")
+        out[name] = (x.numpy().copy(), list(x.shape), x.split)
+
+    def flat(name, a):
+        ha = data[name].cpu().numpy()
+        mask = ha > 0
+        return {
+            "int": 3, "neg_int": -2, "slice": slice(2, 600), "step": slice(1, None, 3), "reversed": slice(None, None, -1),
+            "neg_step": slice(-2, 0, -7), "ellipsis": Ellipsis, "none": None, "list": [len(ha) - 1, 0, 5, 5, -1],
+            "numpy_2d": np.array([[0, 6], [1, 5]]), "tensor": torch.tensor([6, 0, 2], device="cuda"),
+            "dndarray": ht.array(torch.tensor([6, 1, 6, 0], device="cuda"), split=0),
+            "col": (slice(None), 2), "cols": (slice(None), [1, 2]), "pairs": ([1, 5], [3, 4]), "scalar": (5, 3),
+            "broadcast": ([[0], [6]], [0, 2]), "int_cols": (3, [6, 0, 6]), "cols_reversed": (slice(None), slice(None, None, -2)),
+            "both_reversed": (slice(None, None, -3), slice(5, 1, -1)), "mask": mask,
+            "mask_dndarray": ht.array(data[name], split=a.split) > 0, "lead_mask": (mask[:, 0],),
+            "tail_mask": (slice(None), mask[0]),
+        }
+
+    for name in ("rows", "cols"):
+        for split in INDEX_2R[name][1]:
+            x = ht.array(data[name], split=split)
+            for key_name, key in flat(name, x).items():
+                keep(f"{name}[{key_name}] @ {split}", x[key])
+    cube = data["cube"]
+    hc = cube.cpu().numpy()
+    cube_keys = {"int_slice_cols": (1, slice(None), [0, 4]), "slice_int_cols": (slice(None), 0, [1, 2]),
+                 "arrays_around_slice": ([0, 12], slice(None), [2, 3]), "mask_lead_two": (hc[:, :, 0] > 0,),
+                 "mask_tail_two": (slice(None), hc[0] > 0), "mask_middle": (slice(None), hc[0, :, 0] > 0, slice(1, 3)),
+                 "ellipsis_array_none": (Ellipsis, [1, 2], None), "int_array_reversed": (0, [1, 2], slice(None, None, -1)),
+                 "reversed": slice(None, None, -1), "none_ellipsis": (None, Ellipsis, 2)}
+    for split in INDEX_2R["cube"][1]:
+        x = ht.array(cube, split=split)
+        for key_name, key in cube_keys.items():
+            keep(f"cube[{key_name}] @ {split}", x[key])
+        values = {"python": 2.5, "numpy": np.arange(12, dtype=np.float32).reshape(2, 6),
+                  "tensor": torch.arange(12, device="cuda", dtype=torch.float32).reshape(2, 6)}
+        values.update({f"dndarray_{vs}": ht.array(values["tensor"], split=vs) for vs in (None, 0, 1)})
+        for vname, v in values.items():
+            y = ht.array(cube, split=split)
+            y[1, :, [0, 4]] = v
+            keep(f"cube[1, :, [0, 4]] = {vname} @ {split}", y)
+        for vs in (None, 0, 1):
+            y = ht.array(cube, split=split)
+            y[::-1, 2] = ht.array(torch.arange(65, device="cuda", dtype=torch.float32).reshape(13, 5), split=vs)
+            keep(f"cube[::-1, 2] = dndarray_{vs} @ {split}", y)
+        y = ht.array(cube, split=split)
+        nsel = int((cube[:, :, 0] > 0).sum())
+        y[hc[:, :, 0] > 0] = ht.array(-torch.arange(nsel * 5, device="cuda", dtype=torch.float32).reshape(nsel, 5),
+                                      split=0)
+        keep(f"cube[mask] = rows @ {split}", y)
+        y = ht.array(cube, split=split)
+        y[ht.array(cube, split=split) < 0] = 0
+        keep(f"cube[cube < 0] = 0 @ {split}", y)
+        keep(f"where @ {split}", ht.where(x > 0, x, 0))
+        keep(f"nonzero @ {split}", ht.nonzero(x > 0))
+        keep(f"fill_diagonal @ {split}", ht.array(cube, split=split).fill_diagonal(-1.0))
+        keep(f"str @ {split}", str(x))
+    for name in ("rows", "cols"):
+        for split in INDEX_2R[name][1]:
+            x = ht.array(data[name], split=split)
+            x[[5, x.shape[0] - 1, 3]] = np.full((3, x.shape[1]), 7.0, np.float32)
+            keep(f"{name}[list] = numpy @ {split}", x)
+            x[x > 1] = ht.array(torch.zeros(int((x.larray > 1).sum()), device="cuda"), is_split=0)
+            keep(f"{name}[mask] = split values @ {split}", x)
+            keep(f"{name} fill_diagonal @ {split}", x.fill_diagonal(9.0))
+            keep(f"{name} str @ {split}", str(x))
+    return out
+
+
+def index_put_at_size(ht) -> list:
+    """On this rank of 2: ``X[pick] = Y`` and ``X[::-1] = c`` at the phase's
+    sizes (X = 1e8 x 32 float32 split 0; Y = INDEX_PICK unique rows split 0;
+    c an (n, 1) column, the same on every rank), each checked bit for bit on
+    this rank's rows against torch's own assignment of the same values and
+    timed three times (wall, between barriers).  For ``X[pick] = Y``, the
+    bytes this rank sent beside the bytes the design needs: each row of its
+    block of Y that another rank holds, with its int64 position."""
+    import torch
+    import torch.distributed as dist
+
+    comm = ht.core.communication.get_comm()
+    n, d, k = N_MAIN, D, INDEX_PICK
+    ht.random.seed(13)
+    X = ht.random.randn(n, d, split=0)
+    counts, displs = X.counts_displs()
+    lo, hi = displs[comm.rank], displs[comm.rank] + counts[comm.rank]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    pick = torch.randperm(n, generator=g, device="cuda")[:k]
+    y = torch.randn(k, d, generator=g, device="cuda")
+    Y = ht.array(y, split=0)
+    ycounts, ydispls = Y.counts_displs()
+    mine = pick[ydispls[comm.rank] : ydispls[comm.rank] + ycounts[comm.rank]]
+    moved = int(((mine < lo) | (mine >= hi)).sum())
+    out = []
+
+    def timed(label, fn, want, **extra):
+        comm.reset_traffic()
+        ms = []
+        for rep in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if rep == 0:
+                sent = comm.traffic()
+        if not torch.equal(X.larray, want):
+            fail(f"rank {comm.rank}: {label} on 2 ranks differs from torch's own assignment")
+        out.append({"op": label, "wall_ms": ms, "traffic": sent, **extra})
+
+    want = X.larray.clone()
+    own = (pick >= lo) & (pick < hi)
+    want[pick[own] - lo] = y[own]
+
+    def rows_set():
+        X[pick] = Y
+
+    timed("X[idx] = Y", rows_set, want, alltoall_bytes_needed=moved * (8 + d * 4))
+    del want
+    col = torch.arange(n, device="cuda", dtype=torch.float32).reshape(n, 1)
+    want = col.flip(0)[lo:hi].expand(hi - lo, d).contiguous()
+
+    def run_set():
+        X[::-1] = col
+
+    timed("X[::-1] = column", run_set, want)
+    for row in out:
+        sent = row["traffic"].get("Alltoall", {}).get("bytes", 0)
+        if "alltoall_bytes_needed" in row and sent != row["alltoall_bytes_needed"]:
+            fail(f"rank {comm.rank}: {row['op']} sent {sent} bytes; the rows that change rank need "
+                 f"{row['alltoall_bytes_needed']}")
+    del X, want, col, Y, y, pick
+    torch.cuda.empty_cache()
+    return out
+
+
+def index_rank(rank: int, port: int, out_q) -> None:
+    """One of 2 ranks on this card over gloo: ``index_cases``, reported with
+    the communicator's traffic."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        comm.reset_traffic()
+        res = index_cases(ht)
+        res["_traffic"] = comm.traffic()
+        res["_at_size"] = index_put_at_size(ht)
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def indexing_two_ranks(ht, smi: str) -> None:
+    """The two-rank indexing phase: ``index_cases`` at world size 1 on this
+    card, then in 2 processes on this card over gloo; every result of every
+    rank exactly world size 1's (values with the sign of zero, gshape,
+    split); prints rank 0's line."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    want = index_cases(ht)
+    results = spawn_ranks(index_rank, 2, RING_TIMEOUT_S)
+    for rank, res in sorted(results.items()):
+        for row in res["_at_size"]:
+            print(json.dumps({"phase": "indexing_two_ranks", "rank": rank, **row, "card": smi}), flush=True)
+        for name, w in want.items():
+            got = res.get(name)
+            if isinstance(w, str):
+                if got != w:
+                    fail(f"rank {rank}: {name} differs from world size 1:\n{got}\n{w}")
+                continue
+            same = (got is not None and got[1:] == w[1:] and got[0].dtype == w[0].dtype
+                    and np.array_equal(got[0], w[0], equal_nan=True)
+                    and (w[0].dtype.kind != "f" or np.array_equal(np.signbit(got[0]), np.signbit(w[0]))))
+            if not same:
+                fail(f"rank {rank}: {name} differs from world size 1: {None if got is None else got[1:]} vs {w[1:]}")
+    print(json.dumps({"phase": "indexing_two_ranks", "note": "2 processes on ONE card over gloo, against world size 1",
+                      "cases": len(want), "exact": True, "traffic_rank0": results[0]["_traffic"],
+                      "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+
+
+# ---------------------------------------------------------------------- #
 # data-parallel training (BASELINE configs 3 and 4)
 # ---------------------------------------------------------------------- #
 def mnist_synthetic(n: int, seed: int):
@@ -2742,6 +3181,11 @@ def main() -> int:
     recover(ht, xp, means_dev, "float32_kmeans++_2^22")
     del xp
     torch.cuda.empty_cache()
+
+    # 3b. the array core's indexing at the sizes users index: world size 1
+    # (X of config 2's shape, A of config 0's), then 2 ranks on this card
+    indexing_world_one(ht, smi)
+    indexing_two_ranks(ht, smi)
 
     # 4. ht.matmul (BASELINE config 0): world size 1 at 4096^2 and 16384^2,
     # then 2 ranks on this card over gloo

@@ -43,8 +43,16 @@ def _narrow(t: torch.Tensor, *operands) -> torch.Tensor:
     return t.to(narrow)
 
 
+# the metadata check at the dispatch tail: None (one global load) unless
+# ``sanitation.enable_checks()`` sets it
+_CHECKS = None
+
+
 def _wrap(t: torch.Tensor, gshape, split, proto: DNDarray, balanced: bool = True) -> DNDarray:
-    return DNDarray(t, tuple(gshape), types.canonical_heat_type(t.dtype), split, proto.device, proto.comm, balanced)
+    out = DNDarray(t, tuple(gshape), types.canonical_heat_type(t.dtype), split, proto.device, proto.comm, balanced)
+    if _CHECKS is not None:
+        _CHECKS(out, "dispatch")
+    return out
 
 
 def _out_buffer(out: DNDarray, gshape, split, device) -> DNDarray:
@@ -282,3 +290,7 @@ def _cum_op(
     if out is not None:
         return _write_out(out, res, gshape, split, x.device)
     return _wrap(res, gshape, split, x, x.balanced if split is not None else True)
+
+
+if sanitation.checks_enabled():  # armed from the environment before this module loaded
+    _CHECKS = sanitation.validate_dispatch

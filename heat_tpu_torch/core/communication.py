@@ -276,6 +276,18 @@ class Communication:
         got = self._exchange(torch.split(x, list(send_counts), dim=split_axis), shapes, x)
         return torch.cat(got, dim=concat_axis)
 
+    def exchange(self, pieces, shapes, like: torch.Tensor) -> List[torch.Tensor]:
+        """``pieces[r]`` goes to rank ``r``; returns the piece each rank sent
+        here, the one from rank ``s`` of ``shapes[s]``, which the caller
+        knows.  One ``all_to_all_single`` of bytes (any dtype, bool too),
+        accounted as an ``Alltoall`` of the bytes that leave this rank: a
+        piece kept here costs nothing."""
+        if not self.is_distributed():
+            return [pieces[0]]
+        sent = sum(pc.numel() for r, pc in enumerate(pieces) if r != self.rank)
+        self._account_bytes("Alltoall", sent * like.element_size())
+        return self._exchange(pieces, shapes, like)
+
     def _exchange(self, pieces, shapes, like: torch.Tensor) -> List[torch.Tensor]:
         """``pieces[r]`` goes to rank ``r``; returns what every rank sent
         here, the piece from rank ``s`` of ``shapes[s]``: one

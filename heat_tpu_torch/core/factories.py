@@ -25,6 +25,7 @@ __all__ = [
     "empty",
     "empty_like",
     "eye",
+    "from_partitioned",
     "full",
     "full_like",
     "linspace",
@@ -299,3 +300,257 @@ def meshgrid(*arrays, indexing: str = "xy") -> list:
         outs.append(DNDarray(o, tuple(shape), types.canonical_heat_type(o.dtype), out_split, ref.device, ref.comm,
                              True))
     return outs
+
+
+def from_partitioned(x, comm=None) -> DNDarray:
+    """The DNDarray of an object exposing ``__partitioned__`` (the inverse
+    of :attr:`DNDarray.__partitioned__`).  Split along the axis that the
+    partition tiling divides (none: replicated).  Where every partition
+    carries its data, they are put together and this rank keeps its chunk;
+    where only this process's do (as a distributed DNDarray's), each rank
+    takes its own as its local part."""
+    parts = x.__partitioned__
+    shape = tuple(parts["shape"])
+    tiling = tuple(parts.get("partition_tiling", (1,) * len(shape)))
+    split = next((i for i, t in enumerate(tiling) if t > 1), None)
+    get = parts.get("get", lambda v: v)
+    partitions = parts["partitions"]
+    if split is None:
+        pos = next(iter(parts.get("locals", partitions)))
+        return array(get(partitions[pos]["data"]), comm=comm)
+    order = sorted(partitions, key=lambda p: partitions[p]["start"][split])
+    if all(partitions[p]["data"] is not None for p in order):
+        data = [np.asarray(get(partitions[p]["data"]).cpu() if isinstance(partitions[p]["data"], torch.Tensor)
+                           else get(partitions[p]["data"])) for p in order]
+        return array(np.concatenate(data, axis=split).reshape(shape), split=split, comm=comm)
+    local = get(partitions[tuple(parts["locals"][0])]["data"])
+    return array(local, is_split=split, comm=comm)
+
+
+def identity(n: int, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """The (n, n) identity matrix."""
+    return eye(int(n), dtype=dtype, split=split, device=device, comm=comm)
+
+
+def geomspace(start, stop, num: int = 50, endpoint: bool = True, dtype=None, split=None, device=None,
+              comm=None) -> DNDarray:
+    """``num`` samples spaced evenly on a log scale from ``start`` to ``stop``
+    (both kept exactly); each rank computes its own chunk."""
+    if start == 0 or stop == 0:
+        raise ValueError("Geometric sequence cannot include zero")
+    t, _, split, device, comm = _spaced(0.0, 1.0, num, endpoint, split, device, comm)
+    if (start < 0) != (stop < 0):
+        raise ValueError("geomspace across zero needs complex samples, which are not supported")
+    vals = float(start) * torch.pow(float(stop) / float(start), t)
+    num = int(num)
+    off, (cnt,), _ = comm.chunk((num,), split)
+    if cnt and off == 0:
+        vals[0] = float(start)
+    if cnt and endpoint and num > 1 and off + cnt == num:
+        vals[-1] = float(stop)
+    dtype = types.canonical_heat_type(types.float32 if dtype is None else dtype)
+    return DNDarray(vals.to(dtype.torch_type()), (num,), dtype, split, device, comm, True)
+
+
+def tri(N: int, M=None, k: int = 0, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """The (N, M) matrix of ones at and below the ``k``-th diagonal; each rank
+    builds its chunk."""
+    n, m = int(N), int(N if M is None else M)
+    dtype = types.canonical_heat_type(dtype)
+    device, tdev, comm = _sanitize(device, comm)
+    split = sanitize_axis((n, m), split)
+    _, _, (rows, cols) = comm.chunk((n, m), split)
+    r = torch.arange(rows.start, rows.stop, device=tdev)
+    c = torch.arange(cols.start, cols.stop, device=tdev)
+    t = (c[None, :] <= r[:, None] + int(k)).to(dtype.torch_type())
+    return DNDarray(t, (n, m), dtype, split, device, comm, True)
+
+
+def vander(x, N=None, increasing: bool = False) -> DNDarray:
+    """The Vandermonde matrix of the 1-D ``x``: column j holds ``x`` to the
+    power N - 1 - j (j with ``increasing``).  The rows follow ``x``'s split:
+    each rank raises its own elements."""
+    if not isinstance(x, DNDarray):
+        x = array(x)
+    if x.ndim != 1:
+        raise ValueError("x must be a one-dimensional array")
+    n = x.gshape[0] if N is None else int(N)
+    t = x.larray
+    powers = torch.arange(n, device=t.device, dtype=t.dtype if t.dtype != torch.bool else torch.int32)
+    if not increasing:
+        powers = powers.flip(0)
+    v = torch.pow(t[:, None], powers[None, :])
+    split = 0 if x.split is not None else None
+    return DNDarray(v, (x.gshape[0], n), types.canonical_heat_type(v.dtype), split, x.device, x.comm, x.balanced)
+
+
+def indices(dimensions, dtype=types.int32, sparse: bool = False):
+    """The grid's index arrays (numpy's ``indices``), replicated: one array
+    of shape (len(dimensions), *dimensions), or with ``sparse`` a tuple of
+    arrays each varying along its own axis."""
+    dims = tuple(int(d) for d in dimensions)
+    dtype = types.canonical_heat_type(dtype)
+    device, tdev, comm = _sanitize(None, None)
+    nd = len(dims)
+    axes = [torch.arange(d, device=tdev, dtype=dtype.torch_type()) for d in dims]
+    views = [a.reshape([-1 if i == j else 1 for j in range(nd)]) for i, a in enumerate(axes)]
+    if sparse:
+        return tuple(DNDarray(v.contiguous(), tuple(v.shape), dtype, None, device, comm, True) for v in views)
+    t = torch.stack([v.expand(dims) for v in views]) if nd else torch.empty((0,), dtype=dtype.torch_type(), device=tdev)
+    return DNDarray(t, tuple(t.shape), dtype, None, device, comm, True)
+
+
+def ix_(*args):
+    """Open-mesh index arrays of the 1-D sequences ``args`` (numpy's ``ix_``),
+    replicated: the i-th varies along axis i."""
+    nd = len(args)
+    out = []
+    for i, a in enumerate(args):
+        v = (a.resplit(None) if a.is_distributed() else a) if isinstance(a, DNDarray) else array(a)
+        t = v.larray
+        if t.dtype == torch.bool:
+            t = t.nonzero().reshape(-1).to(torch.int32)
+        t = t.reshape([-1 if j == i else 1 for j in range(nd)])
+        out.append(DNDarray(t, tuple(t.shape), types.canonical_heat_type(t.dtype), None, v.device, v.comm, True))
+    return tuple(out)
+
+
+def diag_indices(n: int, ndim: int = 2):
+    """The indices of the main diagonal of an n x ... x n array of ``ndim``
+    axes: ``ndim`` copies of ``arange(n)``, replicated."""
+    return tuple(arange(int(n)) for _ in range(int(ndim)))
+
+
+def diag_indices_from(arr) -> tuple:
+    """:func:`diag_indices` of the square ``arr``."""
+    if arr.ndim < 2 or len(set(arr.shape)) != 1:
+        raise ValueError("input must be square along every axis")
+    return diag_indices(arr.shape[0], arr.ndim)
+
+
+def tril_indices_from(arr, k: int = 0):
+    """The indices of the lower triangle of the 2-D ``arr``."""
+    from .indexing import tril_indices
+
+    if arr.ndim != 2:
+        raise ValueError("input must be 2-D")
+    return tril_indices(arr.shape[0], k=k, m=arr.shape[1])
+
+
+def triu_indices_from(arr, k: int = 0):
+    """The indices of the upper triangle of the 2-D ``arr``."""
+    from .indexing import triu_indices
+
+    if arr.ndim != 2:
+        raise ValueError("input must be 2-D")
+    return triu_indices(arr.shape[0], k=k, m=arr.shape[1])
+
+
+def _indices_like(t: torch.Tensor, proto: Optional[DNDarray]) -> DNDarray:
+    """Index tensor ``t``, computed from ``proto``'s local part, as a
+    DNDarray of ``proto``'s split and layout (replicated without one)."""
+    if proto is None:
+        device, _, comm = _sanitize(None, None)
+        return DNDarray(t, tuple(t.shape), types.canonical_heat_type(t.dtype), None, device, comm, True)
+    gshape = proto.gshape
+    return DNDarray(t, gshape, types.canonical_heat_type(t.dtype), proto.split, proto.device, proto.comm,
+                    proto.balanced)
+
+
+def unravel_index(idx, shape):
+    """The coordinates in an array of ``shape`` of the flat indices ``idx``,
+    one array per axis, of ``idx``'s shape, split and dtype.  As in the
+    reference, a negative index counts from the end and one out of range is
+    clipped."""
+    proto = idx if isinstance(idx, DNDarray) else None
+    t = (proto if proto is not None else array(idx)).larray
+    dims = tuple(int(s) for s in shape)
+    size = int(np.prod(dims, dtype=np.int64))
+    flat = torch.where(t < 0, t + size, t).clamp(0, max(size - 1, 0)).to(torch.int64)
+    out = []
+    for d in reversed(dims):
+        out.append(flat % d)
+        flat = flat // d
+    return tuple(_indices_like(c.to(t.dtype), proto) for c in reversed(out))
+
+
+def ravel_multi_index(multi_index, dims, mode: str = "raise", order: str = "C"):
+    """The flat indices in an array of shape ``dims`` of the coordinates
+    ``multi_index`` (one sequence an axis): ``mode`` 'raise' refuses a
+    coordinate out of range, 'clip' clips it, 'wrap' wraps it; ``order`` 'C'
+    (row-major) or 'F'.  Of the first DNDarray coordinate's split, else
+    replicated; int32, the reference's dtype."""
+    proto = next((m for m in multi_index if isinstance(m, DNDarray)), None)
+    coords = [(m if isinstance(m, DNDarray) else array(m)).larray.to(torch.int64) for m in multi_index]
+    dims = tuple(int(d) for d in dims)
+    if mode == "raise":
+        for c, d in zip(coords, dims):
+            if c.numel() and bool(((c < 0) | (c >= d)).any()):
+                raise ValueError(f"invalid entry in coordinates array (dim {d})")
+    elif mode == "clip":
+        coords = [c.clamp(0, d - 1) for c, d in zip(coords, dims)]
+    elif mode == "wrap":
+        coords = [c % d for c, d in zip(coords, dims)]
+    else:
+        raise ValueError(f"clipmode must be one of 'clip', 'raise', or 'wrap', got {mode!r}")
+    pairs = list(zip(coords, dims))
+    if order == "F":
+        pairs = pairs[::-1]
+    elif order != "C":
+        raise ValueError(f"order must be 'C' or 'F', got {order!r}")
+    flat = torch.zeros_like(pairs[0][0])
+    for c, d in pairs:
+        flat = flat * d + c
+    return _indices_like(flat.to(torch.int32), proto)
+
+
+def _window(values: np.ndarray) -> DNDarray:
+    """A window (numpy's, in float64) as a replicated float32 DNDarray, the
+    reference's dtype."""
+    return array(values.astype(np.float32))
+
+
+def bartlett(M: int) -> DNDarray:
+    """The Bartlett (triangular) window of ``M`` points."""
+    return _window(np.bartlett(int(M)))
+
+
+def blackman(M: int) -> DNDarray:
+    """The Blackman window of ``M`` points."""
+    return _window(np.blackman(int(M)))
+
+
+def hamming(M: int) -> DNDarray:
+    """The Hamming window of ``M`` points."""
+    return _window(np.hamming(int(M)))
+
+
+def hanning(M: int) -> DNDarray:
+    """The Hann window of ``M`` points."""
+    return _window(np.hanning(int(M)))
+
+
+def kaiser(M: int, beta: float) -> DNDarray:
+    """The Kaiser window of ``M`` points and shape ``beta``."""
+    return _window(np.kaiser(int(M), float(beta)))
+
+
+__all__ += [
+    "bartlett",
+    "blackman",
+    "diag_indices",
+    "diag_indices_from",
+    "geomspace",
+    "hamming",
+    "hanning",
+    "identity",
+    "indices",
+    "ix_",
+    "kaiser",
+    "ravel_multi_index",
+    "tri",
+    "tril_indices_from",
+    "triu_indices_from",
+    "unravel_index",
+    "vander",
+]

@@ -58,7 +58,7 @@ class Dataset:
             if a.split is None:
                 self._local.append(a.larray[self.comm.chunk((n,), 0)[2]])
             else:  # into chunk's blocks, where the array is not balanced
-                self._local.append(self.comm.redistribute(a.larray, 0, [int(c) for c in a.lshape_map[:, 0]],
+                self._local.append(self.comm.redistribute(a.larray, 0, [int(c) for c in a.lshape_map()[:, 0]],
                                                           counts))
         self.has_labels = labels is not None
         self.ishuffle = ishuffle

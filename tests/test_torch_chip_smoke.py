@@ -635,3 +635,67 @@ def test_tsqr_multicard_without_cuda_exits_2():
     out = subprocess.run([sys.executable, str(REPO / "scripts" / "tsqr_multicard.py")], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 2 and '"ok"' not in out.stdout
+
+
+def _reference_split(op: str, split: int):
+    """The split the JAX package gives the indexing phase's operation ``op``
+    on a small array of the phase's rank at ``split``."""
+    import warnings
+
+    import heat_tpu
+
+    x = heat_tpu.array(np.arange(13 * 4, dtype=np.float32).reshape(13, 4) - 20, split=split)
+    a = heat_tpu.array(np.arange(9 * 9, dtype=np.float32).reshape(9, 9) - 40, split=split)
+    m = x[:, 0] > 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        if op in ("X[m] = 0", "X[idx] = Y", "A[A < 0] = 0"):
+            target = a if op.startswith("A") else x
+            key = {"X[m] = 0": m, "X[idx] = Y": [1, 5], "A[A < 0] = 0": a < 0}[op]
+            target[key] = 0
+            return target.split
+        return {
+            "X[idx]": lambda: x[[1, 5, 2]], "X[::2]": lambda: x[::2], "X[::-1]": lambda: x[::-1],
+            "X[:, 3]": lambda: x[:, 3], "X[m]": lambda: x[m], "where(X > 0, X, 0)": lambda: heat_tpu.where(x > 0, x, 0),
+            "nonzero(m)": lambda: heat_tpu.nonzero(m), "A[:, 100:200]": lambda: a[:, 1:5], "A[5]": lambda: a[5],
+            "A[:, ::2]": lambda: a[:, ::2], "A.fill_diagonal(0)": lambda: a.fill_diagonal(0),
+            "identity": lambda: heat_tpu.identity(9, split=split), "tri": lambda: heat_tpu.tri(9, split=split),
+            "vander": lambda: heat_tpu.vander(heat_tpu.array(np.arange(9, dtype=np.float32), split=split)),
+        }[op]().split
+
+
+def test_index_split_table_is_the_reference_rule(chip_smoke):
+    """The indexing phase holds each operation's split against INDEX_SPLITS:
+    the JAX package's split of the same operation on a small array."""
+    assert len(chip_smoke.INDEX_SPLITS) == 21
+    for entry, want in chip_smoke.INDEX_SPLITS.items():
+        op, split = entry.rsplit(" @ ", 1)
+        assert _reference_split(op, int(split)) == want, entry
+
+
+def test_index_bytes_bound_at_a_small_shape(chip_smoke):
+    """Reads count whole 32-byte sectors, writes their bytes: one float of a
+    row is a sector, a 400-byte run at byte 400 touches 13 sectors, X's
+    128-byte rows four each; the bound is the sum at the card's rate."""
+    assert chip_smoke._sectors(0, 128) == 128 and chip_smoke._sectors(12, 4) == 32
+    assert chip_smoke._sectors(30, 4) == 64 and chip_smoke._sectors(400, 400) == 416 and chip_smoke._sectors(0, 0) == 0
+    n, d = 10, 32
+    assert chip_smoke.index_bytes("X[:, 3]", n, d) == (n * 32, n * 4)
+    assert chip_smoke.index_bytes("X[idx]", n, d, k=3) == (3 * 8 + 3 * 128, 3 * 128)
+    assert chip_smoke.index_bytes("X[::2]", 11, d) == (6 * 128, 6 * 128)
+    assert chip_smoke.index_bytes("X[::-1]", n, d) == (n * 128, n * 128)
+    assert chip_smoke.index_bytes("X[m]", n, d, nnz=4) == (n + 4 * 128, 4 * 128)
+    assert chip_smoke.index_bytes("X[m] = 0", n, d, nnz=4) == (n, 4 * 128)
+    assert chip_smoke.index_bytes("nonzero(m)", n, d, nnz=4) == (n, 16)
+    assert chip_smoke.index_bytes("where(X > 0, X, 0)", n, d) == (n * 128, n * 128)
+    na = 16384
+    assert chip_smoke.index_bytes("A[:, 100:200]", 4, na) == (4 * 416, 4 * 400)
+    assert chip_smoke.index_bytes("A[5]", na, na) == (na * 4, na * 4)
+    assert chip_smoke.index_bytes("A[:, ::2]", na, na) == (na * na * 4, na * na * 2)
+    assert chip_smoke.index_bytes("A[A < 0] = 0", na, na, nnz=7) == (na * na * 4, 28)
+    assert chip_smoke.index_bytes("A.fill_diagonal(0)", na, na) == (0, na * 4)
+    assert chip_smoke.index_bytes("vander", na, na) == (na * 4, na * na * 4)
+    read, write = chip_smoke.index_bytes("X[::-1]", chip_smoke.N_MAIN, chip_smoke.D)
+    assert read == write == 12_800_000_000
+    assert chip_smoke.index_bound_ms("X[::-1]", chip_smoke.N_MAIN, chip_smoke.D) == pytest.approx(
+        25.6e9 / 3.35e12 * 1e3)

@@ -174,7 +174,7 @@ def test_array_numpy_round_trip(split, on_cpu):
     assert x.split == split and x.lshape == (13, 5)
     assert x.dtype is htt.float32
     np.testing.assert_array_equal(x.numpy(), ref.numpy())
-    np.testing.assert_array_equal(x.lshape_map, [[13, 5]])
+    np.testing.assert_array_equal(x.lshape_map(), [[13, 5]])
     # the data is copied: the caller's buffer stays untouched
     x.larray[0, 0] = 99.0
     assert X[0, 0] != 99.0

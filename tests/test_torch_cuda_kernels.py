@@ -865,3 +865,79 @@ def test_cuda_data_parallel_and_daso_stay_on_the_card(tmp_path):
             p.kill()
             p.join(5)
     assert [p.exitcode for p in procs] == [0, 0]
+
+
+def _device_to_host_copies(fn, tmp_path):
+    """The bytes of each device-to-host copy torch.profiler's trace shows
+    during ``fn()``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [int(e["args"]["bytes"]) for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+
+
+def test_cuda_indexing_and_setitem_stay_on_the_card(tmp_path):
+    """Every kind of key, ``__setitem__``, ``where``, ``nonzero`` and
+    ``fill_diagonal`` on CUDA arrays at world size 1: each result a CUDA
+    tensor equal to torch's own indexing of the same tensor, and nothing
+    copied to the host but scalars (a bound or a count: at most 8 bytes a
+    copy) and, for ``str``, the printed edges."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    a = torch.randn(1000, 33, generator=g, device="cuda")
+    idx = torch.randint(0, 1000, (500,), generator=g, device="cuda")
+    m = a[:, 0] > 0
+    x = htt.array(a, split=0)
+
+    def run():
+        out = []
+        for key, want in ((idx, a[idx]), ((slice(None), 3), a[:, 3]), (slice(None, None, -1), a.flip(0)),
+                          ((slice(None), slice(None, None, 2)), a[:, ::2]), (5, a[5]), (m, a[m]),
+                          ((idx[:7], slice(2, 9)), a[idx[:7], 2:9]), ((None, Ellipsis, 4), a[None, :, 4])):
+            got = x[key]
+            assert got.larray.is_cuda and torch.equal(got.larray, want)
+            out.append(got)
+        y = htt.array(a, split=1)
+        y[y < 0] = 0
+        y[idx[:3]] = htt.array(torch.ones(3, 33, device="cuda"), split=0)
+        want = a.clone()
+        want[want < 0] = 0
+        want[idx[:3]] = 1.0
+        assert y.larray.is_cuda and torch.equal(y.larray, want)
+        w = htt.where(x > 0, x, 0)
+        assert w.larray.is_cuda and torch.equal(w.larray, torch.where(a > 0, a, 0))
+        nz = htt.nonzero(htt.array(m, split=0))
+        assert nz.larray.is_cuda and torch.equal(nz.larray, torch.nonzero(m).reshape(-1).int())
+        f = htt.array(a, split=1).fill_diagonal(-1.0)
+        assert f.larray.is_cuda and torch.equal(f.larray.diagonal(), torch.full((33,), -1.0, device="cuda"))
+        return out
+
+    copies = _device_to_host_copies(run, tmp_path)
+    assert all(c <= 8 for c in copies), copies
+    big = htt.array(torch.randn(10_000, 500, generator=g, device="cuda"), split=0)
+    text = []
+    copies = _device_to_host_copies(lambda: text.append(str(big)), tmp_path)
+    assert "..." in text[0] and 0 < sum(copies) <= 7 * 7 * 4 + 8 * len(copies), copies
+
+
+def test_cuda_hermitian_is_formed_on_the_card(tmp_path):
+    """``matrixgallery.hermitian`` draws and forms its matrix on the card:
+    a CUDA result, Hermitian (positive definite on request), and nothing
+    of it copied to the host."""
+    from heat_tpu_torch.utils.data import matrixgallery as mg
+
+    out = []
+    copies = _device_to_host_copies(lambda: out.extend([mg.hermitian(256, split=0),
+                                                        mg.hermitian(256, split=1, positive_definite=True,
+                                                                     dtype=htt.float32)]), tmp_path)
+    assert all(c <= 8 for c in copies), copies
+    h, pd = (o.larray for o in out)
+    assert h.is_cuda and h.dtype == torch.complex64 and torch.equal(h, h.conj().T)
+    assert pd.is_cuda and torch.linalg.eigvalsh(pd.double()).min() > 0

@@ -126,7 +126,7 @@ def test_layout_methods_at_world_one():
     sliced = a[3:]
     sliced.balance_()
     np.testing.assert_array_equal(sliced.numpy(), X[3:])
-    a.redistribute_(lshape_map=a.lshape_map, target_map=a.lshape_map)
+    a.redistribute_(lshape_map=a.lshape_map(), target_map=a.lshape_map())
     np.testing.assert_array_equal(a.numpy(), X)
 
 

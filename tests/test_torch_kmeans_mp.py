@@ -44,7 +44,7 @@ def _worker(rank, port, out_dir):
             "size": comm.size,
             "lshape": list(x.lshape),
             "counts_displs": [list(v) for v in comm.counts_displs_shape(x.shape, 0)],
-            "lshape_map": x.lshape_map.tolist(),
+            "lshape_map": x.lshape_map().tolist(),
             "round_trip": bool(np.array_equal(x.numpy(), X)),
             "rows": x[[0, 500, 501, 1000]].numpy().tolist(),
             "slice": x[499:503].numpy().tolist(),

@@ -220,9 +220,9 @@ def _worker(rank, port, out_dir):
         res["traffic"] = comm.traffic()
         res["transport"] = {name: comm.transport(torch.zeros(1), name) for name in COLLECTIVES}
         x = ht.array(_data()["X"], split=0)[3:]  # rows 3..12: 4 | 6 on two ranks
-        res["is_balanced"] = [x.is_balanced(), x.is_balanced(force_check=True), x.lshape_map.tolist()]
+        res["is_balanced"] = [x.is_balanced(), x.is_balanced(force_check=True), x.lshape_map().tolist()]
         x.balance_()
-        res["balance_"] = [x.lshape_map.tolist(), x.balanced, x.numpy().tolist(), x.is_balanced()]
+        res["balance_"] = [x.lshape_map().tolist(), x.balanced, x.numpy().tolist(), x.is_balanced()]
         x.redistribute_(target_map=[[10, 7], [0, 7]])
         res["redistribute_"] = [list(x.lshape), x.balanced, x.numpy().tolist()]
         (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
