@@ -48,6 +48,29 @@
    ``X[idx] = Y`` (its Alltoall bytes exactly the rows that change rank
    with their int64 positions) and ``X[::-1] = column``, each bit for bit
    torch's own assignment on each rank's rows, and timed.
+3c. The random streams, statistics, manipulations and the sort at world
+   size 1 at users' sizes: X = ``rand(1e8, 32)`` (also ``randn`` and
+   ``randint``, each one call timed, its first 1e6 values the CPU path's
+   bit for bit; randn within 1e-6), ``mean``/``var``/``std``/``argmax``
+   of X along 0, 1 and None, ``cov(X, rowvar=False)``,
+   ``histogram(X[:, 0], 100)``; v = ``rand(1e9)``: ``sort`` with indices,
+   ``argsort``, ``percentile(v, [5, 50, 95])``, ``median``, ``topk(v,
+   1000)``, 1e6 ``searchsorted``; ``unique(randint(0, 1e6, 1e9))``;
+   ``reshape(X, (5e7, 64))``, ``concatenate`` of X's halves, ``roll(X,
+   1000, 0)``, ``pad`` of config 0's 16384^2 operand; ``einsum('ij,ik->jk',
+   X, X)``, ``kron`` to 16384^2, ``det`` and ``inv`` at 4096^2.  Each
+   result on the card, its split ``STATS_SPLITS``' (the JAX package's),
+   bit for bit torch's own call where the port's path is that call, else
+   within STATS_RTOL of float64 on the card (of the largest entry),
+   timed (CUDA events) beside ``stats_bound_ms`` and torch's call; the
+   peak memory.
+3d. The same surface
+   on 2 spawned ranks on this card over gloo
+   (``stats_cases``: the ragged shapes of tests/test_torch_sort_mp.py at
+   every split, draws at every split, a 1e7-element sort), each result
+   world size 1's (exact; the float reductions within STATS_2R_RTOL), and
+   each rank's Alltoall bytes of the sort (at most its chunk's values and
+   int64 indices).
 4. ``ht.matmul`` (BASELINE config 0): two (n, n) float32
    ``ht.random.randn(..., split=0)`` on the card multiplied at world size
    1, n = 4096 (BASELINE's shape) and 16384 (the north star's: 3 GiB for a,
@@ -176,6 +199,17 @@
    float32 FFMA design beside it).
 13. Ends with the line ``{"ok": true, "device": {...}}``.
 
+The phases run in this order: 1, 2, 3, the world-size-1 parts of 3b, 4,
+4b and 4c, then 5 to 9, 11 and 12's timings; then the phases on spawned
+ranks, 10 first, then the 2-rank parts of 3b, 4, 4b and 4c; then 3c and
+3d.  Every check in this process that reads the profiler so runs before
+the first spawned rank: after ranks on the card exit, CUPTI can record no
+device activity for as long as it was watched (``profiled``, which also
+starts CUPTI afresh for each session of this process).  Each profiled
+check takes its session again at once while it records none, for at most
+PROFILE_WAIT_S, and then fails; 10's rank 0 takes one session only.  The
+script leaves by ``os._exit``, its output flushed.
+
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without CUDA it exits 2 at once.
 """
@@ -183,11 +217,13 @@ line.  Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import json
+import os
 import queue
 import socket
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 K, D = 64, 32
@@ -380,6 +416,26 @@ INDEX_SPLITS = {"X[idx] @ 0": 0, "X[::2] @ 0": 0, "X[::-1] @ 0": 0, "X[:, 3] @ 0
                 "A[:, ::2] @ 0": 0, "A[:, ::2] @ 1": 1, "A[A < 0] = 0 @ 1": 1, "A.fill_diagonal(0) @ 0": 0,
                 "A.fill_diagonal(0) @ 1": 1, "identity @ 0": 0, "tri @ 0": 0, "vander @ 0": 0}
 STR_EDGE_BYTES = 4096  # str(X) may copy its 7 x 7 edges to the host, never more than this
+# phase 3c: the statistics, order and reshape ops at world size 1 (X = rand(N_MAIN, D), v = rand(STATS_V),
+# w = randint(0, STATS_UNIQUE_HIGH, STATS_V)); each result's split is the JAX package's
+STATS_SEED, STATS_V, STATS_PREFIX, STATS_TOPK, STATS_QUERIES = 14, 1_000_000_000, 1_000_000, 1000, 1_000_000
+STATS_UNIQUE_HIGH, STATS_PAD = 1_000_000, 8
+STATS_RTOL = 1e-5  # max |got - float64| / max |float64|
+STATS_2R_SORT, STATS_2R_RTOL, STATS_2R_STRIDE = 10_000_000, 1e-5, 9973
+PEAK_FP32 = 67e12  # an H100 SXM's float32 rate outside the tensor cores
+PROFILE_WAIT_S = 60.0  # how long ``profiled`` takes a session again while sessions record no device activity
+_TEARDOWN_CUPTI = False  # main() sets it: this process's profiler sessions each start CUPTI afresh
+STATS_SPLITS = {
+    "rand": 0, "randn": 0, "randint": 0,
+    **{f"{op}(X, 0)": None for op in ("mean", "var", "std", "argmax")},
+    **{f"{op}(X, 1)": 0 for op in ("mean", "var", "std", "argmax")},
+    **{f"{op}(X)": None for op in ("mean", "var", "std", "argmax")},
+    "cov(X, rowvar=False)": None, "histogram(X[:, 0], 100)": None,
+    "sort(v)": 0, "argsort(v)": 0, "percentile(v, [5, 50, 95])": None, "median(v)": None, "topk(v, 1000)": None,
+    "searchsorted(v, q)": None, "unique(w)": 0,
+    "reshape(X, (5e7, 64))": 0, "concatenate(X halves)": 0, "roll(X, 1000, 0)": 0, "pad(A, 8)": 0,
+    "einsum('ij,ik->jk', X, X)": None, "kron(a, b)": 0, "det(M)": None, "inv(M)": 0,
+}
 # the two-rank indexing phase: ragged arrays on HeAT's uneven chunks, with their splits
 INDEX_2R = {"rows": ((1001, 7), (0,)), "cols": ((7, 1001), (1,)), "cube": ((13, 6, 5), (0, 1, 2))}
 # tall-skinny QR/SVD (BASELINE config 1): float32 randn 1e6 x 256, split=0, at full size
@@ -1069,6 +1125,53 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def device_events(prof) -> list:
+    """The device rows (kernels, memory copies and sets) of a finished
+    ``torch.profiler`` session's ``key_averages()``."""
+    import torch
+
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profiled(fn, label: str, cpu: bool = False, wait_s: float = PROFILE_WAIT_S) -> tuple:
+    """(a finished ``torch.profiler`` session over one ``fn()``, the wall
+    seconds of that call, the card synchronised), with the CPU's activity
+    too where ``cpu``.  A process that keeps CUPTI from one session to the
+    next can lose every record for good: on an H100, in two runs of
+    ``scripts/profiler_probe.py``, 94 of 104 sessions recorded nothing
+    once ranks the process spawned on the card had exited, and one run of
+    this script lost 42 sessions in a row with no rank spawned.  So in the
+    script's own process (``_TEARDOWN_CUPTI``) each session runs with
+    ``TEARDOWN_CUPTI=1``, which makes the profiler finalize CUPTI when the
+    session ends (with it, 1 of 52 recorded nothing after a spawn); spawned
+    ranks, fresh processes, never inherit it.  A session that still
+    records no device activity measured nothing, so ``fn()`` runs again at
+    once under a new session, for at most ``wait_s`` seconds, and then the
+    run fails.  Every ``fn`` here does work on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    deadline, sessions = time.monotonic() + wait_s, 0
+    while True:
+        torch.cuda.synchronize()
+        if _TEARDOWN_CUPTI:
+            os.environ["TEARDOWN_CUPTI"] = "1"  # read when the session ends
+        try:
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("TEARDOWN_CUPTI", None)
+        sessions += 1
+        if device_events(prof):
+            return prof, wall
+        if time.monotonic() >= deadline:
+            fail(f"{label}: {sessions} profiler sessions over {wait_s} s recorded no device activity")
+
+
 def profile_device(fn, label: str) -> dict:
     """Device time by kernel class over ``fn()`` (torch.profiler), and the
     device's busy share of the wall time: kernels on one stream do not
@@ -1078,20 +1181,12 @@ def profile_device(fn, label: str) -> dict:
     return row
 
 
-def profile_row(fn, label: str) -> dict:
-    """``profile_device``'s row, unprinted."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+def profile_row(fn, label: str, wait_s: float = PROFILE_WAIT_S) -> dict:
+    """``profile_device``'s row, unprinted (``wait_s``: ``profiled``'s)."""
+    prof, wall = profiled(fn, label, cpu=True, wait_s=wait_s)
     classes, kernels = {}, 0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.self_device_time_total <= 0:
+    for evt in device_events(prof):
+        if evt.self_device_time_total <= 0:
             continue
         cls = _kernel_class(evt.key)
         classes[cls] = classes.get(cls, 0.0) + evt.self_device_time_total / 1e3  # us -> ms
@@ -1258,16 +1353,8 @@ def flash_bound(kernel: str, bhq: int, bhk: int, S: int, d: int, itemsize: int):
 def device_kernels(fn, top: int = 2, reps: int = 3) -> list:
     """The names of the ``top`` CUDA kernels with the most device time over
     ``reps`` calls of ``fn()``: which backend a library call took."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    prof, _ = profiled(lambda: [fn() for _ in range(reps)], "device_kernels")
+    evts = [e for e in device_events(prof) if e.self_device_time_total > 0]
     return [e.key[:120] for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:top]]
 
 
@@ -1566,8 +1653,9 @@ def ring_rank(rank: int, port: int, out_q) -> None:
             del one, grads_r
         comm_row = None
         if rank == 0:
+            # one session only: a session taken again would run a ring step rank 1 does not join
             comm_row = profile_row(lambda: _ring_step(ht, lm, comm, batches[LM_STEPS + 1], lo, hi),
-                                   "TransformerLM(comm=2 ranks) training step, rank 0")
+                                   "TransformerLM(comm=2 ranks) training step, rank 0", wait_s=0.0)
         else:
             _ring_step(ht, lm, comm, batches[LM_STEPS + 1], lo, hi)
         torch.cuda.synchronize()
@@ -1667,17 +1755,11 @@ def matmul_check(got, want) -> float:
     return float((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-300))
 
 
-def launched_kernels(fn) -> list:
+def launched_kernels(fn, label: str) -> list:
     """The names of every device activity of one ``fn()`` (torch.profiler),
     sorted: kernels and any memory copies or sets."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+    prof, _ = profiled(fn, label)
+    return sorted({e.key for e in device_events(prof)})
 
 
 def matmul_world_one(ht, smi: str) -> None:
@@ -1709,8 +1791,8 @@ def matmul_world_one(ht, smi: str) -> None:
             fail(f"ht.matmul at {n} differs from torch.matmul of the local tensors")
         del c
         torch.cuda.empty_cache()
-        kernels, plain = launched_kernels(lambda: ht.matmul(a, b)), launched_kernels(
-            lambda: torch.matmul(a.larray, b.larray))
+        kernels = launched_kernels(lambda: ht.matmul(a, b), f"ht.matmul at {n}")
+        plain = launched_kernels(lambda: torch.matmul(a.larray, b.larray), f"torch.matmul at {n}")
         if kernels != plain or any("copy" in k.lower() or "memcpy" in k.lower() for k in kernels):
             fail(f"ht.matmul at {n} launched {kernels}, torch.matmul {plain}")
         reps = max(3, int(2e12 / n ** 3))
@@ -1924,10 +2006,11 @@ def time_pos(dtype, reps: int) -> dict:
     return out_rows
 
 
-def pos_rows(launches: dict, errs: dict) -> list:
+def pos_rows(errs: dict) -> list:
     """The kernels line's rows of the positions kernels: float32 at the ring
     step's blocks (and bfloat16 beside), each block reported apart and the
-    row's numbers the mean launch of the main path's mix of blocks."""
+    row's numbers the mean launch of the main path's mix of blocks; each
+    row's ``launches`` is None until the ring's run fills it in."""
     import torch
 
     total = sum(POS_MIX.values())
@@ -1947,7 +2030,7 @@ def pos_rows(launches: dict, errs: dict) -> list:
         rows.append({
             "name": name, "route": "cuda", "source": flash_sources(name)["float32"], "cores": flash_cores(name),
             "sources": flash_sources(name), "bodies": flash_bodies(name),
-            "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": launches[name],
+            "replaces": f"heat_tpu/ops/flash_attention.py:{line}", "launches": None,
             "max_abs_err": max(e[name] for e in errs["float32"].values()), **mix(f32[name]),
             "shape": list(POS_MAIN), "causal": True, "mix": POS_MIX, "blocks": f32[name], "library_call": lib_call,
             "bfloat16": {**mix(bf16[name]), "max_abs_err": max(e[name] for e in errs["bfloat16"].values()),
@@ -2017,16 +2100,8 @@ def rel_max(got, want) -> float:
 def kernel_times(fn, reps: int = 3) -> list:
     """Each CUDA kernel of ``fn()`` with its device ms a call and launches a
     call (torch.profiler over ``reps`` calls), by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    prof, _ = profiled(lambda: [fn() for _ in range(reps)], "kernel_times")
+    evts = [e for e in device_events(prof) if e.self_device_time_total > 0]
     return [{"kernel": e.key[:120], "ms": e.self_device_time_total / 1e3 / reps, "launches": e.count / reps}
             for e in sorted(evts, key=lambda e: -e.self_device_time_total)]
 
@@ -2408,13 +2483,7 @@ def d2h_bytes(fn) -> tuple:
     import os
     import tempfile
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(fn, "d2h_bytes", cpu=True)
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -2761,6 +2830,441 @@ def indexing_two_ranks(ht, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# 3c/3d: the random streams, statistics, manipulations and the sort
+# ---------------------------------------------------------------------- #
+def stats_bound_ms(read: float, written: float, flops: float = 0.0) -> tuple:
+    """(least time, what bounds it): the bytes read once and written once
+    at the card's memory rate, or the float32 operations at its CUDA-core
+    peak, the larger."""
+    by_bytes = (read + written) / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_FP32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _max_err64(got, want64) -> float:
+    """max |got - want64| over max |want64| (float64 on the card)."""
+    import torch
+
+    g = got.double()
+    scale = float(want64.abs().max()) or 1.0
+    return float((g - want64).abs().max()) / scale
+
+
+def once_ms(fn) -> tuple:
+    """(``fn()``, ms of that one call between two CUDA events): for calls
+    that take seconds, where one call is the measurement."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _stats_row(label: str, got, smi: str, fn, reps: int, read: float, written: float, flops: float = 0.0,
+               check: str = "", err=None, torch_fn=None, ms=None) -> dict:
+    """Check ``got``'s place (a CUDA tensor, STATS_SPLITS' split), time ``fn``
+    (``cuda_ms``; or take ``ms``, one call's) and ``torch_fn`` (torch's own
+    call, where there is one), and print the row beside the bound."""
+    if got is not None:
+        for part in (got if isinstance(got, (tuple, list)) else (got,)):
+            if not part.larray.is_cuda:
+                fail(f"{label}: a result left the card ({part.larray.device})")
+        first = got[0] if isinstance(got, (tuple, list)) else got
+        if first.split != STATS_SPLITS[label]:
+            fail(f"{label}: split {first.split}, the reference's is {STATS_SPLITS[label]}")
+    ms = cuda_ms(fn, reps) if ms is None else ms
+    bound, by = stats_bound_ms(read, written, flops)
+    row = {"phase": "statistics", "op": label, "split": STATS_SPLITS[label], "ms": ms, "bound_ms": bound,
+           "bound_by": by, "share_of_bound": bound / ms, "check": check, "max_rel_err_vs_float64": err,
+           "torch_ms": cuda_ms(torch_fn, reps) if torch_fn is not None else None, "card": smi}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _chunked64(t, fn, rows: int = 1 << 23):
+    """``fn`` summed over float64 row blocks of ``t`` (a float64 reduction
+    that never holds all of ``t`` in float64)."""
+    acc = None
+    for s in range(0, t.shape[0], rows):
+        part = fn(t[s:s + rows].double())
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def stats_world_one(ht, smi: str) -> None:
+    """Phase 3c: the random streams, the reductions, the order ops, the
+    reshapes and the contractions at world size 1, at the sizes users run
+    them: X = rand(1e8, 32) (config 2's rows), v = rand(1e9), w =
+    randint(0, 1e6, 1e9), A = config 0's 16384^2 operand, M = 4096^2.  Each
+    result on the card, of STATS_SPLITS' split, bit for bit torch's own call
+    where the port's path is that call, else held against float64 on the
+    card (within STATS_RTOL of the largest entry); timed beside its bound."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n, d = N_MAIN, D
+    xbytes = n * d * 4
+
+    # the draws: each value a function of (seed, counter, flat index)
+    ht.random.seed(STATS_SEED)
+    X, rand_ms = once_ms(lambda: ht.random.rand(n, d, split=0))
+    Xn, randn_ms = once_ms(lambda: ht.random.randn(n, d, split=0))
+    Xi, randint_ms = once_ms(lambda: ht.random.randint(0, 1000, (n, d), split=0))
+    prefix = STATS_PREFIX // d
+    ht.random.seed(STATS_SEED)
+    cpu = [ht.random.rand(prefix, d, split=0, device="cpu"), ht.random.randn(prefix, d, split=0, device="cpu"),
+           ht.random.randint(0, 1000, (prefix, d), split=0, device="cpu")]
+    for label, got, want in (("rand", X, cpu[0]), ("randn", Xn, cpu[1]), ("randint", Xi, cpu[2])):
+        head = got.larray[:prefix].cpu()
+        if label == "randn":  # erfinv on the card and on the host may round apart
+            err = float((head.double() - want.larray.double()).abs().max())
+            if err > 1e-6:
+                fail(f"randn's first {STATS_PREFIX} values on the card differ from the CPU path's by {err}")
+            check = f"first {STATS_PREFIX} values within 1e-6 of the CPU path's"
+        else:
+            if not torch.equal(head, want.larray):
+                fail(f"{label}'s first {STATS_PREFIX} values on the card differ from the CPU path's")
+            err, check = 0.0, f"first {STATS_PREFIX} values bit for bit the CPU path's"
+        ms = {"rand": rand_ms, "randn": randn_ms, "randint": randint_ms}[label]
+        _stats_row(label, got, smi, None, 1, 0, xbytes, check=check, err=err, ms=ms,
+                   torch_fn={"rand": lambda: torch.rand(n, d, device="cuda"),
+                             "randn": lambda: torch.randn(n, d, device="cuda"),
+                             "randint": lambda: torch.randint(0, 1000, (n, d), device="cuda", dtype=torch.int32)}[label])
+    if float(X.larray.min()) < 0 or float(X.larray.max()) >= 1:
+        fail("rand left [0, 1)")
+    del Xn, Xi, cpu
+    torch.cuda.empty_cache()
+
+    # reductions of X along 0, 1 and None
+    xl = X.larray
+    mu64 = _chunked64(xl, lambda b: b.sum(0)) / n
+    var64 = _chunked64(xl, lambda b: ((b - mu64) ** 2).sum(0)) / n
+    tot64 = mu64.mean()
+    var_all64 = _chunked64(xl, lambda b: ((b - tot64) ** 2).sum()) / (n * d)
+    for op, axis in (("mean", 0), ("mean", 1), ("mean", None), ("var", 0), ("var", 1), ("var", None),
+                     ("std", 0), ("std", 1), ("std", None)):
+        label = f"{op}(X, {axis})" if axis is not None else f"{op}(X)"
+        fn = (lambda op=op, axis=axis: getattr(ht, op)(X, axis))
+        got = fn()
+        if axis == 0:
+            want = {"mean": mu64, "var": var64, "std": var64.sqrt()}[op]
+        elif axis is None:
+            want = {"mean": tot64, "var": var_all64, "std": var_all64.sqrt()}[op]
+        else:
+            want = None
+        if want is not None:
+            err = _max_err64(got.larray, want)
+        else:  # along 1: 1e8 rows of 32, row blocks in float64
+            err = 0.0
+            for s in range(0, n, 1 << 23):
+                b = xl[s:s + (1 << 23)].double()
+                m = b.mean(1)
+                w = {"mean": m, "var": ((b - m[:, None]) ** 2).mean(1), "std": ((b - m[:, None]) ** 2).mean(1).sqrt()}[op]
+                err = max(err, _max_err64(got.larray[s:s + (1 << 23)], w))
+        if err > STATS_RTOL:
+            fail(f"{label}: {err} from float64")
+        written = got.larray.numel() * 4
+        kw = {} if op == "mean" else {"correction": 0}
+        _stats_row(label, got, smi, fn, 3, xbytes, written, check="float64 on the card", err=err,
+                   torch_fn=(lambda op=op, axis=axis, kw=kw: getattr(torch, op)(xl, axis, **kw) if axis is not None
+                             else getattr(torch, op)(xl, **kw)))
+        del got
+    for axis in (0, 1, None):
+        label = f"argmax(X, {axis})" if axis is not None else "argmax(X)"
+        fn = (lambda axis=axis: ht.argmax(X, axis))
+        got = fn()
+        want = torch.argmax(xl, axis) if axis is not None else torch.argmax(xl)
+        if not torch.equal(got.larray.to(torch.int64), want):
+            fail(f"{label}: differs from torch.argmax")
+        _stats_row(label, got, smi, fn, 3, xbytes, want.numel() * 4, check="bit for bit torch.argmax",
+                   torch_fn=(lambda axis=axis: torch.argmax(xl, axis) if axis is not None else torch.argmax(xl)))
+        del got, want
+    got = ht.cov(X, rowvar=False)
+    c64 = _chunked64(xl, lambda b: (b - mu64).T @ (b - mu64)) / (n - 1)
+    err = _max_err64(got.larray, c64)
+    if err > STATS_RTOL:
+        fail(f"cov: {err} from float64")
+    _stats_row("cov(X, rowvar=False)", got, smi, lambda: ht.cov(X, rowvar=False), 2, xbytes, d * d * 4,
+               flops=2.0 * n * d * d, check="float64 on the card", err=err,
+               torch_fn=lambda: torch.cov(xl.T))
+    col = X[:, 0]
+    h, e = ht.histogram(col, 100)
+    cl = col.larray.double()
+    e64 = e.larray.double()
+    idx = torch.searchsorted(e64, cl, right=True)
+    idx = torch.where(cl == e64[-1], torch.full_like(idx, 100), idx)
+    want = torch.bincount(idx[(idx >= 1) & (idx <= 100)] - 1, minlength=100)
+    if not torch.equal(h.larray.to(torch.int64), want):
+        fail("histogram(X[:, 0], 100): counts differ from float64 binning on the same edges")
+    if int(h.larray.sum()) != n:
+        fail("histogram(X[:, 0], 100) lost elements")
+    _stats_row("histogram(X[:, 0], 100)", h, smi, lambda: ht.histogram(col, 100), 3, n * SECTOR, 100 * 4,
+               check="exact against float64 binning on its edges", err=0.0,
+               torch_fn=lambda: torch.histc(col.larray, 100))
+    del h, e, cl, e64, idx, want, col, c64, got
+    torch.cuda.empty_cache()
+
+    # reshapes and movement of X
+    for label, fn, want_fn in (
+            ("reshape(X, (5e7, 64))", lambda: ht.reshape(X, (n // 2, 2 * d)), lambda: xl.reshape(n // 2, 2 * d)),
+            ("concatenate(X halves)", lambda: ht.concatenate([X[: n // 2], X[n // 2:]]), lambda: xl),
+            ("roll(X, 1000, 0)", lambda: ht.roll(X, 1000, 0), lambda: torch.roll(xl, 1000, 0))):
+        got = fn()
+        if not torch.equal(got.larray, want_fn()):
+            fail(f"{label}: differs from torch's own")
+        _stats_row(label, got, smi, fn, 2, xbytes, xbytes, check="bit for bit torch's own")
+        del got
+        torch.cuda.empty_cache()
+    got = ht.einsum("ij,ik->jk", X, X)
+    g64 = _chunked64(xl, lambda b: b.T @ b)
+    err = _max_err64(got.larray, g64)
+    if err > STATS_RTOL:
+        fail(f"einsum('ij,ik->jk', X, X): {err} from float64")
+    _stats_row("einsum('ij,ik->jk', X, X)", got, smi, lambda: ht.einsum("ij,ik->jk", X, X), 3, xbytes, d * d * 4,
+               flops=2.0 * n * d * d, check="float64 on the card", err=err, torch_fn=lambda: xl.T @ xl)
+    del got, g64, X, xl
+    torch.cuda.empty_cache()
+
+    # v = rand(1e9): sort, percentiles, topk, searchsorted
+    nv = STATS_V
+    v = ht.random.rand(nv, split=0)
+    vl = v.larray
+    got_v, got_i = ht.sort(v)
+    want_v, want_i = torch.sort(vl, stable=True)
+    if not (torch.equal(got_v.larray, want_v) and torch.equal(got_i.larray.to(torch.int64), want_i)):
+        fail("sort(v): differs from torch.sort(stable=True)")
+    del want_i
+    _stats_row("sort(v)", (got_v, got_i), smi, lambda: ht.sort(v), 1, nv * 4, nv * 8,
+               check="bit for bit torch.sort(stable=True)", torch_fn=lambda: torch.sort(vl, stable=True))
+    del got_i
+    torch.cuda.empty_cache()
+    got = ht.argsort(v)
+    if not torch.equal(got.larray.to(torch.int64), torch.argsort(vl, stable=True)):
+        fail("argsort(v): differs from torch.argsort(stable=True)")
+    _stats_row("argsort(v)", got, smi, lambda: ht.argsort(v), 1, nv * 4, nv * 4,
+               check="bit for bit torch.argsort(stable=True)", torch_fn=lambda: torch.argsort(vl, stable=True))
+    del got
+    torch.cuda.empty_cache()
+    s64 = want_v  # the sorted values: the exact order statistics
+    qs = torch.tensor([5.0, 50.0, 95.0], dtype=torch.float64, device="cuda") / 100
+    pos = qs * (nv - 1)
+    lo, hi = pos.floor().long(), pos.ceil().long()
+    p64 = s64[lo].double() * (1 - (pos - lo)) + s64[hi].double() * (pos - lo)
+    got = ht.percentile(v, [5, 50, 95])
+    err = _max_err64(got.larray, p64)
+    if err > STATS_RTOL:
+        fail(f"percentile(v, [5, 50, 95]): {err} from the float64 order statistics")
+    _stats_row("percentile(v, [5, 50, 95])", got, smi, lambda: ht.percentile(v, [5, 50, 95]), 1, nv * 4, 12,
+               check="float64 of the exact order statistics", err=err)
+    mpos = 0.5 * (nv - 1)
+    m64 = (s64[int(mpos)].double() + s64[int(mpos) + 1].double()) / 2
+    got = ht.median(v)
+    err = _max_err64(got.larray.reshape(1), m64.reshape(1))
+    if err > STATS_RTOL:
+        fail(f"median(v): {err} from the float64 order statistics")
+    _stats_row("median(v)", got, smi, lambda: ht.median(v), 1, nv * 4, 4, check="float64 of the exact order "
+               "statistics", err=err)
+    del s64, want_v, got
+    torch.cuda.empty_cache()
+    tv, ti = ht.topk(v, STATS_TOPK)
+    ref = torch.topk(vl, STATS_TOPK).values
+    picked = vl[ti.larray.long()]
+    runs = (tv.larray[1:] == tv.larray[:-1])
+    if not (torch.equal(tv.larray, ref) and torch.equal(picked, tv.larray)
+            and bool((ti.larray[1:][runs] > ti.larray[:-1][runs]).all())
+            and int((vl > tv.larray[-1]).sum()) == int((tv.larray > tv.larray[-1]).sum())):
+        fail("topk(v, 1000): values differ from torch.topk's, or the indices are not the lowest of the ties")
+    _stats_row("topk(v, 1000)", (tv, ti), smi, lambda: ht.topk(v, STATS_TOPK), 3, nv * 4, STATS_TOPK * 8,
+               check="values bit for bit torch.topk; ties by lowest index", torch_fn=lambda: torch.topk(vl, STATS_TOPK))
+    del tv, ti, ref, picked, runs
+    sv = ht.sort(v)[0]
+    q = ht.random.rand(STATS_QUERIES)
+    got = ht.searchsorted(sv, q)
+    if not torch.equal(got.larray.to(torch.int64), torch.searchsorted(sv.larray, q.larray)):
+        fail("searchsorted: differs from torch.searchsorted")
+    probes = STATS_QUERIES * int(np.ceil(np.log2(nv))) * SECTOR
+    _stats_row("searchsorted(v, q)", got, smi, lambda: ht.searchsorted(sv, q), 5, probes + STATS_QUERIES * 4,
+               STATS_QUERIES * 4, check="bit for bit torch.searchsorted",
+               torch_fn=lambda: torch.searchsorted(sv.larray, q.larray))
+    del sv, q, got, v, vl
+    torch.cuda.empty_cache()
+    w = ht.random.randint(0, STATS_UNIQUE_HIGH, (nv,), split=0)
+    got = ht.unique(w)
+    want = torch.unique(w.larray)
+    if not torch.equal(got.larray, want):
+        fail("unique(w): differs from torch.unique")
+    _stats_row("unique(w)", got, smi, lambda: ht.unique(w), 1, nv * 4, want.numel() * 4,
+               check="bit for bit torch.unique", torch_fn=lambda: torch.unique(w.larray))
+    del w, got, want
+    torch.cuda.empty_cache()
+
+    # config 0's operand and the small factorizations
+    na = INDEX_A
+    A = ht.random.rand(na, na, split=0)
+    got = ht.pad(A, STATS_PAD)
+    if not torch.equal(got.larray, torch.nn.functional.pad(A.larray, (STATS_PAD,) * 4)):
+        fail("pad(A, 8): differs from torch's pad")
+    out_bytes = (na + 2 * STATS_PAD) ** 2 * 4
+    _stats_row("pad(A, 8)", got, smi, lambda: ht.pad(A, STATS_PAD), 3, na * na * 4, out_bytes,
+               check="bit for bit torch.nn.functional.pad",
+               torch_fn=lambda: torch.nn.functional.pad(A.larray, (STATS_PAD,) * 4))
+    del got, A
+    torch.cuda.empty_cache()
+    a = ht.random.rand(128, 128, split=0)
+    b = ht.random.rand(128, 128)
+    got = ht.kron(a, b)
+    if not torch.equal(got.larray, torch.kron(a.larray, b.larray)):
+        fail("kron: differs from torch.kron")
+    _stats_row("kron(a, b)", got, smi, lambda: ht.kron(a, b), 5, 2 * 128 * 128 * 4, na * na * 4,
+               check="bit for bit torch.kron", torch_fn=lambda: torch.kron(a.larray, b.larray))
+    del got
+    torch.cuda.empty_cache()
+    nm = SOLVE_N
+    g = torch.Generator(device="cuda").manual_seed(STATS_SEED)
+    m = torch.eye(nm, device="cuda") + torch.randn(nm, nm, generator=g, device="cuda") * (0.01 / nm ** 0.5)
+    M = ht.array(m, split=0)
+    for label, fn, torch_fn, flops in (("det(M)", lambda: ht.linalg.det(M), lambda: torch.linalg.det(m),
+                                        2.0 / 3 * nm ** 3),
+                                       ("inv(M)", lambda: ht.linalg.inv(M), lambda: torch.linalg.inv(m), 2.0 * nm ** 3)):
+        got, want = fn(), torch_fn()
+        if not torch.equal(got.larray, want):
+            fail(f"{label}: differs from torch.linalg's")
+        _stats_row(label, got, smi, fn, 3, nm * nm * 4, want.numel() * 4, flops=flops,
+                   check="bit for bit torch.linalg", torch_fn=torch_fn)
+        del got
+    del M, m
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "statistics_world_one", "seconds": time.perf_counter() - t_phase,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(), "card": smi}), flush=True)
+
+
+def stats_cases(ht, n_sort: int) -> dict:
+    """Phase 3d's calls on the card, on the ragged shapes of
+    tests/test_torch_sort_mp.py (23 elements, 10 x 7 rows, 7 x 6 x 5) drawn
+    from one seed, at every split; and the sort of ``n_sort`` uniform draws.
+    Each result gathered to the host as (value, shape, split, exact)."""
+    import numpy as np
+
+    ht.random.seed(STATS_SEED + 1)
+    v = ht.random.randn(23).numpy()
+    v[[2, 15]] = np.nan
+    v[[5, 20]] = v[7]
+    a = ht.random.randn(10, 7).numpy()
+    ai = ht.random.randint(-4, 4, (10, 7)).numpy()
+    t = ht.random.randn(7, 6, 5).numpy()
+    i = ht.random.randint(0, 5, (23,)).numpy()
+    out = {}
+
+    def keep(name, r, exact=True):
+        for k, part in enumerate(r if isinstance(r, (list, tuple)) else [r]):
+            if not part.larray.is_cuda:
+                fail(f"{name}: a result left the card ({part.larray.device})")
+            out[f"{name}#{k}"] = (part.numpy().copy(), list(part.shape), part.split, exact)
+
+    for s in (None, 0):
+        x = ht.array(v, split=s)
+        keep(f"sort_{s}", [*ht.sort(x), *ht.sort(x, descending=True), ht.argsort(x)])
+        keep(f"unique_{s}", [*ht.unique(ht.array(i, split=s), return_inverse=True), *ht.unique_all(ht.array(i, split=s))])
+        keep(f"order_stats_{s}", [ht.percentile(x, [0, 5, 50, 95, 100], interpolation=m) for m in
+                                  ("lower", "higher", "nearest")] + [ht.argmax(x), ht.nanargmin(x)])
+        keep(f"percentile_{s}", [ht.percentile(x, [5, 50, 95]), ht.nanmedian(x), ht.median(ht.array(a[:, 0], split=s))],
+             exact=False)
+        keep(f"topk_{s}", [*ht.topk(ht.array(a[:, 1], split=s), 3), *ht.topk(ht.array(np.sort(a[:, 2]), split=s), 4)])
+        keep(f"searchsorted_{s}", ht.searchsorted(ht.array(np.sort(a[:, 3]), split=s), ht.array(a[:, 4])))
+    for s in (None, 0, 1):
+        x = ht.array(a, split=s)
+        keep(f"manip_{s}", [ht.reshape(x, (7, 10)), ht.concatenate([x, x]), ht.concatenate([x, x], 1),
+                            ht.roll(x, 3, 0), ht.roll(x, -2, 1), ht.pad(x, ((3, 1), (0, 2))), ht.flip(x, 0),
+                            ht.sort(x, 0)[0], ht.repeat(x, 2, 0), ht.tile(x, (2, 1)), ht.diagonal(x)])
+        keep(f"reduce_{s}", [ht.mean(x, 0), ht.var(x, 1), ht.std(x), ht.cov(x), ht.einsum("ij,ik->jk", x, x),
+                             ht.skew(x, 0), ht.kurtosis(x, 1)], exact=False)
+        keep(f"argmax_{s}", [ht.argmax(ht.array(ai, split=s), 0), ht.argmin(ht.array(ai, split=s)),
+                             *ht.histogram(x, 5)[:1], ht.bincount(ht.array(i))])
+    for s in (None, 0, 1, 2):
+        x = ht.array(t, split=s)
+        keep(f"cube_{s}", [ht.reshape(x, (42, 5)), ht.reshape(x, (6, 35)), ht.flatten(x), ht.swapaxes(x, 0, 2),
+                           ht.squeeze(x[:, :1]), ht.expand_dims(x, 1)])
+    for s in (None, 0, 1):
+        ht.random.seed(STATS_SEED + 2)
+        keep(f"draws_{s}", [ht.random.rand(10, 7, split=s), ht.random.randint(0, 50, (10, 7), split=s)])
+        keep(f"draws_normal_{s}", [ht.random.randn(10, 7, split=s)], exact=False)
+    ht.random.seed(STATS_SEED + 3)
+    big = ht.random.rand(n_sort, split=0)
+    sv, si = ht.sort(big)
+    out["big_sort_values"] = (sv.numpy()[::STATS_2R_STRIDE].copy(), [n_sort], 0, True)
+    out["big_sort_indices"] = (si.numpy()[::STATS_2R_STRIDE].copy(), [n_sort], 0, True)
+    out["big_sort_sorted"] = bool(ht.all(sv[1:] >= sv[:-1]))
+    return out
+
+
+def stats_rank(rank: int, port: int, out_q, n_sort: int) -> None:
+    """One of 2 ranks on this card over gloo: ``stats_cases`` and the sort's
+    Alltoall bytes."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        res = stats_cases(ht, n_sort)
+        ht.random.seed(STATS_SEED + 3)
+        big = ht.random.rand(n_sort, split=0)
+        comm.reset_traffic()
+        t0 = time.perf_counter()
+        ht.sort(big)
+        torch.cuda.synchronize()
+        res["_sort"] = {"traffic": comm.traffic(), "seconds": time.perf_counter() - t0, "lshape": big.lshape[0]}
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def stats_two_ranks(ht, smi: str) -> None:
+    """Phase 3d: ``stats_cases`` at world size 1 on this card, then in 2
+    processes on this card over gloo; each result of each rank world size
+    1's (exact, or within STATS_2R_RTOL for the float reductions); prints
+    each rank's Alltoall bytes of the 1e7-element sort."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    want = stats_cases(ht, STATS_2R_SORT)
+    results = spawn_ranks(stats_rank, 2, RING_TIMEOUT_S, STATS_2R_SORT)
+    for rank, res in sorted(results.items()):
+        for name, w in want.items():
+            got = res.get(name)
+            if name == "big_sort_sorted":
+                if not got:
+                    fail(f"rank {rank}: the 1e7 sort is not sorted")
+                continue
+            exact = w[3]
+            same = got is not None and got[1:3] == w[1:3] and got[0].dtype == w[0].dtype and (
+                np.array_equal(got[0], w[0], equal_nan=True) if exact else
+                np.allclose(got[0], w[0], rtol=STATS_2R_RTOL, atol=1e-6, equal_nan=True))
+            if not same:
+                fail(f"rank {rank}: {name} differs from world size 1: {None if got is None else got[1:3]} vs {w[1:3]}")
+        s = res["_sort"]
+        sent = s["traffic"].get("Alltoall", {}).get("bytes", 0)
+        if sent > s["lshape"] * (4 + 8):
+            fail(f"rank {rank}: the sort sent {sent} Alltoall bytes, past its chunk's values and indices")
+        print(json.dumps({"phase": "statistics_two_ranks", "rank": rank, "op": f"sort(rand({STATS_2R_SORT}))",
+                          "alltoall_bytes": sent, "chunk_bytes": s["lshape"] * 4, "traffic": s["traffic"],
+                          "seconds": s["seconds"], "card": smi}), flush=True)
+    print(json.dumps({"phase": "statistics_two_ranks", "note": "2 processes on ONE card over gloo, against world "
+                      "size 1", "cases": len(want), "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+
+
+# ---------------------------------------------------------------------- #
 # data-parallel training (BASELINE configs 3 and 4)
 # ---------------------------------------------------------------------- #
 def mnist_synthetic(n: int, seed: int):
@@ -2865,17 +3369,9 @@ def config3_world_one(ht, smi: str) -> None:
 def conv_profile(fn, label: str) -> dict:
     """One profiled call of ``fn``: the top device kernels and cuDNN's
     convolutions' share of the device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    prof, wall = profiled(fn, label, cpu=True)
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in device_events(prof)
+               if e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in kernels)
     if busy <= 0:
         fail(f"{label}: the profiler saw no device time")
@@ -3102,8 +3598,10 @@ def data_parallel_two_ranks(smi: str) -> None:
 
 
 def main() -> int:
+    global _TEARDOWN_CUPTI
     import torch
 
+    _TEARDOWN_CUPTI = True
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU", file=sys.stderr)
         return 2
@@ -3182,32 +3680,30 @@ def main() -> int:
     del xp
     torch.cuda.empty_cache()
 
-    # 3b. the array core's indexing at the sizes users index: world size 1
-    # (X of config 2's shape, A of config 0's), then 2 ranks on this card
+    # Every phase in this process that reads the profiler runs before the
+    # first spawned rank: after ranks on the card exit, its sessions mostly
+    # record nothing (``profiled``).
+    # 3b. the array core's indexing at the sizes users index, world size 1
+    # (X of config 2's shape, A of config 0's)
     indexing_world_one(ht, smi)
-    indexing_two_ranks(ht, smi)
 
-    # 4. ht.matmul (BASELINE config 0): world size 1 at 4096^2 and 16384^2,
-    # then 2 ranks on this card over gloo
+    # 4. ht.matmul (BASELINE config 0): world size 1 at 4096^2 and 16384^2
     matmul_world_one(ht, smi)
-    matmul_two_ranks(smi)
 
-    # 5. tall-skinny QR/SVD (BASELINE config 1) at 1e6 x 256, the solvers,
-    # cdist at 32768^2 x 32, then 2 ranks on this card over gloo
+    # 4b. tall-skinny QR/SVD (BASELINE config 1) at 1e6 x 256, the solvers,
+    # cdist at 32768^2 x 32, world size 1
     t0 = time.perf_counter()
     qr_main(ht, smi)
     cdist_main(ht, smi)
-    linalg_two_ranks(ht, smi)
-    print(json.dumps({"phase": "linalg_seconds", "seconds": time.perf_counter() - t0}), flush=True)
+    linalg_s = time.perf_counter() - t0
 
-    # 5b. data-parallel training: config 3's MLP and config 4's ResNet-50 at
-    # world size 1, then 2 ranks on this card over gloo
+    # 4c. data-parallel training: config 3's MLP and config 4's ResNet-50 at
+    # world size 1
     t0 = time.perf_counter()
     config3_world_one(ht, smi)
     config4_world_one(ht, smi)
     torch.cuda.empty_cache()
-    data_parallel_two_ranks(smi)
-    print(json.dumps({"phase": "data_parallel_seconds", "seconds": time.perf_counter() - t0}), flush=True)
+    data_parallel_s = time.perf_counter() - t0
 
     # 6. the LMs, multi-head and grouped-query: training, one step against
     # the plain versions, generation
@@ -3223,13 +3719,34 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the multi-head LM trained in bfloat16: every bfloat16 kernel on the tensor cores
     launches_bf16 = lm_train_bf16(ht)
-    # 7. the sequence-parallel LM over 2 ranks on this card
-    launches.update(ring_train())
 
+    # 12. the kernels' timings; the positions kernels' launches come from 10
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
                        launches_bf16=launches_bf16)
     rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
-    rows += pos_rows(launches, pos_errs)
+    pos = pos_rows(pos_errs)
+    torch.cuda.empty_cache()
+
+    # 10. the sequence-parallel LM over 2 ranks on this card, the first
+    # spawned ranks; then 3b, 4, 4b and 4c on 2 ranks on this card over gloo
+    ring = ring_train()
+    for row in pos:
+        row["launches"] = ring[row["name"]]
+    rows += pos
+    indexing_two_ranks(ht, smi)
+    matmul_two_ranks(smi)
+    t0 = time.perf_counter()
+    linalg_two_ranks(ht, smi)
+    print(json.dumps({"phase": "linalg_seconds", "seconds": linalg_s + time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    data_parallel_two_ranks(smi)
+    print(json.dumps({"phase": "data_parallel_seconds", "seconds": data_parallel_s + time.perf_counter() - t0}),
+          flush=True)
+
+    # 3c. the random streams, statistics, manipulations and the sort at
+    # world size 1 at users' sizes, then 3d: 2 ranks on this card
+    stats_world_one(ht, smi)
+    stats_two_ranks(ht, smi)
 
     # 8. the kernels line and the result
     print(smi)
@@ -3239,4 +3756,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    # a process whose profiler finalized CUPTI can hang in the
+    # interpreter's exit (seen on an H100), so the script leaves at once;
+    # every rank it spawned has been joined
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

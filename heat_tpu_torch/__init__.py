@@ -19,7 +19,8 @@ from .core import random
 from .core.collectives import set_grad_bucket_budget, get_grad_bucket_budget
 from . import linalg
 from .linalg import matmul, dot, transpose, norm
-from .linalg.basics import matmul_summa, matrix_norm, outer, trace, tril, triu, vdot, vector_norm
+from .linalg.basics import (cross, einsum, einsum_path, inner, kron, matmul_summa, matrix_norm, outer, projection,
+                            tensordot, trace, tril, triu, vdot, vecdot, vector_norm)
 from .linalg.qr import qr
 from .linalg.svdtools import svd
 from . import spatial

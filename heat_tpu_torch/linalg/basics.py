@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core import types
@@ -487,3 +488,365 @@ DNDarray.__matmul__ = lambda self, other: matmul(self, other)
 DNDarray.transpose = transpose
 DNDarray.tril = lambda self, k=0: tril(self, k)
 DNDarray.triu = lambda self, k=0: triu(self, k)
+
+
+# ---------------------------------------------------------------------- #
+# the rest: determinants and inverses, contractions, products
+# ---------------------------------------------------------------------- #
+def _float_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` promoted to a float (float32 for integers, as the reference's
+    ``promote_types(dtype, float32)``)."""
+    return t if t.is_floating_point() or t.is_complex() else t.to(torch.float64 if t.dtype == torch.int64
+                                                                 else torch.float32)
+
+
+def _square_local(a: DNDarray) -> DNDarray:
+    """``a`` with its two matrix axes on every rank: a batch split stays;
+    a split along a matrix axis is gathered (the factorization is
+    replicated, as the reference's docstrings say)."""
+    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+        raise ValueError("last two dimensions of the array must be square")
+    if a.is_distributed() and a.split >= a.ndim - 2:
+        return a.resplit(None)
+    return a
+
+
+def det(a: DNDarray) -> DNDarray:
+    """Determinant of a (batch of) square matrix: the factorization runs
+    replicated; batch axes of a batched input stay split."""
+    sanitize_in(a)
+    m = _square_local(a)
+    with _full_float32():
+        res = torch.linalg.det(_float_operand(m.larray))
+    split = m.split if m.is_distributed() else None
+    gshape = a.gshape[:-2]
+    out = _wrap(res, gshape, split, a, m.balanced if split is not None else True)
+    if split is None and a.split is not None and a.split < len(gshape):
+        from ..core.manipulations import _to_split
+
+        return _to_split(out, a.split)
+    return out
+
+
+def inv(a: DNDarray) -> DNDarray:
+    """Inverse of a (batch of) square matrix, split as ``a``: a matrix split
+    is gathered, inverted on every rank and cut back to chunks."""
+    sanitize_in(a)
+    m = _square_local(a)
+    with _full_float32():
+        res = torch.linalg.inv(_float_operand(m.larray))
+    if m.is_distributed() or a.split is None or not a.comm.is_distributed():
+        return _wrap(res, a.gshape, a.split, a, m.balanced)
+    return _wrap(res[a.comm.chunk(a.gshape, a.split)[2]].contiguous(), a.gshape, a.split, a)
+
+
+def _parse_einsum(subscripts: str):
+    """(input specs, output spec) of ``subscripts``; the implicit output is
+    numpy's (the labels seen once, sorted; an ellipsis first)."""
+    s = subscripts.replace(" ", "")
+    if "->" in s:
+        ins, out = s.split("->")
+    else:
+        ins = s
+        flat = ins.replace(",", "").replace(".", "")
+        out = "".join(sorted(c for c in set(flat) if flat.count(c) == 1))
+        if "." in ins:
+            out = "..." + out
+    return ins.split(","), out
+
+
+def _einsum_split(operands, in_list, out_spec) -> Optional[int]:
+    """The reference's result split (l.305-330): where the first split
+    operand whose split label survives lands in the output; None with an
+    ellipsis in the output."""
+    if "." in out_spec:
+        return None
+    for o, spec in zip(operands, in_list):
+        if isinstance(o, DNDarray) and o.split is not None and "." not in spec:
+            label = spec[o.split] if o.split < len(spec) else None
+            if label and label in out_spec:
+                return out_spec.index(label)
+    return None
+
+
+# contracted length past which the exact integer einsum on the card would lose bits
+_EXACT_EINSUM_K = 1 << 20
+# contracted length a float32 product sums in float32; longer ones sum blocks of it in float64
+_EINSUM_BLOCK = 1 << 22
+
+
+def _float_einsum(subscripts: str, ts) -> torch.Tensor:
+    """``torch.einsum`` in full float32; where a float32 contraction runs
+    over a label longer than ``_EINSUM_BLOCK`` (a Gram over 1e8 rows), the
+    blocks of that label are contracted one by one and summed in float64,
+    so the result keeps float32's accuracy (one float32 sum over 1e8 terms
+    drifts past 1e-5 of the result)."""
+    with _full_float32():
+        if ts[0].dtype != torch.float32 or "." in subscripts:
+            return torch.einsum(subscripts, *ts)
+        ins, out = _parse_einsum(subscripts)
+        sizes = {c: n for spec, t in zip(ins, ts) for c, n in zip(spec, t.shape)}
+        label = max((c for c in sizes if c not in out and all(spec.count(c) <= 1 for spec in ins)),
+                    key=lambda c: sizes[c], default=None)
+        if label is None or sizes[label] <= _EINSUM_BLOCK:
+            return torch.einsum(subscripts, *ts)
+        acc = None
+        for lo in range(0, sizes[label], _EINSUM_BLOCK):
+            n = min(_EINSUM_BLOCK, sizes[label] - lo)
+            parts = [t.narrow(spec.index(label), lo, n) if label in spec else t for t, spec in zip(ts, ins)]
+            r = torch.einsum(subscripts, *parts).double()
+            acc = r if acc is None else acc.add_(r)
+        return acc.to(torch.float32)
+
+
+def _einsum_local(subscripts: str, ts) -> torch.Tensor:
+    """``torch.einsum`` of tensors promoted to one dtype (full float32).  On
+    the card, which has no integer GEMM, integer operands of at most 32 bits
+    contract exactly as float64 products of 16-bit halves (one or two
+    operands, a contraction under 2^20), wrapping as the reference's."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    ts = [t.to(dt) for t in ts]
+    if not (ts[0].is_cuda and not (dt.is_floating_point or dt.is_complex)):
+        return _float_einsum(subscripts, ts)
+    if dt == torch.bool:
+        return _einsum_local(subscripts, [t.to(torch.int32) for t in ts]) != 0
+    bits = torch.iinfo(dt).bits
+    if bits > 32 or len(ts) > 2:
+        raise TypeError(f"einsum of {len(ts)} {dt} operands on the card is not supported: it has no integer GEMM, "
+                        "and the exact float64 route covers one or two integer operands of at most 32 bits")
+    words = [t.to(torch.int64) & 0xFFFFFFFF for t in ts]
+    halves = [((w & 0xFFFF).double(), (w >> 16).double()) for w in words]
+    with _full_float32():
+        if len(ts) == 1:
+            lo, hi = halves[0]
+            acc = torch.einsum(subscripts, lo).to(torch.int64) + (torch.einsum(subscripts, hi).to(torch.int64) << 16)
+        else:
+            (alo, ahi), (blo, bhi) = halves
+            k = max(1, ts[0].numel() * ts[1].numel())
+            low = torch.einsum(subscripts, alo, blo).to(torch.int64)
+            out_n = max(low.numel(), 1)
+            if k // out_n > _EXACT_EINSUM_K:
+                raise TypeError("integer einsum on the card past a 2^20 contraction is not supported")
+            mid = torch.einsum(subscripts, ahi, blo).to(torch.int64) + torch.einsum(subscripts, alo, bhi).to(
+                torch.int64)
+            acc = ((mid & 0xFFFF) << 16) + low
+    acc = acc & ((1 << bits) - 1)
+    if dt.is_signed:
+        acc = torch.where(acc >= 1 << (bits - 1), acc - (1 << bits), acc)
+    return acc.to(dt)
+
+
+def _einsum(operands, in_list, out_spec: str, split: Optional[int], proto: DNDarray) -> DNDarray:
+    """The contraction of ``operands`` (DNDarrays) by ``in_list -> out_spec``
+    with the result split along ``split``.  The first distributed operand's
+    split label L leads: every operand holding L is brought to the same
+    chunks of L (resplit, a replicated one sliced), the others gathered;
+    each rank contracts its chunks; where L survives the result is split
+    along it, else the partial results are Allreduced (a contraction over
+    the split axis never gathers an operand whole)."""
+    from ..core.manipulations import _full, _scatter_chunk, _to_split
+
+    sub = ",".join(in_list) + "->" + out_spec
+    comm = proto.comm
+    label, lead = None, None
+    if "." not in sub:
+        for o, spec in zip(operands, in_list):
+            if o.is_distributed() and spec.count(spec[o.split]) == 1:
+                label, lead = spec[o.split], o
+                break
+    if label is None or not comm.is_distributed():
+        res = _einsum_local(sub, [_full(o) for o in operands])
+        return _scatter_chunk(proto, res, tuple(res.shape), split)
+    counts, displs = lead.counts_displs()
+    rank = comm.rank
+    local = []
+    for o, spec in zip(operands, in_list):
+        if spec.count(label) == 1:
+            ax = spec.index(label)
+            if o.is_distributed():
+                o = o if o.split == ax else o.resplit(ax)
+                t = o.larray
+                if list(o.counts_displs()[0]) != list(counts):
+                    t = comm.redistribute(t, ax, o.counts_displs()[0], counts)
+            else:
+                t = o.larray.narrow(ax, displs[rank], counts[rank])
+            local.append(t)
+        else:
+            local.append(_full(o))
+    res = _einsum_local(sub, local)
+    sizes = {}
+    for o, spec in zip(operands, in_list):
+        for c, s in zip(spec, o.gshape):
+            sizes[c] = s
+    gshape = tuple(sizes[c] for c in out_spec)
+    if label in out_spec:
+        out = _wrap(res, gshape, out_spec.index(label), proto, lead.balanced)
+        return _to_split(out, split)
+    res = comm.Allreduce(res.contiguous())
+    return _scatter_chunk(proto, res, gshape, split)
+
+
+def _operands(operands):
+    from ..core import factories
+
+    proto = next((o for o in operands if isinstance(o, DNDarray)), None)
+    if proto is None:
+        raise TypeError("einsum needs at least one DNDarray operand")
+    return [o if isinstance(o, DNDarray) else factories.array(np.asarray(o), device=proto.device, comm=proto.comm)
+            for o in operands], proto
+
+
+def einsum(subscripts: str, *operands, out=None) -> DNDarray:
+    """Einstein summation of DNDarrays; the result split is the reference's
+    (the first split operand's label where the output keeps it).  A label
+    contracted over the split axis is a local contraction plus one
+    Allreduce."""
+    ops, proto = _operands(operands)
+    in_list, out_spec = _parse_einsum(subscripts)
+    split = _einsum_split(ops, in_list, out_spec)
+    if "." in subscripts:
+        from ..core.manipulations import _full, _scatter_chunk
+
+        res = _einsum_local(subscripts, [_full(o) for o in ops])
+        r = _scatter_chunk(proto, res, tuple(res.shape), split)
+    else:
+        r = _einsum(ops, in_list, out_spec, split, proto)
+    if out is not None:
+        out.larray.copy_(r.larray)
+        return out
+    return r
+
+
+def einsum_path(subscripts: str, *operands, optimize="greedy"):
+    """numpy's contraction plan on the global shapes (no data moves)."""
+    hosts = [np.broadcast_to(np.empty((), np.float32), o.shape) if hasattr(o, "shape") else np.asarray(o)
+             for o in operands]
+    return np.einsum_path(subscripts, *hosts, optimize=optimize)
+
+
+def _labels(n: int, start: int = 0) -> str:
+    return "".join(chr(ord("a") + start + i) for i in range(n))
+
+
+def tensordot(a: DNDarray, b: DNDarray, axes=2) -> DNDarray:
+    """Contraction over ``axes`` (numpy's); split along a's split axis where
+    it is free (a's free axes lead the output), else None.  Runs as
+    :func:`einsum`."""
+    (a, b), proto = _operands([a, b])
+    if isinstance(axes, (list, tuple)):
+        ax_a, ax_b = axes
+        ax_a = [ax_a] if isinstance(ax_a, int) else list(ax_a)
+        ax_b = [ax_b] if isinstance(ax_b, int) else list(ax_b)
+    else:
+        ax_a, ax_b = list(range(a.ndim - int(axes), a.ndim)), list(range(int(axes)))
+    ax_a, ax_b = [x % a.ndim for x in ax_a], [x % b.ndim for x in ax_b]
+    la = _labels(a.ndim)
+    lb = list(_labels(b.ndim, a.ndim))
+    for i, j in zip(ax_a, ax_b):
+        lb[j] = la[i]
+    lb = "".join(lb)
+    out_spec = "".join(c for i, c in enumerate(la) if i not in ax_a) + "".join(
+        c for j, c in enumerate(lb) if j not in ax_b)
+    split = None
+    if a.split is not None and a.split not in ax_a:
+        split = sum(1 for x in range(a.split) if x not in ax_a)
+    return _einsum([a, b], [la, lb], out_spec, split, proto)
+
+
+def inner(a: DNDarray, b: DNDarray) -> DNDarray:
+    """Inner product over the last axes (numpy's); a's split where it is not the last axis."""
+    (a, b), proto = _operands([a, b])
+    if a.ndim == 0 or b.ndim == 0:
+        from ..core import arithmetics
+
+        return arithmetics.mul(a, b)
+    la, lb = _labels(a.ndim), _labels(b.ndim, a.ndim)
+    lb = lb[:-1] + la[-1]
+    split = a.split if a.split is not None and a.split < max(a.ndim - 1, 0) else None
+    return _einsum([a, b], [la, lb], la[:-1] + lb[:-1], split, proto)
+
+
+def kron(a, b) -> DNDarray:
+    """Kronecker product; split along a's split axis (each of a's rows
+    becomes a contiguous block, so each rank expands its own rows with all
+    of b and nothing moves)."""
+    from ..core.manipulations import _full
+
+    a, b = _operands([a, b])[0]
+    bt = _full(b)
+    nd = max(a.ndim, b.ndim)
+    split = a.split + (nd - a.ndim) if a.split is not None else None
+    res = torch.kron(*_common(a.larray, bt))
+    bshape = (1,) * (nd - b.ndim) + tuple(b.gshape)
+    ashape = (1,) * (nd - a.ndim) + tuple(a.gshape)
+    gshape = tuple(x * y for x, y in zip(ashape, bshape))
+    if a.is_distributed():
+        c = a.counts_displs()[0]
+        counts = [n * bshape[split] for n in c]
+        balanced = counts == list(a.comm.counts_displs_shape(gshape, split)[0])
+        return _wrap(res, gshape, split, a, balanced)
+    if split is not None and a.comm.is_distributed():
+        from ..core.manipulations import _scatter_chunk
+
+        return _scatter_chunk(a, res, gshape, split)
+    return _wrap(res, gshape, split, a)
+
+
+def vecdot(x1: DNDarray, x2: DNDarray, axis: int = -1, keepdims: bool = False) -> DNDarray:
+    """sum(conj(x1) * x2) along ``axis``, replicated (the reference's)."""
+    from ..core import arithmetics
+
+    conj = _local_op(torch.conj_physical, x1) if issubclass(x1.dtype, types.complexfloating) else x1
+    res = arithmetics.sum(arithmetics.mul(conj, x2), axis=axis, keepdims=keepdims)
+    return res.resplit(None) if res.is_distributed() else _wrap(res.larray, res.gshape, None, res)
+
+
+def cross(a: DNDarray, b: DNDarray, axisa: int = -1, axisb: int = -1, axisc: int = -1, axis: int = -1) -> DNDarray:
+    """The cross product of 2- or 3-vectors along ``axis`` (which, as in the
+    reference, overrides ``axisa``/``axisb``/``axisc``); a's split.  Each
+    rank crosses its chunks; vectors split along their own axis are
+    gathered."""
+    from ..core.manipulations import _full, _scatter_chunk, _to_split
+
+    (a, b), proto = _operands([a, b])
+    ax_a, ax_b = axis % a.ndim, axis % b.ndim
+    local = (a.is_distributed() and a.split != ax_a and b.gshape == a.gshape and
+             (b.split == a.split or not b.is_distributed()))
+    if local:
+        bb = _to_split(b, a.split)
+        ta, tb = a.larray, bb.larray
+    else:
+        ta, tb = _full(a), _full(b)
+    ta, tb = _common(ta.movedim(ax_a, -1), tb.movedim(ax_b, -1))
+    na, nb = ta.shape[-1], tb.shape[-1]
+    if na not in (2, 3) or nb not in (2, 3):
+        raise ValueError("incompatible dimensions for cross product (dimension must be 2 or 3)")
+    a0, a1 = ta[..., 0], ta[..., 1]
+    b0, b1 = tb[..., 0], tb[..., 1]
+    if na == 2 and nb == 2:
+        res = a0 * b1 - a1 * b0
+    else:
+        a2 = ta[..., 2] if na == 3 else torch.zeros_like(a0)
+        b2 = tb[..., 2] if nb == 3 else torch.zeros_like(b0)
+        res = torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1)
+        res = res.movedim(-1, axis % res.ndim)
+    res = res.contiguous()
+    if local:
+        gshape = list(res.shape)
+        split = a.split if res.ndim == a.ndim else (a.split - (1 if a.split > ax_a else 0))
+        gshape[split] = a.gshape[a.split]
+        out = _wrap(res, tuple(gshape), split, a, a.balanced)
+        return _to_split(out, a.split)
+    return _scatter_chunk(proto, res, tuple(res.shape), a.split)
+
+
+def projection(a: DNDarray, b: DNDarray) -> DNDarray:
+    """Projection of the vector a onto the vector b."""
+    from ..core import arithmetics
+
+    return arithmetics.mul(b, arithmetics.div(dot(a, b), dot(b, b)))
+
+
+__all__ += ["cross", "det", "einsum", "einsum_path", "inner", "inv", "kron", "projection", "tensordot", "vecdot"]

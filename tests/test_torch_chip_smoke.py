@@ -4,7 +4,8 @@ kernels, what each flash row of its ``kernels`` line says runs each dtype,
 the differing share and the float32 criterion of its edge-shape checks (and
 why the edges need them: at one row dq and dk are float32 noise), the
 KMeans edge shapes and their comparisons (assign's and em_stats') on the
-plain versions, the KMeans kernels' bound, and its refusal (and
+plain versions, the KMeans kernels' bound, how it takes a profiler session
+again that recorded no device activity, and its refusal (and
 scripts/kmeans_ab.py's) to run without a card."""
 
 import importlib.util
@@ -699,3 +700,65 @@ def test_index_bytes_bound_at_a_small_shape(chip_smoke):
     assert read == write == 12_800_000_000
     assert chip_smoke.index_bound_ms("X[::-1]", chip_smoke.N_MAIN, chip_smoke.D) == pytest.approx(
         25.6e9 / 3.35e12 * 1e3)
+
+
+class _Session:
+    """A stand-in for a ``torch.profiler.profile`` session whose device
+    rows are ``rows``."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        return self.rows
+
+
+def _fake_profiler(monkeypatch, chip_smoke, sessions):
+    """Profiler sessions that record ``sessions`` in turn (each a list of
+    device row names), and no synchronisation."""
+    from types import SimpleNamespace
+
+    rows = iter([[SimpleNamespace(key=k, device_type=torch.autograd.DeviceType.CUDA) for k in names]
+                 for names in sessions])
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _Session(next(rows)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+
+@pytest.mark.parametrize("empty", [0, 1, 4])
+def test_profiled_takes_a_session_again_while_it_records_nothing(chip_smoke, monkeypatch, empty):
+    """A session that recorded no device activity measured nothing: the
+    call runs again under a new session until one records some."""
+    _fake_profiler(monkeypatch, chip_smoke, [[]] * empty + [["gemm"], ["late"]])
+    calls = []
+    assert chip_smoke.launched_kernels(lambda: calls.append(1), "probe") == ["gemm"]
+    assert len(calls) == empty + 1
+
+
+def test_profiled_fails_when_sessions_record_nothing_past_its_wait(chip_smoke, monkeypatch):
+    """Past ``wait_s`` a session that recorded nothing fails the run; an
+    empty device list is never taken for a measurement."""
+    _fake_profiler(monkeypatch, chip_smoke, [[]] * 3)
+    with pytest.raises(RuntimeError, match="recorded no device activity"):
+        chip_smoke.profiled(lambda: None, "probe", wait_s=0.0)
+
+
+@pytest.mark.parametrize("teardown", [False, True])
+def test_profiled_finalizes_cupti_only_in_the_scripts_own_process(chip_smoke, monkeypatch, teardown):
+    """With ``_TEARDOWN_CUPTI`` (set by ``main`` alone) each session runs
+    with ``TEARDOWN_CUPTI=1``; the variable is gone after it, so ranks
+    spawned later never inherit it."""
+    import os
+
+    _fake_profiler(monkeypatch, chip_smoke, [[], ["gemm"]])
+    monkeypatch.setattr(chip_smoke, "_TEARDOWN_CUPTI", teardown)
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    seen = []
+    chip_smoke.profiled(lambda: seen.append(os.environ.get("TEARDOWN_CUPTI")), "probe")
+    assert seen == (["1", "1"] if teardown else [None, None])
+    assert "TEARDOWN_CUPTI" not in os.environ

@@ -228,7 +228,7 @@ def test_random_reproducible_and_distributed_right(on_cpu):
     b = htt.random.randn(2000, 3, split=0).numpy()
     np.testing.assert_array_equal(a, b)
     assert abs(a.mean()) < 0.1 and abs(a.std() - 1.0) < 0.1
-    assert htt.random.get_state()[:3] == ("Philox", 5, 1)
+    assert htt.random.get_state()[:3] == ("Threefry", 5, 1)
     u = htt.random.rand(1000).numpy()
     assert 0.0 <= u.min() and u.max() < 1.0
     r = htt.random.randint(3, 7, (500,)).numpy()

@@ -941,3 +941,57 @@ def test_cuda_hermitian_is_formed_on_the_card(tmp_path):
     h, pd = (o.larray for o in out)
     assert h.is_cuda and h.dtype == torch.complex64 and torch.equal(h, h.conj().T)
     assert pd.is_cuda and torch.linalg.eigvalsh(pd.double()).min() > 0
+
+
+def test_cuda_statistics_manipulations_and_sort_stay_on_the_card(tmp_path, monkeypatch):
+    """The slice's statistics, manipulations, sort, unique and random draws
+    on CUDA arrays at world size 1: every result a CUDA tensor; nothing
+    routes through the host (``torch.histogram`` and ``torch.quantile``,
+    which have no CUDA path for these inputs, must not be called) and no
+    copy to the host is larger than a control value (counts, bounds: at
+    most 4 KiB, the arrays being 1 MB and more)."""
+    from unittest import mock
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a host-routed torch call")
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    a = torch.randn(4096, 64, generator=g, device="cuda")
+    v = torch.rand(1 << 20, generator=g, device="cuda")
+    w = torch.randint(0, 1000, (1 << 20,), generator=g, device="cuda", dtype=torch.int32)
+    x, xv, xw = htt.array(a, split=0), htt.array(v, split=0), htt.array(w, split=0)
+    out = []
+
+    def run():
+        with mock.patch.object(torch, "histogram", refuse), mock.patch.object(torch, "quantile", refuse):
+            htt.random.seed(3)
+            out.extend([htt.random.rand(1000, 64, split=0), htt.random.randn(1000, 64, split=1),
+                        htt.random.randint(0, 9, (5000,), split=0), htt.random.permutation(5000)])
+            for axis in (None, 0, 1):
+                out.extend([htt.mean(x, axis), htt.var(x, axis), htt.std(x, axis), htt.argmax(x, axis),
+                            htt.nanmax(x, axis), htt.skew(x, axis), htt.percentile(x, [5, 50], axis=axis)])
+            out.extend([htt.cov(x, rowvar=False), htt.corrcoef(x[:, :8], rowvar=False), *htt.histogram(x, 50),
+                        htt.histc(x, 20), htt.bincount(xw), htt.digitize(x, htt.array(torch.linspace(-1, 1, 5,
+                                                                                                      device="cuda")))])
+            out.extend([*htt.sort(xv), htt.argsort(x, 0), *htt.topk(xv, 100), htt.median(xv), htt.unique(xw),
+                        htt.searchsorted(htt.sort(xv)[0], xv[:1000]), htt.percentile(xv, [1, 99]),
+                        htt.unique_counts(xw)[1], htt.partition(x, 3, 1)])
+            out.extend([htt.reshape(x, (2048, 128)), htt.concatenate([x, x]), htt.roll(x, 17, 0), htt.pad(x, 2),
+                        htt.flip(x, 0), htt.take(x, [5, 0, 4095], axis=0), htt.repeat(x, 2, 0), htt.tile(x, (2, 1)),
+                        htt.diagonal(x), htt.stack([x, x]), htt.unfold(x, 0, 3), htt.squeeze(x[:1])])
+            out.extend([htt.einsum("ij,ik->jk", x, x), htt.kron(x[:8, :8], x[:4, :4]), htt.linalg.det(x[:64]),
+                        htt.linalg.inv(x[:64]), htt.linalg.tensordot(x, x, ([0], [0])),
+                        htt.linalg.einsum("ij,jk->ik", htt.array(w[:64].reshape(8, 8), split=0),
+                                          htt.array(w[:64].reshape(8, 8)))])
+
+    copies = _device_to_host_copies(run, tmp_path)
+    assert all(c <= 4096 for c in copies), sorted(copies)[-5:]
+    for r in out:
+        assert r.larray.is_cuda, r.shape
+    values, indices = htt.sort(xv)
+    want = torch.sort(v, stable=True)
+    assert torch.equal(values.larray, want.values) and torch.equal(indices.larray.long(), want.indices)
+    assert torch.equal(htt.unique(xw).larray, torch.unique(w))
+    ie = htt.linalg.einsum("ij,jk->ik", htt.array(w[:64].reshape(8, 8)), htt.array(w[:64].reshape(8, 8)))
+    wi = w[:64].reshape(8, 8).cpu().long()
+    assert ie.larray.is_cuda and ie.larray.dtype == torch.int32 and torch.equal(ie.larray.cpu().long(), wi @ wi)
