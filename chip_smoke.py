@@ -71,6 +71,39 @@
    world size 1's (exact; the float reductions within STATS_2R_RTOL), and
    each rank's Alltoall bytes of the sort (at most its chunk's values and
    int64 indices).
+3e. The estimators at world size 1 at users' sizes.  X =
+   ``create_clusters(1e8, 32, 64)`` (config 2's data) with its blob labels:
+   ``KMedians`` and ``KMedoids`` from a row of each blob (EST_ITER steps;
+   one more step from the fitted centres against float64 on the card: the
+   medians of the fit's labels exactly, each medoid a member row as near the
+   float64 median as any), ``BatchParallelKMeans`` (MAX_ITER) and
+   ``BatchParallelKMedians`` (EST_ITER; labels the assign kernel's of the
+   merged centres), ``GaussianNB`` on the 64 classes (theta and var within
+   NB_RTOL of float64 per blob), the five scalers (statistics against
+   float64, min and max bit for bit, each transform of 1e6 rows against its
+   formula in float64), ``KNeighborsClassifier(5)`` on every 100th row (1e6)
+   predicting 32768 rows (256 against the float64 brute force's votes).  T,
+   a rank-16 signal plus 1e-3 noise at config 1's 1e6 x 256: ``PCA`` by
+   each solver at 16 components and ``'full'`` at 0.9, ``IncrementalPCA(16,
+   batch_size=65536)``, singular values within PCA_RTOL of the float64
+   Gram's; ``Lasso`` on randn(1e6, 256) and a 16-sparse theta plus noise
+   against float64 coordinate descent (LASSO_RTOL); ``DMD`` of a known
+   rank-16 system's 256 snapshots (1e6 x 256), its eigenvalues within
+   DMD_TOL of the known ones; ``Spectral(8, n_lanczos=300)`` and its
+   ``Laplacian`` on ``create_clusters(32768, 32, 8)`` (A is 4 GiB), the
+   blobs recovered up to a permutation (SPECTRAL_AGREE).  Each fit's launch
+   counts zeroed just before and read just after: KMedians and KMedoids
+   launch ``assign`` once a step and once for the labels and ``em_stats``
+   never (the profiler's count of one fit too), the batch-parallel fits and
+   Spectral launch the KMeans kernels; each timed beside its bound
+   (``stats_bound_ms``) with its peak memory under EST_PEAK.
+3f. On 2 spawned ranks on this card over gloo: the tiled resplit of
+   RESPLIT_2R_SHAPE (1.1 GB, tiles ragged along their axis) at
+   RESPLIT_2R_CASES under RESPLIT_2R_BUDGET, bit for bit the monolithic
+   resplit, its traffic bytes equal, its transient memory past source and
+   destination within the budget plus one tile (the monolithic one's
+   printed beside it); then ``estimator_cases`` (EST_2R_N ragged rows)
+   against world size 1 on this card.
 4. ``ht.matmul`` (BASELINE config 0): two (n, n) float32
    ``ht.random.randn(..., split=0)`` on the card multiplied at world size
    1, n = 4096 (BASELINE's shape) and 16384 (the north star's: 3 GiB for a,
@@ -200,9 +233,9 @@
 13. Ends with the line ``{"ok": true, "device": {...}}``.
 
 The phases run in this order: 1, 2, 3, the world-size-1 parts of 3b, 4,
-4b and 4c, then 5 to 9, 11 and 12's timings; then the phases on spawned
-ranks, 10 first, then the 2-rank parts of 3b, 4, 4b and 4c; then 3c and
-3d.  Every check in this process that reads the profiler so runs before
+4b and 4c, then 5 to 9, 11 and 12's timings, then 3e; then the phases on
+spawned ranks, 10 first, then the 2-rank parts of 3b, 4, 4b and 4c; then
+3c, 3d and 3f.  Every check in this process that reads the profiler so runs before
 the first spawned rank: after ranks on the card exit, CUPTI can record no
 device activity for as long as it was watched (``profiled``, which also
 starts CUPTI afresh for each session of this process).  Each profiled
@@ -3597,6 +3630,575 @@ def data_parallel_two_ranks(smi: str) -> None:
         "card": smi}), flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# the estimators and the tiled resplit under a byte budget
+# ---------------------------------------------------------------------- #
+EST_ITER = 5  # KMedians, KMedoids and BatchParallelKMedians steps at X's size (BatchParallelKMeans: MAX_ITER)
+EST_SEED = 15
+EST_TRAIN_STRIDE = 100  # KNN's 1e6 training rows: every 100th row of X (create_clusters lays a blob out in one run)
+EST_QUERIES, EST_CHECK_QUERIES = 32768, 256
+EST_PEAK = 70e9  # bytes: no estimator may hold more on the card at X's size
+PCA_RANK, PCA_NOISE, PCA_RTOL = 16, 1e-3, 1e-4  # T = a rank-16 signal plus 1e-3 noise, config 1's shape
+NB_RTOL, LASSO_RTOL, DMD_TOL = 1e-5, 1e-4, 1e-3
+SCALER_RTOL = 1e-5
+SPECTRAL_N, SPECTRAL_K, SPECTRAL_LANCZOS, SPECTRAL_AGREE = 32768, 8, 300, 0.99
+SPECTRAL_GAMMA = 1.0 / (4 * D)  # rbf's sigma^2 = 2d: a blob's rows at ~e^-1/2, other blobs' at ~0
+RESPLIT_2R_SHAPE, RESPLIT_2R_BUDGET = (4096, 1024, 66), 64 << 20  # 1.1 GB; tiles of 4 slices of axis 2, the last 2
+RESPLIT_2R_CASES = ((0, 1), (0, None), (None, 0))
+EST_2R_N, EST_2R_K, EST_2R_RTOL = 100_001, 8, 1e-4
+
+
+def _zero_launches() -> None:
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    for key in kk.launch_counts:
+        kk.launch_counts[key] = 0
+
+
+def _launches() -> dict:
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    return dict(kk.launch_counts)
+
+
+def _est_fit(fn):
+    """(result, ms, launch counts, peak bytes) of one ``fn()`` on the card,
+    the counts zeroed and the peak reset just before."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    out, ms = once_ms(fn)
+    return out, ms, _launches(), torch.cuda.max_memory_allocated()
+
+
+def _est_row(name: str, ms: float, bound: tuple, peak: int, check: str, err, tol, launches, smi: str,
+             predict_ms=None, **extra) -> dict:
+    if peak > EST_PEAK:
+        fail(f"{name}: {peak} bytes at the peak, past {EST_PEAK}")
+    if err is not None and not err <= tol:
+        fail(f"{name}: {check}: error {err} past {tol}")
+    row = {"phase": "estimators", "estimator": name, "fit_ms": ms, "predict_ms": predict_ms, "bound_ms": bound[0],
+           "bound_by": bound[1], "share_of_bound": bound[0] / ms, "peak_mem_bytes": peak, "check": check,
+           "err": err, "tol": tol, "launches": launches, "card": smi, **extra}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _medians64(x, labels, k: int):
+    """float64 (k, d) coordinate-wise medians of each label's rows (the mean
+    of the two middles), by a sort of each cluster's rows: independent of
+    the port's key selection."""
+    import torch
+
+    order = torch.argsort(labels.long(), stable=True)
+    counts = torch.bincount(labels.long(), minlength=k).tolist()
+    out = torch.zeros((k, x.shape[1]), dtype=torch.float64, device=x.device)
+    start = 0
+    for c, cnt in enumerate(counts):
+        if cnt:
+            s = torch.sort(x[order[start:start + cnt]].double(), 0).values
+            out[c] = (s[(cnt - 1) // 2] + s[cnt // 2]) / 2
+        start += cnt
+    return out, order, counts
+
+
+def _kcluster_checks(ht, X, est, name: str):
+    """(check text, error): one more step of ``name`` from the fitted
+    centers C, against float64 on the card.  KMedians: the step's centers
+    are the float64 medians of the labels of C (``labels_``), exactly.
+    KMedoids: each of the step's medoids is a row of its cluster and as near
+    to the cluster's float64 median as any member (within float32 rounding
+    of the distance)."""
+    import torch
+
+    C = est.cluster_centers_.larray.float()
+    step = getattr(ht.cluster, name)(n_clusters=C.shape[0], init=C, max_iter=1).fit(X).cluster_centers_.larray
+    xl, labels = X.larray, est.labels_.larray
+    med, order, counts = _medians64(xl, labels, C.shape[0])
+    if name == "KMedians":
+        err = float((step.double() - med.float().double()).abs().max())
+        return "one step's centres equal the float64 medians of the fit's labels", err
+    worst, start = 0.0, 0
+    for c, cnt in enumerate(counts):
+        if cnt:
+            rows = xl[order[start:start + cnt]].double()
+            dm = ((rows - med[c]) ** 2).sum(1)
+            if float(((rows - step[c].double()) ** 2).sum(1).min()) != 0.0:
+                fail(f"KMedoids: medoid {c} is no row of its cluster")
+            got = float(((step[c].double() - med[c]) ** 2).sum())
+            worst = max(worst, (got - float(dm.min())) / max(float(dm.min()), 1e-30))
+        start += cnt
+    return "one step's medoids: member rows, their squared distance to the float64 median over the nearest member's", worst
+
+
+def _agreement(labels, truth, k: int) -> float:
+    """The share of rows whose label maps to their true label under the best
+    one-to-one mapping found greedily from the contingency table."""
+    import torch
+
+    table = torch.zeros((k, k), dtype=torch.int64, device=labels.device)
+    table.index_put_((labels.long(), truth.long()), torch.ones_like(labels, dtype=torch.int64), accumulate=True)
+    t = table.cpu().clone()
+    hit = 0
+    for _ in range(k):
+        v = int(t.max())
+        i, j = divmod(int(t.argmax()), k)
+        hit += v
+        t[i, :] = -1
+        t[:, j] = -1
+    return hit / labels.numel()
+
+
+def _cd64(G, b, lam_n: float, max_iter: int, tol: float):
+    """The reference's cyclic coordinate descent in float64 on the host, from
+    the Gram G = AᵀA and b = Aᵀy of A = [1, X]: (θ, sweeps)."""
+    import numpy as np
+
+    G, b = G.cpu().numpy(), b.cpu().numpy()
+    theta = np.zeros(G.shape[0])
+    col = np.maximum(np.diag(G), 1e-30)
+    for it in range(max_iter):
+        old = theta.copy()
+        for j in range(G.shape[0]):
+            rho = b[j] - G[j] @ theta + G[j, j] * theta[j]
+            if j == 0:
+                theta[j] = rho / col[0]
+            else:
+                theta[j] = np.sign(rho) * max(abs(rho) - lam_n / 2, 0.0) / col[j]
+        if np.abs(theta - old).max() < tol:
+            return theta, it + 1
+    return theta, max_iter
+
+
+def estimators_world_one(ht, smi: str) -> None:
+    """The estimators at world size 1 at users' sizes: X = ``create_clusters
+    (1e8, 32, 64)`` (config 2's data) with its blob labels y; T, a rank-16
+    signal plus noise at config 1's 1e6 x 256; R = randn(1e6, 256) for
+    Lasso; DMD's snapshots of a known rank-16 system at 1e6 x 256; S =
+    ``create_clusters(32768, 32, 8)`` for Spectral.  Each fit held against
+    float64 on the card, its launch counts read just after (zeroed just
+    before), timed beside its bound, its peak memory under EST_PEAK."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    t_phase = time.perf_counter()
+    n, d, k = N_MAIN, D, K
+    gm = torch.Generator().manual_seed(EST_SEED)
+    means = torch.rand((k, d), generator=gm) * 40.0 - 20.0
+    X = ht.utils.data.create_clusters(n, d, k, means.numpy(), cluster_std=1.0, device="gpu", random_state=EST_SEED)
+    xl = X.larray
+    per = n // k
+    y_t = (torch.arange(n, device="cuda") // per).clamp_max_(k - 1).to(torch.int32)
+    y = ht.array(y_t, split=0)
+    xbytes = n * d * 4
+    init = xl[torch.arange(k, device="cuda") * per + 7].float().clone()  # a row of each blob
+    assign_ops = 2.0 * n * k * d
+
+    # the k-clusterers: each step is the assign kernel, then the medians
+    for name in ("KMedians", "KMedoids"):
+        est, ms, launches, peak = _est_fit(lambda name=name: getattr(ht.cluster, name)(
+            n_clusters=k, init=init, max_iter=EST_ITER).fit(X))
+        if launches != {"assign": est.n_iter_ + 1, "em_stats": 0}:
+            fail(f"{name}: launches {launches}, not assign once a step and once for the labels")
+        pred, pms = once_ms(lambda est=est: est.predict(X))
+        if not torch.equal(pred.larray, est.labels_.larray):
+            fail(f"{name}: predict differs from the fit's labels")
+        check, err = _kcluster_checks(ht, X, est, name)
+        steps = est.n_iter_
+        bound = stats_bound_ms(xbytes * (2 * steps + 1), 8.0 * n * (steps + 1), assign_ops * (steps + 1))
+        extra = {"recovered": recovered(est.cluster_centers_.larray.float(), means.cuda(), RECOVER_TOL),
+                 "recovered_of": k, "recover_tol": RECOVER_TOL} if name == "KMedians" else {}
+        _est_row(name, ms, bound, peak, check, err, 0.0 if name == "KMedians" else 1e-5, launches, smi,
+                 predict_ms=pms, n_iter=steps, **extra)
+        del est, pred
+    # the profiler's count of one KMedians fit's kernels
+    prof, _ = profiled(lambda: ht.cluster.KMedians(n_clusters=k, init=init, max_iter=2).fit(X), "KMedians launches")
+    seen = {key: sum(e.count for e in device_events(prof) if f"{key}_kernel" in e.key) for key in ("assign",
+                                                                                                   "em_stats")}
+    if seen["em_stats"] or not seen["assign"]:
+        fail(f"KMedians: the profiler saw {seen}")
+    print(json.dumps({"phase": "estimators_profiled_launches", "estimator": "KMedians(max_iter=2)", "kernels": seen,
+                      "card": smi}), flush=True)
+
+    for name, median in (("BatchParallelKMeans", False), ("BatchParallelKMedians", True)):
+        kw = {"max_iter": EST_ITER if median else MAX_ITER}
+        est, ms, launches, peak = _est_fit(lambda name=name, kw=kw: getattr(ht.cluster, name)(
+            n_clusters=k, random_state=0, **kw).fit(X))
+        if median and (launches["em_stats"] or launches["assign"] < est.n_iter_ + 1):
+            fail(f"{name}: launches {launches}")
+        if not median and (launches["em_stats"] < est.n_iter_ or launches["assign"] != 1):
+            fail(f"{name}: launches {launches}")
+        C = est.cluster_centers_.larray.float()
+        if tuple(C.shape) != (k, d) or not bool(torch.isfinite(C).all()):
+            fail(f"{name}: centres are not finite (k, d)")
+        lab = kk.fused_assign(xl, C)[0]
+        if not torch.equal(lab, est.labels_.larray):
+            fail(f"{name}: labels differ from the assign kernel's of the centres")
+        steps = est.n_iter_
+        bound = stats_bound_ms(xbytes * (steps * (1 + median) + 1), 0.0, assign_ops * (steps + 1))
+        _est_row(name, ms, bound, peak, "labels are the assign kernel's of the merged centres; centres finite",
+                 None, None, launches, smi, n_iter=steps, recovered=recovered(C, means.cuda(), RECOVER_TOL),
+                 recovered_of=k)
+        del est
+    _zero_launches()
+    prof, _ = profiled(lambda: ht.cluster.BatchParallelKMeans(n_clusters=k, random_state=0, max_iter=3).fit(X),
+                       "BatchParallelKMeans launches")
+    seen = {key: sum(e.count for e in device_events(prof) if f"{key}_kernel" in e.key) for key in ("assign",
+                                                                                                   "em_stats")}
+    if not seen["em_stats"]:
+        fail(f"BatchParallelKMeans: the profiler saw {seen}")
+    print(json.dumps({"phase": "estimators_profiled_launches", "estimator": "BatchParallelKMeans(max_iter=3)",
+                      "kernels": seen, "launch_counts": _launches(), "card": smi}), flush=True)
+
+    # GaussianNB: per-class moments against float64 over each blob's rows
+    nb, ms, launches, peak = _est_fit(lambda: ht.naive_bayes.GaussianNB().fit(X, y))
+    pred, pms = once_ms(lambda: nb.predict(X))
+    mu64 = torch.stack([xl[c * per:(c + 1) * per if c < k - 1 else n].double().mean(0) for c in range(k)])
+    var64 = torch.stack([xl[c * per:(c + 1) * per if c < k - 1 else n].double().var(0, unbiased=False)
+                         for c in range(k)])
+    err = max(_max_err64(nb.theta_.larray, mu64), _max_err64(nb.var_.larray - nb.epsilon_, var64))
+    acc = float((pred.larray == y_t).double().mean())
+    _est_row("GaussianNB", ms, stats_bound_ms(xbytes + 4 * n, 4.0 * n, 4.0 * n * d * k), peak,
+             "theta and var (smoothing off) against float64 per blob", err, NB_RTOL, launches, smi, predict_ms=pms,
+             predict_accuracy=acc)
+    if acc < 0.999:
+        fail(f"GaussianNB: predicts {acc} of the blobs")
+    del nb, pred
+
+    # the scalers: statistics against float64, transforms against the formula in float64 on 1e6 rows
+    head = xl[:1_000_000].double()
+    sorted_cols = None
+    for kind in ("StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler", "Normalizer"):
+        sc, ms, launches, peak = _est_fit(lambda kind=kind: getattr(ht.preprocessing, kind)().fit(X))
+        tr, tms = once_ms(lambda sc=sc: sc.transform(X))
+        if kind == "StandardScaler":
+            m64 = _chunked64(xl, lambda b: b.sum(0)) / n
+            v64 = _chunked64(xl, lambda b: ((b - m64) ** 2).sum(0)) / n
+            err = max(_max_err64(sc.mean_.larray, m64), _max_err64(sc.var_.larray, v64))
+            want = (head - sc.mean_.larray.double()) / sc.scale_.larray.double()
+        elif kind == "MinMaxScaler":
+            err = float(not (torch.equal(sc.data_min_.larray, xl.amin(0)) and torch.equal(sc.data_max_.larray,
+                                                                                        xl.amax(0))))
+            want = head * sc.scale_.larray.double() + sc.min_.larray.double()
+        elif kind == "MaxAbsScaler":
+            err = float(not torch.equal(sc.max_abs_.larray, xl.abs().amax(0)))
+            want = head / sc.scale_.larray.double()
+        elif kind == "RobustScaler":
+            qs = []
+            for j in range(d):
+                s = torch.sort(xl[:, j]).values.double()
+                q = []
+                for p in (50.0, 25.0, 75.0):
+                    pos = (n - 1) * p / 100.0
+                    lo = int(np.floor(pos))
+                    q.append(s[lo] + (s[min(lo + 1, n - 1)] - s[lo]) * (pos - lo))
+                qs.append(torch.stack(q))
+                del s
+            q64 = torch.stack(qs, 1)
+            err = max(_max_err64(sc.center_.larray, q64[0]), _max_err64(sc.scale_.larray, q64[2] - q64[1]))
+            want = (head - sc.center_.larray.double()) / sc.scale_.larray.double()
+        else:
+            err = 0.0
+            want = head / head.norm(dim=1, keepdim=True)
+        terr = _max_err64(tr.larray[:1_000_000], want)
+        if tr.split != 0 or not tr.larray.is_cuda:
+            fail(f"{kind}: transform left split 0 or the card")
+        reads = {"RobustScaler": 2 * xbytes, "Normalizer": 0}.get(kind, xbytes)
+        _est_row(kind, ms, stats_bound_ms(reads, 0.0), peak, "statistics against float64 (min/max bit for bit), "
+                 "the transform of 1e6 rows against its formula in float64", max(err, terr), SCALER_RTOL, launches,
+                 smi, predict_ms=tms, transform_bound_ms=stats_bound_ms(xbytes, xbytes)[0])
+        del sc, tr
+    del head
+    torch.cuda.empty_cache()
+
+    # KNN: 1e6 training rows (every 100th of X), 32768 queries
+    train, ytr = X[::EST_TRAIN_STRIDE], y[::EST_TRAIN_STRIDE]
+    g = torch.Generator(device="cuda").manual_seed(EST_SEED)
+    q = xl[torch.randint(0, n, (EST_QUERIES,), generator=g, device="cuda")] + 0.5 * torch.randn(
+        EST_QUERIES, d, generator=g, device="cuda")
+    knn, ms, launches, peak = _est_fit(lambda: ht.classification.KNeighborsClassifier(5).fit(train, ytr))
+    pred, pms = once_ms(lambda: knn.predict(ht.array(q, split=0)))
+    tl, qc = train.larray.double(), q[:EST_CHECK_QUERIES].double()
+    d2 = (qc * qc).sum(1, keepdim=True) + (tl * tl).sum(1)[None, :] - 2.0 * qc @ tl.T
+    votes = ytr.larray[d2.topk(5, 1, largest=False).indices].long()
+    want = torch.stack([torch.bincount(v, minlength=k).argmax() for v in votes]).to(torch.int32)
+    wrong = int((pred.larray[:EST_CHECK_QUERIES] != want).sum())
+    nt = train.shape[0]
+    _est_row("KNeighborsClassifier", ms, stats_bound_ms(nt * d * 4 + EST_QUERIES * d * 4, EST_QUERIES * 4,
+                                                        2.0 * EST_QUERIES * nt * d), peak,
+             f"the float64 brute force's votes on {EST_CHECK_QUERIES} queries", float(wrong), 0.0, launches, smi,
+             predict_ms=pms, train_rows=nt, queries=EST_QUERIES)
+    del knn, pred, tl, qc, d2, train, ytr, q
+    del X, xl, y, y_t
+    torch.cuda.empty_cache()
+
+    # PCA and IncrementalPCA on T, config 1's shape
+    m, f = 1_000_000, 256
+    g = torch.Generator(device="cuda").manual_seed(EST_SEED + 1)
+    T = (torch.randn(m, PCA_RANK, generator=g, device="cuda") @ (torch.randn(PCA_RANK, f, generator=g, device="cuda")
+                                                                   * torch.linspace(4, 1, PCA_RANK, device="cuda")[:, None])
+         + PCA_NOISE * torch.randn(m, f, generator=g, device="cuda") + 3.0)
+    t = ht.array(T, split=0)
+    tc = T.double() - T.double().mean(0)
+    ev64 = torch.linalg.eigvalsh(tc.T @ tc).flip(0).clamp_min(0)
+    s64 = ev64.sqrt()
+    ratio64 = ev64 / ev64.sum()
+    del tc
+    tbytes = m * f * 4
+    for solver, comps in (("full", PCA_RANK), ("hierarchical", PCA_RANK), ("randomized", PCA_RANK), ("full", 0.9)):
+        pca, ms, launches, peak = _est_fit(lambda solver=solver, comps=comps: ht.decomposition.PCA(
+            n_components=comps, svd_solver=solver).fit(t))
+        tr, tms = once_ms(lambda pca=pca: pca.transform(t))
+        kc = pca.n_components_
+        if isinstance(comps, float):
+            want_k = int(torch.searchsorted(torch.cumsum(ratio64, 0), torch.tensor([comps], dtype=torch.float64,
+                                                                                   device="cuda"))) + 1
+            if kc != want_k:
+                fail(f"PCA({comps}): {kc} components, float64's {want_k}")
+        err = float(((pca.singular_values_.larray.double() - s64[:kc]).abs() / s64[:kc]).max())
+        _est_row(f"PCA({solver}, {comps})", ms, stats_bound_ms(2 * tbytes, 0.0, 2.0 * m * f * f), peak,
+                 "singular values against the float64 Gram's", err, PCA_RTOL, launches, smi, predict_ms=tms,
+                 n_components=kc)
+        del pca, tr
+    ipca, ms, launches, peak = _est_fit(lambda: ht.decomposition.IncrementalPCA(PCA_RANK, batch_size=65536).fit(t))
+    err = float(((ipca.singular_values_.larray.double() - s64[:PCA_RANK]).abs() / s64[:PCA_RANK]).max())
+    _est_row("IncrementalPCA(16, 65536)", ms, stats_bound_ms(tbytes, 0.0, 2.0 * m * f * (PCA_RANK + 65536 // 16)),
+             peak, "singular values against the float64 Gram's", err, PCA_RTOL, launches, smi)
+    del ipca, t, T
+    torch.cuda.empty_cache()
+
+    # Lasso on R = randn(1e6, 256), y from a 16-sparse theta plus noise
+    R = torch.randn(m, f, generator=g, device="cuda")
+    theta = torch.zeros(f, dtype=torch.float64, device="cuda")
+    theta[torch.randperm(f, generator=g, device="cuda")[:16]] = torch.linspace(-2, 2, 16, dtype=torch.float64,
+                                                                               device="cuda")
+    yl = (R.double() @ theta + 0.5 + 0.01 * torch.randn(m, generator=g, device="cuda", dtype=torch.float64)).float()
+    lam = 0.01
+    lasso, ms, launches, peak = _est_fit(lambda: ht.regression.Lasso(lam=lam, max_iter=100, tol=1e-6).fit(
+        ht.array(R, split=0), ht.array(yl, split=0)))
+    A64 = torch.cat([torch.ones(m, 1, dtype=torch.float64, device="cuda"), R.double()], 1)
+    th64, it64 = _cd64(A64.T @ A64, A64.T @ yl.double(), lam * m, 100, 1e-6)
+    del A64
+    got = lasso.theta.larray.double().reshape(-1).cpu().numpy()
+    err = float(np.abs(got - th64).max() / np.abs(th64).max())
+    _est_row("Lasso", ms, stats_bound_ms(m * f * 4 + m * 4, 0.0, 2.0 * m * (f + 1) ** 2), peak,
+             "theta against float64 coordinate descent", err, LASSO_RTOL, launches, smi, n_iter=lasso.n_iter_,
+             n_iter_float64=it64)
+    del R, yl, lasso
+
+    # DMD of a known rank-16 linear system's 256 snapshots
+    r = 16
+    radii = torch.linspace(0.999, 0.975, r // 2, dtype=torch.float64)
+    angles = torch.linspace(0.05, 0.4, r // 2, dtype=torch.float64)
+    block = torch.zeros((r, r), dtype=torch.float64)
+    for i in range(r // 2):
+        c, s = float(radii[i] * torch.cos(angles[i])), float(radii[i] * torch.sin(angles[i]))
+        block[2 * i:2 * i + 2, 2 * i:2 * i + 2] = torch.tensor([[c, -s], [s, c]], dtype=torch.float64)
+    known = torch.cat([radii * torch.exp(1j * angles), radii * torch.exp(-1j * angles)])
+    z = torch.randn(r, dtype=torch.float64, generator=torch.Generator().manual_seed(EST_SEED))
+    zs = []
+    for _ in range(f):
+        zs.append(z)
+        z = block @ z
+    Z = torch.stack(zs, 1).cuda()
+    Q = torch.linalg.qr(torch.randn(m, r, generator=g, device="cuda", dtype=torch.float64)).Q
+    S = (Q @ Z).float()
+    del Q
+    dmd, ms, launches, peak = _est_fit(lambda: ht.decomposition.DMD(svd_rank=r).fit(ht.array(S, split=0)))
+    ev = dmd.rom_eigenvalues_.larray.cpu().to(torch.complex128)
+    err = max(float((known - ev[(known[:, None] - ev[None, :]).abs().argmin(1)]).abs().max()),
+              float((ev - known[(ev[:, None] - known[None, :]).abs().argmin(1)]).abs().max()))
+    fc, pms = once_ms(lambda: dmd.predict(ht.array(S[:, 0], split=0), 3))
+    ferr = _max_err64(fc.larray.T, S[:, 1:4].double())
+    _est_row("DMD(svd_rank=16)", ms, stats_bound_ms(2 * m * f * 4, 0.0, 2.0 * m * f * f), peak,
+             "eigenvalues against the system's known ones (each to its nearest)", err, DMD_TOL, launches, smi,
+             predict_ms=pms, forecast_err=ferr, eig_device=str(dmd.rom_eigenvalues_.larray.device))
+    if ferr > DMD_TOL:
+        fail(f"DMD: the 3-step forecast is {ferr} from the snapshots")
+    del S, dmd, fc
+    torch.cuda.empty_cache()
+
+    # Spectral clustering and its Laplacian at 32768 x 32, 8 blobs
+    gs = torch.Generator().manual_seed(EST_SEED + 2)
+    smeans = torch.rand((SPECTRAL_K, d), generator=gs) * 40.0 - 20.0
+    Sx = ht.utils.data.create_clusters(SPECTRAL_N, d, SPECTRAL_K, smeans.numpy(), cluster_std=1.0, device="gpu",
+                                       random_state=EST_SEED)
+    sigma = (1.0 / (2.0 * SPECTRAL_GAMMA)) ** 0.5
+    lap, lms, _, lpeak = _est_fit(lambda: ht.graph.Laplacian(
+        lambda v: ht.spatial.rbf(v, sigma=sigma, quadratic_expansion=True)).construct(Sx))
+    ll = lap.larray
+    diag_err = float((ll.diagonal() - 1.0).abs().max())
+    del lap, ll
+    sp, ms, launches, peak = _est_fit(lambda: ht.cluster.Spectral(n_clusters=SPECTRAL_K, gamma=SPECTRAL_GAMMA,
+                                                                  n_lanczos=SPECTRAL_LANCZOS).fit(Sx))
+    truth = (torch.arange(SPECTRAL_N, device="cuda") // (SPECTRAL_N // SPECTRAL_K)).clamp_max_(SPECTRAL_K - 1)
+    agree = _agreement(sp.labels_.larray, truth, SPECTRAL_K)
+    if not launches["em_stats"] or not launches["assign"]:
+        fail(f"Spectral: launches {launches}, not the KMeans kernels")
+    ab = SPECTRAL_N * SPECTRAL_N * 4
+    _est_row("Laplacian(norm_sym, 32768)", lms, stats_bound_ms(SPECTRAL_N * d * 4, ab, 2.0 * SPECTRAL_N ** 2 * d),
+             lpeak, "the diagonal of I - D^-1/2 A D^-1/2 is 1", diag_err, 1e-6, None, smi)
+    _est_row("Spectral(8, n_lanczos=300)", ms, stats_bound_ms(ab * (SPECTRAL_LANCZOS + 1), ab,
+                                                              2.0 * SPECTRAL_N ** 2 * (d + SPECTRAL_LANCZOS)),
+             peak, "blob labels recovered up to a permutation (share of rows)", 1.0 - agree, 1.0 - SPECTRAL_AGREE,
+             launches, smi, agreement=agree)
+    del sp, Sx
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "estimators_seconds", "seconds": time.perf_counter() - t_phase, "card": smi}),
+          flush=True)
+
+
+def tiled_resplit_case(ht, comm, src, dst, budget: int) -> dict:
+    """The tiled resplit of RESPLIT_2R_SHAPE against the monolithic one on
+    this rank: bit for bit, the same traffic bytes, and the transient memory
+    beyond source and destination of each (``max_memory_allocated`` past
+    what was live, less the destination)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(EST_SEED + 3)
+    full = torch.randn(RESPLIT_2R_SHAPE, generator=g, device="cuda")
+    x = ht.array(full, split=src)
+    del full
+    torch.cuda.empty_cache()
+    out = {}
+    for label, b in (("monolithic", 0), ("tiled", budget)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        comm.reset_traffic()
+        t0 = time.perf_counter()
+        y = x.resplit(dst, memory_budget=b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        dst_bytes = y.larray.numel() * 4
+        out[label] = {"transient_bytes": torch.cuda.max_memory_allocated() - base - dst_bytes, "seconds": secs,
+                      "traffic": {k: v["bytes"] for k, v in comm.traffic().items()},
+                      "calls": {k: v["calls"] for k, v in comm.traffic().items()}, "dst_bytes": dst_bytes,
+                      "src_bytes": x.larray.numel() * 4}
+        out[label + "_value"] = y
+    plan = ht.core.redistribution.plan_resplit(RESPLIT_2R_SHAPE, 4, src, dst, comm.size, budget)
+    z = x.resplit(src)  # a copy of the source, resplit in place
+    z.resplit_(dst, memory_budget=budget)
+    res = {"equal": bool(torch.equal(out["tiled_value"].larray, out["monolithic_value"].larray)),
+           "inplace_equal": bool(torch.equal(z.larray, out["monolithic_value"].larray)), "reason": plan.reason, "tiles": plan.n_tiles,
+           "tile_bytes": plan.max_tile_bytes, "budget": budget, "monolithic": out["monolithic"], "tiled": out["tiled"]}
+    return res
+
+
+def estimator_cases(ht) -> dict:
+    """Phase 3f's estimators on data every rank makes alike on the card
+    (EST_2R_N rows, ragged over 2 ranks), from explicit initial centers:
+    each result gathered to the host as (value, exact)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(EST_SEED + 4)
+    k, d = EST_2R_K, D
+    means = torch.rand(k, d, generator=g, device="cuda") * 40 - 20
+    lab = torch.randint(0, k, (EST_2R_N,), generator=g, device="cuda")
+    X = means[lab] + torch.randn(EST_2R_N, d, generator=g, device="cuda")
+    yv = lab.to(torch.int32)
+    T = torch.randn(EST_2R_N, 4, generator=g, device="cuda") @ torch.randn(4, 16, generator=g, device="cuda") + 1.0
+    x, y, t = ht.array(X, split=0), ht.array(yv, split=0), ht.array(T, split=0)
+    init = X[torch.stack([torch.nonzero(lab == c)[0, 0] for c in range(k)])].clone()  # a row of each blob
+    out = {}
+
+    def keep(name, v, exact):
+        if hasattr(v, "larray"):
+            if not v.larray.is_cuda:
+                fail(f"{name}: a result left the card")
+            v = v.numpy()
+        out[name] = (np.asarray(v), exact)
+
+    for name in ("KMeans", "KMedians", "KMedoids"):
+        est = getattr(ht.cluster, name)(n_clusters=k, init=init, max_iter=10).fit(x)
+        keep(f"{name}.centers", est.cluster_centers_, name != "KMeans")
+        keep(f"{name}.labels", est.labels_, True)
+        keep(f"{name}.n_iter", est.n_iter_, True)
+    pca = ht.decomposition.PCA(4, svd_solver="full").fit(t)
+    keep("PCA.s", pca.singular_values_, False)
+    keep("PCA.abs_components", pca.components_.larray.abs().cpu(), False)
+    nb = ht.naive_bayes.GaussianNB().fit(x, y)
+    keep("GaussianNB.theta", nb.theta_, False)
+    keep("GaussianNB.var", nb.var_, False)
+    keep("GaussianNB.predict", nb.predict(x), True)
+    lasso = ht.regression.Lasso(lam=0.01, tol=1e-6).fit(t, ht.array(T[:, 0] * 2 - T[:, 3] + 0.5, split=0))
+    keep("Lasso.theta", lasso.theta, False)
+    keep("Lasso.n_iter", lasso.n_iter_, True)
+    knn = ht.classification.KNeighborsClassifier(5).fit(x, y)
+    keep("KNN.predict", knn.predict(ht.array(X[:2000] + 0.3, split=0)), True)
+    for kind in ("StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler", "Normalizer"):
+        keep(f"{kind}.transform", getattr(ht.preprocessing, kind)().fit(x).transform(x), False)
+    return out
+
+
+def estimators_rank(rank: int, port: int, out_q) -> None:
+    """One of 2 ranks on this card over gloo: the tiled resplit of
+    RESPLIT_2R_SHAPE against the monolithic one at each of
+    RESPLIT_2R_CASES, then ``estimator_cases``."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        res = {"resplit": {f"{s}->{d}": tiled_resplit_case(ht, comm, s, d, RESPLIT_2R_BUDGET)
+                           for s, d in RESPLIT_2R_CASES}}
+        torch.cuda.empty_cache()
+        res["cases"] = estimator_cases(ht)
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def estimators_two_ranks(ht, smi: str) -> None:
+    """Phase 3f: on 2 spawned ranks on this card over gloo, the tiled
+    resplit bit for bit the monolithic one, with the same traffic bytes, its
+    transient memory within budget + one tile; then ``estimator_cases``
+    against world size 1 on this card (exact where marked, else within
+    EST_2R_RTOL of the largest entry)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    want = estimator_cases(ht)
+    results = spawn_ranks(estimators_rank, 2, RING_TIMEOUT_S)
+    for rank, res in sorted(results.items()):
+        for case, r in res["resplit"].items():
+            mono, tiled = r["monolithic"], r["tiled"]
+            if r["reason"] != "tiled" or r["tiles"] < 2:
+                fail(f"rank {rank}: resplit {case} planned {r['reason']} ({r['tiles']} tiles)")
+            if not (r["equal"] and r["inplace_equal"]):
+                fail(f"rank {rank}: the tiled resplit {case} differs from the monolithic one")
+            if mono["traffic"] != tiled["traffic"]:
+                fail(f"rank {rank}: resplit {case} moved {tiled['traffic']}, the monolithic one {mono['traffic']}")
+            if tiled["transient_bytes"] > r["budget"] + r["tile_bytes"]:
+                fail(f"rank {rank}: resplit {case} held {tiled['transient_bytes']} transient bytes, past the budget "
+                     f"{r['budget']} plus one tile {r['tile_bytes']}")
+            print(json.dumps({"phase": "tiled_resplit_two_ranks", "rank": rank, "case": case,
+                              "shape": list(RESPLIT_2R_SHAPE), "tiles": r["tiles"], "budget": r["budget"],
+                              "tile_bytes": r["tile_bytes"], "tiled": tiled, "monolithic": mono, "card": smi}),
+                  flush=True)
+        for name, (w, exact) in want.items():
+            got = res["cases"].get(name)
+            same = got is not None and got[0].shape == w.shape and (
+                np.array_equal(got[0], w) if exact else
+                float(np.abs(got[0] - w).max()) <= EST_2R_RTOL * max(float(np.abs(w).max()), 1.0))
+            if not same:
+                err = None if got is None or got[0].shape != w.shape else float(np.abs(got[0] - w).max())
+                fail(f"rank {rank}: {name} differs from world size 1 (max abs difference {err})")
+    print(json.dumps({"phase": "estimators_two_ranks", "note": "2 processes on ONE card over gloo, against world "
+                      "size 1", "cases": len(want), "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+
+
 def main() -> int:
     global _TEARDOWN_CUPTI
     import torch
@@ -3727,6 +4329,11 @@ def main() -> int:
     pos = pos_rows(pos_errs)
     torch.cuda.empty_cache()
 
+    # 3e. the estimators at world size 1 at users' sizes (their launch counts
+    # read the profiler: before the first spawned rank)
+    estimators_world_one(ht, smi)
+    torch.cuda.empty_cache()
+
     # 10. the sequence-parallel LM over 2 ranks on this card, the first
     # spawned ranks; then 3b, 4, 4b and 4c on 2 ranks on this card over gloo
     ring = ring_train()
@@ -3747,6 +4354,9 @@ def main() -> int:
     # world size 1 at users' sizes, then 3d: 2 ranks on this card
     stats_world_one(ht, smi)
     stats_two_ranks(ht, smi)
+
+    # 3f. the tiled resplit and the estimators on 2 ranks on this card
+    estimators_two_ranks(ht, smi)
 
     # 8. the kernels line and the result
     print(smi)

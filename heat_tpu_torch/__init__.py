@@ -9,13 +9,16 @@ factor tall-skinny ones (TSQR), ``ht.spatial.cdist`` takes pairwise
 distances, and
 ``ht.parallel.ring_attention`` runs attention over a sequence split across
 the ranks, and ``ht.nn.DataParallel`` and ``ht.optim.DASO`` train a model
-data-parallel over the ranks.
+data-parallel over the ranks.  The sklearn-style estimators of
+``cluster``, ``decomposition``, ``regression``, ``naive_bayes``,
+``classification`` and ``preprocessing`` fit split arrays.
 Arrays live on the card (``'gpu'``) unless the caller asks for the CPU.
 """
 
 from .core import *
 from . import core
 from .core import random
+from .core.redistribution import set_redistribution_budget, get_redistribution_budget
 from .core.collectives import set_grad_bucket_budget, get_grad_bucket_budget
 from . import linalg
 from .linalg import matmul, dot, transpose, norm
@@ -25,6 +28,12 @@ from .linalg.qr import qr
 from .linalg.svdtools import svd
 from . import spatial
 from . import cluster
+from . import decomposition
+from . import regression
+from . import naive_bayes
+from . import classification
+from . import preprocessing
+from . import graph
 from . import nn
 from . import optim
 from . import ops

@@ -1,9 +1,12 @@
 """Shared k-clustering skeleton (reference: ``heat/cluster/_kcluster.py``).
 
 Init strategies, the Lloyd loop and ``predict``.  The loop runs in Python
-over device tensors: each step is one E+M sweep over this rank's rows, the
-two Allreduces of the statistics (sums (k, d), counts (k,)) when the rows
-are split over ranks, and one host sync for the ``tol`` test.
+over device tensors: each step is one call of the subclass's :meth:`_step`
+(KMeans: one E+M sweep over this rank's rows and the two Allreduces of its
+statistics; KMedians and KMedoids: the assign pass, then each cluster's
+coordinate-wise median), and one host sync for the ``tol`` test.  An array
+split along its features is resplit to its rows first (one Alltoall); its
+labels come back split 0.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from ..core import random, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.factories import narrow_64bit
-from ..core.sanitation import sanitize_in
+from ..core.sanitation import on_rows, sanitize_in
 from ..ops.kmeans_kernels import fused_assign, sq_dist_blocks
 
 
@@ -170,7 +173,9 @@ class _KCluster(ClusteringMixin, BaseEstimator):
             d2min[s : s + lb.shape[0]] = db.gather(1, lb[:, None])[:, 0]
         return labels, d2min
 
-    def _em_stats(self, xl: torch.Tensor, centers: torch.Tensor, use_kernel: bool):
+    def _step(self, x: DNDarray, centers: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+        """One Lloyd iteration: the new float32 (k, d) centers from
+        ``centers``, the same on every rank."""
         raise NotImplementedError()
 
     @staticmethod
@@ -185,23 +190,27 @@ class _KCluster(ClusteringMixin, BaseEstimator):
     # ------------------------------------------------------------------ #
     # fit / predict
     # ------------------------------------------------------------------ #
+    @staticmethod
+    def _rows(x: DNDarray) -> DNDarray:
+        """``x`` with its samples on this rank's rows: an array split along
+        its features is resplit to split 0 (one Alltoall; at world size 1
+        only its split changes)."""
+        if x.split in (0, None) or x.is_distributed():
+            return on_rows(x)
+        return DNDarray(x.larray, x.gshape, x.dtype, 0, x.device, x.comm, True)
+
     def fit(self, x: DNDarray):
         """Lloyd iteration until ``max_iter`` steps or a center shift ≤ ``tol``."""
         sanitize_in(x)
         if x.ndim != 2:
             raise ValueError(f"input must be 2-D (n_samples, n_features), got {x.ndim}-D")
-        if x.is_distributed() and x.split != 0:
-            raise NotImplementedError("fitting an array split along the feature axis is not ported yet")
+        x = self._rows(x)
         use_kernel = self._use_kernel(x)
         centers, cdtype = self._initialize_cluster_centers(x)
         xl, comm = x.larray, x.comm
         n_iter = 0
         for _ in range(self.max_iter):
-            sums, counts = self._em_stats(xl, centers, use_kernel)
-            if x.is_distributed():
-                comm.Allreduce(sums)
-                comm.Allreduce(counts)
-            new = self._centers_from_stats(sums, counts, centers)
+            new = self._step(x, centers, use_kernel)
             new = new.to(cdtype).float()  # centers are stored in their own dtype
             shift = (new - centers).abs().max()
             centers = new
@@ -234,8 +243,7 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         sanitize_in(x)
         if self._centers is None:
             raise RuntimeError("the estimator is not fitted")
-        if x.is_distributed() and x.split != 0:
-            raise NotImplementedError("predicting on an array split along the feature axis is not ported yet")
+        x = self._rows(x)
         centers = self._centers.to(x.larray.device)
         labels, _ = self._local_assign(x.larray, centers, self._use_kernel(x))
         return DNDarray(labels, (x.shape[0],), types.int32, x.split, x.device, x.comm, x.balanced)

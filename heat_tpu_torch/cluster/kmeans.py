@@ -78,3 +78,10 @@ class KMeans(_KCluster):
         if use_kernel:
             return fused_em_stats(xl, centers)
         return self._blocked_stats(xl, centers)
+
+    def _step(self, x: DNDarray, centers: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+        sums, counts = self._em_stats(x.larray, centers, use_kernel)
+        if x.is_distributed():
+            x.comm.Allreduce(sums)
+            x.comm.Allreduce(counts)
+        return self._centers_from_stats(sums, counts, centers)

@@ -32,6 +32,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .redistribution import parse_budget
+
 __all__ = [
     "GradBucketPlan",
     "plan_grad_buckets",
@@ -45,27 +47,6 @@ __all__ = [
     "bucketed_grad_allreduce",
     "dispatch_bucket_allreduce",
 ]
-
-
-def parse_budget(budget) -> Optional[int]:
-    """A budget in bytes: ints pass through, strings take K/M/G(B)
-    suffixes (``"64M"`` is 67108864); ``None``, 0, negative and the empty
-    string mean unbounded (``None``).  A copy of the JAX package's
-    ``core.redistribution.parse_budget``."""
-    if budget is None:
-        return None
-    if isinstance(budget, str):
-        text = budget.strip().upper().removesuffix("B")
-        if not text:
-            return None
-        scale = 1
-        if text[-1] in "KMG":
-            scale = 1024 ** ("KMG".index(text[-1]) + 1)
-            text = text[:-1]
-        budget = int(float(text) * scale)  # scale before truncating: "0.5G" is 512M
-    else:
-        budget = int(budget)
-    return budget if budget > 0 else None
 
 
 _DEFAULT_BUDGET: Optional[int] = parse_budget(os.environ.get("HEAT_TPU_GRAD_BUCKET_BYTES"))

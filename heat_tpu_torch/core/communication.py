@@ -574,21 +574,50 @@ class Communication:
     # ------------------------------------------------------------------ #
     def resplit(
         self,
-        x: torch.Tensor,
+        x,
         gshape,
         src_split: Optional[int],
         dst_split: Optional[int],
         counts: Optional[Sequence[int]] = None,
+        memory_budget=None,
+        donate: bool = False,
     ) -> torch.Tensor:
         """This rank's part of the global array of shape ``gshape``, held
         split along ``src_split`` (every rank's extent ``counts``, HeAT's
         chunks when not given), redistributed to ``dst_split``'s chunks:
         split to split by one :meth:`Alltoall`, split to None by
         :meth:`Allgatherv`, None to split by a local slice (a copy).  The
-        identity at world size 1 and where the splits agree."""
+        identity at world size 1 and where the splits agree.
+
+        ``memory_budget`` (bytes or a K/M/G string; ``None``: the process
+        default of ``set_redistribution_budget``/``HEAT_TPU_RESPLIT_BUDGET``;
+        0: unbounded) bounds the bytes of the global array moved a step:
+        where the plan of ``core.redistribution`` tiles, the transfer runs as
+        its K tiled collectives.  With ``donate``, ``x`` is a one-element list
+        holding the only reference to this rank's chunk; the list is emptied
+        and the chunk dropped once its last tile has left it (the in-place
+        ``resplit_``)."""
+        from . import redistribution
+
+        t = x[0] if donate else x
+        plan = None
+        if src_split != dst_split and self.is_distributed():
+            gshape = tuple(int(s) for s in gshape)
+            plan = redistribution.make_plan(self, gshape, t.element_size(), src_split, dst_split, memory_budget)
+        if plan is not None and plan.n_tiles > 1:
+            del t
+            return redistribution.execute_plan(self, x, plan, counts, donate=donate)
+        if donate:
+            x.pop()
         if src_split == dst_split or not self.is_distributed():
-            return x
-        gshape = tuple(int(s) for s in gshape)
+            return t
+        return self._resplit_whole(t, gshape, src_split, dst_split, counts)
+
+    # the reference's explicit entry of the tiled path: the same planner decides
+    resplit_tiled = resplit
+
+    def _resplit_whole(self, x: torch.Tensor, gshape, src_split, dst_split, counts) -> torch.Tensor:
+        """The monolithic resplit: one collective of the whole chunk."""
         if counts is None and src_split is not None:
             counts = self.counts_displs_shape(gshape, src_split)[0]
         if dst_split is None:

@@ -332,31 +332,46 @@ class DNDarray:
         self.__array = self.__comm.redistribute(self.__array, split, counts, target)
         self.__balanced = target == [int(c) for c in chunk[:, split]]
 
-    def _resplit_tensor(self, axis: Optional[int]) -> torch.Tensor:
+    def _resplit_tensor(self, axis: Optional[int], memory_budget=None) -> torch.Tensor:
         counts = None if self.__balanced or self.__split is None else self.counts_displs()[0]
-        return self.__comm.resplit(self.__array, self.__gshape, self.__split, axis, counts)
+        return self.__comm.resplit(self.__array, self.__gshape, self.__split, axis, counts, memory_budget)
 
-    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
+    def resplit_(self, axis: Optional[int] = None, memory_budget=None) -> "DNDarray":
         """Redistribute in place to split axis ``axis`` (None: every rank the
         whole array): split to split by one Alltoall, split to None by an
         Allgatherv, None to split by a local slice.  The result takes
-        ``chunk``'s layout."""
+        ``chunk``'s layout.
+
+        ``memory_budget`` (bytes or a K/M/G string; ``None``: the process
+        default of ``ht.set_redistribution_budget``/``HEAT_TPU_RESPLIT_BUDGET``)
+        bounds the bytes moved a step: an array past it streams as K tiled
+        collectives (``core.redistribution``), and its old chunk is dropped
+        once its last tile has left it."""
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return self
-        self.__array = self._resplit_tensor(axis)
+        counts = None if self.__balanced or self.__split is None else self.counts_displs()[0]
+        box = [self.__array]
+        self.__array = None  # the box holds the only reference, which the tiled path drops
+        try:
+            self.__array = self.__comm.resplit(box, self.__gshape, self.__split, axis, counts, memory_budget,
+                                               donate=True)
+        except BaseException:
+            if box:
+                self.__array = box[0]
+            raise
         self.__split, self.__balanced = axis, True
         if _CHECKS is not None:
             _CHECKS(self, "resplit_")
         return self
 
-    def resplit(self, axis: Optional[int] = None) -> "DNDarray":
+    def resplit(self, axis: Optional[int] = None, memory_budget=None) -> "DNDarray":
         """A copy of this array split along ``axis`` (see :meth:`resplit_`)."""
         axis = sanitize_axis(self.__gshape, axis)
         if axis == self.__split:
             return DNDarray(self.__array.clone(), self.__gshape, self.__dtype, axis, self.__device, self.__comm,
                             self.__balanced)
-        t = self._resplit_tensor(axis)
+        t = self._resplit_tensor(axis, memory_budget)
         if t is self.__array:
             t = t.clone()
         return DNDarray(t, self.__gshape, self.__dtype, axis, self.__device, self.__comm, True)

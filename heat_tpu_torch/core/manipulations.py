@@ -993,9 +993,11 @@ def fill_diagonal(a: DNDarray, val, wrap: bool = False) -> None:
     put(a, np.arange(0, stop, step), val)
 
 
-def resplit(x: DNDarray, axis: Optional[int] = None) -> DNDarray:
-    """A copy of ``x`` split along ``axis`` (None: replicated)."""
-    return x.resplit(axis)
+def resplit(x: DNDarray, axis: Optional[int] = None, memory_budget=None) -> DNDarray:
+    """A copy of ``x`` split along ``axis`` (None: replicated); past
+    ``memory_budget`` bytes it streams as K tiled collectives
+    (``core.redistribution``)."""
+    return x.resplit(axis, memory_budget)
 
 
 def redistribute(x: DNDarray, lshape_map=None, target_map=None) -> DNDarray:

@@ -268,3 +268,31 @@ def assert_cross_rank_consistent(x, tag: str = "") -> DNDarray:
 
 if os.environ.get("HEAT_TPU_CHECKS", "").strip().lower() in ("1", "true", "on", "yes"):
     enable_checks()
+
+
+# ---------------------------------------------------------------------- #
+# layouts the estimators take their inputs in
+# ---------------------------------------------------------------------- #
+def whole(a: DNDarray) -> torch.Tensor:
+    """All of ``a`` on every rank: gathered where it is distributed."""
+    return (a.resplit(None) if a.is_distributed() else a).larray
+
+
+def on_rows(x: DNDarray) -> DNDarray:
+    """``x`` with its samples on this rank's rows: a distributed array split
+    along another axis is resplit to split 0 (one Alltoall)."""
+    return x.resplit(0) if x.is_distributed() and x.split != 0 else x
+
+
+def rows_of(y: DNDarray, x: DNDarray) -> torch.Tensor:
+    """The values of ``y`` (flattened) that go with this rank's rows of ``x``
+    (split 0 or replicated): y's own rows where they are laid out alike, else
+    moved there or sliced from the whole."""
+    if not x.is_distributed():
+        return whole(y).reshape(-1)
+    if y.is_distributed() and y.split == 0:
+        yl = y.larray.reshape(-1)
+        counts, rows = list(y.counts_displs()[0]), list(x.counts_displs()[0])
+        return yl if counts == rows else x.comm.redistribute(yl, 0, counts, rows)
+    off = x.counts_displs()[1][x.comm.rank]
+    return whole(y).reshape(-1)[off: off + x.lshape[0]]

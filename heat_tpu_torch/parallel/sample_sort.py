@@ -118,11 +118,12 @@ def _select(comm, count, targets: Sequence[int], lo: int, hi: int, device) -> Tu
         tops = [[min(lo_j + w * d - 1, _I64_MAX) for d in range(1, bins + 1)] for lo_j in los]
         bounds = torch.tensor(tops, dtype=torch.int64, device=device)
         counts = comm.Allreduce(count(bounds).contiguous()).cpu()
-        for j, t in enumerate(targets):
-            row = counts[j]
-            b = int(torch.searchsorted(row, torch.tensor([t]), right=True).item())
+        # each target's bin: one batched search of every row
+        bins_of = torch.searchsorted(counts, torch.tensor(targets, dtype=counts.dtype).reshape(-1, 1),
+                                     right=True).reshape(-1).tolist()
+        for j, b in enumerate(bins_of):
             if b > 0:
-                below[j] = int(row[b - 1])
+                below[j] = int(counts[j, b - 1])
             los[j] += b * w
         width = w
     return los, below

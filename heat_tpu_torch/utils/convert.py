@@ -12,6 +12,14 @@ is: the module built from the same ``num_kv_heads`` has that shape.  A pytree pa
 the module's parameter name by joining its keys with dots
 (``blocks[0]["mha"]["out_proj"]["weight"]`` is ``blocks.0.mha.out_proj.weight``);
 the empty entries of parameter-free layers (``GELU``'s ``()``) have none.
+The other estimators carry over the same way, each from its fitted
+attributes as numpy values: ``kmedians_from_reference``,
+``kmedoids_from_reference``, ``batchparallel_from_reference``,
+``pca_from_reference``, ``incremental_pca_from_reference``,
+``dmd_from_reference``, ``lasso_from_reference``,
+``gaussiannb_from_reference``, ``knn_from_reference`` and
+``scaler_from_reference``, so that ``predict``/``transform`` are held on
+identical state.
 ``mlp_from_reference`` and ``resnet_from_reference`` do the same for the
 vision models: Sequential lists, ``Residual``'s ``body``/``shortcut``, and
 BatchNorm's ``running_*`` leaves into the module's buffers (``to_reference``
@@ -27,6 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import classification, cluster, decomposition, naive_bayes, preprocessing, regression
 from ..cluster.kmeans import KMeans
 from ..nn import models
 from ..nn.attention import MultiheadAttention
@@ -37,6 +46,16 @@ from ..core.dndarray import DNDarray
 
 __all__ = [
     "array_from_numpy",
+    "batchparallel_from_reference",
+    "dmd_from_reference",
+    "gaussiannb_from_reference",
+    "incremental_pca_from_reference",
+    "kmedians_from_reference",
+    "kmedoids_from_reference",
+    "knn_from_reference",
+    "lasso_from_reference",
+    "pca_from_reference",
+    "scaler_from_reference",
     "daso_from_reference",
     "kmeans_from_reference",
     "mlp_from_reference",
@@ -63,6 +82,127 @@ def kmeans_from_reference(state: Dict[str, np.ndarray], device=None) -> KMeans:
     c = torch.tensor(centers, device=labels.larray.device)
     km._set_fitted(c.float(), c.dtype, labels, labels.larray, float(state["inertia_"]), int(state["n_iter_"]))
     return km
+
+
+def _kcluster_from_reference(est, state: Dict[str, np.ndarray], device=None):
+    centers = np.asarray(state["cluster_centers_"])
+    labels = array_from_numpy(np.asarray(state["labels_"]).astype(np.int32), 0, device=device)
+    c = torch.tensor(centers, device=labels.larray.device)
+    est._set_fitted(c.float(), c.dtype, labels, labels.larray, float(state.get("inertia_", 0.0)),
+                    int(state.get("n_iter_", 0)))
+    return est
+
+
+def kmedians_from_reference(state: Dict[str, np.ndarray], device=None) -> "cluster.KMedians":
+    """A fitted KMedians from a reference KMedians' ``cluster_centers_``,
+    ``labels_``, ``inertia_`` and ``n_iter_``."""
+    centers = np.asarray(state["cluster_centers_"])
+    return _kcluster_from_reference(cluster.KMedians(n_clusters=centers.shape[0], init=centers), state, device)
+
+
+def kmedoids_from_reference(state: Dict[str, np.ndarray], device=None) -> "cluster.KMedoids":
+    """A fitted KMedoids from a reference KMedoids' attributes (as KMedians)."""
+    centers = np.asarray(state["cluster_centers_"])
+    return _kcluster_from_reference(cluster.KMedoids(n_clusters=centers.shape[0], init=centers), state, device)
+
+
+def batchparallel_from_reference(state: Dict[str, np.ndarray], median: bool = False, device=None):
+    """A fitted BatchParallelKMeans (or, with ``median``, KMedians) from the
+    reference's ``cluster_centers_``, ``labels_`` and ``n_iter_``."""
+    centers = np.asarray(state["cluster_centers_"])
+    cls = cluster.BatchParallelKMedians if median else cluster.BatchParallelKMeans
+    est = cls(n_clusters=centers.shape[0])
+    labels = array_from_numpy(np.asarray(state["labels_"]).astype(np.int32), 0, device=device)
+    est._set_centers(torch.tensor(centers, device=labels.larray.device), labels)
+    est._labels, est._n_iter = labels, int(state.get("n_iter_", 0))
+    return est
+
+
+def _rep(a, device=None, comm=None) -> DNDarray:
+    return factories.array(np.asarray(a), split=None, device=device, comm=comm)
+
+
+def pca_from_reference(state: Dict[str, np.ndarray], device=None) -> "decomposition.PCA":
+    """A fitted PCA from the reference's ``components_``, ``mean_``,
+    ``singular_values_``, ``explained_variance_`` and
+    ``explained_variance_ratio_``."""
+    est = decomposition.PCA(n_components=int(np.asarray(state["components_"]).shape[0]))
+    for key in ("components_", "mean_", "singular_values_", "explained_variance_", "explained_variance_ratio_"):
+        setattr(est, key, _rep(state[key], device))
+    est.n_components_ = est.components_.shape[0]
+    est.total_explained_variance_ratio_ = float(np.sum(state["explained_variance_ratio_"]))
+    return est
+
+
+def incremental_pca_from_reference(state: Dict[str, np.ndarray], device=None) -> "decomposition.IncrementalPCA":
+    """A fitted IncrementalPCA from the reference's ``components_``,
+    ``singular_values_``, ``mean_`` and ``n_samples_seen_``; its sketch
+    Σ·Vᵀ is rebuilt from them, so ``partial_fit`` goes on from there."""
+    comps = np.asarray(state["components_"])
+    est = decomposition.IncrementalPCA(n_components=comps.shape[0])
+    for key in ("components_", "singular_values_", "mean_"):
+        setattr(est, key, _rep(state[key], device))
+    est.n_samples_seen_ = int(state["n_samples_seen_"])
+    est._us = est.singular_values_.larray[:, None] * est.components_.larray
+    return est
+
+
+def dmd_from_reference(state: Dict[str, np.ndarray], device=None) -> "decomposition.DMD":
+    """A fitted DMD from the reference's ``rom_basis_``,
+    ``rom_transfer_matrix_``, ``rom_eigenvalues_``, ``rom_eigenmodes_`` and
+    ``dmdmodes_``; the basis and modes split 0 over the default
+    communicator."""
+    est = decomposition.DMD()
+    est.rom_basis_ = array_from_numpy(state["rom_basis_"], 0, device=device)
+    est.dmdmodes_ = array_from_numpy(np.asarray(state["dmdmodes_"]).astype(np.complex64), 0, device=device)
+    est.rom_transfer_matrix_ = _rep(state["rom_transfer_matrix_"], device)
+    for key in ("rom_eigenvalues_", "rom_eigenmodes_"):
+        setattr(est, key, _rep(np.asarray(state[key]).astype(np.complex64), device))
+    est.n_modes_ = est.rom_basis_.shape[1]
+    return est
+
+
+def lasso_from_reference(state: Dict[str, np.ndarray], device=None) -> "regression.Lasso":
+    """A fitted Lasso from the reference's ``theta`` ((d + 1, 1), the
+    intercept first) and ``n_iter_``."""
+    est = regression.Lasso()
+    est._Lasso__theta = _rep(np.asarray(state["theta"], dtype=np.float32).reshape(-1, 1), device)
+    est.n_iter_ = int(state.get("n_iter_", 0))
+    return est
+
+
+def gaussiannb_from_reference(state: Dict[str, np.ndarray], device=None) -> "naive_bayes.GaussianNB":
+    """A fitted GaussianNB from the reference's ``classes_``,
+    ``class_count_``, ``class_prior_``, ``theta_``, ``var_`` and
+    ``epsilon_``."""
+    est = naive_bayes.GaussianNB()
+    for key in ("classes_", "class_count_", "class_prior_", "theta_", "var_"):
+        setattr(est, key, _rep(state[key], device))
+    est.epsilon_ = float(state["epsilon_"])
+    return est
+
+
+def knn_from_reference(x_train: np.ndarray, y_train: np.ndarray, n_neighbors: int = 5,
+                       device=None) -> "classification.KNeighborsClassifier":
+    """A fitted KNeighborsClassifier on the reference's training rows and
+    labels (split 0 over the default communicator)."""
+    return classification.KNeighborsClassifier(n_neighbors).fit(array_from_numpy(x_train, 0, device=device),
+                                                                 array_from_numpy(y_train, 0, device=device))
+
+
+_SCALER_STATE = {"StandardScaler": ("mean_", "var_", "scale_"), "MaxAbsScaler": ("max_abs_", "scale_"),
+                 "MinMaxScaler": ("data_min_", "data_max_", "data_range_", "scale_", "min_"),
+                 "RobustScaler": ("center_", "scale_"), "Normalizer": ()}
+
+
+def scaler_from_reference(kind: str, state: Dict[str, np.ndarray], device=None, **params):
+    """A fitted scaler of class ``kind`` (``'StandardScaler'``, ...) from the
+    reference's fitted statistics (None where the reference fitted none)."""
+    est = getattr(preprocessing, kind)(**params)
+    for key in _SCALER_STATE[kind]:
+        if state.get(key) is not None:
+            setattr(est, key, _rep(state[key], device))
+    return est
 
 
 def _flatten(tree, prefix=()) -> Dict[str, np.ndarray]:

@@ -762,3 +762,42 @@ def test_profiled_finalizes_cupti_only_in_the_scripts_own_process(chip_smoke, mo
     chip_smoke.profiled(lambda: seen.append(os.environ.get("TEARDOWN_CUPTI")), "probe")
     assert seen == (["1", "1"] if teardown else [None, None])
     assert "TEARDOWN_CUPTI" not in os.environ
+
+
+def test_estimators_multicard_without_cuda_exits_2():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: estimators_multicard.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "estimators_multicard.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2
+    assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("perm", [[0, 1, 2], [2, 0, 1]])
+def test_agreement_is_the_share_under_the_best_mapping(chip_smoke, perm):
+    truth = torch.tensor([0] * 5 + [1] * 5 + [2] * 5)
+    labels = torch.tensor(perm)[truth]
+    assert chip_smoke._agreement(labels, truth, 3) == 1.0
+    labels[0] = labels[5]  # one row in the wrong cluster
+    assert chip_smoke._agreement(labels, truth, 3) == 14 / 15
+
+
+def test_cd64_is_the_port_lasso_on_the_same_gram(chip_smoke):
+    """chip_smoke's float64 coordinate descent, the Lasso check's witness,
+    gives the port's θ and sweeps from the same Gram."""
+    import heat_tpu_torch as htt
+    from heat_tpu_torch.regression.lasso import gram
+
+    prev = htt.get_device()
+    htt.use_device("cpu")
+    try:
+        rng = np.random.default_rng(3)
+        X = rng.standard_normal((300, 6)).astype(np.float32)
+        y = (X @ np.array([1.0, 0, -2, 0, 0.5, 0]) + 0.3).astype(np.float32)
+        est = htt.regression.Lasso(lam=0.02, max_iter=50, tol=1e-7).fit(htt.array(X, split=0), htt.array(y, split=0))
+        G, b = gram(htt.array(X, split=0), torch.from_numpy(y))
+        theta, sweeps = chip_smoke._cd64(G, b, 0.02 * 300, 50, 1e-7)
+    finally:
+        htt.use_device(prev)
+    np.testing.assert_allclose(est.theta.numpy().reshape(-1), theta, rtol=1e-6, atol=1e-7)
+    assert sweeps == est.n_iter_

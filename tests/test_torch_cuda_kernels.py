@@ -995,3 +995,107 @@ def test_cuda_statistics_manipulations_and_sort_stay_on_the_card(tmp_path, monke
     ie = htt.linalg.einsum("ij,jk->ik", htt.array(w[:64].reshape(8, 8)), htt.array(w[:64].reshape(8, 8)))
     wi = w[:64].reshape(8, 8).cpu().long()
     assert ie.larray.is_cuda and ie.larray.dtype == torch.int32 and torch.equal(ie.larray.cpu().long(), wi @ wi)
+
+
+def _tiled_rank(rank, store):
+    import heat_tpu_torch as ht
+
+    ht.core.bootstrap.init_distributed(f"file://{store}", world_size=2, rank=rank, backend="gloo", timeout_s=60)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        g = torch.Generator(device="cuda").manual_seed(11)
+        a = torch.randn(8, 12, 30, generator=g, device="cuda")
+        for src, dst in ((0, 1), (0, None), (None, 0), (1, 2)):
+            comm.reset_traffic()
+            mono = ht.array(a, split=src).resplit(dst, memory_budget=0)
+            mono_bytes = {k: v["bytes"] for k, v in comm.traffic().items()}
+            comm.reset_traffic()
+            tiled = ht.array(a, split=src).resplit(dst, memory_budget=2000)
+            assert {k: v["bytes"] for k, v in comm.traffic().items()} == mono_bytes, (src, dst)
+            inplace = ht.array(a, split=src).resplit_(dst, memory_budget="2K")
+            for t in (tiled, inplace):
+                assert t.larray.is_cuda and t.split == dst and torch.equal(t.larray, mono.larray), (src, dst)
+        x = ht.array(torch.randn(301, 6, generator=g, device="cuda"), split=0)
+        init = x.larray[:4].clone() if rank == 0 else torch.empty(4, 6, device="cuda")
+        comm.Bcast(init)
+        for est in (ht.cluster.KMedians(4, init=init, max_iter=3), ht.cluster.KMedoids(4, init=init, max_iter=3),
+                    ht.cluster.BatchParallelKMeans(4, max_iter=3)):
+            est.fit(x)
+            assert est.labels_.larray.is_cuda and est.cluster_centers_.larray.is_cuda
+        torch.distributed.barrier()
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def test_cuda_estimators_and_tiled_resplit_stay_on_the_card(tmp_path):
+    """The slice's estimators on CUDA arrays at world size 1: every fitted
+    attribute and result a CUDA tensor; the k-clusterers' E-steps are the
+    kernels, never their plain versions (patched to raise): KMedians and
+    KMedoids launch ``assign`` once an iteration and once for the labels and
+    ``em_stats`` never, BatchParallelKMeans and Spectral launch
+    ``em_stats``.  Then two gloo ranks on the card: the tiled resplit bit for
+    bit the monolithic one with its bytes, and the k-clusterers' fits."""
+    from unittest import mock
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    means = torch.rand(4, 8, generator=g, device="cuda") * 40 - 20
+    lab = torch.randint(0, 4, (20000,), generator=g, device="cuda")
+    X = means[lab] + torch.randn(20000, 8, generator=g, device="cuda")
+    x = htt.array(X, split=0)
+    y = htt.array(lab.to(torch.int32), split=0)
+    init = X[:4].clone()
+    with mock.patch.object(kk, "_torch_assign", refuse), mock.patch.object(kk, "_torch_em_stats", refuse):
+        for name in ("KMedians", "KMedoids"):
+            kk.launch_counts.update(assign=0, em_stats=0)
+            est = getattr(htt.cluster, name)(4, init=init, max_iter=6).fit(x)
+            assert kk.launch_counts == {"assign": est.n_iter_ + 1, "em_stats": 0}, (name, kk.launch_counts)
+            assert est.cluster_centers_.larray.is_cuda and est.labels_.larray.is_cuda
+            assert est.predict(x).larray.is_cuda
+        for name in ("BatchParallelKMeans", "BatchParallelKMedians"):
+            kk.launch_counts.update(assign=0, em_stats=0)
+            est = getattr(htt.cluster, name)(4, random_state=1).fit(x)
+            assert kk.launch_counts["assign"] >= 1 and (kk.launch_counts["em_stats"] >= 1) == (name.endswith("Means"))
+            assert est.cluster_centers_.larray.is_cuda and est.labels_.larray.is_cuda
+        kk.launch_counts.update(assign=0, em_stats=0)
+        sp = htt.cluster.Spectral(4, gamma=0.005, n_lanczos=60).fit(htt.array(X[:600], split=0))
+        assert kk.launch_counts["em_stats"] >= 1 and kk.launch_counts["assign"] >= 1
+        assert sp.labels_.larray.is_cuda
+    T = torch.randn(4000, 32, generator=g, device="cuda")
+    t = htt.array(T, split=0)
+    outs = []
+    for solver in ("full", "hierarchical", "randomized"):
+        p = htt.decomposition.PCA(4, svd_solver=solver).fit(t)
+        outs += [p.components_, p.singular_values_, p.transform(t)]
+    ip = htt.decomposition.IncrementalPCA(4, batch_size=1000).fit(t)
+    outs += [ip.components_, ip.transform(t)]
+    dmd = htt.decomposition.DMD(svd_rank=4).fit(htt.array(T[:, :20], split=0))
+    outs += [dmd.rom_eigenvalues_, dmd.predict(htt.array(T[:, 0], split=0), 2), dmd.predict_next(htt.array(
+        T[:, :2], split=0))]
+    lasso = htt.regression.Lasso(lam=0.01).fit(t, htt.array(T[:, 0] * 2 + 1, split=0))
+    outs += [lasso.theta, lasso.predict(t)]
+    nb = htt.naive_bayes.GaussianNB().fit(x, y)
+    outs += [nb.theta_, nb.var_, nb.predict(x), nb.predict_proba(x)]
+    knn = htt.classification.KNeighborsClassifier(3).fit(x, y)
+    outs.append(knn.predict(htt.array(X[:100], split=0)))
+    for kind in ("StandardScaler", "MinMaxScaler", "MaxAbsScaler", "RobustScaler", "Normalizer"):
+        s = getattr(htt.preprocessing, kind)().fit(x)
+        outs.append(s.transform(x))
+    outs.append(htt.graph.Laplacian(lambda v: htt.spatial.rbf(v, sigma=4.0)).construct(htt.array(X[:300], split=0)))
+    for r in outs:
+        assert r.larray.is_cuda, r.shape
+    assert torch.equal(nb.predict(x).larray, lab.to(torch.int32))
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tiled_rank, args=(r, str(tmp_path / "store"))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    assert [p.exitcode for p in procs] == [0, 0]
