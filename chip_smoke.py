@@ -104,6 +104,30 @@
    destination within the budget plus one tile (the monolithic one's
    printed beside it); then ``estimator_cases`` (EST_2R_N ragged rows)
    against world size 1 on this card.
+3g. I/O, fft, the convolutions, sparse and vmap at users' sizes, at world
+   size 1: X = 1e7 x 32 float32 (1.28 GB) saved and loaded through
+   ``.npy``, zarr and the array checkpoint (HDF5 and netCDF where ``import
+   h5py`` succeeds; else the line ``{"hdf5": "h5py not installed"}``), a
+   1e6 x 32 CSV, and the LM of 6 with its Adam state through the pytree
+   checkpoint, each bit for bit with its split, beside torch's own
+   ``.cpu()`` and ``.to('cuda')``; a corrupted chunk makes the checkpoint
+   load fall back to the previous version; every file lives in a
+   temporary directory removed at the end.  ``fft2``, ``ifft2`` and
+   ``rfft2`` of 16384^2 split 0 (torch.fft's own result, and a 2048^2
+   slice within SURF_RTOL of complex128); ``convolve`` of 1e8 samples with
+   1023 taps in each mode, beside ``conv1d`` and the 2nm bound, within
+   SURF_CONV_RTOL of float64 (IEEE float32, not TF32); a 1e6^2 CSR of 32
+   nonzeros a row times a (1e6, 64) array beside ``torch.sparse.mm`` and
+   its bytes bound, 4096 rows against float64; add, mul, transpose and
+   todense at 16384^2, 1% dense; ``vmap`` of a row function over 1e6 x 32
+   against the function on the whole array.  Then on 2 spawned ranks on
+   this card over gloo, against world size 1 (``surface_cases``): every
+   format's save and load, an array checkpoint the ranks write and this
+   process reads, convolutions with chunks shorter than the halo, fft
+   along the split axis, the sparse product, ``ring_map``; and DASO (2
+   groups) checkpointed at step 3 and resumed into a fresh optimizer, its
+   next 2 steps bit for bit the uninterrupted run's.  Each part's seconds
+   and the phase's total are printed.
 4. ``ht.matmul`` (BASELINE config 0): two (n, n) float32
    ``ht.random.randn(..., split=0)`` on the card multiplied at world size
    1, n = 4096 (BASELINE's shape) and 16384 (the north star's: 3 GiB for a,
@@ -235,7 +259,7 @@
 The phases run in this order: 1, 2, 3, the world-size-1 parts of 3b, 4,
 4b and 4c, then 5 to 9, 11 and 12's timings, then 3e; then the phases on
 spawned ranks, 10 first, then the 2-rank parts of 3b, 4, 4b and 4c; then
-3c, 3d and 3f.  Every check in this process that reads the profiler so runs before
+3c, 3d, 3f and 3g.  Every check in this process that reads the profiler so runs before
 the first spawned rank: after ranks on the card exit, CUPTI can record no
 device activity for as long as it was watched (``profiled``, which also
 starts CUPTI afresh for each session of this process).  Each profiled
@@ -4199,6 +4223,504 @@ def estimators_two_ranks(ht, smi: str) -> None:
                       "size 1", "cases": len(want), "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
 
 
+# 3g. I/O, fft, convolve, sparse, vmap; then on 2 ranks ring_map and DASO's resume too
+SURF_IO_SHAPE = (10_000_000, 32)  # 1.28 GB float32 on the card
+SURF_CSV_SHAPE = (1_000_000, 32)
+SURF_FFT_N, SURF_FFT_CHECK = 16384, 2048
+SURF_CONV_N, SURF_CONV_M, SURF_CONV_CHECK = 100_000_000, 1023, 1_000_000
+SURF_CONV_RTOL = 1e-5  # of the largest float64 entry: float32 rounding; TF32 products lie ~1e-3 off
+SURF_SPARSE_N, SURF_SPARSE_ROW, SURF_SPARSE_K, SURF_SPARSE_CHECK = 1_000_000, 32, 64, 4096
+SURF_SMALL_N, SURF_SMALL_DENSITY = 16384, 0.01
+SURF_VMAP_SHAPE = (1_000_000, 32)
+SURF_RTOL = 1e-5  # float32 results against float64 (of the largest entry), and 2 ranks against world size 1
+SURF_2R_SIG, SURF_2R_KER = 7, 9  # a 2-rank signal whose chunks (4, 3) are shorter than the halo (8)
+SURF_2R_LONG, SURF_2R_LONG_KER = 1_000_001, 1023
+
+
+def conv_bound_ms(n: int, m: int) -> tuple:
+    """(least ms, what bounds it) of a length-n by m-tap float32
+    convolution: 2nm operations at the CUDA-core float32 peak, or the
+    signal, filter and full result moved once, the larger."""
+    return stats_bound_ms(4.0 * (n + m), 4.0 * (n + m - 1), 2.0 * n * m)
+
+
+def spmm_bytes(rows: int, nnz: int, k: int, dense_rows: int, value: int = 4, index: int = 8) -> float:
+    """Bytes a CSR (rows x dense_rows, nnz values) times dense (dense_rows,
+    k) product must move: the values, column indices and row pointers once,
+    the dense operand once and the (rows, k) result written once."""
+    return float(nnz * (value + index) + (rows + 1) * index + dense_rows * k * value + rows * k * value)
+
+
+def spmm_bound_ms(rows: int, nnz: int, k: int, dense_rows: int) -> tuple:
+    return stats_bound_ms(spmm_bytes(rows, nnz, k, dense_rows), 0.0)
+
+
+def hdf5_missing() -> dict:
+    """The line phase 3g prints where h5py cannot be imported (the card's
+    machine has none), else None."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return {"hdf5": "h5py not installed"}
+    return None
+
+
+class scratch_dir:
+    """A temporary directory for the phase's files, removed on the way out
+    (also when a check fails)."""
+
+    def __enter__(self) -> str:
+        import tempfile
+
+        self.path = tempfile.mkdtemp(prefix="heat_tpu_torch_surface_")
+        return self.path
+
+    def __exit__(self, *exc) -> bool:
+        import shutil
+
+        shutil.rmtree(self.path, ignore_errors=True)
+        return False
+
+
+def _surface_row(smi: str, **row) -> dict:
+    row = {"phase": "surface", **row, "card": smi}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _wall(fn) -> tuple:
+    """(``fn()``, its wall ms, the card synchronised before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _same_on_card(label: str, got, want, split) -> None:
+    if not got.larray.is_cuda:
+        fail(f"{label}: the result left the card ({got.larray.device})")
+    if got.split != split:
+        fail(f"{label}: split {got.split}, want {split}")
+    import torch
+
+    if got.larray.shape != want.shape or not torch.equal(got.larray, want):
+        fail(f"{label}: the round trip is not bit for bit")
+
+
+def surface_io(ht, smi: str, d: str) -> None:
+    """Save and load X = SURF_IO_SHAPE through .npy, zarr and the array
+    checkpoint (HDF5 and netCDF where h5py imports), CSV at SURF_CSV_SHAPE,
+    the LM of phase 6 with its Adam state, and the corruption fallback."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(160)
+    X = torch.randn(SURF_IO_SHAPE, generator=g, device="cuda")
+    x = ht.array(X, split=0)
+    nbytes = X.numel() * 4
+    host, d2h = _wall(lambda: X.cpu())
+    _, h2d = _wall(lambda: host.to("cuda"))
+    del host
+    _surface_row(smi, op="yardstick", shape=list(SURF_IO_SHAPE), bytes=nbytes, d2h_ms=d2h, h2d_ms=h2d,
+             d2h_gbs=nbytes / d2h / 1e6, h2d_gbs=nbytes / h2d / 1e6, note="torch's own .cpu() and .to('cuda')")
+    formats = [("npy", os.path.join(d, "x.npy"), ()), ("zarr", os.path.join(d, "x.zarr"), ())]
+    missing = hdf5_missing()
+    if missing is None:
+        formats += [("hdf5", os.path.join(d, "x.h5"), ("data",)), ("netcdf", os.path.join(d, "x.nc"), ("data",))]
+    else:
+        print(json.dumps(missing), flush=True)
+    for fmt, path, args in formats:
+        _, save_ms = _wall(lambda: ht.save(x, path, *args))
+        y, load_ms = _wall(lambda: ht.load(path, *args, split=0))
+        _same_on_card(f"io {fmt}", y, X, 0)
+        _surface_row(smi, op=f"io {fmt}", shape=list(SURF_IO_SHAPE), save_ms=save_ms, load_ms=load_ms,
+                 save_gbs=nbytes / save_ms / 1e6, load_gbs=nbytes / load_ms / 1e6, check="bit for bit, split 0")
+        del y
+        import shutil
+
+        shutil.rmtree(path, ignore_errors=True) if os.path.isdir(path) else os.remove(path)
+    ck = os.path.join(d, "x_ckpt")
+    _, save_ms = _wall(lambda: ht.save_array_checkpoint(x, ck))
+    y, load_ms = _wall(lambda: ht.load_array_checkpoint(ck))
+    _same_on_card("io array checkpoint", y, X, 0)
+    _surface_row(smi, op="io array checkpoint", shape=list(SURF_IO_SHAPE), save_ms=save_ms, load_ms=load_ms,
+             save_gbs=nbytes / save_ms / 1e6, load_gbs=nbytes / load_ms / 1e6, check="bit for bit, split 0")
+    del y, x, X
+    import shutil
+
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    C = torch.randn(SURF_CSV_SHAPE, generator=g, device="cuda")
+    path = os.path.join(d, "c.csv")
+    _, save_ms = _wall(lambda: ht.save(ht.array(C, split=0), path))
+    y, load_ms = _wall(lambda: ht.load(path, split=0))
+    _same_on_card("io csv", y, C, 0)
+    _surface_row(smi, op="io csv", shape=list(SURF_CSV_SHAPE), save_ms=save_ms, load_ms=load_ms,
+             file_bytes=os.path.getsize(path), check="bit for bit (9 significant digits), split 0")
+    os.remove(path)
+    # the corruption fallback: the newest version's chunk flipped, the previous one loads
+    ck = os.path.join(d, "c_ckpt")
+    ht.save_array_checkpoint(ht.array(C, split=0), ck, keep_versions=2)
+    ht.save_array_checkpoint(ht.array(C + 1, split=0), ck, keep_versions=2)
+    chunk = os.path.join(ck, "v1", "chunk_0.npy")
+    with open(chunk, "r+b") as fh:
+        fh.seek(-4, 2)
+        b = fh.read(1)
+        fh.seek(-4, 2)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        y = ht.load_array_checkpoint(ck)
+    if not any("falling back to v0" in str(m.message) for m in w):
+        fail("the corrupted checkpoint version was not refused")
+    _same_on_card("io checkpoint fallback", y, C, 0)
+    _surface_row(smi, op="io checkpoint fallback", shape=list(SURF_CSV_SHAPE), check="v1 refused (crc32), v0 loaded")
+    del y, C
+    shutil.rmtree(ck, ignore_errors=True)
+    # the LM of phase 6 with its Adam state (a pytree checkpoint)
+    torch.manual_seed(161)
+    lm = ht.nn.models.TransformerLM(**LM)
+    opt = torch.optim.Adam(lm.parameters(), lr=LM_LR)
+    tokens = torch.randint(0, LM["vocab_size"], (2, 65), device="cuda")
+    lm_loss(ht, lm, tokens).backward()
+    opt.step()
+    tree = {"model": lm.state_dict(), "opt": opt.state_dict()}
+    n_params = sum(p.numel() for p in lm.parameters())
+    path = os.path.join(d, "lm.npz")
+    _, save_ms = _wall(lambda: ht.save_checkpoint(tree, path))
+    back, load_ms = _wall(lambda: ht.load_checkpoint(tree, path))
+    for key, v in tree["model"].items():
+        if not torch.equal(back["model"][key], v) or not back["model"][key].is_cuda:
+            fail(f"LM checkpoint: {key} differs or left the card")
+    for i, st in tree["opt"]["state"].items():
+        for key, v in st.items():
+            if not torch.equal(back["opt"]["state"][i][key].to(v.device), v):
+                fail(f"LM checkpoint: optimizer state {i}.{key} differs")
+    _surface_row(smi, op="io pytree checkpoint (TransformerLM + Adam)", parameters=n_params,
+             file_bytes=os.path.getsize(path), save_ms=save_ms, load_ms=load_ms, check="every tensor bit for bit")
+    os.remove(path)
+    del lm, opt, tree, back
+    torch.cuda.empty_cache()
+
+
+def surface_fft(ht, smi: str) -> None:
+    """fft2, rfft2 and ifft2 of SURF_FFT_N^2 split 0 beside torch.fft's own
+    call, and a SURF_FFT_CHECK^2 slice against complex128."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(162)
+    n = SURF_FFT_N
+    R = torch.randn(n, n, generator=g, device="cuda")
+    for name, inp in (("fft2", "complex"), ("ifft2", "complex"), ("rfft2", "real")):
+        T = torch.complex(R, R.flip(0)) if inp == "complex" else R
+        x = ht.array(T, split=0)
+        fn = getattr(ht.fft, name)
+        tfn = getattr(torch.fft, name)
+        got, _ = _wall(lambda: fn(x))
+        if not got.larray.is_cuda or got.split != 0:
+            fail(f"fft {name}: split {got.split} on {got.larray.device}")
+        if not torch.equal(got.larray, tfn(T)):
+            fail(f"fft {name}: not torch.fft's own result")
+        del got
+        ms = cuda_ms(lambda: fn(x), 3)
+        torch_ms = cuda_ms(lambda: tfn(T), 3)
+        item = T.element_size()
+        out_item = 8
+        bound, by = stats_bound_ms(n * n * item, n * n * out_item * (0.5 if name == "rfft2" else 1.0))
+        s = SURF_FFT_CHECK
+        small = T[:s, :s].contiguous()
+        want = tfn(small.to(torch.complex128 if inp == "complex" else torch.float64))
+        sub = fn(ht.array(small, split=0)).larray
+        err = float((sub.to(torch.complex128) - want).abs().max() / want.abs().max())
+        if not err <= SURF_RTOL:
+            fail(f"fft {name}: {err} of the largest entry from complex128")
+        _surface_row(smi, op=f"fft {name}", shape=[n, n], dtype=str(T.dtype), split=0, ms=ms, torch_ms=torch_ms,
+                 bound_ms=bound, bound_by=by, max_rel_err_vs_complex128=err, check_shape=[s, s])
+        del x, T
+        torch.cuda.empty_cache()
+    del R
+    torch.cuda.empty_cache()
+
+
+def surface_convolve(ht, smi: str) -> None:
+    """A SURF_CONV_N-sample float32 signal with a SURF_CONV_M-tap filter in
+    each mode, timed beside conv1d's own call and the 2nm bound, held
+    against float64 on a SURF_CONV_CHECK piece: IEEE float32, not TF32."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(163)
+    n, m = SURF_CONV_N, SURF_CONV_M
+    A = torch.randn(n, generator=g, device="cuda")
+    V = torch.randn(m, generator=g, device="cuda")
+    a, v = ht.array(A, split=0), ht.array(V)
+    piece = A[:SURF_CONV_CHECK]
+    # the piece's full convolution in float64, once: the big run's leading
+    # rows depend on the piece alone
+    g64 = F.conv1d(piece.double()[None, None], V.double().flip(0)[None, None], padding=m - 1)[0, 0]
+    for mode in ("full", "same", "valid"):
+        got, _ = _wall(lambda: ht.convolve(a, v, mode=mode))
+        if not got.larray.is_cuda or got.split != 0 or got.dtype is not ht.float32:
+            fail(f"convolve {mode}: {got.dtype}, split {got.split} on {got.larray.device}")
+        want_len = {"full": n + m - 1, "same": n, "valid": n - m + 1}[mode]
+        if got.shape != (want_len,):
+            fail(f"convolve {mode}: shape {got.shape}")
+        # the first rows of the result, and the piece's own convolution,
+        # against float64 on the card
+        off = {"full": 0, "same": (m - 1) // 2, "valid": m - 1}[mode]
+        k = SURF_CONV_CHECK - off
+        err = float((got.larray[:k].double() - g64[off:off + k]).abs().max() / g64[off:off + k].abs().max())
+        small = ht.convolve(ht.array(piece, split=0), v, mode=mode).larray
+        want = g64[off:off + {"full": SURF_CONV_CHECK + m - 1, "same": SURF_CONV_CHECK,
+                              "valid": SURF_CONV_CHECK - m + 1}[mode]]
+        err_small = float((small.double() - want).abs().max() / want.abs().max())
+        if not (err <= SURF_CONV_RTOL and err_small <= SURF_CONV_RTOL):
+            fail(f"convolve {mode}: {err} / {err_small} of the largest float64 entry (TF32 would be ~1e-3)")
+        del got
+        ms = cuda_ms(lambda: ht.convolve(a, v, mode=mode), 2)
+        pad = {"full": m - 1, "same": (m - 1) // 2, "valid": 0}[mode]
+
+        def conv1d_call():
+            from heat_tpu_torch.linalg.basics import _full_float32
+
+            with _full_float32():
+                return F.conv1d(A[None, None], V.flip(0)[None, None], padding=pad) if mode != "same" else \
+                    F.conv1d(A[None, None], V.flip(0)[None, None], padding="same")
+
+        conv_ms = cuda_ms(conv1d_call, 2)
+        bound, by = conv_bound_ms(n, m)
+        _surface_row(smi, op=f"convolve {mode}", n=n, m=m, split=0, ms=ms, conv1d_ms=conv_ms, bound_ms=bound,
+                 bound_by=by, tflops=2.0 * n * m / ms / 1e9, max_rel_err_vs_float64=max(err, err_small),
+                 check=f"IEEE float32: within {SURF_CONV_RTOL} of float64 on {SURF_CONV_CHECK} samples")
+        torch.cuda.empty_cache()
+    del a, A
+    torch.cuda.empty_cache()
+
+
+def surface_sparse(ht, smi: str) -> None:
+    """A SURF_SPARSE_N^2 CSR of SURF_SPARSE_ROW nonzeros a row times a dense
+    (SURF_SPARSE_N, SURF_SPARSE_K), beside torch.sparse.mm and the bytes
+    bound, SURF_SPARSE_CHECK rows against float64; add, mul, transpose and
+    todense at SURF_SMALL_N^2, 1% dense."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(164)
+    n, r, k = SURF_SPARSE_N, SURF_SPARSE_ROW, SURF_SPARSE_K
+    nnz = n * r
+    cols = torch.randint(0, n, (n, r), generator=g, device="cuda").sort(1).values.reshape(-1)
+    vals = torch.randn(nnz, generator=g, device="cuda")
+    crow = torch.arange(0, nnz + 1, r, device="cuda", dtype=torch.int64)
+    csr = torch.sparse_csr_tensor(crow, cols, vals, size=(n, n))
+    s = ht.sparse.sparse_csr_matrix(csr, split=0)
+    D = torch.randn(n, k, generator=g, device="cuda")
+    dd = ht.array(D)
+    got, _ = _wall(lambda: s @ dd)
+    if not got.larray.is_cuda or got.split != 0:
+        fail(f"sparse matmul: split {got.split} on {got.larray.device}")
+    c = SURF_SPARSE_CHECK
+    want = (vals[:c * r].double()[:, None] * D.double()[cols[:c * r]]).reshape(c, r, k).sum(1)
+    err = float((got.larray[:c].double() - want).abs().max() / want.abs().max())
+    if not err <= SURF_RTOL:
+        fail(f"sparse matmul: {err} of the largest float64 entry")
+    del got
+    ms = cuda_ms(lambda: s @ dd, 3)
+    torch_ms = cuda_ms(lambda: torch.sparse.mm(csr, D), 3)
+    bound, by = spmm_bound_ms(n, nnz, k, n)
+    _surface_row(smi, op="sparse matmul", shape=[n, n], nnz=nnz, k=k, split=0, ms=ms, torch_sparse_mm_ms=torch_ms,
+             bound_ms=bound, bound_by=by, bytes=spmm_bytes(n, nnz, k, n), max_rel_err_vs_float64=err,
+             check_rows=c)
+    del s, csr, cols, vals, D, dd
+    torch.cuda.empty_cache()
+    m = SURF_SMALL_N
+    M = torch.randn(m, m, generator=g, device="cuda")
+    M = M * (torch.rand(m, m, generator=g, device="cuda") < SURF_SMALL_DENSITY)
+    a = ht.sparse.sparse_csr_matrix(M.to_sparse_csr(), split=0)
+    for name, fn, want_fn in (("add", lambda: a + a, lambda: M + M), ("mul", lambda: a * a, lambda: M * M),
+                              ("transpose", lambda: ht.sparse.transpose(a), lambda: M.T),
+                              ("todense", lambda: a, lambda: M)):
+        res, _ = _wall(fn)
+        dense = res.todense()
+        if not dense.larray.is_cuda or not torch.equal(dense.larray, want_fn()):
+            fail(f"sparse {name}: differs from the dense result or left the card")
+        ms = cuda_ms(lambda: fn().todense() if name == "todense" else fn(), 3)
+        _surface_row(smi, op=f"sparse {name}", shape=[m, m], nnz=a.gnnz, ms=ms, check="bit for bit the dense op")
+        del res, dense
+    del a, M
+    torch.cuda.empty_cache()
+
+
+def surface_vmap(ht, smi: str) -> None:
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(165)
+    X = torch.randn(SURF_VMAP_SHAPE, generator=g, device="cuda")
+    x = ht.array(X, split=0)
+    fn = ht.vmap(lambda r: ht.exp(r) * 2.0 - ht.sum(r))
+    got, ms = _wall(lambda: fn(x))
+    want = torch.exp(X) * 2.0 - X.sum(1, keepdim=True)
+    err = float((got.larray - want).abs().max() / want.abs().max())
+    if not got.larray.is_cuda or got.split != 0 or not err <= SURF_RTOL:
+        fail(f"vmap: {err}, split {got.split} on {got.larray.device}")
+    _surface_row(smi, op="vmap", shape=list(SURF_VMAP_SHAPE), ms=ms, max_rel_err_vs_whole=err,
+             check="the function applied to the whole array")
+
+
+def surface_world_one(ht, smi: str) -> float:
+    """Phase 3g at world size 1; prints each part's seconds and returns the sum."""
+    t0 = time.perf_counter()
+    with scratch_dir() as d:
+        surface_io(ht, smi, d)
+    parts = {"io": time.perf_counter() - t0}
+    for name, fn in (("fft", surface_fft), ("convolve", surface_convolve), ("sparse", surface_sparse), ("vmap", surface_vmap)):
+        t1 = time.perf_counter()
+        fn(ht, smi)
+        parts[name] = time.perf_counter() - t1
+    seconds = time.perf_counter() - t0
+    _surface_row(smi, op="world one seconds", parts=parts, seconds=seconds)
+    return seconds
+
+
+def _daso_steps(ht, comm, ckpt: str, interrupt: bool) -> list:
+    """Five DASO steps of a small MLP on this rank's rows (2 groups of 1,
+    warmup 1, skip 2, one stale step); with ``interrupt`` it checkpoints at
+    step 3 and a fresh DASO resumes.  Returns each step's loss and the
+    parameters after the last two."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7 + comm.rank)
+    xs = [torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32)).cuda() for _ in range(5)]
+    ys = [torch.from_numpy(rng.integers(0, 4, 16)).cuda() for _ in range(5)]
+
+    def build(seed):
+        torch.manual_seed(seed)
+        model = torch.nn.Sequential(torch.nn.Linear(32, 64), torch.nn.ReLU(), torch.nn.Linear(64, 4)).cuda()
+        daso = ht.optim.DASO(ht.optim.DataParallelOptimizer("adam", lr=0.01), total_local_comm_size=1,
+                             warmup_steps=1, global_skip=2, stale_steps=1,
+                             checkpoint_every=3 if interrupt else None, checkpoint_dir=ckpt)
+        daso.init(model)
+        return daso
+
+    daso, out = build(3), []
+    for t in range(5):
+        if interrupt and t == 3:
+            daso = build(99)
+            if not daso.resume():
+                raise RuntimeError("DASO found no checkpoint to resume")
+        out.append(float(daso.step(torch.nn.functional.cross_entropy, xs[t], ys[t])))
+        if t >= 3:
+            out += torch.cat([p.detach().reshape(-1) for p in daso.parameters]).cpu().tolist()
+    return out
+
+
+def surface_cases(ht, d: str) -> dict:
+    """The 2-rank cases of phase 3g, each as {name: numpy array}: every
+    format's save and load, an array checkpoint (left in ``d`` for world
+    size 1 to read), convolutions (one with chunks shorter than the halo),
+    fft along the split axis, the sparse product and ring_map."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(166)
+    X = torch.randn(20_003, 32, generator=g, device="cuda")
+    out = {}
+    formats = [("npy", "x.npy", ()), ("csv", "x.csv", ()), ("zarr", "x.zarr", ())]
+    if hdf5_missing() is None:
+        formats += [("hdf5", "x.h5", ("data",)), ("netcdf", "x.nc", ("data",))]
+    for fmt, name, args in formats:
+        for split in (0, 1):
+            path = os.path.join(d, f"{split}_{name}")
+            ht.save(ht.array(X, split=split), path, *args)
+            y = ht.load(path, *args, split=split)
+            if not y.larray.is_cuda or y.split != split:
+                raise RuntimeError(f"{fmt}: split {y.split} on {y.larray.device}")
+            out[f"io {fmt} split {split}"] = y.numpy()
+    ht.save_array_checkpoint(ht.array(X, split=0), os.path.join(d, "ckpt_2r"))
+    out["array checkpoint"] = ht.load_array_checkpoint(os.path.join(d, "ckpt_2r")).numpy()
+    sig = torch.randn(SURF_2R_SIG, generator=g, device="cuda")
+    ker = torch.randn(SURF_2R_KER, generator=g, device="cuda")
+    long = torch.randn(SURF_2R_LONG, generator=g, device="cuda")
+    lker = torch.randn(SURF_2R_LONG_KER, generator=g, device="cuda")
+    for mode in ("full", "same", "valid"):
+        out[f"convolve short {mode}"] = ht.convolve(ht.array(sig, split=0), ht.array(ker), mode=mode).numpy()
+        out[f"convolve long {mode}"] = ht.convolve(ht.array(long, split=0), ht.array(lker), mode=mode).numpy()
+    C = torch.complex(torch.randn(4097, 256, generator=g, device="cuda"),
+                      torch.randn(4097, 256, generator=g, device="cuda"))
+    out["fft along the split axis"] = ht.fft.fft(ht.array(C, split=0), axis=0).numpy()
+    out["fft2 split 1"] = ht.fft.fft2(ht.array(C, split=1)).numpy()
+    n = 100_001
+    cols = torch.randint(0, n, (n, 8), generator=g, device="cuda").sort(1).values.reshape(-1)
+    csr = torch.sparse_csr_tensor(torch.arange(0, 8 * n + 1, 8, device="cuda"), cols,
+                                  torch.randn(8 * n, generator=g, device="cuda"), size=(n, n))
+    dense = torch.randn(n, 16, generator=g, device="cuda")
+    out["sparse matmul"] = (ht.sparse.sparse_csr_matrix(csr, split=0) @ ht.array(dense, split=1)).numpy()
+    x = ht.array(X[:1025, :8].contiguous(), split=0)
+    out["ring_map concat"] = ht.parallel.ring_map(lambda a, b, src: a @ b.T, x, x).numpy()
+    out["ring_map sum"] = ht.parallel.ring_map(lambda a, b, src: a * b.sum(0), x, x, combine="sum").numpy()
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def surface_rank(rank: int, port: int, out_q, d: str) -> None:
+    """One of 2 ranks on this card over gloo: ``surface_cases`` and the DASO
+    checkpoint and resume."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        res = {"cases": surface_cases(ht, d)}
+        res["daso"] = [_daso_steps(ht, comm, os.path.join(d, "daso_plain"), False),
+                       _daso_steps(ht, comm, os.path.join(d, "daso_resumed"), True)]
+        torch.distributed.barrier()
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def surface_two_ranks(ht, smi: str) -> float:
+    """Phase 3g's 2-rank part: ``surface_cases`` on 2 spawned ranks on this
+    card over gloo against world size 1 (exact for I/O, else within
+    SURF_RTOL of the largest entry); the array checkpoint the ranks wrote
+    read here at world size 1; DASO's next 2 steps after a resume bit for
+    bit the uninterrupted run's.  Returns its seconds."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    with scratch_dir() as d:
+        w1 = os.path.join(d, "w1")
+        os.makedirs(w1)
+        want = surface_cases(ht, w1)
+        r2 = os.path.join(d, "r2")
+        os.makedirs(r2)
+        results = spawn_ranks(surface_rank, 2, RING_TIMEOUT_S, r2)
+        for rank, res in sorted(results.items()):
+            for name, w in want.items():
+                got = res["cases"].get(name)
+                if got is None or got.shape != w.shape:
+                    fail(f"rank {rank}: {name} has shape {None if got is None else got.shape}, want {w.shape}")
+                exact = name.startswith(("io", "array"))
+                err = float(np.abs(got - w).max()) / max(float(np.abs(w).max()), 1e-30) if w.size else 0.0
+                if (exact and not np.array_equal(got, w)) or err > SURF_RTOL:
+                    fail(f"rank {rank}: {name} differs from world size 1 ({err} of the largest entry)")
+            plain, resumed = res["daso"]
+            if plain != resumed:
+                fail(f"rank {rank}: DASO's steps after the resume differ from the uninterrupted run's")
+        back = ht.load_array_checkpoint(os.path.join(r2, "ckpt_2r"))
+        if not back.larray.is_cuda or not np.array_equal(back.numpy(), want["array checkpoint"]):
+            fail("the array checkpoint written at 2 ranks does not load at world size 1")
+    seconds = time.perf_counter() - t0
+    _surface_row(smi, op="two ranks", note="2 processes on ONE card over gloo, against world size 1",
+             cases=len(want), daso="checkpoint at step 3, resumed: steps 4 and 5 bit for bit", seconds=seconds)
+    return seconds
+
+
 def main() -> int:
     global _TEARDOWN_CUPTI
     import torch
@@ -4357,6 +4879,12 @@ def main() -> int:
 
     # 3f. the tiled resplit and the estimators on 2 ranks on this card
     estimators_two_ranks(ht, smi)
+
+    # 3g. I/O, fft, convolve, sparse and vmap at world size 1, then on 2
+    # ranks on this card (with ring_map and DASO's resume)
+    seconds = surface_world_one(ht, smi)
+    seconds += surface_two_ranks(ht, smi)
+    print(json.dumps({"phase": "surface_seconds", "seconds": seconds, "card": smi}), flush=True)
 
     # 8. the kernels line and the result
     print(smi)

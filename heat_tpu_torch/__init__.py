@@ -17,6 +17,7 @@ Arrays live on the card (``'gpu'``) unless the caller asks for the CPU.
 
 from .core import *
 from . import core
+from .core import axisspec
 from .core import random
 from .core.redistribution import set_redistribution_budget, get_redistribution_budget
 from .core.collectives import set_grad_bucket_budget, get_grad_bucket_budget
@@ -39,5 +40,7 @@ from . import optim
 from . import ops
 from . import parallel
 from . import utils
+from . import fft
+from . import sparse
 
-__version__ = "0.1.0"
+__version__ = core.version.__version__

@@ -82,8 +82,10 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
         counts = torch.zeros((nq, classes.shape[0]), dtype=torch.int32, device=q.device)
         counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
         pred = classes[counts.argmax(1)]
-        split, balanced = (0, x.balanced) if x.split == 0 else (None, True)
+        # split 0 for queries split along either axis (the reference's labels
+        # are split 0 for split-1 queries too)
+        split, balanced = (0, x.balanced if x.split == 0 else True) if x.split is not None else (None, True)
         if x.is_distributed() and split == 0:
-            counts, displs = x.counts_displs()
+            counts, displs = x.counts_displs() if x.split == 0 else x.comm.counts_displs_shape((nq,), 0)
             pred = pred[displs[x.comm.rank]: displs[x.comm.rank] + counts[x.comm.rank]].contiguous()
         return DNDarray(pred, (nq,), types.canonical_heat_type(pred.dtype), split, x.device, x.comm, balanced)

@@ -1,7 +1,11 @@
 """Core: types, devices, the communicator, DNDarray and its indexing,
 factories, the op dispatch core, the element-wise and reduction surface,
-statistics, manipulations, printing, random streams and tile views."""
+statistics, manipulations, printing, random streams and tile views, the
+convolutions, ``vmap`` and parallel I/O."""
 
+from .version import __version__
+from . import version
+from . import axisspec
 from .constants import *
 from . import constants
 from .types import *
@@ -48,3 +52,11 @@ from . import tiling
 from . import random
 from . import collectives
 from . import redistribution
+from .redistribution import set_redistribution_budget, get_redistribution_budget
+from .vmap import *
+from . import vmap
+from .signal import *
+from . import signal
+from .io import *
+from . import io
+from . import bootstrap

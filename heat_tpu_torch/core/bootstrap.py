@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_distributed", "finalize_distributed"]
+__all__ = ["init_distributed", "finalize_distributed", "local_device_count", "device_count", "restart_epoch"]
 
 
 def init_distributed(
@@ -59,3 +59,29 @@ def finalize_distributed() -> None:
     """Leave the process group; a no-op when none is initialized."""
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def restart_epoch() -> int:
+    """The restart generation this process was launched into: 0 on a fresh
+    launch, else ``HEAT_TPU_RESTART_EPOCH`` as a supervising launcher sets
+    it on every world restart.  A worker branches on it to resume from its
+    newest verified checkpoint (``DASO.resume()``,
+    ``load_array_checkpoint``'s fallback chain)."""
+    try:
+        return int(os.environ.get("HEAT_TPU_RESTART_EPOCH", "0") or 0)
+    except ValueError:
+        return 0
+
+
+def local_device_count() -> int:
+    """Cards on this host (``torch.cuda.device_count()``); 1 without CUDA,
+    where the process's one device is the CPU."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def device_count() -> int:
+    """Cards of the world, one a process: the world size where a process
+    group is initialized, else this host's :func:`local_device_count`."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return local_device_count()

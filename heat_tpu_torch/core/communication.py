@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Communication", "get_comm", "sanitize_comm"]
+__all__ = ["Communication", "get_comm", "sanitize_comm", "use_comm", "world"]
 
 # The collectives that gloo refuses CUDA tensors for: its send and recv
 # (``writev ... Bad address``).  Every other collective of the communicator
@@ -385,9 +385,19 @@ class Communication:
         the route)."""
         return self.Isend(x, shift).wait()
 
-    def _p2p(self, x: torch.Tensor, dst: Optional[int], src: Optional[int], name: str) -> Optional[torch.Tensor]:
-        """Send ``x`` to ``dst`` and receive a tensor of its shape from
-        ``src`` (either may be None); returns what arrived, or None."""
+    def Sendrecv(self, x: torch.Tensor, dst: Optional[int], src: Optional[int], shape=None) -> Optional[torch.Tensor]:
+        """MPI's ``Sendrecv``: send ``x`` to rank ``dst`` and receive a tensor
+        of ``shape`` (default x's) and x's dtype from rank ``src``; either
+        rank may be None.  Returns what arrived (on x's device), or None.
+        Staged through host memory where :meth:`Send` is."""
+        if dst is not None:
+            self._account("Send", x, 1.0)
+        return self._p2p(x, dst, src, "Send", shape)
+
+    def _p2p(self, x: torch.Tensor, dst: Optional[int], src: Optional[int], name: str,
+             shape=None) -> Optional[torch.Tensor]:
+        """Send ``x`` to ``dst`` and receive a tensor of ``shape`` (default
+        x's) from ``src`` (either may be None); returns what arrived, or None."""
         staged = self._host_staged(x, name)
         buf = x.detach().contiguous()
         if staged:
@@ -396,7 +406,7 @@ class Communication:
         if dst is not None:
             ops.append(dist.P2POp(dist.isend, buf, self._world_rank(dst), self.group))
         if src is not None:
-            recv = torch.empty_like(buf)
+            recv = torch.empty(buf.shape if shape is None else tuple(shape), dtype=buf.dtype, device=buf.device)
             ops.append(dist.P2POp(dist.irecv, recv, self._world_rank(src), self.group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
@@ -740,15 +750,32 @@ def _unit(op: str, dtype: torch.dtype):
     return info.max if high else info.min
 
 
+_world_comm: Optional[Communication] = None
 _default_comm: Optional[Communication] = None
 
 
+def world() -> Communication:
+    """The communicator over the world process group (the reference's
+    ``MPI_WORLD``); over a world of one process where no group is
+    initialized."""
+    global _world_comm
+    if _world_comm is None:
+        _world_comm = Communication()
+    return _world_comm
+
+
 def get_comm() -> Communication:
-    """The default communicator (the world group)."""
+    """The default communicator: the one :func:`use_comm` set, else :func:`world`."""
+    return _default_comm if _default_comm is not None else world()
+
+
+def use_comm(comm: Optional[Communication] = None) -> None:
+    """Make ``comm`` the default communicator of every factory and op that
+    is given none; ``None`` restores :func:`world`."""
     global _default_comm
-    if _default_comm is None:
-        _default_comm = Communication()
-    return _default_comm
+    if comm is not None and not isinstance(comm, Communication):
+        raise TypeError(f"Expected Communication, got {type(comm)}")
+    _default_comm = comm
 
 
 def sanitize_comm(comm: Optional[Communication]) -> Communication:

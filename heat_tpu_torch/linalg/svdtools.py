@@ -157,16 +157,23 @@ def hsvd(
             merged.append(factors[-1])
         factors = merged
     u, s = svd_of(factors[0], 0)
+    s = s.abs()  # a singular value is never negative: an exact zero must not come out as -0.0
     U = _rows_like(u.contiguous(), rows)
     S = _wrap(s.contiguous(), s.shape, None, a)
     if not compute_sv:
         return U, S
-    # V = A^T U diag(1/s): a K-split product over the rows, summed over the ranks
+    # V = A^T U diag(1/s): a K-split product over the rows, summed over the ranks.
+    # A column whose s is at most eps * max(s) (a rank-deficient input, e.g.
+    # a constant column after centring) gets a zero V column: 1/s would make
+    # it inf or NaN, and the reference's tiny s leaves it finite but of no norm
+    # in particular.
     with _full_float32():
         vt = u.mH @ t
         if rows.is_distributed():
             vt = comm.Allreduce(vt.contiguous())
-        vt = vt / s.unsqueeze(1)
+        live = s > torch.finfo(s.dtype).eps * s.max().clamp_min(torch.finfo(s.dtype).tiny) if s.numel() else s > 0
+        vt = torch.where(live.unsqueeze(1), vt / torch.where(live, s, torch.ones_like(s)).unsqueeze(1),
+                         torch.zeros_like(vt))
         sums = torch.stack([(t - (u * s) @ vt).abs().square().sum(), t.abs().square().sum()]).double()
     if rows.is_distributed():
         sums = comm.Allreduce(sums)

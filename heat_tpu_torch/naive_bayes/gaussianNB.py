@@ -174,8 +174,11 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
                 yield s, torch.addmm(torch.addmm(const, xs, lin), xs * xs, quad)
 
     def _out(self, t: torch.Tensor, x: DNDarray) -> DNDarray:
-        return DNDarray(t, (x.shape[0],) + tuple(t.shape[1:]), types.canonical_heat_type(t.dtype), x.split,
-                        x.device, x.comm, x.balanced)
+        # the rows of x (split 0 after on_rows, or a split-1 x at world size 1,
+        # which on_rows leaves): outputs are split 0 wherever x is split at all
+        split = None if x.split is None else 0
+        return DNDarray(t, (x.shape[0],) + tuple(t.shape[1:]), types.canonical_heat_type(t.dtype), split,
+                        x.device, x.comm, x.balanced if split is not None else True)
 
     def predict(self, x: DNDarray) -> DNDarray:
         if self.theta_ is None:

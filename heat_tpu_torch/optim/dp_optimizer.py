@@ -28,6 +28,11 @@ snapshot and blended ``stale_steps`` later with ``staleness_weight``.
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
+import time
+import warnings
 from typing import Optional
 
 import torch
@@ -206,8 +211,9 @@ class DASO:
     ``overlap_sync`` and ``grad_bucket_bytes`` (the slow tier bucketed,
     each rank of a group sending its 1/ici chunk).  ``comm`` is the world
     to grid (default: the world).  ``mesh`` belongs to the JAX package; the
-    port takes ``comm``.  ``checkpoint_every``/``checkpoint_dir`` raise
-    ``NotImplementedError``: checkpoints need ``core/io.py`` (ROADMAP A10).
+    port takes ``comm``.  ``checkpoint_every`` steps (with ``checkpoint_dir``)
+    :meth:`checkpoint` writes the whole training state durably, and
+    :meth:`resume` restores it after a restart.
     """
 
     def __init__(self, local_optimizer, total_local_comm_size: Optional[int] = None, global_skip: int = 4,
@@ -217,8 +223,10 @@ class DASO:
                  overlap_sync: bool = False, grad_bucket_bytes=None, comm: Optional[Communication] = None):
         if mesh is not None:
             raise TypeError("DASO takes comm=, not a device mesh (a JAX package argument)")
-        if checkpoint_every is not None or checkpoint_dir is not None:
-            raise NotImplementedError("DASO checkpoints need core/io.py, which is not ported yet (ROADMAP A10)")
+        if checkpoint_every is not None and checkpoint_dir is None:
+            raise ValueError("checkpoint_every requires checkpoint_dir")
+        self.checkpoint_every = int(checkpoint_every) if checkpoint_every else None
+        self.checkpoint_dir = checkpoint_dir
         if isinstance(local_optimizer, DataParallelOptimizer):
             self.local_optimizer = local_optimizer
         else:
@@ -328,6 +336,8 @@ class DASO:
                     plan, ici = self._sync_args()
                     self._pending = (collectives.dispatch_all_bucket_averages(self.dcn, self._params, plan=plan,
                                                                               ici=ici), t + self.stale_steps)
+        if self.checkpoint_every and t % self.checkpoint_every == 0:
+            self.checkpoint()
         return lval
 
     def epoch_loss_logic(self, epoch_loss) -> int:
@@ -376,11 +386,153 @@ class DASO:
         non-finite guard suppressed}."""
         return {"steps": self._step_count, "skipped": self.local_optimizer.guard_stats()["skipped"]}
 
+    _CKPT_NAME = "daso_state.npz"
+    _PREV_NAME = "daso_state.prev.npz"
+    _META_NAME = "daso_state.meta.json"
+
+    def _world_meta(self) -> dict:
+        return {"n_groups": int(self.n_groups), "ici": int(self.ici_size), "devices": int(self.comm.size)}
+
+    def _groups(self, t: torch.Tensor) -> torch.Tensor:
+        """(n_groups, *t.shape): every group's ``t``, from one rank of each
+        (the ranks of a group hold the same)."""
+        if self.dcn.size == 1:
+            return t.detach().unsqueeze(0)
+        return torch.stack(self.dcn.Allgather(t.detach().contiguous()))
+
+    def _state_entries(self):
+        """[(param index, name, tensor)] of the local optimizer's state."""
+        state = self.local_optimizer.torch_optimizer.state
+        out = []
+        for i, p in enumerate(self._params):
+            for name, v in sorted(state.get(p, {}).items()):
+                if isinstance(v, torch.Tensor):
+                    out.append((i, name, v))
+        return out
+
+    def _counters(self) -> dict:
+        opt = self.local_optimizer
+        sched = opt.scheduler
+        return {"global_skip": self.global_skip, "stale_steps": self.stale_steps,
+                "staleness_weight": self.staleness_weight, "epoch": self._epoch,
+                "best_epoch_loss": float("nan") if self._best_epoch_loss is None else float(self._best_epoch_loss),
+                "in_cooldown": int(self.in_cooldown), "guard_steps": opt._steps, "guard_skipped": opt._skipped,
+                "lr": [float(g["lr"]) for g in opt.param_groups],
+                "sched": [-1, -1] if sched is None else [int(sched.last_epoch), int(sched._step_count)]}
+
     def checkpoint(self, directory: Optional[str] = None) -> str:
-        raise NotImplementedError("DASO checkpoints need core/io.py, which is not ported yet (ROADMAP A10)")
+        """Checkpoint the whole training state to ``<dir>/daso_state.npz``
+        (``io.save_checkpoint``, atomic and fsynced): every group's
+        parameters and buffers and its optimizer state, stacked along a
+        leading group axis, the step, and the tiers' counters (the skip
+        schedule, the non-finite guard's counts, the learning rates).  The
+        previous file is kept as ``daso_state.prev.npz``, the fallback of
+        :meth:`resume`, and ``daso_state.meta.json`` records the world's
+        shape, the step and the optimizer state's layout.  A dispatched
+        average still in flight is not saved (the reference's rule).
+        Collective; rank 0 writes, so the ranks share the directory.
+        Returns the path.  Called every ``checkpoint_every`` steps."""
+        from ..core import io as _io
+
+        d = directory or self.checkpoint_dir
+        if d is None:
+            raise ValueError("no checkpoint directory configured")
+        if self.module is None:
+            raise RuntimeError("call init(module) before checkpoint()")
+        entries = self._state_entries()
+        tree = {"params": [self._groups(p) for p in self._params],
+                "buffers": [self._groups(b) for b in self.module.buffers()],
+                "opt_state": [self._groups(v) for _, _, v in entries],
+                "step": self._step_count, "counters": self._counters()}
+        path = os.path.join(d, self._CKPT_NAME)
+        if self.comm.rank == 0:
+            os.makedirs(d, exist_ok=True)
+            if os.path.exists(path):  # copied, not moved: path stays durable during the new save
+                try:
+                    shutil.copy2(path, os.path.join(d, self._PREV_NAME))
+                except OSError:
+                    pass
+            _io.save_checkpoint(tree, path)
+            layout = [[i, name, list(v.shape), str(v.dtype).replace("torch.", ""), v.device.type]
+                      for i, name, v in entries]
+            meta = dict(self._world_meta(), step=int(self._step_count), time=time.time(), opt_state=layout)
+            mpath = os.path.join(d, self._META_NAME)
+            tmp = f"{mpath}.tmp.{os.getpid()}"
+            with open(tmp, "w") as fh:
+                json.dump(meta, fh)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, mpath)
+        self.comm.Barrier()
+        return path
 
     def resume(self, directory: Optional[str] = None) -> bool:
-        raise NotImplementedError("DASO checkpoints need core/io.py, which is not ported yet (ROADMAP A10)")
+        """Restore the newest checkpoint into this optimizer (False where
+        there is none).  Call after :meth:`init`: each rank takes its group's
+        parameters, buffers and optimizer state.  The sidecar's world shape
+        must be this optimizer's (``ValueError`` naming both otherwise); an
+        unreadable ``daso_state.npz`` falls back, with a warning, to
+        ``daso_state.prev.npz``.  A dispatched average in flight is dropped."""
+        from ..core import io as _io
+
+        d = directory or self.checkpoint_dir
+        if d is None:
+            raise ValueError("no checkpoint directory configured")
+        path, prev = os.path.join(d, self._CKPT_NAME), os.path.join(d, self._PREV_NAME)
+        if not os.path.exists(path) and not os.path.exists(prev):
+            return False
+        if self.module is None:
+            raise RuntimeError("call init() before resume(): the live module gives the structure to restore into")
+        with open(os.path.join(d, self._META_NAME)) as fh:
+            meta = json.load(fh)
+        want = self._world_meta()
+        got = {k: int(meta.get(k, want[k])) for k in want}
+        if got != want:
+            raise ValueError(f"checkpoint under {d!r} was written by a different world: checkpoint {got} vs this "
+                             f"optimizer {want}; rebuild the world with the same n_groups/ici/device count")
+        g = self.n_groups
+        buffers = list(self.module.buffers())
+        layout = meta["opt_state"]
+        like = {"params": [torch.empty((g,) + tuple(p.shape), dtype=p.dtype) for p in self._params],
+                "buffers": [torch.empty((g,) + tuple(b.shape), dtype=b.dtype) for b in buffers],
+                "opt_state": [torch.empty([g] + shape, dtype=getattr(torch, dt)) for _, _, shape, dt, _ in layout],
+                "step": 0, "counters": self._counters()}
+        try:
+            tree = _io.load_checkpoint(like, path)
+        except (_io.CheckpointCorruptionError, FileNotFoundError, ValueError) as e:
+            if not os.path.exists(prev):
+                raise
+            warnings.warn(f"newest DASO checkpoint is unusable ({e}); falling back to the preserved previous "
+                          f"state {prev!r}")
+            tree = _io.load_checkpoint(like, prev)
+        mine = self.comm.rank // self.ici_size
+        with torch.no_grad():
+            for p, v in zip(self._params, tree["params"]):
+                p.copy_(v[mine])
+            for b, v in zip(buffers, tree["buffers"]):
+                b.copy_(v[mine])
+        opt = self.local_optimizer
+        state = opt.torch_optimizer.state
+        state.clear()
+        for (i, name, _, _, dev), v in zip(layout, tree["opt_state"]):
+            p = self._params[i]
+            state.setdefault(p, {})[name] = v[mine].clone().to(p.device if dev != "cpu" else "cpu")
+        c = tree["counters"]
+        self.global_skip, self.stale_steps = int(c["global_skip"]), int(c["stale_steps"])
+        self.staleness_weight, self._epoch = float(c["staleness_weight"]), int(c["epoch"])
+        best = float(c["best_epoch_loss"])
+        self._best_epoch_loss = None if best != best else best
+        self.in_cooldown = bool(c["in_cooldown"])
+        opt._steps, opt._skipped = int(c["guard_steps"]), int(c["guard_skipped"])
+        for grp, lr in zip(opt.param_groups, c["lr"]):
+            grp["lr"] = float(lr)
+        if opt.scheduler is not None and int(c["sched"][0]) >= 0:
+            opt.scheduler.last_epoch, opt.scheduler._step_count = int(c["sched"][0]), int(c["sched"][1])
+            opt.scheduler._last_lr = [float(lr) for lr in c["lr"]]
+        self._step_count = int(tree["step"])
+        _drain(self._pending)
+        self._pending = None
+        return True
 
 
 class _Owner:

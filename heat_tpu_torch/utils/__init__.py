@@ -2,3 +2,4 @@
 
 from . import data
 from . import convert
+from . import faults

@@ -801,3 +801,80 @@ def test_cd64_is_the_port_lasso_on_the_same_gram(chip_smoke):
         htt.use_device(prev)
     np.testing.assert_allclose(est.theta.numpy().reshape(-1), theta, rtol=1e-6, atol=1e-7)
     assert sweeps == est.n_iter_
+
+
+def test_surface_convolve_bound_is_the_operations_at_the_phase_shape(chip_smoke):
+    """2nm float32 operations at 67 TFLOP/s: 3.05 ms for 1e8 samples and
+    1023 taps, far above the bytes moved (1.2 GB, 0.36 ms)."""
+    n, m = chip_smoke.SURF_CONV_N, chip_smoke.SURF_CONV_M
+    ms, by = chip_smoke.conv_bound_ms(n, m)
+    assert by == "operations"
+    assert ms == pytest.approx(2.0 * n * m / chip_smoke.PEAK_FP32 * 1e3)
+    assert ms == pytest.approx(3.0537, rel=1e-4)
+    tiny_ms, tiny_by = chip_smoke.conv_bound_ms(1000, 1)  # one tap: the bytes bound
+    assert tiny_by == "bytes" and tiny_ms == pytest.approx((4 * 1001 + 4 * 1000) / chip_smoke.PEAK_BYTES * 1e3)
+
+
+def test_surface_sparse_bound_is_the_bytes_moved_once(chip_smoke):
+    """Values (4 bytes) and int64 column indices once, the row pointers,
+    the dense operand once and the result written once, at 3.35 TB/s."""
+    n, r, k = chip_smoke.SURF_SPARSE_N, chip_smoke.SURF_SPARSE_ROW, chip_smoke.SURF_SPARSE_K
+    b = chip_smoke.spmm_bytes(n, n * r, k, n)
+    assert b == n * r * 12 + (n + 1) * 8 + n * k * 4 * 2
+    ms, by = chip_smoke.spmm_bound_ms(n, n * r, k, n)
+    assert by == "bytes" and ms == pytest.approx(b / chip_smoke.PEAK_BYTES * 1e3)
+    assert chip_smoke.spmm_bytes(2, 3, 1, 4) == 3 * 12 + 3 * 8 + 4 * 4 + 2 * 4
+
+
+def test_surface_scratch_dir_is_removed_even_when_a_check_fails(chip_smoke):
+    with pytest.raises(RuntimeError):
+        with chip_smoke.scratch_dir() as d:
+            open(Path(d) / "x.npy", "wb").write(b"1")
+            chip_smoke.fail("a check")
+    assert not Path(d).exists()
+    with chip_smoke.scratch_dir() as d2:
+        assert Path(d2).is_dir()
+    assert not Path(d2).exists()
+
+
+def test_surface_prints_the_h5py_line_only_without_h5py(chip_smoke, monkeypatch):
+    try:
+        import h5py  # noqa: F401
+
+        assert chip_smoke.hdf5_missing() is None
+    except ImportError:
+        pass
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py now raises ImportError
+    assert chip_smoke.hdf5_missing() == {"hdf5": "h5py not installed"}
+
+
+def test_no_port_file_or_chip_smoke_imports_jax_or_heat_tpu():
+    """Beyond the import statements (tests/test_torch_core.py): no port
+    source or chip_smoke.py names jax or heat_tpu in an import by string,
+    and the slice's modules run with jax and heat_tpu blocked."""
+    import re
+
+    pattern = re.compile(r"""import_module\(\s*['"](jax|heat_tpu)\b|__import__\(\s*['"](jax|heat_tpu)\b""")
+    for f in sorted((REPO / "heat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not pattern.search(f.read_text()), f
+    code = (
+        "import sys, tempfile, os\n"
+        "for m in ('jax', 'jaxlib', 'heat_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "import heat_tpu_torch as ht\n"
+        "ht.use_device('cpu')\n"
+        "x = ht.array(np.arange(12, dtype=np.float32).reshape(4, 3), split=0)\n"
+        "d = tempfile.mkdtemp()\n"
+        "ht.save(x, os.path.join(d, 'a.zarr')); ht.save_array_checkpoint(x, os.path.join(d, 'ck'))\n"
+        "ok = [ht.load(os.path.join(d, 'a.zarr'), split=0).numpy().sum() == 66,\n"
+        "      ht.load_array_checkpoint(os.path.join(d, 'ck')).numpy().sum() == 66,\n"
+        "      ht.fft.fft(x).shape == (4, 3), ht.convolve(ht.arange(5), ht.ones(2)).shape == (6,),\n"
+        "      ht.sparse.sparse_csr_matrix(np.eye(3, dtype=np.float32)).gnnz == 3,\n"
+        "      ht.vmap(lambda r: r * 2)(x).shape == (4, 3),\n"
+        "      ht.parallel.ring_map(lambda a, b, s: a, x, x).shape == (4, 3)]\n"
+        "print(all(ok))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True"

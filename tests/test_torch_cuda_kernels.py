@@ -1099,3 +1099,93 @@ def test_cuda_estimators_and_tiled_resplit_stay_on_the_card(tmp_path):
             p.kill()
             p.join(5)
     assert [p.exitcode for p in procs] == [0, 0]
+
+
+def test_cuda_convolve_is_ieee_float32_and_integers_take_the_exact_route():
+    """convolve on CUDA tensors: IEEE float32 products (within float32
+    rounding of the float64 result, where TF32's 10-bit products would lie
+    ~1e-3 off), even under the caller's TF32 setting, which it restores;
+    an integer convolution exact (the float64 route) and refused past
+    2^53; the result on the card."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    a = torch.randn(200_000, generator=g, device="cuda")
+    v = torch.randn(511, generator=g, device="cuda")
+    want = torch.nn.functional.conv1d(a.double()[None, None], v.double().flip(0)[None, None], padding=510)[0, 0]
+    prev = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "tf32"
+    try:
+        got = htt.convolve(htt.array(a, split=0), htt.array(v), mode="full")
+        assert torch.backends.cudnn.conv.fp32_precision == "tf32"
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = prev
+    assert got.larray.is_cuda and got.dtype is htt.float32
+    err = float((got.larray.double() - want).abs().max() / want.abs().max())
+    assert err < 1e-5, err
+    ai = torch.randint(-100, 100, (5000,), generator=g, device="cuda", dtype=torch.int32)
+    vi = torch.randint(-9, 9, (33,), generator=g, device="cuda", dtype=torch.int32)
+    res = htt.convolve(htt.array(ai, split=0), htt.array(vi), mode="same")
+    want_i = np.convolve(ai.cpu().numpy().astype(np.int64), vi.cpu().numpy().astype(np.int64), mode="same")
+    assert res.larray.is_cuda and res.dtype is htt.int32
+    np.testing.assert_array_equal(res.larray.cpu().numpy(), want_i)
+    big = htt.array(torch.full((64,), 2**30, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="2\\^53"):
+        htt.convolve(big, htt.array(torch.full((9,), 2**22, dtype=torch.int64, device="cuda")))
+
+
+def test_cuda_fft_and_sparse_matmul_stay_on_the_card():
+    """fft and the sparse product of CUDA arrays compute on the card (the
+    host copy of a tensor patched to raise while they run); an integer
+    sparse product is exact through float64 and refused past 2^53."""
+    from unittest import mock
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = htt.array(torch.randn(512, 256, generator=g, device="cuda"), split=0)
+    dense = torch.randn(300, 8, generator=g, device="cuda")
+    csr = (torch.rand(400, 300, generator=g, device="cuda") < 0.05).float() * torch.randn(
+        400, 300, generator=g, device="cuda")
+    s = htt.sparse.sparse_csr_matrix(csr.to_sparse_csr(), split=0)
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a CUDA tensor was copied to the host")
+
+    with mock.patch.object(torch.Tensor, "cpu", refuse), mock.patch.object(torch.Tensor, "numpy", refuse):
+        outs = [htt.fft.fft2(x), htt.fft.rfft(x, axis=0), htt.fft.ifftn(x), htt.fft.fftshift(x),
+                s @ htt.array(dense), htt.sparse.add(s, s).todense()]
+    for r in outs:
+        assert r.larray.is_cuda
+    torch.testing.assert_close(outs[0].larray, torch.fft.fft2(x.larray))
+    torch.testing.assert_close(outs[4].larray, csr @ dense, rtol=1e-5, atol=1e-5)
+    si = htt.sparse.sparse_csr_matrix((csr != 0).to(torch.int32).to_sparse_csr())
+    di = torch.randint(-50, 50, (300, 8), generator=g, device="cuda", dtype=torch.int32)
+    got = si @ htt.array(di)
+    assert got.larray.is_cuda and got.dtype is htt.int32
+    torch.testing.assert_close(got.larray, ((csr != 0).double() @ di.double()).to(torch.int32))
+    huge = htt.sparse.sparse_csr_matrix(torch.full((2, 3), 2**30, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="2\\^53"):
+        huge @ htt.array(torch.full((3, 2), 2**22, dtype=torch.int64, device="cuda"))
+
+
+def test_cuda_supports_hdf5_is_false_only_without_h5py():
+    """``supports_hdf5()`` answers whether ``import h5py`` succeeds, and
+    nothing else (the card's machine has no h5py)."""
+    try:
+        import h5py  # noqa: F401
+
+        have = True
+    except ImportError:
+        have = False
+    assert htt.supports_hdf5() is have
+    assert htt.supports_netcdf() is (have or importlib.util.find_spec("netCDF4") is not None)
+
+
+def test_cuda_io_round_trips_keep_the_card(tmp_path):
+    """Files written from CUDA arrays load back onto the card bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = htt.array(torch.randn(1001, 7, generator=g, device="cuda"), split=0)
+    for name in ("a.npy", "a.csv", "a.zarr"):
+        htt.save(x, str(tmp_path / name))
+        y = htt.load(str(tmp_path / name), split=0)
+        assert y.larray.is_cuda and torch.equal(y.larray, x.larray), name
+    htt.save_array_checkpoint(x, str(tmp_path / "ck"))
+    y = htt.load_array_checkpoint(str(tmp_path / "ck"))
+    assert y.larray.is_cuda and torch.equal(y.larray, x.larray)
