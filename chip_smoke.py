@@ -244,6 +244,33 @@
    other, and the loss must fall; the median step, the flash share of a
    profiled step, and one step through the kernels against one through
    their plain versions (loss and every gradient, ``BF16_STEP_*``).
+11b. The rest of the nn surface (slice 17), at world size 1:
+   ``Seq2SeqTransformer`` at transformer-base width (S2S_BASE: 6 + 6 blocks,
+   d_model 512, d_ff 2048, 8 heads, dropout 0.1, 32768 tokens; 95 M
+   parameters), 5 float32 Adam steps on (16, 256) synthetic source and
+   target ids (a copy task), each step launching each multi-head flash
+   kernel 18 times (6 encoder blocks, 6 decoder self- and 6 equal-length
+   cross-attentions: ``flash_step_counts``) and the loss falling; one step
+   against the plain attention (the gradients' scale floored at ROW_FLOOR
+   of the largest: the cross-attention LayerNorms' are float32 noise of a
+   cancelled sum); a target of 192 through the dense cross path against the
+   plain attention; 64 greedy tokens and a width-4 beam search of 64, the
+   greedy tokens the teacher-forced argmax over their prefix but at near
+   ties (``greedy_agreement``).  The MoE LM (LM_MOE: 8 experts of the dense
+   FFN's width, top-2, factor 1.25; 177 M parameters), 5 Adam steps on 6's
+   batches with 0.01 x Switch's load-balance loss, the share of dropped
+   claims each step, the peak memory beside 6's, 64 tokens generated
+   through ``decode_apply``.  6's LM with ``remat=True`` against
+   ``remat=False``, 2 steps (the forward launched twice a block), equal
+   losses and gradients, the peak memory lower.  The layer families at
+   users' sizes (``_layer_cases``), each forward and backward against
+   float64 (the CPU's; LSTM and GRU the card's, their first rows the CPU's
+   too) within LAYER_RTOL, the outputs on the card.  Then, in 10's spawned
+   ranks (``nn_two_rank_cases``): the MoE LM at depth 2 with the ring and
+   expert parallelism together (factor 4: nothing drops), ``Pipelined`` of
+   8 transformer blocks on (16, 256, 512) in 4 microbatches and
+   ``transformer_decoder`` over a (3, 2) split, each within NN_2R_RTOL of
+   world size 1 on the card.
 12. Times each kernel, its plain version and a library call at the main
    paths' shapes (CUDA events behind a device sleep, so the device's time
    and not Python's launch) and prints the ``kernels`` line, each flash
@@ -257,9 +284,9 @@
 13. Ends with the line ``{"ok": true, "device": {...}}``.
 
 The phases run in this order: 1, 2, 3, the world-size-1 parts of 3b, 4,
-4b and 4c, then 5 to 9, 11 and 12's timings, then 3e; then the phases on
-spawned ranks, 10 first, then the 2-rank parts of 3b, 4, 4b and 4c; then
-3c, 3d, 3f and 3g.  Every check in this process that reads the profiler so runs before
+4b and 4c, then 5 to 9, 11, 11b's world-size-1 part and 12's timings,
+then 3e; then the phases on spawned ranks, 10 first (with 11b's two-rank
+part), then the 2-rank parts of 3b, 4, 4b and 4c; then 3c, 3d, 3f and 3g.  Every check in this process that reads the profiler so runs before
 the first spawned rank: after ranks on the card exit, CUPTI can record no
 device activity for as long as it was watched (``profiled``, which also
 starts CUPTI afresh for each session of this process).  Each profiled
@@ -328,6 +355,20 @@ POS_KERNELS = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
 # the sequence-parallel LM: the same width, 4096 positions over 2 ranks
 LM_RING = dict(LM, max_len=4096)
 RING_RANKS, RING_BATCH, RING_SEQ = 2, 2, 4096
+# phase 11b: Seq2SeqTransformer at transformer-base width (Vaswani et al. 2017, Table 3 "base": N = 6,
+# d_model 512, d_ff 2048, h = 8, P_drop 0.1), the LM phases' 32768 vocabulary for the paper's 37000
+# shared BPE tokens: 95.0 M parameters; synthetic (16, 256) source and target ids (a copy task)
+S2S_BASE = dict(src_vocab=32768, tgt_vocab=32768, embed_dim=512, num_heads=8, enc_depth=6, dec_depth=6,
+                mlp_ratio=4, max_len=1024, dropout=0.1)
+S2S_BATCH, S2S_SEQ, S2S_STEPS, S2S_SHORT, S2S_NEW, S2S_BEAM = 16, 256, 5, 192, 64, 4
+S2S_LOGIT_RTOL = 1e-4  # the 192-target forward against the plain attention, of the largest logit
+GREEDY_TIE_RTOL = 1e-4  # greedy vs the teacher-forced argmax: apart only within this share of the largest logit
+# the MoE LM: the LM phases' width, 8 experts of the dense FFN's width, Switch-style top-2: 177 M parameters
+LM_MOE = dict(LM, num_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_STEPS, MOE_AUX, MOE_NEW = 5, 0.01, 64
+REMAT_STEPS, REMAT_RTOL = 2, 1e-5  # remat against no remat: float32 rounding of the largest entry
+LAYER_RTOL = 1e-4  # the layer families on the card against float64, of each tensor's largest magnitude
+NN_2R_RTOL = 1e-4  # the two-rank MoE LM, pipeline and decoder against world size 1
 RING_TIMEOUT_S = 600  # a child that has not reported by then fails the run
 # the ring step's blocks at (B*H, Sq, Sk, d) = (16, 2048, 2048, 64), causal:
 # name -> (query offset, key offset); over a layer's forward on both ranks
@@ -1115,9 +1156,12 @@ def lm_loss(ht, lm, batch):
     return ht.nn.functional.cross_entropy(logits.reshape(-1, LM["vocab_size"]), batch[:, 1:].reshape(-1))
 
 
-def _path_counts(label: str, counts: dict, kernels, want: int) -> None:
-    """The path's kernels launched ``want`` times each, every other flash kernel never."""
-    expect = {key: want if key in kernels else 0 for key in counts}
+def _path_counts(label: str, counts: dict, kernels, want) -> None:
+    """The path's kernels launched ``want`` times each (or ``want[kernel]``
+    times: under remat the forward runs twice a block, ``flash_step_counts``),
+    every other flash kernel never."""
+    per = want if isinstance(want, dict) else {key: want for key in kernels}
+    expect = {key: per.get(key, 0) if key in kernels else 0 for key in counts}
     if counts != expect:
         fail(f"{label} launches {counts}, want {expect}")
 
@@ -1271,24 +1315,34 @@ def profile_training_step(ht, lm, opt, batch, label: str, dtype: str = "float32"
     return row
 
 
-def lm_step_vs_plain(ht, lm, batch, kernels, label: str, tol=(STEP_LOSS_RTOL, STEP_GRAD_RTOL)) -> dict:
+def lm_step_vs_plain(ht, lm, batch, kernels, label: str, tol=(STEP_LOSS_RTOL, STEP_GRAD_RTOL), loss_fn=None,
+                     want=None, floor: float = 0.0) -> dict:
     """One step's loss and gradients through the kernels and through their
     plain versions, substituted for the path's three wrappers by mock.patch;
-    held to ``tol`` = (loss rtol, gradient rtol).  Returns the printed row."""
+    held to ``tol`` = (loss rtol, gradient rtol), each gradient's largest
+    error over its largest entry, that scale floored at ``floor`` of the
+    model's largest gradient entry (0: no floor; the encoder-decoder's
+    cross-attention LayerNorms get gradients ~1e-6 of the largest, the
+    float32 noise of a cancelled sum, as row 0 of a causal dq is).
+    ``loss_fn(lm, batch)`` (default the LM's loss) and ``want`` (the
+    launches of the kernels' step, default one a block of LM) serve other
+    models.  Returns the printed row."""
     from unittest import mock
 
     from heat_tpu_torch.ops import flash_attention as fa
 
+    loss_fn = loss_fn or (lambda m, b: lm_loss(ht, m, b))
+
     def step():
         lm.zero_grad(set_to_none=True)
-        loss = lm_loss(ht, lm, batch)
+        loss = loss_fn(lm, batch)
         loss.backward()
         return float(loss.detach()), {n: p.grad.detach().clone() for n, p in lm.named_parameters()}
 
     before = dict(fa.launch_counts)
     loss_k, grads_k = step()
     _path_counts(f"{label}, one step", {key: fa.launch_counts[key] - before[key] for key in before}, kernels,
-                 LM["depth"])
+                 LM["depth"] if want is None else want)
     before = dict(fa.launch_counts)
     patches = [mock.patch.object(fa, name, getattr(fa, f"_torch_{name}")) for name in kernels]
     for patch in patches:
@@ -1301,14 +1355,18 @@ def lm_step_vs_plain(ht, lm, batch, kernels, label: str, tol=(STEP_LOSS_RTOL, ST
     if fa.launch_counts != before:
         fail("the plain step launched a kernel")
     lm.zero_grad(set_to_none=True)
-    # each gradient's largest error over its largest entry
-    rel = {n: float((grads_k[n] - grads_p[n]).abs().max()) / max(float(grads_p[n].abs().max()), 1e-30)
-           for n in grads_p}
+    # each gradient's largest error over its largest entry (floored: ``floor``)
+    largest = max(float(g.abs().max()) for g in grads_p.values())
+    rel = {n: float((grads_k[n] - grads_p[n]).abs().max()) / max(float(grads_p[n].abs().max()), floor * largest,
+                                                                  1e-30) for n in grads_p}
     worst = max(rel.items(), key=lambda t: t[1])
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     row = {"phase": "one_step_vs_plain", "path": label, "dtype": str(next(lm.parameters()).dtype).replace(
         "torch.", ""), "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_rel, "worst_grad": worst[0],
            "worst_grad_rel_err": worst[1], "median_grad_rel_err": sorted(rel.values())[len(rel) // 2],
+           "worst_grads": [(n, e, float(grads_p[n].abs().max())) for n, e in sorted(rel.items(),
+                                                                                  key=lambda t: -t[1])[:6]],
+           "largest_grad": largest, "grad_scale_floor": floor,
            "params_checked": len(grads_p), "loss_rtol": tol[0], "grad_rtol": tol[1]}
     print(json.dumps(row), flush=True)
     if not loss_rel <= tol[0] or not worst[1] <= tol[1]:
@@ -1635,19 +1693,20 @@ def check_pos_kernels() -> dict:
     return errs
 
 
-def _ring_step(ht, lm, comm, batch, lo: int, hi: int):
+def _ring_step(ht, lm, comm, batch, lo: int, hi: int, params=None):
     """One sequence-parallel step's forward and backward on this rank's
     positions [lo, hi) of ``batch`` (B, S + 1): the loss is the global mean
     (the local sum, Allreduced, over the global token count) and the
-    gradients are summed over the ranks by the bucketed sync.  Returns the
-    loss."""
+    gradients are summed over the ranks by the bucketed sync (of
+    ``params``, default every parameter: an MoE's expert shards are whole
+    on their rank and are left out).  Returns the loss."""
     inp, tgt = batch[:, :-1][:, lo:hi], batch[:, 1:][:, lo:hi]
     logits = lm(inp)
     local = ht.nn.functional.cross_entropy(logits.reshape(-1, LM["vocab_size"]), tgt.reshape(-1), reduction="sum")
     count = batch.shape[0] * (batch.shape[1] - 1)
     lm.zero_grad(set_to_none=True)
     (local / count).backward()
-    ht.core.collectives.bucketed_grad_allreduce(comm, [p.grad for p in lm.parameters()], op="sum")
+    ht.core.collectives.bucketed_grad_allreduce(comm, [p.grad for p in (lm.parameters() if params is None else params)], op="sum")
     return float(comm.Allreduce(local.detach().clone())) / count
 
 
@@ -1717,6 +1776,10 @@ def ring_rank(rank: int, port: int, out_q) -> None:
             _ring_step(ht, lm, comm, batches[LM_STEPS + 1], lo, hi)
         torch.cuda.synchronize()
         res["profile"] = comm_row
+        del lm, opt, batches, batch
+        torch.cuda.empty_cache()
+        # phase 11b's two-rank part: the MoE LM, Pipelined and the decoder against world size 1
+        res["nn"] = nn_two_rank_cases(ht, comm, rank)
         torch.distributed.barrier()
         out_q.put((rank, res))
     finally:
@@ -1764,10 +1827,10 @@ def spawn_ranks(target, world: int, timeout_s: float, *args) -> dict:
     return results
 
 
-def ring_train() -> dict:
+def ring_train(smi: str) -> dict:
     """The sequence-parallel main path: RING_RANKS spawned processes on this
-    card; checks what they report and returns rank 0's result with both
-    ranks' launch counts."""
+    card; checks what they report (phase 11b's two-rank part too) and
+    returns rank 0's result with both ranks' launch counts."""
     results = spawn_ranks(ring_rank, RING_RANKS, RING_TIMEOUT_S)
     want = LM_RING["depth"] * LM_STEPS * RING_RANKS
     for rank, res in sorted(results.items()):
@@ -1800,7 +1863,581 @@ def ring_train() -> dict:
         fail(f"the ring step vs world size 1: loss {loss_rel}, gradient {r0['worst_grad']}")
     _path_counts("the world-1 step", r0["world_one_launches"], MHA_KERNELS, LM_RING["depth"])
     print(json.dumps(r0["profile"]), flush=True)
+    nn_two_ranks_check(results, smi)
     return {key: r0["launch_counts"][key] for key in POS_KERNELS}
+
+
+# ---------------------------------------------------------------------- #
+# phase 11b: the rest of the nn surface (slice 17)
+# ---------------------------------------------------------------------- #
+def flash_step_counts(enc: int, dec: int = 0, equal_cross: bool = True, remat: bool = False) -> dict:
+    """The multi-head flash launches of one training step of a model with
+    ``enc`` self-attention blocks (an LM's or an encoder's) and ``dec``
+    decoder blocks (a causal self-attention and a cross-attention each; the
+    cross-attention takes the flash kernels where the memory is as long as
+    the target, the dense path otherwise).  Under ``remat`` every block's
+    forward runs again in the backward."""
+    attn = enc + dec + (dec if equal_cross else 0)
+    return {"flash_fwd": attn * (2 if remat else 1), "flash_bwd_dq": attn, "flash_bwd_dkv": attn}
+
+
+def drop_share(stats) -> float:
+    """The share of an MoE model's claims dropped at capacity: ``stats``,
+    each block's (dropped, valid claims) of one forward."""
+    dropped = sum(int(s[0]) for s in stats)
+    claims = sum(int(s[1]) for s in stats)
+    return dropped / claims if claims else 0.0
+
+
+def greedy_agreement(tokens, logits, rtol: float = GREEDY_TIE_RTOL) -> dict:
+    """Greedy tokens (B, n) against the teacher-forced logits (B, n, V) over
+    their prefix: the positions whose token is not the argmax, and of those
+    the ones that are not near ties (the token's logit more than ``rtol`` of
+    the largest |logit| below the argmax's)."""
+    import torch
+
+    logits = logits.float()
+    mine = logits.gather(-1, tokens.long()[..., None])[..., 0]
+    gap = logits.max(-1).values - mine
+    apart = logits.argmax(-1) != tokens.long()
+    far = apart & (gap > rtol * float(logits.abs().max()))
+    return {"positions": int(tokens.numel()), "not_argmax": int(apart.sum()), "not_near_tie": int(far.sum()),
+            "largest_gap": float(torch.where(apart, gap, torch.zeros_like(gap)).max())}
+
+
+def s2s_batches(steps: int, seed: int, batch: int = S2S_BATCH, seq: int = S2S_SEQ):
+    """Source ids (steps, batch, seq) int64 from a pool of LM_POOL tokens
+    (id 0, the BOS, left out); the target is the source (a copy task)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = rng.choice(S2S_BASE["src_vocab"] - 1, LM_POOL, replace=False) + 1
+    return pool[rng.integers(0, LM_POOL, (steps, batch, seq))].astype(np.int64)
+
+
+def s2s_loss(ht, m, src):
+    """The copy task's teacher-forced loss: the decoder reads BOS and the
+    source shifted by one, and predicts the source."""
+    import torch
+
+    dec_in = torch.nn.functional.pad(src[:, :-1], (1, 0), value=0)
+    logits = m(src, dec_in)
+    return ht.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]), src.reshape(-1))
+
+
+def _synced_s(fn) -> tuple:
+    """(fn(), its wall seconds with the card synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _train(ht, m, opt, batches, loss_fn, want: dict, label: str, aux=None, stats=None) -> dict:
+    """Adam steps of ``m`` over ``batches`` with the flash launches of each
+    step held to ``want``; ``aux()`` adds to the loss, ``stats()`` gives an
+    MoE's dropped-claims share of the step.  Returns the step records."""
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, drops = [], [], []
+    for step, batch in enumerate(batches):
+        before = dict(fa.launch_counts)
+        t0 = time.perf_counter()
+        loss = loss_fn(m, batch)
+        total = loss + aux() if aux is not None else loss
+        opt.zero_grad()
+        total.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        if stats is not None:
+            drops.append(stats())
+        _path_counts(f"{label}, step {step}", {k: fa.launch_counts[k] - before[k] for k in before}, MHA_KERNELS,
+                     want)
+    if not all(x == x and abs(x) < float("inf") for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    return {"losses": [round(x, 4) for x in losses], "first_step_ms": step_s[0] * 1e3,
+            "step_ms_median": steady * 1e3, "step_ms": [round(t * 1e3, 3) for t in step_s],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "drop_share": drops, "steady_s": steady}
+
+
+def seq2seq_base(ht, smi: str) -> None:
+    """Phase 11b's Seq2SeqTransformer at transformer-base width: training,
+    one step against the plain attention, a shorter target through the
+    dense cross path, greedy and beam decoding."""
+    from unittest import mock
+
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    V = S2S_BASE["tgt_vocab"]
+    torch.manual_seed(0)
+    m = ht.nn.models.Seq2SeqTransformer(**S2S_BASE)
+    n_params = sum(p.numel() for p in m.parameters())
+    opt = ht.optim.DataParallelOptimizer("adam", m.parameters(), lr=LM_LR)
+    data = torch.from_numpy(s2s_batches(S2S_STEPS + 1, seed=17)).cuda()
+    loss_fn = lambda model, b: s2s_loss(ht, model, b)  # noqa: E731
+    want = flash_step_counts(S2S_BASE["enc_depth"], S2S_BASE["dec_depth"])
+    rec = _train(ht, m, opt, data[:S2S_STEPS], loss_fn, want, "Seq2SeqTransformer training")
+    tokens = S2S_BATCH * S2S_SEQ
+    print(json.dumps({"phase": "nn_surface", "check": "Seq2SeqTransformer training", **S2S_BASE, "params": n_params,
+                      "dtype": "float32", "batch": [S2S_BATCH, S2S_SEQ], "optimizer": "adam", "lr": LM_LR,
+                      "steps": S2S_STEPS, **{k: v for k, v in rec.items() if k not in ("drop_share", "steady_s")},
+                      "target_tokens_per_s": tokens / rec["steady_s"],
+                      "source_and_target_tokens_per_s": 2 * tokens / rec["steady_s"],
+                      "flash_launches_per_step": want, "card": smi}), flush=True)
+    m.eval()  # dropout off: the same function through the kernels and their plain versions
+    batch = data[S2S_STEPS]
+    lm_step_vs_plain(ht, m, batch, MHA_KERNELS, "Seq2SeqTransformer", loss_fn=loss_fn, want=want, floor=ROW_FLOOR)
+    with torch.no_grad():
+        dec_in = torch.nn.functional.pad(batch[:, :-1], (1, 0), value=0)[:, :S2S_SHORT]
+        before = dict(fa.launch_counts)
+        logits, sec = _synced_s(lambda: m(batch, dec_in))
+        counts = {k: fa.launch_counts[k] - before[k] for k in before}
+        _path_counts("Seq2SeqTransformer, a shorter target", counts, ("flash_fwd",),
+                     flash_step_counts(S2S_BASE["enc_depth"], S2S_BASE["dec_depth"], equal_cross=False)["flash_fwd"])
+        with mock.patch.object(fa, "flash_fwd", fa._torch_flash_fwd):
+            plain = m(batch, dec_in)
+        rel = _rel_err(logits, plain)
+    print(json.dumps({"phase": "nn_surface", "check": "Seq2SeqTransformer forward, target 192 (dense cross path)",
+                      "source": S2S_SEQ, "target": S2S_SHORT, "ms": sec * 1e3, "launch_counts": counts,
+                      "logits_rel_err_vs_plain": rel, "rtol": S2S_LOGIT_RTOL, "device": str(logits.device),
+                      "card": smi}), flush=True)
+    if not rel <= S2S_LOGIT_RTOL or logits.device.type != "cuda":
+        fail(f"the 192-target forward vs plain: {rel}")
+    src = batch
+    m.generate(src[:2], 4)  # warm-up
+    before = dict(fa.launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    ys, g_s = _synced_s(lambda: m.generate(src, S2S_NEW))
+    g_counts = {k: fa.launch_counts[k] - before[k] for k in before}
+    # the encoder runs once (its flash forwards); the decode steps launch no flash kernel
+    _path_counts("Seq2SeqTransformer.generate", g_counts, ("flash_fwd",), S2S_BASE["enc_depth"])
+    g_peak = torch.cuda.max_memory_allocated()
+    yb, b_s = _synced_s(lambda: m.beam_search(src, S2S_NEW, beam_width=S2S_BEAM))
+    for label, out in (("generate", ys), ("beam_search", yb)):
+        if tuple(out.shape) != (S2S_BATCH, 1 + S2S_NEW) or not bool((out[:, 0] == 0).all()) or \
+                int(out.min()) < 0 or int(out.max()) >= V or not out.is_cuda:
+            fail(f"Seq2SeqTransformer.{label}: {tuple(out.shape)} on {out.device}, range [{int(out.min())}, "
+                 f"{int(out.max())}]")
+    with torch.no_grad():
+        agree = greedy_agreement(ys[:, 1:], m(src, ys[:, :-1].long()))
+    print(json.dumps({"phase": "nn_surface", "check": "Seq2SeqTransformer decoding", "batch": S2S_BATCH,
+                      "source": S2S_SEQ, "new_tokens": S2S_NEW, "greedy_s": g_s,
+                      "greedy_tokens_per_s": S2S_BATCH * S2S_NEW / g_s, "beam_width": S2S_BEAM, "beam_s": b_s,
+                      "beam_tokens_per_s": S2S_BATCH * S2S_NEW / b_s, "greedy_peak_mem_bytes": g_peak,
+                      "generate_launch_counts": g_counts, "greedy_vs_teacher_forced_argmax": agree,
+                      "tie_rtol": GREEDY_TIE_RTOL, "card": smi}), flush=True)
+    if agree["not_near_tie"]:
+        fail(f"greedy decoding is not the teacher-forced argmax: {agree}")
+    del m, opt, data
+    torch.cuda.empty_cache()
+
+
+def moe_lm(ht, smi: str, dense_peak=None) -> None:
+    """Phase 11b's MoE LM: training with the load-balance loss, the dropped
+    share of each step, the peak memory beside the dense LM's of phase 6
+    (``dense_peak``), and generation through ``decode_apply``."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    torch.manual_seed(0)
+    lm = ht.nn.models.TransformerLM(**LM_MOE)
+    n_params = sum(p.numel() for p in lm.parameters())
+    n_experts = sum(p.numel() for b in lm.blocks for n, p in b.ff.named_parameters() if n != "router")
+    opt = ht.optim.DataParallelOptimizer("adam", lm.parameters(), lr=LM_LR)
+    batches = torch.from_numpy(lm_batches(MOE_STEPS + 1, seed=11)).cuda()  # phase 6's batches
+    rec = _train(ht, lm, opt, batches[:MOE_STEPS], lambda m, b: lm_loss(ht, m, b),
+                 flash_step_counts(LM["depth"]), "TransformerLM(num_experts=8) training",
+                 aux=lambda: MOE_AUX * sum(b.ff.aux_loss for b in lm.blocks),
+                 stats=lambda: drop_share([b.ff.route_stats for b in lm.blocks]))
+    cap = lm.blocks[0].ff._capacity(LM_BATCH * LM_SEQ)
+    print(json.dumps({"phase": "nn_surface", "check": "TransformerLM(num_experts=8) training", **LM_MOE,
+                      "params": n_params, "expert_params": n_experts, "capacity": cap, "dtype": "float32",
+                      "batch": [LM_BATCH, LM_SEQ + 1], "aux_coef": MOE_AUX,
+                      **{k: v for k, v in rec.items() if k != "steady_s"},
+                      "train_tokens_per_s": LM_BATCH * LM_SEQ / rec["steady_s"], "dense_lm_peak_mem_bytes": dense_peak,
+                      "card": smi}), flush=True)
+    lm.eval()
+    prompt = torch.from_numpy(np.random.default_rng(12).integers(0, LM["vocab_size"], (LM_BATCH, PROMPT))).cuda()
+    lm.generate(prompt[:, :8], 4)  # warm-up
+    before = dict(fa.launch_counts)
+    out, sec = _synced_s(lambda: lm.generate(prompt, MOE_NEW))
+    counts = {k: fa.launch_counts[k] - before[k] for k in before}
+    if any(counts.values()) or tuple(out.shape) != (LM_BATCH, PROMPT + MOE_NEW) or \
+            not torch.equal(out[:, :PROMPT].long(), prompt) or not out.is_cuda:
+        fail(f"the MoE LM's generation: launches {counts}, shape {tuple(out.shape)}")
+    print(json.dumps({"phase": "nn_surface", "check": "TransformerLM(num_experts=8) generation (decode_apply)",
+                      "dtype": "float32", "prompt": [LM_BATCH, PROMPT], "new_tokens": MOE_NEW, "seconds": sec,
+                      "tokens_per_s": LM_BATCH * MOE_NEW / sec, "launch_counts": counts, "card": smi}), flush=True)
+    del lm, opt, batches
+    torch.cuda.empty_cache()
+
+
+def remat_lm(ht, smi: str) -> None:
+    """Phase 11b's remat check: phase 6's dense LM, REMAT_STEPS Adam steps
+    with and without checkpointing from the same weights, one model on the
+    card at a time; equal losses and gradients, remat's peak lower."""
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    batches = torch.from_numpy(lm_batches(REMAT_STEPS, seed=11)).cuda()
+    torch.manual_seed(0)
+    init = {k: v.cpu() for k, v in ht.nn.models.TransformerLM(**LM).state_dict().items()}
+    runs = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        lm = ht.nn.models.TransformerLM(**LM, remat=remat)
+        lm.load_state_dict(init)
+        opt = ht.optim.DataParallelOptimizer("adam", lm.parameters(), lr=LM_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, grads = [], [], []
+        for step in range(REMAT_STEPS):
+            before = dict(fa.launch_counts)
+            t0 = time.perf_counter()
+            loss = lm_loss(ht, lm, batches[step])
+            opt.zero_grad()
+            loss.backward()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            _path_counts(f"remat={remat}, step {step}", {k: fa.launch_counts[k] - before[k] for k in before},
+                         MHA_KERNELS, flash_step_counts(LM["depth"], remat=remat))
+            losses.append(float(loss.detach()))
+            grads.append({n: p.grad.detach().cpu() for n, p in lm.named_parameters()})
+            opt.step()
+        runs[remat] = {"losses": losses, "grads": grads, "peak": torch.cuda.max_memory_allocated(),
+                       "step_ms": [t * 1e3 for t in step_s]}
+        del lm, opt
+        torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs[True]["losses"], runs[False]["losses"]))
+    worst = max(((f"step {i}: {n}", float((g[n] - want).abs().max()) / max(float(want.abs().max()), 1e-30))
+                 for i, (g, w) in enumerate(zip(runs[True]["grads"], runs[False]["grads"])) for n, want in w.items()),
+                key=lambda t: t[1])
+    print(json.dumps({"phase": "nn_surface", "check": "TransformerLM remat=True vs remat=False", **LM,
+                      "steps": REMAT_STEPS, "losses": runs[True]["losses"], "loss_rel_err": loss_rel,
+                      "worst_grad": worst[0], "worst_grad_rel_err": worst[1], "rtol": REMAT_RTOL,
+                      "peak_mem_bytes_remat": runs[True]["peak"], "peak_mem_bytes_no_remat": runs[False]["peak"],
+                      "step_ms_remat": runs[True]["step_ms"], "step_ms_no_remat": runs[False]["step_ms"],
+                      "launches_per_step_remat": flash_step_counts(LM["depth"], remat=True), "card": smi}),
+          flush=True)
+    if not loss_rel <= REMAT_RTOL or not worst[1] <= REMAT_RTOL:
+        fail(f"remat vs no remat: loss {loss_rel}, gradient {worst}")
+    if not runs[True]["peak"] < runs[False]["peak"]:
+        fail(f"remat's peak {runs[True]['peak']} is not below {runs[False]['peak']}")
+
+
+def _tensors(out) -> list:
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _tensors(o)]
+
+
+def _fwd_bwd(module, inputs, fixed, cots, device, dtype) -> tuple:
+    """(outputs, gradients by name) of one forward of ``module`` (copied to
+    ``device`` and ``dtype`` unless it is on the card in them) on ``inputs`` (the float ones not in ``fixed``
+    differentiated) and one backward of the cotangents ``cots`` (None: draw
+    them, seeded); and the cotangents."""
+    import copy
+
+    import torch
+
+    p0 = next(module.parameters(), None)
+    same = p0 is None or (p0.device.type == device.type and p0.dtype == dtype)
+    m = module if same and device.type == "cuda" else copy.deepcopy(module).to(device, dtype)
+    m.zero_grad(set_to_none=True)
+    xs = [(x.detach().to(device, dtype) if x.is_floating_point() else x.detach().to(device)).requires_grad_(
+        i not in fixed and x.is_floating_point()) for i, x in enumerate(inputs)]
+    outs = _tensors(m(*xs))
+    if cots is None:
+        g = torch.Generator(device="cuda").manual_seed(29)
+        cots = [torch.randn(o.shape, generator=g, device="cuda") for o in outs]
+    live = [(o, c.to(device, dtype)) for o, c in zip(outs, cots) if o.requires_grad]
+    if live:
+        torch.autograd.backward([o for o, _ in live], [c for _, c in live])
+    grads = {f"d_input{i}": x.grad for i, x in enumerate(xs) if x.requires_grad}
+    grads.update({f"d_{n}": p.grad for n, p in m.named_parameters()})
+    return outs, grads, cots
+
+
+def _rel_errs(got, want) -> dict:
+    """{name: max |got - want| / max |want|} over the outputs and gradients (lists and dicts of tensors)."""
+    got = {**{f"out{i}": o for i, o in enumerate(got[0])}, **got[1]}
+    want = {**{f"out{i}": o for i, o in enumerate(want[0])}, **want[1]}
+    errs = {}
+    for name, b in want.items():
+        a = got[name]
+        if a is None or b is None:
+            errs[name] = None if (a is None) == (b is None) else float("inf")
+        else:
+            errs[name] = float((a.detach().double().cpu() - b.detach().double().cpu()).abs().max()) / max(
+                float(b.detach().abs().max()), 1e-30)
+    return errs
+
+
+def layer_vs_float64(label: str, module, inputs, smi: str, fixed=(), reference: str = "cpu", rows: int = 0,
+                     float32_floor: bool = False) -> dict:
+    """One forward and backward of ``module`` (float32, on the card, under
+    ``_full_float32``, in evaluation mode) against a float64 copy of it on
+    the CPU (or, with ``reference='cuda'``, on the card, where the CPU's
+    float64 would take minutes, and the first ``rows`` batch rows of the
+    output also against the CPU's float64): outputs, the gradients of the
+    float inputs (those not in ``fixed``) and of every parameter, each
+    within LAYER_RTOL of its largest magnitude; every output on the card;
+    the second of two passes timed.  ``float32_floor``: where float32 arithmetic itself cannot meet
+    LAYER_RTOL (CTC's log-space alignment), a tensor is held to twice the
+    error of the same module in float32 on the CPU instead, when that is
+    larger.  Prints and returns the row."""
+    import copy
+
+    import torch
+
+    from heat_tpu_torch.linalg.basics import _full_float32
+
+    module.eval()  # RReLU's evaluation slope: one function on both sides
+    with _full_float32():
+        _fwd_bwd(module, inputs, fixed, None, torch.device("cuda"), torch.float32)  # warm-up (cuDNN's plans)
+        (card, sec) = _synced_s(lambda: _fwd_bwd(module, inputs, fixed, None, torch.device("cuda"), torch.float32))
+    dev64 = torch.device("cuda") if reference == "cuda" else torch.device("cpu")
+    ref = _fwd_bwd(module, inputs, fixed, card[2], dev64, torch.float64)
+    errs = _rel_errs(card, ref)
+    tol = dict.fromkeys(errs, LAYER_RTOL)
+    if float32_floor:
+        cpu32 = _rel_errs(_fwd_bwd(module, inputs, fixed, card[2], torch.device("cpu"), torch.float32), ref)
+        tol = {k: max(LAYER_RTOL, 2.0 * (cpu32[k] or 0.0)) for k in errs}
+    if rows:  # the first rows against the CPU's float64 too
+        cpu = copy.deepcopy(module).cpu().double()
+        with torch.no_grad():
+            head = _tensors(cpu(*[x.detach()[:rows].cpu().double() for x in inputs]))[0]
+        errs["out0_rows_vs_cpu_float64"] = float((card[0][0].detach()[:rows].double().cpu() - head).abs().max()) / \
+            max(float(head.abs().max()), 1e-30)
+        tol["out0_rows_vs_cpu_float64"] = LAYER_RTOL
+    bad = {k: (e, tol[k]) for k, e in errs.items() if e is not None and not e <= tol[k]}
+    on_card = all(o.device.type == "cuda" for o in card[0])
+    row = {"phase": "nn_surface", "check": label, "shapes": [list(x.shape) for x in inputs],
+           "forward_backward_ms": sec * 1e3, "worst_rel_err": max((e for e in errs.values() if e is not None),
+                                                                  default=0.0),
+           "rtol": LAYER_RTOL, "reference": f"float64 on the {'card' if reference == 'cuda' else 'CPU'}",
+           "outputs_on_card": on_card, "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": smi}
+    if float32_floor:
+        row.update(rel_errs=errs, tolerances=tol)
+    print(json.dumps(row), flush=True)
+    if bad or not on_card:
+        fail(f"{label}: {bad}, outputs on the card: {on_card}")
+    return row
+
+
+def _layer_cases(ht):
+    """(label, module, inputs, options) of the layer families at users' sizes, inputs on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    un = lambda *s: torch.rand(s, generator=g, device="cuda") * 0.9 + 0.05  # noqa: E731
+    sign = lambda *s: torch.where(un(*s) < 0.5, -1.0, 1.0)  # noqa: E731
+    X = rn(4096, 1024)
+    nn = ht.nn
+    cases = [
+        ("LSTM(512, 1024, num_layers=2)", nn.LSTM(512, 1024, num_layers=2), [rn(64, 256, 512)],
+         {"reference": "cuda", "rows": 2}),
+        ("GRU(512, 1024, num_layers=2)", nn.GRU(512, 1024, num_layers=2), [rn(64, 256, 512)],
+         {"reference": "cuda", "rows": 2}),
+        ("Conv3d(16, 32, 3)", nn.Conv3d(16, 32, 3), [rn(8, 16, 32, 64, 64)], {}),
+        ("ConvTranspose2d(64, 32, 4, stride=2, padding=1)", nn.ConvTranspose2d(64, 32, 4, stride=2, padding=1),
+         [rn(32, 64, 64, 64)], {}),
+        ("EmbeddingBag(32768, 512, mode='mean')", nn.EmbeddingBag(32768, 512, mode="mean"),
+         [torch.randint(0, 32768, (65536,), generator=g, device="cuda"),
+          torch.arange(0, 65536, 16, device="cuda")], {"fixed": (0, 1)}),
+    ]
+    T, N, C, S = 256, 32, 64, 40
+    lp = torch.log_softmax(rn(T, N, C), -1)
+    cases.append(("CTCLoss (256, 32, 64)", nn.CTCLoss(), [lp, torch.randint(1, C, (N, S), generator=g, device="cuda"),
+                                                          torch.full((N,), T, device="cuda"),
+                                                          torch.randint(10, S + 1, (N,), generator=g, device="cuda")],
+                  {"fixed": (1, 2, 3), "float32_floor": True}))
+    for name in ht.nn.activations.__all__:
+        mod = {"Threshold": lambda: nn.Threshold(0.1, -2.0)}.get(name, getattr(nn, name))()
+        cases.append((f"{name} (4096, 1024)", mod, [X], {}))
+    for name in ("Softmax", "LogSoftmax", "Softmin"):
+        cases.append((f"{name} (4096, 1024)", getattr(nn, name)(), [X], {}))
+    shapes = {1: (4096, 1024), 2: (4, 1024, 1024), 3: (4, 64, 128, 128)}
+    for name in ht.nn.padshuffle.__all__:
+        if "Pad" in name:
+            n = int(name[-2])
+            args = ((3, 5) * n,) + ((0.5,) if name.startswith("Constant") else ())
+            cases.append((f"{name}{args} {shapes[n]}", getattr(nn, name)(*args), [rn(*shapes[n])], {}))
+    cases += [("PixelShuffle(2) (16, 256, 32, 32)", nn.PixelShuffle(2), [rn(16, 256, 32, 32)], {}),
+              ("PixelUnshuffle(2) (16, 64, 64, 64)", nn.PixelUnshuffle(2), [rn(16, 64, 64, 64)], {}),
+              ("ChannelShuffle(4) (16, 256, 32, 32)", nn.ChannelShuffle(4), [rn(16, 256, 32, 32)], {}),
+              ("AdaptiveMaxPool1d(256) (4, 1024, 1024)", nn.AdaptiveMaxPool1d(256), [rn(4, 1024, 1024)], {}),
+              ("AdaptiveMaxPool2d(16) (16, 256, 32, 32)", nn.AdaptiveMaxPool2d(16), [rn(16, 256, 32, 32)], {}),
+              ("AdaptiveMaxPool3d(4) (4, 64, 16, 32, 32)", nn.AdaptiveMaxPool3d(4), [rn(4, 64, 16, 32, 32)], {}),
+              ("AdaptiveAvgPool3d(4) (4, 64, 16, 32, 32)", nn.AdaptiveAvgPool3d(4), [rn(4, 64, 16, 32, 32)], {})]
+    Y, P, Q = rn(4096, 1024), un(4096, 1024), un(4096, 1024)
+    labels = torch.randint(0, 1024, (4096,), generator=g, device="cuda")
+    two = {"MSELoss": [X, Y], "L1Loss": [X, Y], "HuberLoss": [X, Y], "SmoothL1Loss": [X, Y],
+           "BCELoss": [P, Q], "BCEWithLogitsLoss": [X, Q], "SoftMarginLoss": [X, sign(4096, 1024)],
+           "HingeEmbeddingLoss": [X, sign(4096, 1024)], "KLDivLoss": [torch.log(P), Q],
+           "PoissonNLLLoss": [X * 0.1, torch.floor(Q * 5)], "MultiLabelSoftMarginLoss": [X, torch.round(Q)],
+           "CrossEntropyLoss": [X, labels], "NLLLoss": [torch.log_softmax(X, -1), labels],
+           "MultiMarginLoss": [X, labels]}
+    for name, ins in two.items():
+        fixed = (1,)
+        cases.append((f"{name} (4096, 1024)", getattr(nn, name)(), ins, {"fixed": fixed}))
+    three = {"MarginRankingLoss": [rn(4096), rn(4096), sign(4096)],
+             "CosineEmbeddingLoss": [X, Y, sign(4096)],
+             "GaussianNLLLoss": [X, Y, P], "TripletMarginLoss": [X, Y, rn(4096, 1024)],
+             "TripletMarginWithDistanceLoss": [X, Y, rn(4096, 1024)]}
+    for name, ins in three.items():
+        fixed = (1,) if name == "GaussianNLLLoss" else (2,) if name in ("MarginRankingLoss",
+                                                                         "CosineEmbeddingLoss") else ()
+        cases.append((f"{name} (4096, 1024)", getattr(nn, name)(), ins, {"fixed": fixed}))
+    mlm_t = torch.randint(-1, 64, (256, 64), generator=g, device="cuda")
+    cases.append(("MultiLabelMarginLoss (256, 64)", nn.MultiLabelMarginLoss(), [rn(256, 64), mlm_t],
+                  {"fixed": (1,)}))
+    return cases
+
+
+def layer_families(ht, smi: str) -> float:
+    """Phase 11b's layer families at users' sizes (``_layer_cases``), each
+    through ``layer_vs_float64``; returns the seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    for label, module, inputs, opts in _layer_cases(ht):
+        layer_vs_float64(label, module, inputs, smi, **opts)
+        del module
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def nn_surface_world_one(ht, smi: str, dense_peak=None) -> float:
+    """Phase 11b at world size 1 (``dense_peak``: phase 6's training peak
+    memory); returns its seconds."""
+    t0 = time.perf_counter()
+    seq2seq_base(ht, smi)
+    moe_lm(ht, smi, dense_peak)
+    remat_lm(ht, smi)
+    layers_s = layer_families(ht, smi)
+    sec = time.perf_counter() - t0
+    print(json.dumps({"phase": "nn_surface_world_one", "seconds": sec, "layer_families_seconds": layers_s,
+                      "card": smi}), flush=True)
+    return sec
+
+
+def nn_two_rank_cases(ht, comm, rank: int) -> dict:
+    """Phase 11b on this rank of 2 (the ring phase's ranks): the MoE LM at
+    depth 2 with the ring and expert parallelism together (capacity 4.0:
+    nothing drops), ``Pipelined`` of 8 transformer blocks over the 2 stages,
+    and ``transformer_decoder`` over a ragged (3, 2) split, each against the
+    same model at world size 1 on this rank (the same seed, the same
+    weights).  Returns each case's worst relative error and seconds."""
+    import torch
+
+    from heat_tpu_torch.nn import moe as moe_mod
+    from heat_tpu_torch.nn.models import _TransformerBlock
+
+    out = {}
+    rel = lambda a, b: float((a - b).detach().abs().max()) / max(float(b.detach().abs().max()), 1e-30)  # noqa: E731
+    # the MoE LM: ring + EP against world size 1
+    cfg = dict(LM_MOE, depth=2, moe_capacity_factor=4.0)
+    torch.manual_seed(0)
+    ep = ht.nn.models.TransformerLM(**cfg, comm=comm)
+    torch.manual_seed(0)
+    one = ht.nn.models.TransformerLM(**cfg)
+    batch = torch.from_numpy(lm_batches(1, 19, RING_BATCH, LM_SEQ)[0]).cuda()
+    lo, n, _ = comm.chunk((LM_SEQ,), 0)
+    rep, _ = moe_mod.split_parameters(ep)
+    t0 = time.perf_counter()
+    loss_r = _ring_step(ht, ep, comm, batch, lo, lo + n[0], params=rep)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    loss_1 = lm_loss(ht, one, batch)
+    loss_1.backward()
+    worst = ("", 0.0)
+    for (name, p), q in zip(ep.named_parameters(), one.parameters()):
+        want = q.grad
+        mod = ep.get_submodule(name.rsplit(".", 1)[0]) if "." in name else ep
+        if isinstance(mod, ht.nn.MoE) and mod.sharded and name.rsplit(".", 1)[1] != "router":
+            want = want[mod.expert_offset: mod.expert_offset + mod.local_experts]
+        e = rel(p.grad, want)
+        if e > worst[1]:
+            worst = (name, e)
+    out["moe_lm"] = {"loss": loss_r, "world_one_loss": float(loss_1.detach()), "worst_grad": worst, "seconds": sec,
+                     "sharded": [b.ff.sharded for b in ep.blocks], "tokens": [RING_BATCH, LM_SEQ]}
+    del ep, one
+    # Pipelined: 8 blocks over the 2 stages, against the same 8 blocks in order
+    torch.manual_seed(0)
+    seq = torch.nn.ModuleList(_TransformerBlock(512, 8) for _ in range(8))
+    pm = ht.nn.Pipelined(_TransformerBlock(512, 8), 8, comm, n_microbatches=4)
+    for i, b in enumerate(pm.blocks):
+        b.load_state_dict(seq[rank * 4 + i].state_dict())
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x, w = (torch.randn((16, 256, 512), generator=g, device="cuda") for _ in range(2))
+    y, sec = _synced_s(lambda: pm(x))
+    (y * w).sum().backward()
+    h = x
+    for b in seq:
+        h = b(h)
+    (h * w).sum().backward()
+    grads = max(rel(p.grad, q.grad) for i, b in enumerate(pm.blocks)
+                for p, q in zip(b.parameters(), seq[rank * 4 + i].parameters()))
+    out["pipelined"] = {"output": rel(y, h), "stage_grads": grads, "forward_s": sec, "on_card": y.is_cuda}
+    del seq, pm
+    # the decoder over a ragged (3, 2) split of a 5-position target and memory
+    torch.manual_seed(0)
+    dec = ht.nn.models.transformer_decoder(512, 8, depth=2, comm=comm)
+    one = ht.nn.models.transformer_decoder(512, 8, depth=2)
+    one.load_state_dict(dec.state_dict())
+    x, mem, w = (torch.randn((4, 5, 512), generator=g, device="cuda") for _ in range(3))
+    lo, n, _ = comm.chunk((5,), 0)
+    part = slice(lo, lo + n[0])
+    y = dec(x[:, part], mem[:, part])
+    (y * w[:, part]).sum().backward()
+    y1 = one(x, mem)
+    (y1 * w).sum().backward()
+    full = comm.Allgatherv(y.detach(), 1)
+    grads = max(rel(comm.Allreduce(p.grad.clone()), q.grad) for p, q in zip(dec.parameters(), one.parameters()))
+    out["decoder"] = {"output": rel(full, y1), "grads": grads, "lengths": n[0]}
+    return out
+
+
+def nn_two_ranks_check(results: dict, smi: str) -> None:
+    """Prints phase 11b's two-rank lines and fails where a case is off."""
+    for rank, res in sorted(results.items()):
+        nn = res["nn"]
+        m = nn["moe_lm"]
+        loss_rel = abs(m["loss"] - m["world_one_loss"]) / abs(m["world_one_loss"])
+        rows = [("TransformerLM(num_experts=8, depth=2, comm): ring + expert parallelism",
+                 {**m, "loss_rel_err": loss_rel}, max(loss_rel, m["worst_grad"][1])),
+                ("Pipelined(_TransformerBlock(512, 8), depth=8, n_microbatches=4) on (16, 256, 512)",
+                 nn["pipelined"], max(nn["pipelined"]["output"], nn["pipelined"]["stage_grads"])),
+                ("transformer_decoder(512, 8, depth=2, comm) over a (3, 2) split", nn["decoder"],
+                 max(nn["decoder"]["output"], nn["decoder"]["grads"]))]
+        for label, row, worst in rows:
+            print(json.dumps({"phase": "nn_surface_two_ranks", "check": label, "rank": rank, **row,
+                              "worst_rel_err": worst, "rtol": NN_2R_RTOL, "vs": "world size 1 on the card",
+                              "note": "2 processes on ONE card over gloo", "card": smi}), flush=True)
+            if not worst <= NN_2R_RTOL:
+                fail(f"rank {rank}: {label}: {worst}")
+        if not all(m["sharded"]) or not nn["pipelined"]["on_card"]:
+            fail(f"rank {rank}: experts not sharded or the pipeline left the card: {m['sharded']}")
 
 
 # ---------------------------------------------------------------------- #
@@ -4831,10 +5468,11 @@ def main() -> int:
 
     # 6. the LMs, multi-head and grouped-query: training, one step against
     # the plain versions, generation
-    launches = {}
+    launches, peaks = {}, {}
     for cfg, kernels, label in ((LM, MHA_KERNELS, "TransformerLM"),
                                 (LM_GQA, GQA_KERNELS, "TransformerLM(num_kv_heads=2, rope)")):
         lm, opt, counts, batch = lm_train(ht, cfg, kernels, f"{label} training")
+        peaks[label] = torch.cuda.max_memory_allocated()  # the training's peak, as its main_path line prints
         launches.update({key: counts[key] for key in kernels})
         profile_training_step(ht, lm, opt, batch, f"{label} training")
         lm_step_vs_plain(ht, lm, batch, kernels, label)
@@ -4843,6 +5481,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the multi-head LM trained in bfloat16: every bfloat16 kernel on the tensor cores
     launches_bf16 = lm_train_bf16(ht)
+    # 11b. the rest of the nn surface at world size 1: Seq2SeqTransformer at
+    # transformer-base width, the MoE LM, remat, the layer families
+    nn_s = nn_surface_world_one(ht, smi, peaks["TransformerLM"])
 
     # 12. the kernels' timings; the positions kernels' launches come from 10
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
@@ -4858,7 +5499,10 @@ def main() -> int:
 
     # 10. the sequence-parallel LM over 2 ranks on this card, the first
     # spawned ranks; then 3b, 4, 4b and 4c on 2 ranks on this card over gloo
-    ring = ring_train()
+    t0 = time.perf_counter()
+    ring = ring_train(smi)
+    print(json.dumps({"phase": "nn_surface_seconds", "world_one": nn_s,
+                      "ring_phase_with_two_rank_part": time.perf_counter() - t0, "card": smi}), flush=True)
     for row in pos:
         row["launches"] = ring[row["name"]]
     rows += pos

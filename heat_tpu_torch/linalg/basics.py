@@ -86,13 +86,15 @@ def _common(x: torch.Tensor, y: torch.Tensor):
 
 @contextlib.contextmanager
 def _full_float32():
-    """Float32 products and convolutions in full float32 inside, whatever
-    the caller set (``torch.set_float32_matmul_precision("high")`` would
-    give TF32 GEMMs, and cuDNN's float32 convolutions take TF32 by
-    default), through torch's ``fp32_precision`` flags of
-    ``backends.cuda.matmul`` and ``backends.cudnn.conv``; the caller's
-    settings are restored on the way out."""
-    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+    """Float32 products, convolutions and recurrent layers in full float32
+    inside, whatever the caller set (``torch.set_float32_matmul_precision(
+    "high")`` would give TF32 GEMMs, and cuDNN's float32 convolutions and
+    RNNs take TF32 by default), through torch's ``fp32_precision`` flags of
+    ``backends.cuda.matmul``, ``backends.cudnn.conv`` and
+    ``backends.cudnn.rnn``; the caller's settings are restored on the way
+    out."""
+    flags = [f for f in (torch.backends.cuda.matmul, torch.backends.cudnn.conv,
+                         getattr(torch.backends.cudnn, "rnn", None)) if f is not None]
     old = [f.fp32_precision for f in flags]
     for f in flags:
         f.fp32_precision = "ieee"

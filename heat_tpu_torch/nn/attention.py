@@ -92,18 +92,23 @@ class MultiheadAttention(torch.nn.Module):
         self.rope_base = rope_base
         dev = _device(device)
         E = embed_dim
-        # the reference's init: xavier-uniform packed projection of E + 2·kv_dim
-        # rows, zero biases, out_proj weight uniform in ±1/sqrt(E)
         rows = E + 2 * self.kv_dim
         self.in_proj_weight = torch.nn.Parameter(torch.empty((rows, E), device=dev, dtype=dtype))
-        torch.nn.init.xavier_uniform_(self.in_proj_weight)
         if bias:
             self.in_proj_bias = torch.nn.Parameter(torch.zeros(rows, device=dev, dtype=dtype))
         else:
             self.register_parameter("in_proj_bias", None)
         self.out_proj = Linear(E, E, bias=bias, device=device, dtype=dtype)
-        if bias:
-            torch.nn.init.zeros_(self.out_proj.bias)
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        """The reference's init: xavier-uniform packed projection of E +
+        2·kv_dim rows, zero biases, out_proj weight uniform in ±1/sqrt(E)."""
+        torch.nn.init.xavier_uniform_(self.in_proj_weight)
+        self.out_proj.reset_parameters()
+        for b in (self.in_proj_bias, self.out_proj.bias):
+            if b is not None:
+                torch.nn.init.zeros_(b)
 
     def _heads(self, t: torch.Tensor, n_heads: int = None) -> torch.Tensor:
         B, S, _ = t.shape

@@ -1,5 +1,11 @@
-"""Functional ops, ``ht.nn.functional`` (reference: ``heat_tpu/nn/functional.py``): the losses of the
-training paths and the transformer's attention."""
+"""Functional ops, ``ht.nn.functional`` (reference: ``heat_tpu/nn/functional.py``): the losses, ``relu``,
+``softmax``/``log_softmax`` and the transformer's attention.
+
+The losses follow the reference's formulas, not torch's where they part:
+``binary_cross_entropy`` clips the probability to [eps, 1 - eps] with eps
+1e-7 (torch clamps each log at -100 instead); ``kl_div``'s 'mean' averages
+over elements as torch's does, 'batchmean' divides the sum by the batch,
+and 0 · log 0 counts 0; ``smooth_l1_loss`` at ``beta=0`` is the L1 loss."""
 
 from __future__ import annotations
 
@@ -9,7 +15,9 @@ import torch
 
 from ..ops.flash_attention import _dense_attention, flash_attention, flash_attention_gqa
 
-__all__ = ["cross_entropy", "l1_loss", "mse_loss", "nll_loss", "scaled_dot_product_attention"]
+__all__ = ["cross_entropy", "nll_loss", "mse_loss", "l1_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "huber_loss", "smooth_l1_loss", "kl_div", "relu", "softmax",
+           "log_softmax", "scaled_dot_product_attention"]
 
 
 def _reduce(v: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -37,6 +45,62 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
     return _reduce((pred - target).abs(), reduction)
+
+
+def binary_cross_entropy(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean",
+                         eps: float = 1e-7) -> torch.Tensor:
+    """-(t log p + (1 - t) log(1 - p)) with p clipped to [eps, 1 - eps]."""
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    return _reduce(-(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p)), reduction)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, target: torch.Tensor,
+                                     reduction: str = "mean") -> torch.Tensor:
+    """max(z, 0) - z t + log1p(exp(-|z|)): the binary cross-entropy of sigmoid(z)."""
+    z = logits
+    return _reduce(torch.clamp(z, min=0.0) - z * target + torch.log1p(torch.exp(-z.abs())), reduction)
+
+
+def huber_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean", delta: float = 1.0):
+    """0.5 d² within ``delta`` of the target, delta (d - delta / 2) beyond."""
+    d = (pred - target).abs()
+    return _reduce(torch.where(d <= delta, 0.5 * d ** 2, delta * (d - 0.5 * delta)), reduction)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean", beta: float = 1.0):
+    """0.5 d² / beta below ``beta``, d - beta / 2 above; the L1 loss at beta 0."""
+    d = (pred - target).abs()
+    if beta == 0.0:
+        return _reduce(d, reduction)
+    return _reduce(torch.where(d < beta, 0.5 * d ** 2 / beta, d - 0.5 * beta), reduction)
+
+
+def kl_div(log_pred: torch.Tensor, target: torch.Tensor, reduction: str = "mean", log_target: bool = False):
+    """Pointwise KL divergence, torch's argument order: ``log_pred`` holds
+    log-probabilities, ``target`` probabilities (log-probabilities with
+    ``log_target``).  ``reduction`` also takes 'batchmean'."""
+    if log_target:
+        v = torch.exp(target) * (target - log_pred)
+    else:
+        pos = target > 0
+        tlogt = torch.where(pos, target * torch.log(torch.where(pos, target, torch.ones_like(target))),
+                            torch.zeros_like(target))
+        v = tlogt - target * log_pred
+    if reduction == "batchmean":
+        return v.sum() / log_pred.shape[0]
+    return _reduce(v, reduction)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.log_softmax(x, dim=axis)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None, is_causal: bool = False, scale=None,

@@ -24,6 +24,19 @@ running-stat EMA (ddof=1 variance); evaluation uses the buffers.  Under a
 ``DataParallel`` of more than one rank a BatchNorm takes the statistics of
 the GLOBAL batch (:class:`_GlobalBatchNorm`: one collective each way).
 ``Residual`` is ``body(x) + shortcut(x)``.
+
+The rest of the reference's modules: ``Module`` is ``torch.nn.Module``
+itself (the reference's base class has ``init``/``apply`` over a pytree;
+this package's modules are torch modules); ``Softmax`` and ``LogSoftmax``
+over the last axis by default (torch's take ``dim=None``);
+``Dropout1d/2d/3d`` zero whole channels, an (N, C) mask over an input of
+exactly 3, 4 or 5 axes, in training (torch's module mode); ``Unflatten``
+is torch's; ``BatchNorm3d`` is ``_BatchNorm`` over (N, C, D, H, W);
+``RMSNorm`` is x · rsqrt(mean(x²) + eps) · weight with the reference's
+``eps=None``: the input dtype's machine epsilon; ``GroupNorm`` is torch's
+on the default device (biased variance within each group).  The adaptive
+pools (``_AdaptivePool``) take equal windows and raise where an extent is
+not a multiple of the output's.
 """
 
 from __future__ import annotations
@@ -34,9 +47,13 @@ import torch.nn.functional as F
 
 from ..core import devices
 
-__all__ = ["Linear", "LayerNorm", "Embedding", "GELU", "Dropout", "Sequential", "ReLU", "Tanh", "Sigmoid",
-           "Identity", "Flatten", "Conv2d", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "BatchNorm1d",
-           "BatchNorm2d", "Residual"]
+__all__ = ["Module", "Linear", "LayerNorm", "Embedding", "GELU", "Dropout", "Sequential", "ReLU", "Tanh",
+           "Sigmoid", "Identity", "Flatten", "Conv2d", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d", "BatchNorm1d",
+           "BatchNorm2d", "Residual", "Softmax", "LogSoftmax", "Dropout1d", "Dropout2d", "Dropout3d", "Unflatten",
+           "BatchNorm3d", "RMSNorm", "GroupNorm"]
+
+Module = torch.nn.Module
+Unflatten = torch.nn.Unflatten
 
 GELU = torch.nn.GELU
 Dropout = torch.nn.Dropout
@@ -103,24 +120,38 @@ class AvgPool2d(torch.nn.AvgPool2d):
         super().__init__(kernel_size, stride=stride)
 
 
-class AdaptiveAvgPool2d(torch.nn.Module):
-    """Mean over equal windows to ``output_size`` (an int, or a pair whose
+class _AdaptivePool(torch.nn.Module):
+    """Adaptive pooling over the trailing ``spatial`` axes by equal windows
+    (``op``: mean or max) to ``output_size`` (an int, or a tuple whose
     ``None`` keeps that extent); raises ``ValueError`` where an input
     extent is not a multiple of the output's."""
 
+    spatial = 2
+    op = "mean"
+
     def __init__(self, output_size=1):
         super().__init__()
-        out = tuple(output_size) if isinstance(output_size, (tuple, list)) else (output_size,) * 2
-        if len(out) != 2:
-            raise ValueError("output_size must have 2 entries")
+        n = self.spatial
+        out = tuple(output_size) if isinstance(output_size, (tuple, list)) else (output_size,) * n
+        if len(out) != n:
+            raise ValueError(f"output_size must have {n} entries")
         self.output_size = out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = tuple(s if o is None else int(o) for s, o in zip(x.shape[-2:], self.output_size))
-        for s, o in zip(x.shape[-2:], outs):
+        n = self.spatial
+        shape, axes = list(x.shape[:-n]), []
+        for s, o in zip(x.shape[-n:], self.output_size):
+            o = s if o is None else int(o)
             if s % o:
-                raise ValueError(f"AdaptiveAvgPool2d: input {s} not divisible by output {o}")
-        return F.adaptive_avg_pool2d(x, outs)
+                raise ValueError(f"{type(self).__name__}: input {s} not divisible by output {o}")
+            shape += [o, s // o]
+            axes.append(len(shape) - 1)
+        x = x.reshape(shape)
+        return x.mean(dim=axes) if self.op == "mean" else x.amax(dim=axes)
+
+
+class AdaptiveAvgPool2d(_AdaptivePool):
+    """Mean over equal windows to ``output_size`` (module docstring)."""
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -232,6 +263,99 @@ class BatchNorm2d(_BatchNorm):
     """BatchNorm over (N, C, H, W) input."""
 
     _dims = (4,)
+
+
+class BatchNorm3d(_BatchNorm):
+    """BatchNorm over (N, C, D, H, W) input."""
+
+    _dims = (5,)
+
+
+class Softmax(torch.nn.Module):
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(x, dim=self.dim)
+
+
+class LogSoftmax(torch.nn.Module):
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.log_softmax(x, dim=self.dim)
+
+
+class _ChannelDropout(torch.nn.Module):
+    """Zero whole channels in training: a Bernoulli(1 - p) mask over (N, C),
+    broadcast over the ``spatial`` trailing axes, the kept ones scaled by
+    1 / (1 - p)."""
+
+    spatial = 1
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if x.ndim != self.spatial + 2:
+            raise ValueError(f"expected a {self.spatial + 2}-D (N, C, ...) input, got {x.ndim}-D")
+        keep = 1.0 - self.p
+        mask = torch.empty(x.shape[:2] + (1,) * self.spatial, device=x.device).bernoulli_(keep)
+        return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+class Dropout1d(_ChannelDropout):
+    spatial = 1
+
+
+class Dropout2d(_ChannelDropout):
+    spatial = 2
+
+
+class Dropout3d(_ChannelDropout):
+    spatial = 3
+
+
+def _shape_of(normalized_shape) -> tuple:
+    return (normalized_shape,) if isinstance(normalized_shape, int) else tuple(normalized_shape)
+
+
+class RMSNorm(torch.nn.Module):
+    """x · rsqrt(mean(x²) + eps) over the trailing ``normalized_shape``
+    axes, times ``weight`` (ones); ``eps=None``: the input dtype's machine
+    epsilon."""
+
+    def __init__(self, normalized_shape, eps: float = None, elementwise_affine: bool = True, device=None,
+                 dtype=None):
+        super().__init__()
+        self.normalized_shape = _shape_of(normalized_shape)
+        self.eps = eps
+        if elementwise_affine:
+            self.weight = torch.nn.Parameter(torch.ones(self.normalized_shape, device=_device(device), dtype=dtype))
+        else:
+            self.register_parameter("weight", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.ndim - len(self.normalized_shape), x.ndim))
+        eps = torch.finfo(x.dtype).eps if self.eps is None else self.eps
+        y = x * torch.rsqrt((x * x).mean(dim=axes, keepdim=True) + eps)
+        return y if self.weight is None else y * self.weight
+
+
+class GroupNorm(torch.nn.GroupNorm):
+    """Normalization within ``num_groups`` groups of channels, on the default device."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5, affine: bool = True, device=None,
+                 dtype=None):
+        if num_channels % num_groups:
+            raise ValueError("num_channels must be divisible by num_groups")
+        super().__init__(num_groups, num_channels, eps=eps, affine=affine, device=_device(device), dtype=dtype)
 
 
 class Residual(torch.nn.Module):

@@ -25,6 +25,16 @@ vision models: Sequential lists, ``Residual``'s ``body``/``shortcut``, and
 BatchNorm's ``running_*`` leaves into the module's buffers (``to_reference``
 gives them back).  ``daso_from_reference`` takes the reference DASO's
 parameters stacked over its groups: rank r loads group r // ici.
+The layers and models of the nn surface carry over the same way:
+``load_reference(module, params)`` for any module built with the
+reference's configuration (its parameter names are the reference's
+pytree paths), and by name ``moe_from_reference``,
+``transformer_decoder_from_reference``, ``seq2seq_from_reference`` and
+``recurrent_from_reference``.  Every loader cuts the expert leaves of a
+sharded ``MoE`` (``comm=`` over p ranks) to this rank's E/p experts.
+``pipelined_from_reference`` takes the reference ``Pipelined``'s leaves
+stacked over the depth and keeps this rank's stage; ``to_reference`` of a
+``Pipelined`` stacks its blocks' leaves back.
 Nothing here imports JAX.
 """
 
@@ -37,9 +47,11 @@ import torch
 
 from .. import classification, cluster, decomposition, naive_bayes, preprocessing, regression
 from ..cluster.kmeans import KMeans
-from ..nn import models
+from ..nn import models, recurrent
 from ..nn.attention import MultiheadAttention
-from ..nn.models import TransformerLM
+from ..nn.models import Seq2SeqTransformer, TransformerLM
+from ..nn.moe import MoE
+from ..nn.pipelined import Pipelined
 from ..core import factories
 from ..core.communication import Communication
 from ..core.dndarray import DNDarray
@@ -58,6 +70,12 @@ __all__ = [
     "scaler_from_reference",
     "daso_from_reference",
     "kmeans_from_reference",
+    "load_reference",
+    "moe_from_reference",
+    "pipelined_from_reference",
+    "recurrent_from_reference",
+    "seq2seq_from_reference",
+    "transformer_decoder_from_reference",
     "mlp_from_reference",
     "resnet_from_reference",
     "multihead_attention_from_reference",
@@ -249,9 +267,23 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _load(module: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy the pytree into the module's parameters; every name must match."""
-    module.load_state_dict({k: _tensor(v) for k, v in _flatten(params).items()}, strict=True)
+    """Copy the pytree into the module's parameters; every name must match.
+    A sharded ``MoE``'s expert leaves are cut to this rank's experts."""
+    flat = _flatten(params)
+    for name, m in module.named_modules():
+        if isinstance(m, MoE) and m.local_experts != m.num_experts:
+            own = slice(m.expert_offset, m.expert_offset + m.local_experts)
+            for leaf in ("w1", "b1", "w2", "b2"):
+                key = f"{name}.{leaf}" if name else leaf
+                flat[key] = np.asarray(flat[key])[own]
+    module.load_state_dict({k: _tensor(v) for k, v in flat.items()}, strict=True)
     return module
+
+
+def load_reference(module: torch.nn.Module, params) -> torch.nn.Module:
+    """``module`` (built with the reference module's configuration) holding
+    the reference's parameter pytree ``params``; returns it."""
+    return _load(module, params)
 
 
 def _reference_state(module: torch.nn.Module):
@@ -266,9 +298,15 @@ def _reference_state(module: torch.nn.Module):
 def to_reference(module: torch.nn.Module):
     """The module's parameters (and BatchNorm's running buffers) as a
     reference pytree of numpy arrays (bfloat16 as float32): the inverse of
-    the ``*_from_reference`` functions."""
-    return _unflatten({name: p.detach().cpu().float().numpy() if p.dtype == torch.bfloat16
-                       else p.detach().cpu().numpy() for name, p in _reference_state(module)})
+    the ``*_from_reference`` functions.  A ``Pipelined``'s blocks come back
+    stacked on a leading axis, the reference's layout."""
+    flat = {name: p.detach().cpu().float().numpy() if p.dtype == torch.bfloat16 else p.detach().cpu().numpy()
+            for name, p in _reference_state(module)}
+    if isinstance(module, Pipelined):
+        n = len(module.blocks)
+        leaves = {k.split(".", 2)[2] for k in flat}
+        flat = {k: np.stack([flat[f"blocks.{i}.{k}"] for i in range(n)]) for k in sorted(leaves)}
+    return _unflatten(flat)
 
 
 def transformer_lm_from_reference(params, **config) -> TransformerLM:
@@ -283,6 +321,50 @@ def multihead_attention_from_reference(params, **config) -> MultiheadAttention:
     """A ``MultiheadAttention(**config)`` holding the reference module's
     parameters (in_proj_weight, in_proj_bias, out_proj)."""
     return _load(MultiheadAttention(**config), params)
+
+
+def moe_from_reference(params, **config) -> MoE:
+    """An ``MoE(**config)`` holding the reference ``MoE``'s parameters
+    (router, w1, b1, w2, b2 of all experts; this rank's under ``comm``)."""
+    return _load(MoE(**config), params)
+
+
+def transformer_decoder_from_reference(params, **config) -> torch.nn.Module:
+    """``nn.models.transformer_decoder(**config)`` holding the reference
+    decoder's parameters (a list of blocks)."""
+    return _load(models.transformer_decoder(**config), params)
+
+
+def seq2seq_from_reference(params, **config) -> Seq2SeqTransformer:
+    """A ``Seq2SeqTransformer(**config)`` holding the reference model's
+    parameters (src_embed, tgt_embed, pos, encoder, decoder, ln_f, head)."""
+    return _load(Seq2SeqTransformer(**config), params)
+
+
+_RECURRENT = ("RNN", "LSTM", "GRU", "RNNCell", "LSTMCell", "GRUCell")
+
+
+def recurrent_from_reference(params, kind: str = "LSTM", **config) -> torch.nn.Module:
+    """``nn.<kind>(**config)`` (RNN, LSTM, GRU or a cell) holding the
+    reference layer's parameters: a list of one dict a layer, or the cell's
+    dict."""
+    if kind not in _RECURRENT:
+        raise ValueError(f"kind must be one of {_RECURRENT}, got {kind!r}")
+    return _load(getattr(recurrent, kind)(**config), params)
+
+
+def pipelined_from_reference(params, block: torch.nn.Module, depth: int, comm: Optional[Communication] = None,
+                             **config) -> Pipelined:
+    """A ``Pipelined(block, depth, comm, **config)`` holding this rank's
+    stage of the reference ``Pipelined``'s parameters, whose leaves are
+    stacked over the ``depth`` blocks: rank r keeps blocks [r·depth/p,
+    (r + 1)·depth/p)."""
+    module = Pipelined(block, depth, comm, **config)
+    n = len(module.blocks)
+    first = (comm.rank if comm is not None and comm.size > 1 else 0) * n
+    stacked = _flatten(params)
+    return _load(module, _unflatten({f"blocks.{i}.{k}": np.asarray(v)[first + i] for k, v in stacked.items()
+                                     for i in range(n)}))
 
 
 def mlp_from_reference(params, sizes=(784, 256, 128, 10), device=None) -> torch.nn.Module:

@@ -878,3 +878,68 @@ def test_no_port_file_or_chip_smoke_imports_jax_or_heat_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True"
+
+
+def test_flash_step_counts_under_remat_and_for_the_encoder_decoder(chip_smoke):
+    """Phase 11b's expected launches of one training step: one of each
+    multi-head kernel a self-attention, two forwards a block under remat
+    (the recomputation), and a decoder block's cross-attention only where
+    the memory is as long as the target."""
+    assert chip_smoke.flash_step_counts(8) == {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+    assert chip_smoke.flash_step_counts(8, remat=True) == {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+    assert chip_smoke.flash_step_counts(6, 6) == {"flash_fwd": 18, "flash_bwd_dq": 18, "flash_bwd_dkv": 18}
+    assert chip_smoke.flash_step_counts(6, 6, equal_cross=False)["flash_fwd"] == 12
+    assert chip_smoke.flash_step_counts(6, 6, remat=True)["flash_fwd"] == 36
+    # the path check takes the per-kernel counts
+    chip_smoke._path_counts("remat", {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8, "flash_gqa_fwd": 0},
+                            chip_smoke.MHA_KERNELS, chip_smoke.flash_step_counts(8, remat=True))
+    with pytest.raises(RuntimeError, match="remat launches"):
+        chip_smoke._path_counts("remat", {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8},
+                                chip_smoke.MHA_KERNELS, chip_smoke.flash_step_counts(8, remat=True))
+
+
+def test_remat_launch_counts_on_the_cpu_model(chip_smoke):
+    """The counts flash_step_counts expects are the ones the port's wrappers
+    see: the plain versions on the CPU count nothing, so the wrappers'
+    calls are counted here through a patched launcher."""
+    import heat_tpu_torch as htt
+    from unittest import mock
+
+    calls = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    real = fa._launch
+
+    def counting(name, *args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return real(name, *args, **kwargs)
+
+    for remat in (False, True):
+        calls = dict.fromkeys(calls, 0)
+        lm = htt.nn.models.TransformerLM(31, 16, 4, depth=3, max_len=16, remat=remat, device="cpu")
+        with mock.patch.object(fa, "_launch", counting):
+            lm(torch.randint(0, 31, (2, 8))).sum().backward()
+        assert calls == chip_smoke.flash_step_counts(3, remat=remat)
+    calls = dict.fromkeys(calls, 0)
+    m = htt.nn.models.Seq2SeqTransformer(31, 29, 16, 4, enc_depth=2, dec_depth=3, max_len=16, device="cpu")
+    with mock.patch.object(fa, "_launch", counting):
+        m(torch.randint(0, 31, (2, 8)), torch.randint(0, 29, (2, 8))).sum().backward()
+    assert calls == chip_smoke.flash_step_counts(2, 3)
+    calls = dict.fromkeys(calls, 0)
+    with mock.patch.object(fa, "_launch", counting):
+        m(torch.randint(0, 31, (2, 8)), torch.randint(0, 29, (2, 6))).sum().backward()
+    assert calls == chip_smoke.flash_step_counts(2, 3, equal_cross=False)
+
+
+def test_drop_share_and_greedy_agreement(chip_smoke):
+    assert chip_smoke.drop_share([torch.tensor([3, 100]), torch.tensor([1, 100])]) == pytest.approx(0.02)
+    assert chip_smoke.drop_share([torch.tensor([0, 0])]) == 0.0
+    logits = torch.tensor([[[0.0, 5.0, 1.0], [2.0, 2.0 - 1e-7, 0.0], [3.0, 0.0, 1.0]]])
+    agree = chip_smoke.greedy_agreement(torch.tensor([[1, 1, 0]]), logits)
+    assert agree == {"positions": 3, "not_argmax": 1, "not_near_tie": 0, "largest_gap": pytest.approx(1e-7, abs=1e-7)}
+    agree = chip_smoke.greedy_agreement(torch.tensor([[2, 0, 0]]), logits)
+    assert agree["not_argmax"] == 1 and agree["not_near_tie"] == 1
+
+
+def test_seq2seq_batches_are_a_copy_task_without_bos(chip_smoke):
+    b = chip_smoke.s2s_batches(2, seed=17, batch=3, seq=9)
+    assert b.shape == (2, 3, 9) and b.min() >= 1 and b.max() < chip_smoke.S2S_BASE["src_vocab"]
+    assert (b == chip_smoke.s2s_batches(2, seed=17, batch=3, seq=9)).all()

@@ -1189,3 +1189,141 @@ def test_cuda_io_round_trips_keep_the_card(tmp_path):
     htt.save_array_checkpoint(x, str(tmp_path / "ck"))
     y = htt.load_array_checkpoint(str(tmp_path / "ck"))
     assert y.larray.is_cuda and torch.equal(y.larray, x.larray)
+
+
+def _moe_rank(rank, store):
+    """One of 2 gloo ranks on cuda:0: MoE(comm=) with its experts sharded,
+    forward and backward with the host copy of a tensor refused; the
+    Alltoall buffers, the scatter and the gather stay on the card."""
+    from unittest import mock
+
+    import heat_tpu_torch as ht
+
+    ht.core.bootstrap.init_distributed(f"file://{store}", world_size=2, rank=rank, backend="gloo", timeout_s=60)
+    try:
+        ht.use_device("gpu")
+        comm = ht.core.communication.get_comm()
+        torch.manual_seed(0)
+        moe = ht.nn.MoE(32, 4, hidden_dim=64, top_k=2, capacity_factor=1.0, comm=comm)
+        assert moe.sharded and moe.w1.is_cuda and moe.w1.shape[0] == 2
+        x = torch.randn(37 + rank, 32, device="cuda", requires_grad=True)
+        seen = []
+        real = comm.Alltoall
+
+        def watched(t, *args, **kw):
+            out = real(t, *args, **kw)
+            seen.append((t.is_cuda, out.is_cuda))
+            return out
+
+        def refuse(self, *args, **kwargs):
+            raise AssertionError("a CUDA tensor was copied to the host")
+
+        with mock.patch.object(comm, "Alltoall", watched), mock.patch.object(torch.Tensor, "numpy", refuse):
+            y = moe(x)
+            y.square().sum().backward()
+        assert seen and all(a and b for a, b in seen), seen
+        assert y.is_cuda and x.grad.is_cuda and moe.route_stats.is_cuda and moe.aux_loss.is_cuda
+        assert all(p.grad.is_cuda for p in moe.parameters())
+        torch.distributed.barrier()
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def test_cuda_moe_buffers_stay_on_the_card(tmp_path):
+    """MoE on the card: at world size 1 the routing, the (E, C, D) scatter
+    and the gather compute on CUDA tensors with the host copy refused; on 2
+    gloo ranks of the card the expert-parallel Alltoalls take and give CUDA
+    tensors (gloo's all_to_all on the card), forward and backward."""
+    from unittest import mock
+
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a CUDA tensor was copied to the host")
+
+    torch.manual_seed(0)
+    moe = htt.nn.MoE(32, 4, hidden_dim=64, top_k=2, capacity_factor=0.5)
+    x = torch.randn(64, 32, device="cuda", requires_grad=True)
+    with mock.patch.object(torch.Tensor, "cpu", refuse), mock.patch.object(torch.Tensor, "numpy", refuse):
+        y = moe(x)
+        y.sum().backward()
+        dec = moe.decode_apply(x.detach())
+    assert y.is_cuda and dec.is_cuda and x.grad.is_cuda and all(p.grad.is_cuda for p in moe.parameters())
+    assert int(moe.route_stats[0]) > 0  # capacity binds: claims were dropped
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_moe_rank, args=(r, str(tmp_path / "store"))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    assert [p.exitcode for p in procs] == [0, 0]
+
+
+@pytest.mark.parametrize("kind", ["LSTM", "GRU", "Conv3d"])
+def test_cuda_recurrent_and_conv3d_are_ieee_float32(kind):
+    """LSTM, GRU and Conv3d on CUDA tensors under ``_full_float32`` equal
+    float64 within float32 rounding (TF32's 10-bit products would lie ~1e-3
+    off), forward and backward (the module in evaluation), even where the
+    caller asked for TF32; the caller's settings come back."""
+    from heat_tpu_torch.linalg.basics import _full_float32
+
+    torch.manual_seed(3)
+    if kind == "Conv3d":
+        m = htt.nn.Conv3d(8, 16, 3)
+        x = torch.randn(2, 8, 12, 16, 16, device="cuda")
+    else:
+        m = getattr(htt.nn, kind)(64, 128, num_layers=2)
+        x = torch.randn(8, 40, 64, device="cuda")
+    m64 = getattr(htt.nn, kind)(*((8, 16, 3) if kind == "Conv3d" else (64, 128)),
+                                **({} if kind == "Conv3d" else {"num_layers": 2})).double()
+    m64.load_state_dict({k: v.double() for k, v in m.state_dict().items()})
+    m.eval()  # differentiable in evaluation too (cuDNN's RNN backward needs a training-flagged forward)
+    flags = [torch.backends.cudnn.conv, torch.backends.cudnn.rnn, torch.backends.cuda.matmul]
+    prev = [f.fp32_precision for f in flags]
+    for f in flags:
+        f.fp32_precision = "tf32"
+    try:
+        with _full_float32():
+            y = m(x.requires_grad_(True))
+            y = y[0] if isinstance(y, tuple) else y
+            y.square().sum().backward()
+        assert [f.fp32_precision for f in flags] == ["tf32"] * 3
+    finally:
+        for f, p in zip(flags, prev):
+            f.fp32_precision = p
+    x64 = x.detach().double().requires_grad_(True)
+    y64 = m64(x64)
+    y64 = y64[0] if isinstance(y64, tuple) else y64
+    y64.square().sum().backward()
+    assert y.is_cuda and x.grad.is_cuda
+    for got, want in [(y, y64), (x.grad, x64.grad)] + [(p.grad, q.grad) for p, q in zip(m.parameters(),
+                                                                                     m64.parameters())]:
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err < 1e-5, (kind, err)
+
+
+def test_cuda_seq2seq_forward_launches_the_flash_forward():
+    """Seq2SeqTransformer's forward at equal source and target lengths runs
+    the flash forward for every encoder block, every decoder
+    self-attention and every cross-attention, and never the plain version
+    or the dense path (both patched to raise); its logits are on the card."""
+    from unittest import mock
+
+    torch.manual_seed(0)
+    m = htt.nn.models.Seq2SeqTransformer(101, 103, 64, 4, enc_depth=2, dec_depth=3, max_len=128).eval()
+    src = torch.randint(0, 101, (2, 96), device="cuda")
+    tgt = torch.randint(0, 103, (2, 96), device="cuda")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain attention ran")
+
+    before = dict(fa.launch_counts)
+    with mock.patch.object(fa, "_torch_flash_fwd", refuse), \
+            mock.patch.object(htt.nn.attention, "_dense_attention", refuse), torch.no_grad():
+        logits = m(src, tgt)
+    launched = {k: fa.launch_counts[k] - before[k] for k in before}
+    assert logits.is_cuda and logits.shape == (2, 96, 103)
+    assert launched["flash_fwd"] == 2 + 3 + 3, launched
+    assert sum(launched.values()) == launched["flash_fwd"], launched

@@ -4,8 +4,8 @@ stragglers (``world``, ``use_comm``, the device counts, ``restart_epoch``,
 
 The names heat_tpu exports and the port lacks are exactly the recorded
 divergences: ``make_mesh``, ``use_mesh`` and ``get_default_mesh`` name JAX
-meshes; under ``ht.parallel`` the pipeline (ROADMAP A11) and the runtime
-plane (A12) wait; ``ht.utils.data`` has no MNIST loader.  ``vmap``'s
+meshes; under ``ht.parallel`` the runtime plane (ROADMAP A12) waits
+(the pipeline is ported); ``ht.utils.data`` has no MNIST loader.  ``vmap``'s
 values are held against the reference's within 1e-6 of the largest entry
 (the same float32 operations), dtype, shape and split exactly.
 """
@@ -21,7 +21,6 @@ import heat_tpu
 import heat_tpu_torch as htt
 
 MESH = {"get_default_mesh", "make_mesh", "use_mesh"}
-PIPELINE = {"pipeline", "pipeline_apply"}
 RUNTIME = {"AdmissionPredictor", "Federation", "Job", "JobJournal", "JobRejected", "JournalSchemaError", "Scheduler",
            "Supervisor", "SupervisorResult", "WorldHandle", "federation", "make_executor", "scheduler", "serving",
            "supervisor"}
@@ -71,7 +70,7 @@ def missing():
 
 
 @pytest.mark.parametrize("path,allowed", [
-    ("", MESH), ("core", MESH), ("parallel", PIPELINE | RUNTIME), ("utils.data", {"mnist", "MNISTDataset"}),
+    ("", MESH), ("core", MESH), ("parallel", RUNTIME), ("utils.data", {"mnist", "MNISTDataset"}),
     ("fft", set()), ("sparse", set())])
 def test_missing_names_are_the_recorded_divergences(path, allowed, missing):
     assert set(missing[path]) == allowed

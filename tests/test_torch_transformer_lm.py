@@ -245,10 +245,18 @@ def test_mha_unported_features_raise():
     torch.testing.assert_close(ring(x, causal=True), pm(x, causal=True), atol=0, rtol=0)
     with pytest.raises(ValueError):
         ht.nn.MultiheadAttention(E, 5, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        models.TransformerLM(**CFG, num_experts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        models.transformer_encoder(E, H, depth=1, num_experts=2, device="cpu")
+    # mixture-of-experts blocks are ported: the same constructions hold the reference's function
+    tok = _tokens((2, 12))
+    for cfg in (dict(CFG, num_experts=4), dict(CFG, remat=True)):
+        r_lm = ref_models.TransformerLM(**cfg)
+        p_lm = r_lm.init(jax.random.key(5))
+        lm = convert.transformer_lm_from_reference(_np(p_lm), **cfg, device="cpu")
+        _close(lm(_t(tok).long()), jax.jit(r_lm.apply)(p_lm, jnp.asarray(tok)))
+    r_enc = ref_models.transformer_encoder(E, H, depth=1, num_experts=2)
+    p_enc = r_enc.init(jax.random.key(6))
+    enc = convert.load_reference(models.transformer_encoder(E, H, depth=1, num_experts=2, device="cpu"), _np(p_enc))
+    xe = np.random.default_rng(4).standard_normal((2, 12, E)).astype(np.float32)
+    _close(enc(_t(xe)), jax.jit(r_enc.apply)(p_enc, jnp.asarray(xe)))
     rm = ref_models.TransformerLM(**CFG, num_kv_heads=2)
     assert _shapes(convert.to_reference(models.TransformerLM(**CFG, num_kv_heads=2, device="cpu"))) == \
         _shapes(rm.init(jax.random.key(0)))
@@ -258,8 +266,9 @@ def test_mha_unported_features_raise():
     plain = convert.transformer_lm_from_reference(convert.to_reference(lm), **CFG, device="cpu")
     tok = _t(_tokens((2, 20))).long()
     torch.testing.assert_close(lm(tok), plain(tok), atol=0, rtol=0)
-    with pytest.warns(UserWarning, match="remat"):
-        models.TransformerLM(**CFG, remat=True, device="cpu")
+    with warnings.catch_warnings():  # remat is ported: no warning
+        warnings.simplefilter("error")
+        assert models.TransformerLM(**CFG, remat=True, device="cpu").blocks[0].remat
 
 
 @pytest.mark.parametrize("rope", [False, True])
