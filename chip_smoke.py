@@ -14,10 +14,13 @@
    their edges (``EM_EDGE_CHECKS``: k of 1 to 300, products by wgmma and by
    mma.sync, d of 1 to 128, n of 0, 1, under a tile and off a block,
    bfloat16, rows in random order, rows off 16-byte alignment, and one
-   cluster holding 99% of 1e6 rows): assign against its plain version (d2
-   within D2_RTOL, a differing label only at a near tie), em_stats against
-   its plain version and against assign's labels, each twice to the same
-   bits.
+   cluster holding 99% of 1e6 rows; and the streamed route, past the
+   centres' shared-memory layout: d = 129, 200, 256 and 512, and k one
+   centre past each kernel's cap at d = 32 and 128, where assign's labels
+   and em_stats' counts must still agree to the bit): assign against its
+   plain version (d2 within D2_RTOL, a differing label only at a near
+   tie), em_stats against its plain version and against assign's labels,
+   each twice to the same bits.
 3. Drives the main path at the BASELINE width: ``create_clusters`` with
    1e8 x 32 rows at split=0, ``KMeans(64, init="random", max_iter=20).fit``
    and ``predict``, in float32 and in bfloat16.  Each is held to one Lloyd
@@ -202,7 +205,9 @@
    are held by the row error over the rows that reach the floor and by
    ``EDGE_F32_ATOL`` over the rows below it.  Every kernel twice to the
    same bits, the forward again with q and dq and dk/dv again with dO off
-   16-byte alignment, to the same bits; d = 256 refused.  Every bfloat16
+   16-byte alignment, to the same bits; d = 160 and 256 in every body
+   (``FLASH_CHECKS``, ``GQA_CHECKS``, ``POS_CHECKS``), and d = 257 refused
+   with a message that names R5b.  Every bfloat16
    launch runs a tensor-core body (``mma.sync``): the forward
    ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``; every float32
    launch the CUDA-core bodies of ``flash_f32.cuh``.
@@ -280,13 +285,36 @@
    and the most warps resident on an SM, observed at the main shape by
    the kernels' residency counter (a ``kmeans_launch`` line a kernel and
    dtype gives the occupancy calculator's launch and the bound of the
-   float32 FFMA design beside it).
-13. Ends with the line ``{"ok": true, "device": {...}}``.
+   float32 FFMA design beside it).  The KMeans rows also carry the
+   streamed route's times at 1e7 x 256, k = 64 (``KMEANS_WIDE``) and at
+   1e7 x 128 past the caps, k = 417 (``KMEANS_PAST_CAP``); every flash
+   row at head dim 256 in both dtypes (``d256_<dtype>``: ``FLASH_WIDE``,
+   ``GQA_WIDE``, the ring blocks at ``POS_WIDE``), with
+   ``scaled_dot_product_attention`` as the library call.
+14. The serving tier (``serving_phase``): a stream of SERVE_JOBS jobs from
+   three tenants (KMeans fits of 1e7 two-blob points, k = 2, 5 iterations;
+   8192^2 matmul; 4096 triangular solves; ``nn_forward`` of width 1024,
+   512 rows a job, stacked) offered to the scheduler on 2 gloo ranks of
+   this card under the supervisor (``parallel.serve_world``), whose queue
+   holds nine tenths of them (64), so the rest are shed at submit, as in
+   the reference's serve scenario; rank 1 SIGKILLed at its SERVE_KILL
+   dispatch, the world relaunched and recovered from rank 0's journal; and
+   the DONE jobs at world size 1 in this process.  Every offered job is
+   shed with its reason or ends DONE (or FAILED with a reason), none DONE
+   before the kill runs again, every digest within SERVE_RTOL of world size
+   1's, and the relaunched ranks' KMeans jobs launch assign and em_stats;
+   its ``serving`` lines give jobs/s, p50 and p99 latency by kind, the
+   recovery seconds, the launches and the largest digest error.  Before
+   the stream, assign and em_stats are held against their plain versions
+   on one KMeans job's own points at the shapes the jobs give them (1e7 x 2
+   at world size 1, each rank's 5e6 x 2 at 2 ranks, k = 2).
+15. Ends with the line ``{"ok": true, "device": {...}}``.
 
 The phases run in this order: 1, 2, 3, the world-size-1 parts of 3b, 4,
 4b and 4c, then 5 to 9, 11, 11b's world-size-1 part and 12's timings,
 then 3e; then the phases on spawned ranks, 10 first (with 11b's two-rank
-part), then the 2-rank parts of 3b, 4, 4b and 4c; then 3c, 3d, 3f and 3g.  Every check in this process that reads the profiler so runs before
+part), then the 2-rank parts of 3b, 4, 4b and 4c; then 3c, 3d, 3f, 3g
+and 14.  Every check in this process that reads the profiler so runs before
 the first spawned rank: after ranks on the card exit, CUPTI can record no
 device activity for as long as it was watched (``profiled``, which also
 starts CUPTI afresh for each session of this process).  Each profiled
@@ -376,6 +404,7 @@ RING_TIMEOUT_S = 600  # a child that has not reported by then fails the run
 POS_MAIN = (16, 2048, 2048, 64)
 POS_BLOCKS = {"diagonal": (2048, 2048), "past": (2048, 0), "dead": (0, 2048)}
 POS_MIX = {"diagonal": 2, "past": 1, "dead": 1}
+POS_WIDE = (16, 2048, 2048, 256)  # the ring step's blocks at head dim 256: the D = 256 bodies timed
 # positions-kernel checks: (B, Sq, Sk, d, query offset, key offset, causal, s_valid)
 POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64, 2048, 0, True, 4096),
               (16, 2048, 2048, 64, 0, 2048, True, 4096), (8, 1000, 600, 128, 300, 0, True, 1000),
@@ -385,14 +414,20 @@ POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64,
               # row or key, and the ring's diagonal, past and dead blocks ragged at d = 100, 33, 8
               (4, 15, 127, 33, 100, 0, True, 227), (4, 1, 129, 8, 0, 0, False, 100),
               (4, 127, 1, 100, 200, 0, True, 201), (4, 300, 300, 100, 300, 300, True, 600),
-              (4, 300, 300, 33, 300, 0, True, 600), (4, 300, 300, 8, 0, 300, True, 600)]
+              (4, 300, 300, 33, 300, 0, True, 600), (4, 300, 300, 8, 0, 300, True, 600),
+              # the ring's diagonal, past and dead blocks at d = 256, ragged at d = 160
+              (4, 300, 300, 256, 300, 300, True, 600), (4, 300, 300, 256, 300, 0, True, 600),
+              (4, 300, 300, 256, 0, 300, True, 600), (4, 200, 333, 160, 100, 50, True, 383)]
 # flash kernel checks: (query rows B*Hq, K/V rows B*Hkv, S, d, causal)
 FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 129, 128, True),
                 (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False),
-                (16, 16, 1000, 33, True), (16, 16, 129, 8, False)]
+                (16, 16, 1000, 33, True), (16, 16, 129, 8, False),
+                # d past 128: the D = 256 tiles (one stage, dq's 32-row blocks, dk/dv's two passes)
+                (16, 16, 1024, 256, True), (16, 16, 200, 160, False), (16, 16, 100, 96, True)]
 GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 128, True), (16, 2, 129, 128, False),
               (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False),
-              (32, 4, 1000, 128, True)]
+              (32, 4, 1000, 128, True), (16, 4, 1024, 256, True), (16, 2, 200, 160, False)]
+FLASH_MAX_D = 256  # the kernels' largest head dim; one more is refused, naming R5b
 # the tiles' edges, through all three kernels: S of one row and under the
 # 64-key and 128-row tiles; d = 33 and 100 load element by element, 8 pads one
 # k16 step.  Below ~129 rows whole rows of dq and dk cancel to float32 noise
@@ -412,6 +447,8 @@ GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
 GQA_MAIN = (64, 16, 1024, 64)  # the grouped LM's: 8 batches of 8 query and 2 K/V heads
 FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
+FLASH_WIDE = (64, 64, 1024, 256)  # head dim 256 at the training step's rows and length: the D = 256 bodies timed
+GQA_WIDE = (64, 16, 1024, 256)
 # assign and em_stats at their edges: (rows, n, k, d, dtype, layout).  k from
 # one cluster to past a 64-centre chunk, off the n8 tiles (1, 3, 9, 61,
 # 127), and past what wgmma's centres hold in shared memory, so mma.sync
@@ -438,7 +475,27 @@ EM_EDGE_CHECKS = [(100_003, 99_991, 1, 32, "float32", "blobs"), (100_003, 100_00
                   (100_003, 99_991, 9, 36, "float32", "shuffled"), (100_003, 99_991, 127, 100, "bfloat16", "blobs"),
                   (100_003, 99_991, 64, 8, "float32", "blobs"), (100_003, 99_991, 300, 32, "float32", "shuffled"),
                   (100_003, 99_991, 64, 32, "float32", "shuffled+offset"),
-                  (100_003, 99_991, 64, 32, "bfloat16", "blobs+offset"), (1000, 20, 9, 32, "bfloat16", "shuffled")]
+                  (100_003, 99_991, 64, 32, "bfloat16", "blobs+offset"), (1000, 20, 9, 32, "bfloat16", "shuffled"),
+                  # the streamed route: d past 128, and k one centre past each kernel's cap
+                  # (em_stats 862 / 208 and assign 1720 / 416 at d = 32 / 128 in float32,
+                  # em_stats 216 at d = 128 in bfloat16), where a streamed em_stats'
+                  # counts must equal a tiled assign's labels' bincount
+                  (20_003, 19_991, 64, 129, "float32", "shuffled"), (20_003, 19_991, 61, 200, "float32", "blobs"),
+                  (20_003, 19_991, 64, 256, "float32", "shuffled"), (20_003, 20_003, 64, 256, "bfloat16", "blobs"),
+                  (20_003, 19_991, 9, 512, "float32", "shuffled"), (1000, 5000, 3, 256, "float32", "blobs"),
+                  (20_003, 19_991, 209, 128, "float32", "shuffled"), (20_003, 19_991, 417, 128, "float32", "blobs"),
+                  (20_003, 19_991, 863, 32, "float32", "shuffled"), (20_003, 19_991, 1721, 32, "float32", "blobs"),
+                  (20_003, 19_991, 217, 128, "bfloat16", "shuffled"),
+                  # the serving phase's KMeans jobs: two centres of width 2
+                  (100_003, 100_003, 2, 2, "float32", "shuffled")]
+# the serving phase (14): jobs, their sizes, the kill, the digests' tolerance
+SERVE_JOBS = 72  # 64 accepted by the queue bound (serve_world.QUEUE_SHARE), 8 shed
+SERVE_SIZES = dict(kmeans_n=10_000_000, matmul_n=8192, solve_n=4096, features=1024, batch=512)
+SERVE_KILL = {"rank": 1, "site": "sched.dispatch", "at": 5}
+SERVE_RTOL = 1e-5  # each digest against world size 1's: float32 sums in another order
+# the streamed route's times for the KMeans rows: (n, d, k)
+KMEANS_WIDE = (10_000_000, 256, 64)
+KMEANS_PAST_CAP = (10_000_000, 128, 417)
 DOMINANT_SHARE = 0.99
 # kernel vs plain version, by _row_err (each row's largest error over that
 # row's largest |plain|).  Both take P at the same running maximum over
@@ -596,19 +653,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _kmeans_bytes(n: int, itemsize: int, em: bool) -> int:
+def _kmeans_bytes(n: int, itemsize: int, em: bool, d: int = D, k: int = K) -> int:
     """Bytes a KMeans kernel moves once on n rows: x, the centres, and its
     outputs (labels and d2, or the sums and counts)."""
-    return n * D * itemsize + K * D * 4 + ((K * D + K) * 4 if em else n * 8)
+    return n * d * itemsize + k * d * 4 + ((k * d + k) * 4 if em else n * 8)
 
 
-def bound(n: int, itemsize: int, em: bool):
+def bound(n: int, itemsize: int, em: bool, d: int = D, k: int = K):
     """(bound_ms, bound_by) of a KMeans kernel on n rows: the larger of the
     bytes moved once over the HBM rate and the split-TF32 products over the
     TF32 tensor-core rate (three products of 2nkd FLOP for float32 x, two
     for bfloat16 x, which TF32 holds exactly)."""
-    t_bytes = _kmeans_bytes(n, itemsize, em) / PEAK_BYTES
-    t_ops = (3 if itemsize == 4 else 2) * 2 * n * K * D / PEAK_TF32_FLOPS
+    t_bytes = _kmeans_bytes(n, itemsize, em, d, k) / PEAK_BYTES
+    t_ops = (3 if itemsize == 4 else 2) * 2 * n * k * d / PEAK_TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -903,6 +960,47 @@ def time_kernels(x, c, launches, err):
     return rows
 
 
+def time_kmeans_streamed() -> dict:
+    """The KMeans kernels' streamed route in float32 at KMEANS_WIDE (d past
+    the tiles) and KMEANS_PAST_CAP (k past both kernels' caps): each held
+    against its plain version (compare_assign, compare_em) and timed beside
+    its bound, the plain version and the torch path.  Returns {kernel:
+    {"d256": {...}, "past_cap_k": {...}}} for the kernels line."""
+    import torch
+
+    from heat_tpu_torch.cluster import KMeans
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    out = {"assign": {}, "em_stats": {}}
+    for label, (n, d, k) in (("d256", KMEANS_WIDE), ("past_cap_k", KMEANS_PAST_CAP)):
+        x, c = em_edge_inputs(n, k, d, "float32", "blobs", seed=d + k)
+        lab, d2 = kk.fused_assign(x, c)
+        lab_p, d2_p = kk._torch_assign(x, c)
+        mism, ties, d2_err = compare_assign(x, c, lab, d2, lab_p, d2_p)
+        del lab_p, d2_p
+        sums, counts = kk.fused_em_stats(x, c)
+        sums_p, counts_p = kk._torch_em_stats(x, c, n)
+        em_err, em_exact = compare_em(x, c, n, sums, counts, lab, sums_p, counts_p, ties)
+        for name, run, plain, lib, em, err in (
+            ("assign", lambda: kk.fused_assign(x, c), lambda: kk._torch_assign(x, c),
+             lambda: KMeans._assign(x, c), False, d2_err),
+            ("em_stats", lambda: kk.fused_em_stats(x, c), lambda: kk._torch_em_stats(x, c, n),
+             lambda: KMeans._blocked_stats(x, c), True, em_err),
+        ):
+            b_ms, b_by = bound(n, x.element_size(), em, d, k)
+            out[name][label] = {"n": n, "d": d, "k": k, "dtype": "float32",
+                                "route": kk.launch_config(k, d, x.dtype, em=em)["route"], "max_abs_err": err,
+                                "ms": cuda_ms(run, 5), "plain_ms": cuda_ms(plain, 2), "bound_ms": b_ms,
+                                "bound_by": b_by, "library_ms": cuda_ms(lib, 2)}
+        print(json.dumps({"phase": "kernel_check_streamed", "n": n, "d": d, "k": k, "label_mismatches": mism,
+                          "near_ties": ties, "em_stats_max_abs_err_vs_float64": em_exact,
+                          "assign": out["assign"][label], "em_stats": out["em_stats"][label], "check": "pass"}),
+              flush=True)
+        del x, c, lab, d2, sums, counts, sums_p, counts_p
+        torch.cuda.empty_cache()
+    return out
+
+
 def kmeans_launch(x, c) -> dict:
     """Each KMeans kernel's launch at the main path's shape, by name: its
     products' instruction and the most warps resident on an SM, observed
@@ -1126,16 +1224,25 @@ def check_flash_kernels(names, checks, main, edges) -> dict:
                 errs[name] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
                                               (max(abs_err["dk"], abs_err["dv"]), max(res["dk"], res["dv"])))))
     check_edges(names, edges)
-    q = torch.zeros((4, 16, 256), device="cuda")
-    kv = q[:2] if names == GQA_KERNELS else q
-    try:
-        fwd(q, kv, kv, True, 1.0)
-    except ValueError as e:
-        print(json.dumps({"phase": "kernel_check", "kernel": names[0], "d": 256, "raised": str(e),
-                          "check": "pass"}), flush=True)
-    else:
-        fail(f"{names[0]} took d = 256")
+    grouped = names == GQA_KERNELS
+    check_refused(names[0], lambda q: fwd(q, q[:2] if grouped else q, q[:2] if grouped else q, True, 1.0))
     return errs
+
+
+def check_refused(name: str, call) -> None:
+    """``call(q)`` on q (4, 16, FLASH_MAX_D + 1) raises, and the message names R5b."""
+    import torch
+
+    d = FLASH_MAX_D + 1
+    try:
+        call(torch.zeros((4, 16, d), device="cuda"))
+    except ValueError as e:
+        if "R5b" not in str(e):
+            fail(f"{name} refused d = {d} without naming R5b: {e}")
+        print(json.dumps({"phase": "kernel_check", "kernel": name, "d": d, "raised": str(e), "check": "pass"}),
+              flush=True)
+    else:
+        fail(f"{name} took d = {d}")
 
 
 def lm_batches(steps: int, seed: int, batch: int = LM_BATCH, seq: int = LM_SEQ):
@@ -1585,17 +1692,20 @@ def kmeans_ptxas_report(log: str, word: str) -> list:
     return _ptxas_rows(log, args_of)
 
 
-def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, launches_bf16=None) -> list:
+def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, launches_bf16=None,
+               wide=None) -> list:
     """The kernels line's rows of the wrappers ``names``: float32 at the
     training step's shape ``main``, with bfloat16 at that shape (and its
     launches in the bfloat16 training phase, ``launches_bf16``) and, given
-    ``bench``, at the attention benchmark's."""
+    ``bench`` and ``wide``, at the attention benchmark's shape and at head
+    dim 256 (``d256_<dtype>``), in both dtypes."""
     import torch
 
     f32 = time_flash(names, *main, torch.float32, 20)
     bf16 = time_flash(names, *main, torch.bfloat16, 20)
     at_bench = {dt: time_flash(names, *bench, getattr(torch, dt), 5) for dt in ("float32", "bfloat16")
                 if bench}
+    at_wide = {dt: time_flash(names, *wide, getattr(torch, dt), 5) for dt in ("float32", "bfloat16") if wide}
     gqa = ", enable_gqa=True" if main[0] != main[1] else ""
     lib = [f"scaled_dot_product_attention(is_causal=True{gqa}) forward"] + \
         [f"scaled_dot_product_attention(is_causal=True{gqa}) backward: dq, dk and dv together"] * 2
@@ -1611,7 +1721,8 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
             "bfloat16": {**bf16[name], "max_abs_err": errs["bfloat16"][name][0],
                          "row_rel_err": errs["bfloat16"][name][1],
                          **({"launches": launches_bf16[name]} if launches_bf16 else {})},
-            **{f"bench_shape_{dt}": timed[name] for dt, timed in at_bench.items()}, "check": "pass",
+            **{f"bench_shape_{dt}": timed[name] for dt, timed in at_bench.items()},
+            **{f"d256_{dt}": timed[name] for dt, timed in at_wide.items()}, "check": "pass",
         })
     return rows
 
@@ -1690,6 +1801,8 @@ def check_pos_kernels() -> dict:
                 errs.setdefault(name, {})[block] = {
                     "flash_pos_fwd": max(abs_err["out"], lse_err), "flash_pos_bwd_dq": abs_err["dq"],
                     "flash_pos_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}
+    pos = torch.arange(16, dtype=torch.int32, device="cuda")
+    check_refused("flash_pos_fwd", lambda q: fa.flash_pos_fwd(q, q, q, pos, pos, True, 1.0, 16, True))
     return errs
 
 
@@ -2651,16 +2764,17 @@ def pos_bound(kernel: str, B: int, Sq: int, Sk: int, d: int, live_pairs: int, it
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_pos(dtype, reps: int) -> dict:
-    """{block: {kernel: times}} at the ring step's blocks: each kernel, its
-    plain version and the library call, ``scaled_dot_product_attention``
-    on (2, 8, S, d) views with a boolean mask built from the positions."""
+def time_pos(dtype, reps: int, shape=POS_MAIN) -> dict:
+    """{block: {kernel: times}} at the ring step's blocks of ``shape`` (B,
+    Sq, Sk, d): each kernel, its plain version and the library call,
+    ``scaled_dot_product_attention`` on (2, 8, S, d) views with a boolean
+    mask built from the positions."""
     import torch
 
     from heat_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, Sq, Sk, d = POS_MAIN
+    B, Sq, Sk, d = shape
     out_rows = {}
     for block, (qo, ko) in POS_BLOCKS.items():
         q, k, v, do, g_lse, qpos, kpos = _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed=7)
@@ -2717,6 +2831,7 @@ def pos_rows(errs: dict) -> list:
         return row
 
     f32, bf16 = time_pos(torch.float32, 10), time_pos(torch.bfloat16, 10)
+    wide = {dt: time_pos(getattr(torch, dt), 3, POS_WIDE) for dt in ("float32", "bfloat16")}
     lib = ["scaled_dot_product_attention(attn_mask=positions mask) forward"] + \
         ["scaled_dot_product_attention(attn_mask=positions mask) backward: dq, dk and dv together"] * 2
     rows = []
@@ -2729,6 +2844,7 @@ def pos_rows(errs: dict) -> list:
             "shape": list(POS_MAIN), "causal": True, "mix": POS_MIX, "blocks": f32[name], "library_call": lib_call,
             "bfloat16": {**mix(bf16[name]), "max_abs_err": max(e[name] for e in errs["bfloat16"].values()),
                          "blocks": bf16[name]},
+            **{f"d256_{dt}": {**mix(timed[name]), "shape": list(POS_WIDE)} for dt, timed in wide.items()},
             "check": "pass",
         })
     return rows
@@ -5358,6 +5474,88 @@ def surface_two_ranks(ht, smi: str) -> float:
     return seconds
 
 
+def check_serving_kernels(spec: dict) -> None:
+    """assign and em_stats at the shapes the serving phase's KMeans jobs
+    give them: the job ``spec``'s own two-blob points (as
+    ``parallel.serving`` makes them) at world size 1, and each rank's half
+    at 2 ranks (d = 2, k = 2), with one point of each blob as the centres,
+    as a random initialisation draws them; against their plain versions
+    (compare_assign, compare_em)."""
+    import numpy as np
+    import torch
+
+    from heat_tpu_torch.ops import kmeans_kernels as kk
+
+    n, seed = int(spec["payload"]["n"]), int(spec["payload"]["seed"])
+    pts = np.random.default_rng(seed).standard_normal((n, 2)).astype(np.float32)
+    pts[: n // 2] += 8.0
+    x_all = torch.from_numpy(pts).cuda()
+    c = x_all[[0, n - 1]].contiguous()
+    half = (n + 1) // 2  # the first rank's rows: Communication.chunk's rule
+    for where, x in (("world size 1", x_all), ("rank 0 of 2", x_all[:half]), ("rank 1 of 2", x_all[half:])):
+        x = x.contiguous()
+        lab, d2 = kk.fused_assign(x, c)
+        sums, counts = kk.fused_em_stats(x, c)
+        lab_p, d2_p = kk._torch_assign(x, c)
+        sums_p, counts_p = kk._torch_em_stats(x, c, x.shape[0])
+        torch.cuda.synchronize()
+        mism, near, d2_err = compare_assign(x, c, lab, d2, lab_p, d2_p)
+        err, exact = compare_em(x, c, x.shape[0], sums, counts, lab, sums_p, counts_p, mism)
+        print(json.dumps({"phase": "kernel_check", "kernel": "assign+em_stats", "serving": where,
+                          "rows": x.shape[0], "k": 2, "d": 2, "dtype": "float32",
+                          "route": kk.launch_config(2, 2, x.dtype)["route"], "assign_max_abs_err": d2_err,
+                          "label_mismatches": mism, "near_ties": near, "max_abs_err": err,
+                          "max_abs_err_vs_float64": exact, "check": "pass"}), flush=True)
+
+
+def serving_phase(smi: str) -> dict:
+    """Phase 14: SERVE_JOBS jobs offered to the supervised 2-rank world, one
+    rank killed at its SERVE_KILL dispatch, against the DONE jobs at world
+    size 1 in this process (``parallel.serve_world``; see the docstring)."""
+    import shutil
+
+    from heat_tpu_torch.parallel import scheduler
+    from heat_tpu_torch.parallel import serve_world as sw
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    jobs = sw.job_stream(SERVE_JOBS, **SERVE_SIZES)
+    check_serving_kernels(next(j for j in jobs if j["kind"] == "kmeans"))
+    served = sw.serve_supervised(jobs, 2, work, device="gpu", kill=SERVE_KILL, heartbeat_timeout=300.0,
+                                 generation_deadline=600.0)
+    views = scheduler.replay_journal(served["journal"])["jobs"]
+    t0 = time.perf_counter()
+    local = sw.serve_local([j for j in jobs if views.get(j["id"], {}).get("state") == scheduler.DONE], device="gpu")
+    world_one_s = time.perf_counter() - t0
+    try:
+        checked = sw.check_served(served, jobs, local, SERVE_RTOL)
+    except AssertionError as e:
+        fail(f"serving: {e}")
+    metrics = sw.stream_metrics(served, jobs)
+    launches = {"assign": 0, "em_stats": 0}
+    for w in served["workers"]:
+        for key in launches:
+            launches[key] += int(w["kmeans_launches"][key])
+    if not (launches["assign"] > 0 and launches["em_stats"] > 0):
+        fail(f"serving: the KMeans jobs launched {launches}")
+    sup = served["supervisor"]
+    if sup["restarts"] != 1 or not any("died" in f for f in sup["failures"]):
+        fail(f"serving: the killed rank did not restart the world once: {sup['failures']}")
+    if checked["summary"]["accepted"] < 64 or checked["summary"]["shed"] != len(jobs) - sw.queue_bound(len(jobs)):
+        fail(f"serving: {checked['summary']['accepted']} jobs accepted and {checked['summary']['shed']} shed")
+    out = {"phase": "serving", "jobs": len(jobs), "tenants": sorted({j["tenant"] for j in jobs}),
+           "sizes": SERVE_SIZES, "kill": SERVE_KILL, "ranks": 2, "transport": "gloo",
+           "supervised_seconds": served["seconds"], "world_one_seconds": world_one_s,
+           "jobs_per_s": metrics["jobs_per_s"], "latency_s": metrics["latency_s"],
+           "recovery_s": metrics["recovery_s"], "kmeans_launches": launches,
+           "digest_max_rel_err": checked["digest_max_rel_err"], "digest_rtol": SERVE_RTOL,
+           "summary": checked["summary"], "done_by_generation": checked["done_by_generation"],
+           "failures": sup["failures"], "card": smi, "check": "pass"}
+    print(json.dumps(out), flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     global _TEARDOWN_CUPTI
     import torch
@@ -5440,6 +5638,8 @@ def main() -> int:
     recover(ht, xp, means_dev, "float32_kmeans++_2^22")
     del xp
     torch.cuda.empty_cache()
+    for row, streamed in zip(rows, (lambda t: [t["assign"], t["em_stats"]])(time_kmeans_streamed())):
+        row.update(streamed)
 
     # Every phase in this process that reads the profiler runs before the
     # first spawned rank: after ranks on the card exit, its sessions mostly
@@ -5487,8 +5687,8 @@ def main() -> int:
 
     # 12. the kernels' timings; the positions kernels' launches come from 10
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
-                       launches_bf16=launches_bf16)
-    rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs)
+                       launches_bf16=launches_bf16, wide=FLASH_WIDE)
+    rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs, wide=GQA_WIDE)
     pos = pos_rows(pos_errs)
     torch.cuda.empty_cache()
 
@@ -5529,6 +5729,10 @@ def main() -> int:
     seconds = surface_world_one(ht, smi)
     seconds += surface_two_ranks(ht, smi)
     print(json.dumps({"phase": "surface_seconds", "seconds": seconds, "card": smi}), flush=True)
+
+    # 14. the serving tier: 2 supervised gloo ranks on this card, one killed,
+    # against world size 1
+    serving_phase(smi)
 
     # 8. the kernels line and the result
     print(smi)

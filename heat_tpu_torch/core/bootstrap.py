@@ -41,13 +41,19 @@ def init_distributed(
         init_method = "env://"
     if backend is None:
         backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() else "gloo"
-    dist.init_process_group(
-        backend=backend,
-        init_method=init_method,
-        world_size=world_size,
-        rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s),
-    )
+    from ..utils import faults as _faults
+
+    def attempt():
+        _faults.fire("dist.init")  # an injected TransientFault is retried with backoff (retry.dist.init)
+        dist.init_process_group(
+            backend=backend,
+            init_method=init_method,
+            world_size=world_size,
+            rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+
+    _faults.call_with_retries(attempt, "dist.init", retry_on=(_faults.TransientFault,))
     from . import random as _random
 
     seed = torch.tensor([_random.get_state()[1]], dtype=torch.int64)
@@ -56,7 +62,12 @@ def init_distributed(
 
 
 def finalize_distributed() -> None:
-    """Leave the process group; a no-op when none is initialized."""
+    """Leave the process group; a no-op when none is initialized.  The
+    flight recorder gets its clean-teardown ``shutdown`` record first (a
+    ring ending in it reads as a clean exit, not a death)."""
+    from ..utils import flightrec as _flightrec
+
+    _flightrec.record_event("shutdown")
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -66,11 +77,12 @@ def restart_epoch() -> int:
     launch, else ``HEAT_TPU_RESTART_EPOCH`` as a supervising launcher sets
     it on every world restart.  A worker branches on it to resume from its
     newest verified checkpoint (``DASO.resume()``,
-    ``load_array_checkpoint``'s fallback chain)."""
-    try:
-        return int(os.environ.get("HEAT_TPU_RESTART_EPOCH", "0") or 0)
-    except ValueError:
-        return 0
+    ``load_array_checkpoint``'s fallback chain).  ``utils.health`` reads it
+    (stdlib-only, so a supervising launcher never imports torch), as in the
+    JAX package."""
+    from ..utils import health as _health
+
+    return _health.restart_epoch()
 
 
 def local_device_count() -> int:

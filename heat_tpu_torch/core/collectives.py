@@ -22,6 +22,16 @@ average the parameters over the strided group of the ('dcn', 'ici') grid
 (``comm``) and blend the average into them in place.  A dispatch snapshots
 the parameters into the buckets' buffers, so the local steps that follow
 may change them; the blend runs after ``wait()``, on the current stream.
+
+Runtime hooks, as in the JAX package: each bucket's wait runs through
+``health.guard_blocking`` (under an armed ``comm.deadline`` a hung bucket
+raises ``CollectiveTimeoutError`` at that bucket; with telemetry armed its
+blocked time lands as a ``comm.allreduce.wait`` record), and with the
+memory ledger armed (``_MEMLEDGER``, poked in by ``utils.memledger``) each
+bucket fires the ``mem.alloc`` fault site ahead of its flat buffer, which
+is registered as a ``transient`` and consumed once unpacked.  Every bucket
+counts under ``comm.allreduce.buckets`` and the largest under
+``comm.allreduce.peak_bucket_bytes``.
 """
 
 from __future__ import annotations
@@ -50,6 +60,10 @@ __all__ = [
 
 
 _DEFAULT_BUDGET: Optional[int] = parse_budget(os.environ.get("HEAT_TPU_GRAD_BUCKET_BYTES"))
+
+# device-memory-ledger hook (``utils.memledger.enable()`` pokes the module
+# in); disabled cost: one module-global load a bucket
+_MEMLEDGER = None
 
 
 def set_grad_bucket_budget(budget) -> Optional[int]:
@@ -245,10 +259,46 @@ class _GradBucket:
         self.flat, self.n, self._first, self._rest = flat, n, first, rest
 
     def wait(self) -> torch.Tensor:
-        out = self._first.wait()
-        if self._rest is not None:
-            out = self._rest(out)
-        return out[: self.n]
+        """The bucket's result, awaited through the deadline watchdog."""
+        from ..utils import health as _hlth
+
+        def _await():
+            out = self._first.wait()
+            if self._rest is not None:
+                out = self._rest(out)
+            return out[: self.n]
+
+        out = _hlth.guard_blocking(_await, "comm.allreduce")
+        _ledger_consume(self.flat)
+        return out
+
+
+def _note_bucket(bucket_bytes: int) -> None:
+    """Count the bucket and, with the ledger armed, fire ``mem.alloc``
+    ahead of its flat buffer (chaos runs inject a mid-sync allocation
+    failure here)."""
+    from ..utils import profiler as _prof
+    from ..utils import telemetry as _tel
+
+    _tel.counter_inc("comm.allreduce.buckets", 1)
+    _prof.counter_max("comm.allreduce.peak_bucket_bytes", bucket_bytes)
+    ml = _MEMLEDGER
+    if ml is not None:
+        ml.alloc_check(bucket_bytes, "comm.allreduce.bucket")
+
+
+def _ledger_register(flat: torch.Tensor) -> None:
+    ml = _MEMLEDGER
+    if ml is not None:
+        # explicit category: an in-flight sync transient even inside a
+        # daso.step span (which would infer opt-state)
+        ml.register(flat, op="allreduce.bucket", site="allreduce.bucket", category="transient")
+
+
+def _ledger_consume(flat: torch.Tensor) -> None:
+    ml = _MEMLEDGER
+    if ml is not None:
+        ml.consume(flat)
 
 
 def dispatch_bucket_allreduce(comm, tensors, plan: GradBucketPlan, k: int, tele: _Telescope, d: int,
@@ -260,7 +310,9 @@ def dispatch_bucket_allreduce(comm, tensors, plan: GradBucketPlan, k: int, tele:
     domain.  ``op`` is ``'mean'`` or ``'sum'`` over the ranks."""
     p = comm.size
     idxs = plan.buckets[k]
+    _note_bucket(plan.bucket_nbytes(k))
     flat = _flatten(tensors, idxs)
+    _ledger_register(flat)
     n = flat.numel()
     if isinstance(scale, torch.Tensor) or scale != 1.0:  # a tensor scale stays on the device: no host read
         flat.mul_(scale)
@@ -328,7 +380,9 @@ def dispatch_bucket_averages(comm, leaves, plan: GradBucketPlan, k: int, tele: _
     d = comm.size
     i = 1 if ici is None else ici.size
     idxs = plan.buckets[k]
+    _note_bucket(plan.bucket_nbytes(k))
     flat = _flatten(leaves, idxs)
+    _ledger_register(flat)
     n = flat.numel()
     _account_stages(comm, tele, plan.bucket_nbytes(k), _daso_stage_factors(d, i))
     if i == 1:
@@ -401,3 +455,17 @@ def consume_bucket_averages_all(comm, params, pending, w):
     for k in range(plan.n_buckets):
         consume_bucket_averages(comm, leaves, flights[k], plan, k, w)
     return leaves
+
+
+# the memory ledger may have been env-armed (HEAT_TPU_MEMLEDGER=1) before
+# this module finished importing: its poke then missed this module
+def _rearm_memledger() -> None:
+    global _MEMLEDGER
+    import sys
+
+    ml = sys.modules.get("heat_tpu_torch.utils.memledger")
+    if ml is not None and getattr(ml, "enabled", lambda: False)():
+        _MEMLEDGER = ml
+
+
+_rearm_memledger()

@@ -17,9 +17,13 @@ take uneven pieces (``Alltoall``, ``ReduceScatter``, ``Gather``,
 largest piece on the wire; the caller never sees a pad.
 
 Every collective passes through one accounting choke point
-(:meth:`Communication._account`): calls and wire bytes per collective name,
-the payload times the JAX package's traffic factor of that collective
-(``traffic()``).
+(:meth:`Communication._account_bytes`): calls and wire bytes per collective
+name, the payload times the JAX package's traffic factor of that collective
+(``traffic()``).  The runtime hooks ride the same point, as in the JAX
+package: the flight recorder's sequence stamp, the ``comm.collective``
+fault site (under the deadline watchdog when a :meth:`deadline` is armed)
+and the telemetry account (``comm.<name>.calls``/``.bytes``).  ``Wait`` and
+``Barrier`` block under the same watchdog.
 
 :meth:`Communication.Split` makes subgroup communicators (MPI's
 ``comm.Split(color, key)``) over ``torch.distributed.new_group``: every
@@ -46,6 +50,43 @@ __all__ = ["Communication", "get_comm", "sanitize_comm", "use_comm", "world"]
 # reduce_scatter, gather, scatter, reduce, barrier, all_reduce, broadcast,
 # all_gather), so only the point-to-point ones are staged through the host.
 _GLOO_HOST_STAGED = frozenset({"Send", "Exscan", "Scan"})
+
+# flight-recorder hook (``utils.flightrec.enable()`` pokes the module in,
+# ``disable()`` clears it): every collective is seq-stamped at the
+# ``_account_bytes`` choke point.  Disabled cost: one module-global load.
+# The module bottom re-arms against an env-armed recorder that loaded first.
+_FLIGHTREC = None
+_HEALTH_MOD = None
+_TELEMETRY_MOD = None
+_FAULTS_MOD = None
+
+
+def _health():
+    global _HEALTH_MOD
+    if _HEALTH_MOD is None:
+        from ..utils import health
+
+        _HEALTH_MOD = health
+    return _HEALTH_MOD
+
+
+def _telemetry():
+    global _TELEMETRY_MOD
+    if _TELEMETRY_MOD is None:
+        from ..utils import telemetry
+
+        _TELEMETRY_MOD = telemetry
+    return _TELEMETRY_MOD
+
+
+def _faults():
+    global _FAULTS_MOD
+    if _FAULTS_MOD is None:
+        from ..utils import faults
+
+        _FAULTS_MOD = faults
+    return _FAULTS_MOD
+
 
 _OPS = {
     "sum": dist.ReduceOp.SUM,
@@ -159,18 +200,37 @@ class Communication:
         package builds from Allreduce and Bcast, take those factors under
         their own names.  At world size 1 every collective is the identity
         and nothing is counted."""
-        self._account_bytes(name, int(round(x.numel() * x.element_size() * factor)))
+        self._account_bytes(name, int(round(x.numel() * x.element_size() * factor)), x=x)
 
-    def _account_bytes(self, name: str, nbytes: int) -> None:
+    def _account_bytes(self, name: str, nbytes: int, x=None, src_split: Optional[int] = None,
+                       dst_split: Optional[int] = None) -> None:
         """Count one call of ``name`` moving ``nbytes`` wire bytes (the
-        bucketed sync accounts its stages here, telescoped)."""
+        bucketed sync and the tiled resplit account their stages here,
+        telescoped), with the JAX package's hooks in its order: the flight
+        recorder's stamp FIRST (a hang at the fault site then leaves the
+        collective it hung on as the rank's last record), then the
+        ``comm.collective`` fault site (under ``health.guard_blocking``
+        when a deadline is armed, which refuses a blown deadline and turns
+        an injected hang into ``CollectiveTimeoutError``), then the
+        telemetry account."""
         entry = self._traffic.setdefault(name, {"calls": 0, "bytes": 0})
         entry["calls"] += 1
         entry["bytes"] += int(nbytes)
+        if _FLIGHTREC is not None:
+            _FLIGHTREC.record_collective(name, nbytes, x, src_split, dst_split)
+        flt, hlth = _faults(), _health()
+        if hlth.active_deadline() is None:
+            flt.fire("comm.collective")
+        else:
+            hlth.guard_blocking(lambda: flt.fire("comm.collective"), f"comm.{name}")
+        _telemetry().account_collective(name, nbytes)
 
     def traffic(self) -> Dict[str, Dict[str, int]]:
-        """``{collective: {"calls": n, "bytes": wire bytes}}`` since the last
-        :meth:`reset_traffic`, counted by :meth:`_account`."""
+        """``{collective: {"calls": n, "bytes": wire bytes}}`` of this
+        communicator since the last :meth:`reset_traffic`, counted by
+        :meth:`_account`.  The telemetry store's ``comm.*`` counters hold
+        the process's totals over every communicator, never reset, in the
+        format the rank files export."""
         return {name: dict(entry) for name, entry in self._traffic.items()}
 
     def reset_traffic(self) -> None:
@@ -457,17 +517,41 @@ class Communication:
     def Wait(x):
         """Block until ``x`` is done: a request of :meth:`Isend` (returns the
         received tensor), a ``torch.distributed`` work handle, or a tensor on
-        the card (its stream is synchronised; returns the tensor)."""
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                torch.cuda.current_stream(x.device).synchronize()
-            return x
-        return x.wait()
+        the card (its stream is synchronised; returns the tensor).
+
+        Deadline-guarded: under an armed :meth:`deadline` a wait on a
+        collective whose peer died raises ``CollectiveTimeoutError`` (after
+        a stack dump) instead of hanging.  The ``comm.collective`` fault
+        site fires inside the guard, so an injected hang trips it too."""
+
+        def _wait():
+            _faults().fire("comm.collective")
+            if isinstance(x, torch.Tensor):
+                if x.is_cuda:
+                    torch.cuda.current_stream(x.device).synchronize()
+                return x
+            return x.wait()
+
+        return _health().guard_blocking(_wait, "comm.Wait")
 
     def Barrier(self) -> None:
-        """Every rank waits for all the others."""
-        if self.is_distributed():
-            dist.barrier(group=self.group)
+        """Every rank waits for all the others; deadline-guarded like
+        :meth:`Wait` (the same watchdog and fault site)."""
+
+        def _barrier():
+            _faults().fire("comm.collective")
+            if self.is_distributed():
+                dist.barrier(group=self.group)
+
+        _health().guard_blocking(_barrier, "comm.Barrier")
+
+    def deadline(self, seconds: float):
+        """Arm a collective deadline for the block (``with comm.deadline(30):``):
+        the blocking waits (:meth:`Wait`, :meth:`Barrier`) run under a
+        watchdog that raises ``utils.health.CollectiveTimeoutError``, after
+        dumping every thread's stack, once the budget is spent, and the
+        collectives refuse to start past it."""
+        return _health().deadline(seconds)
 
     # ------------------------------------------------------------------ #
     # subgroups and asynchronous collectives
@@ -784,3 +868,18 @@ def sanitize_comm(comm: Optional[Communication]) -> Communication:
     if isinstance(comm, Communication):
         return comm
     raise TypeError(f"Unknown communication, must be a Communication, got {type(comm)}")
+
+
+# the flight recorder may have been env-armed before this module finished
+# importing: its poke then hit the half-initialized module and the
+# `_FLIGHTREC = None` line above clobbered it
+def _rearm_flightrec() -> None:
+    global _FLIGHTREC
+    import sys
+
+    fr = sys.modules.get("heat_tpu_torch.utils.flightrec")
+    if fr is not None and getattr(fr, "enabled", lambda: False)():
+        _FLIGHTREC = fr
+
+
+_rearm_flightrec()

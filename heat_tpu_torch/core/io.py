@@ -18,6 +18,15 @@ reference's layout.  Checkpoints are durable: every file and directory is
 fsynced before the atomic flip that makes a version visible, and transient
 write faults are retried with jittered backoff (``utils.faults``).  The
 formats are the reference's, so files cross between the packages.
+
+The runtime hooks are the JAX package's: the fault sites ``io.write``,
+``io.fsync`` and ``io.read`` (fired with ``path=``, so ``corrupt`` flips a
+byte of the file), the counters ``io.bytes_written`` and ``io.fsync.calls``,
+the spans ``io.save_array_checkpoint``, ``io.load_array_checkpoint``,
+``io.save_checkpoint`` and ``io.load_checkpoint``, the flight recorder's
+``ckpt`` events, the memory ledger's ``param`` registrations of what a load
+restores, and a deadline (``_IO_SYNC_DEADLINE``, or the caller's tighter
+one) on the barrier that ends a collective write.
 """
 
 from __future__ import annotations
@@ -37,6 +46,10 @@ from . import devices, factories, types
 from .communication import Communication, sanitize_comm
 from .dndarray import DNDarray
 from ..utils import faults as _faults
+from ..utils import flightrec as _flightrec
+from ..utils import health as _health
+from ..utils import memledger as _memledger
+from ..utils import telemetry as _telemetry
 
 __all__ = [
     "load",
@@ -80,9 +93,28 @@ def _fsync_dir(path: str) -> None:
     """fsync a directory, so that its entries (new files, renames) are durable."""
     fd = os.open(path, os.O_RDONLY)
     try:
+        _faults.fire("io.fsync", path=path)
         os.fsync(fd)
+        _telemetry.counter_inc("io.fsync.calls")
     finally:
         os.close(fd)
+
+
+# a barrier that ends a collective write fails loudly instead of hanging the
+# world on a dead peer: it runs under this deadline (seconds) unless the
+# caller armed a tighter one
+_IO_SYNC_DEADLINE = 600.0
+
+
+def _bounded_sync(comm: Communication, tag: str) -> None:
+    """``comm.Barrier()`` under a collective deadline: raises
+    ``CollectiveTimeoutError`` (after a stack dump) instead of blocking
+    forever.  An armed caller deadline governs (its remaining budget is
+    re-armed, never loosened); otherwise the io default applies."""
+    active = _health.active_deadline()
+    budget = active.remaining() if active is not None else _IO_SYNC_DEADLINE
+    with _health.deadline(budget):
+        _health.guard_blocking(comm.Barrier, f"io.sync:{tag}")
 
 
 class _Crc32Writer:
@@ -100,17 +132,26 @@ class _Crc32Writer:
 
 def _durable_write(path: str, emit) -> tuple:
     """Write ``emit(sink)``'s bytes to ``path`` and fsync the file, retrying
-    the whole write on a transient fault.  Returns (crc32, bytes)."""
+    the whole write on a transient fault.  Returns (crc32, bytes).  Fault
+    sites ``io.write`` (after the bytes hit the file, before the fsync:
+    ``corrupt`` flips a byte on disk there, after the checksum) and
+    ``io.fsync``; a successful write counts under ``io.bytes_written`` and
+    ``io.fsync.calls``."""
 
     def attempt():
         with open(path, "wb") as fh:
             sink = _Crc32Writer(fh)
             emit(sink)
             fh.flush()
+            _faults.fire("io.write", path=path)
+            _faults.fire("io.fsync", path=path)
             os.fsync(fh.fileno())
         return sink.crc, sink.n
 
-    return _retry(attempt, "io.write")
+    crc, n = _retry(attempt, "io.write")
+    _telemetry.counter_inc("io.bytes_written", n)
+    _telemetry.counter_inc("io.fsync.calls")
+    return crc, n
 
 
 def _file_crc(path: str) -> tuple:
@@ -118,6 +159,7 @@ def _file_crc(path: str) -> tuple:
     (a missing file is a layout error, not retried)."""
 
     def attempt():
+        _faults.fire("io.read", path=path)
         crc, n = 0, 0
         with open(path, "rb") as fh:
             while True:
@@ -131,6 +173,7 @@ def _file_crc(path: str) -> tuple:
 
 def _read_file(path: str) -> bytes:
     def attempt():
+        _faults.fire("io.read", path=path)
         with open(path, "rb") as fh:
             return fh.read()
 
@@ -201,7 +244,7 @@ def _token_ring_write(data, body) -> None:
         failure = e
     if rank + 1 < p:
         comm.Sendrecv(token, rank + 1, None)
-    comm.Barrier()
+    _bounded_sync(comm, "token_ring")
     if failure is not None:
         raise failure
 
@@ -601,7 +644,7 @@ def save_zarr(data: DNDarray, path: str) -> None:
         os.makedirs(path, exist_ok=True)
         with open(os.path.join(path, ".zarray"), "w") as f:
             json.dump(meta, f)
-    comm.Barrier()
+    _bounded_sync(comm, "zarr:descriptor")
     np_dtype = _dtype_of(data)
     if split is None:
         if comm.rank == 0:
@@ -617,7 +660,7 @@ def save_zarr(data: DNDarray, path: str) -> None:
         idx = ["0"] * data.ndim
         idx[split] = str(comm.rank)
         np.ascontiguousarray(arr, dtype=np_dtype).tofile(os.path.join(path, ".".join(idx)))
-    comm.Barrier()
+    _bounded_sync(comm, "zarr:chunks-written")
 
 
 def load_zarr(path: str, dtype=None, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
@@ -705,6 +748,7 @@ def _versions(directory: str) -> List[int]:
             if d.startswith("v") and d[1:].isdigit() and os.path.isdir(os.path.join(directory, d))]
 
 
+@_telemetry.traced("io.save_array_checkpoint")
 def save_array_checkpoint(x: DNDarray, directory: str, donate: bool = False, keep_versions: int = 1) -> None:
     """Checkpoint a DNDarray as one ``chunk_<start>.npy`` a rank (its rows,
     ``start`` their first global row) and a ``meta.json`` with the global
@@ -720,6 +764,7 @@ def save_array_checkpoint(x: DNDarray, directory: str, donate: bool = False, kee
     if not isinstance(x, DNDarray):
         x = factories.array(x)
     comm = x.comm
+    _flightrec.record_event("ckpt", op="save_array", path=directory)
     keep_versions = max(int(keep_versions), 1)
     if comm.rank == 0:
         os.makedirs(directory, exist_ok=True)
@@ -763,7 +808,7 @@ def save_array_checkpoint(x: DNDarray, directory: str, donate: bool = False, kee
                     os.remove(os.path.join(directory, legacy))
                 except OSError:
                     pass
-    comm.Barrier()
+    _bounded_sync(comm, "array_checkpoint")
     if donate:
         x.larray.resize_(0)
 
@@ -842,6 +887,7 @@ def _checkpoint_candidates(directory: str):
     return out
 
 
+@_telemetry.traced("io.load_array_checkpoint")
 def load_array_checkpoint(directory: str, device=None, comm=None) -> DNDarray:
     """Restore a DNDarray saved by :func:`save_array_checkpoint`, at any
     world size: each rank reads, memory-mapped, the rows of its ``chunk``
@@ -852,6 +898,7 @@ def load_array_checkpoint(directory: str, device=None, comm=None) -> DNDarray:
     comm = sanitize_comm(comm)
     if not os.path.isdir(directory):
         raise FileNotFoundError(f"checkpoint directory {directory!r} does not exist")
+    _flightrec.record_event("ckpt", op="load_array", path=directory)
     candidates = _checkpoint_candidates(directory)
     if not candidates:
         raise FileNotFoundError(f"no checkpoint versions under {directory!r} (no LATEST, no v<k>/ directories, "
@@ -875,8 +922,8 @@ def load_array_checkpoint(directory: str, device=None, comm=None) -> DNDarray:
     split = meta["split"]
     np_dtype = np.dtype(meta["dtype"])
     if split is None:
-        return _read_hyperslab(lambda s: np.load(os.path.join(vdir, "chunk_0.npy")).reshape(gshape), gshape,
-                               np_dtype, None, device, comm)
+        return _registered_param(_read_hyperslab(lambda s: np.load(os.path.join(vdir, "chunk_0.npy")).reshape(gshape),
+                                                 gshape, np_dtype, None, device, comm), "load_array_checkpoint")
     starts = sorted(meta["starts"])
     mmaps = [np.load(os.path.join(vdir, f"chunk_{s}.npy"), mmap_mode="r") for s in starts]
 
@@ -891,7 +938,16 @@ def load_array_checkpoint(directory: str, device=None, comm=None) -> DNDarray:
                 out[dst] = mm[src]
         return out
 
-    return _read_hyperslab(reader, gshape, np_dtype, split, device, comm)
+    return _registered_param(_read_hyperslab(reader, gshape, np_dtype, split, device, comm), "load_array_checkpoint")
+
+
+def _registered_param(x, op: str):
+    """``x``'s local tensor registered in the memory ledger as a ``param``
+    minted by a checkpoint load (a no-op while the ledger is disarmed)."""
+    t = x.larray if isinstance(x, DNDarray) else x
+    if isinstance(t, torch.Tensor):
+        _memledger.register(t, op=op, site="ckpt", category="param")
+    return x
 
 
 # ---------------------------------------------------------------------- #
@@ -961,6 +1017,7 @@ def _host_leaf(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+@_telemetry.traced("io.save_checkpoint")
 def save_checkpoint(tree, path: str) -> None:
     """Save a pytree of arrays (parameters, optimizer state) as an ``.npz``
     with ``__keys__`` (the leaves' key strings) and ``leaf_<i>``.  Atomic:
@@ -968,6 +1025,7 @@ def save_checkpoint(tree, path: str) -> None:
     and renamed over the destination, then the directory is fsynced.  A
     DNDarray leaf is gathered (every rank calls save together)."""
     final = path if path.endswith(".npz") else path + ".npz"
+    _flightrec.record_event("ckpt", op="save_tree", path=final)
     flat = _flatten(tree)
     keys = [k for k, _ in flat]
     arrays = {f"leaf_{i}": _host_leaf(leaf) for i, (_, leaf) in enumerate(flat)}
@@ -977,9 +1035,13 @@ def save_checkpoint(tree, path: str) -> None:
         with open(tmp, "wb") as fh:
             np.savez(fh, __keys__=np.asarray(json.dumps(keys)), **arrays)
             fh.flush()
+            _faults.fire("io.write", path=tmp)
+            _faults.fire("io.fsync", path=tmp)
             os.fsync(fh.fileno())
 
     _retry(attempt, "io.write")
+    _telemetry.counter_inc("io.bytes_written", os.path.getsize(tmp))
+    _telemetry.counter_inc("io.fsync.calls")
     os.replace(tmp, final)
     _fsync_dir(os.path.dirname(os.path.abspath(final)))
 
@@ -999,6 +1061,7 @@ def _restore_leaf(arr: np.ndarray, like):
     return arr
 
 
+@_telemetry.traced("io.load_checkpoint")
 def load_checkpoint(tree_like, path: str):
     """Restore a pytree saved by :func:`save_checkpoint` into the structure
     of ``tree_like``, each leaf of its kind there (a tensor on that tensor's
@@ -1010,6 +1073,7 @@ def load_checkpoint(tree_like, path: str):
     p = path if path.endswith(".npz") else path + ".npz"
     if not os.path.exists(p):
         raise FileNotFoundError(f"checkpoint file {p!r} does not exist" + (f" (given path {path!r})" if p != path else ""))
+    _flightrec.record_event("ckpt", op="load_tree", path=p)
     try:
         data = np.load(p, allow_pickle=False)
         saved_keys = json.loads(str(data["__keys__"]))
@@ -1039,6 +1103,6 @@ def load_checkpoint(tree_like, path: str):
         if want_dtype is not None and np.dtype(arr.dtype) != want_dtype:
             raise ValueError(f"checkpoint {p!r}: leaf {name} has dtype {np.dtype(arr.dtype)} but the target tree "
                              f"expects {want_dtype}")
-        leaves.append(_restore_leaf(arr, like))
+        leaves.append(_registered_param(_restore_leaf(arr, like), "load_checkpoint"))
     data.close()
     return _unflatten(tree_like, iter(leaves))

@@ -96,11 +96,11 @@ def _build(target: Path, sources: List[Path], flags: List[str]) -> str:
 
 def _declare_kmeans(lib: ctypes.CDLL) -> None:
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-    lib.heat_kmeans_assign.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr]
+    lib.heat_kmeans_assign.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.heat_kmeans_assign.restype = i32
     lib.heat_kmeans_em_grid.argtypes = [i32, i64, i32, i32, i32]
     lib.heat_kmeans_em_grid.restype = i32
-    lib.heat_kmeans_em_stats.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.heat_kmeans_em_stats.argtypes = [i32, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.heat_kmeans_em_stats.restype = i32
     lib.heat_kmeans_launch_config.argtypes = [i32, i32, i32, i32, i32, ptr]
     lib.heat_kmeans_launch_config.restype = i32

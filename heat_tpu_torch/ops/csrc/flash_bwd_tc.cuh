@@ -94,8 +94,8 @@
 //     has bhk * ceil(S / 64) blocks, each g times a multi-head block's
 //     work: 256 at the grouped LM's (64 -> 16, 1024, 64), under the 396
 //     that fit on 132 SMs at 3 an SM, so it leaves a third of them idle;
-//   * any d in [1, 128]: tiles are zero-padded to D = 64 or 128 columns in
-//     shared memory and rows past the end load as zeros.  VEC (d % 8 == 0
+//   * any d in [1, 256]: tiles are zero-padded to D = 64, 128 or 256 columns
+//     in shared memory and rows past the end load as zeros.  VEC (d % 8 == 0
 //     and 16-byte aligned operands) loads by 16-byte cp.async and writes
 //     16-byte rows; otherwise the same kernel goes element by element
 //     through the same shared tiles, so the results are the same bits;
@@ -112,7 +112,7 @@ static_assert(16 * kBwdWarps == BQ && BQ == BK, "the backward's tiles are the ma
 // registers), 2 at D = 128 (<= 255)
 constexpr int kDqChunk = 32, kDkvChunk = 16;
 template <int D>
-constexpr int kBwdMinBlocks = D == 64 ? 3 : 2;
+constexpr int kBwdMinBlocks = D == 64 ? 3 : D == 128 ? 2 : 1;
 static_assert(BK % kDqChunk == 0 && BQ % kDkvChunk == 0 && kDqChunk % 16 == 0 && kDkvChunk % 16 == 0,
               "a step is whole k16 slices of a tile");
 
@@ -223,11 +223,17 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<D>)
   cp_async_wait<1>();  // the Q and dO tiles
   __syncthreads();
 
-  uint32_t qf[KD][4], dof[KD][4];  // A fragments of the warp's 16 rows, d in k16 steps
+  // A fragments of the warp's 16 rows, d in k16 steps: in registers up to
+  // D = 128; at D = 256 (dQ alone takes 128 registers) read again from the
+  // Q and dO tiles, which stay in shared memory, each step
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? KD : 1][4], dof[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    ldsm_a<SD>(qf[kd], sq, warp * 16, kd * 16, lane);
-    ldsm_a<SD>(dof[kd], sdo, warp * 16, kd * 16, lane);
+    for (int kd = 0; kd < KD; ++kd) {
+      ldsm_a<SD>(qf[kd], sq, warp * 16, kd * 16, lane);
+      ldsm_a<SD>(dof[kd], sdo, warp * 16, kd * 16, lane);
+    }
   }
 
   const int2 span = mask.fwd_warp_span(wq0);  // the warp's query positions (min, max)
@@ -253,18 +259,29 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<D>)
         for (int j = 0; j < NC; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-        for (int kd = 0; kd < KD; ++kd)  // S = Q K^T and dP = dO V^T: 2 NC independent products a step of d
+        auto products = [&](const uint32_t(&qa)[4], const uint32_t(&da)[4], int kd) {
 #pragma unroll
           for (int j = 0; j < NC; j += 2) {
             uint32_t b[4];
             ldsm_b<SD>(b, ks, c0 + j * 8, kd * 16, lane);
-            mma_bf16(s[j], qf[kd], b[0], b[1]);
-            mma_bf16(s[j + 1], qf[kd], b[2], b[3]);
+            mma_bf16(s[j], qa, b[0], b[1]);
+            mma_bf16(s[j + 1], qa, b[2], b[3]);
             ldsm_b<SD>(b, vs, c0 + j * 8, kd * 16, lane);
-            mma_bf16(dp[j], dof[kd], b[0], b[1]);
-            mma_bf16(dp[j + 1], dof[kd], b[2], b[3]);
+            mma_bf16(dp[j], da, b[0], b[1]);
+            mma_bf16(dp[j + 1], da, b[2], b[3]);
           }
+        };
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {  // S = Q K^T and dP = dO V^T: 2 NC independent products a step of d
+          if constexpr (kQRegs) {
+            products(qf[kd], dof[kd], kd);
+          } else {
+            uint32_t qr[4], dor[4];
+            ldsm_a<SD>(qr, sq, warp * 16, kd * 16, lane);
+            ldsm_a<SD>(dor, sdo, warp * 16, kd * 16, lane);
+            products(qr, dor, kd);
+          }
+        }
         // _recompute_p and dS: element (row wq0 + g + 8r, key k0 + c0 + 8j +
         // 2t + e) is s[j][2r + e]; s becomes dS = P (dP - dd) scale
         if (full) {
@@ -373,104 +390,126 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kBwdMinBlocks<D>)
 
   load_rows_bf16<BK, D, NT, VEC>(sk, k, k0, Sk, d);
   load_rows_bf16<BK, D, NT, VEC>(sv, v, k0, Sk, d);
-  int2 queries, next_queries;
-  int it = next_live(0, queries);
-  if (it < items) load_q(it, 0);
-  cp_async_commit();
 
   const int2 span = mask.bwd_warp_span(wk0);  // the warp's key positions (min, max)
-  float dka[NO][4], dva[NO][4];
+  // One pass over the items: DV adds bf16(P^T) dO into dva, DK bf16(dS^T) Q
+  // into dka.  Up to D = 128 one pass takes both; at D = 256 each
+  // accumulator takes 128 registers a thread, so a first pass takes dK
+  // (K, V, Q and dO), a second dV (K, Q and dO), each item and step in the
+  // same order, so the sums are the one pass's.
+  auto run = [&](const bool DV, const bool DK, float(&dva)[NO][4], float(&dka)[NO][4]) {
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
-
-  for (int stage = 0; it < items; stage ^= 1) {
-    const int q0 = (qbegin + it % per_head) * BQ;
-    const int nxt = next_live(it + 1, next_queries);
-    if (nxt < items) load_q(nxt, stage ^ 1);  // its buffers were released by the last barrier
+      for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+    int2 queries, next_queries;
+    int it = next_live(0, queries);
+    if (it < items) load_q(it, 0);
     cp_async_commit();
-    cp_async_wait<1>();  // item it (and, the first time, the K/V tiles) has landed
-    __syncthreads();
-    if (wk0 < Sk && mask.bwd_warp_live(queries, span)) {  // uniform in the warp; keys past Sk are not written
-      const __nv_bfloat16* qs = sq + stage * BQ * SD;
-      const __nv_bfloat16* dos = sdo + stage * BQ * SD;
-      const float* lse_s = slse + stage * BQ;
-      const float* dd_s = sdd + stage * BQ;
-      const bool full = q0 + BQ <= Sq && mask.bwd_tile_full(queries, span);
+    for (int stage = 0; it < items; stage ^= 1) {
+      const int q0 = (qbegin + it % per_head) * BQ;
+      const int nxt = next_live(it + 1, next_queries);
+      if (nxt < items) load_q(nxt, stage ^ 1);  // its buffers were released by the last barrier
+      cp_async_commit();
+      cp_async_wait<1>();  // item it (and, the first time, the K/V tiles) has landed
+      __syncthreads();
+      if (wk0 < Sk && mask.bwd_warp_live(queries, span)) {  // uniform in the warp; keys past Sk are not written
+        const __nv_bfloat16* qs = sq + stage * BQ * SD;
+        const __nv_bfloat16* dos = sdo + stage * BQ * SD;
+        const float* lse_s = slse + stage * BQ;
+        const float* dd_s = sdd + stage * BQ;
+        const bool full = q0 + BQ <= Sq && mask.bwd_tile_full(queries, span);
 #pragma unroll 1
-      for (int c0 = 0; c0 < BQ; c0 += kDkvChunk) {
-        float st[NC][4], dpt[NC][4];
+        for (int c0 = 0; c0 < BQ; c0 += kDkvChunk) {
+          float st[NC][4], dpt[NC][4];
 #pragma unroll
-        for (int j = 0; j < NC; ++j)
+          for (int j = 0; j < NC; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+            for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
 #pragma unroll
-        for (int kd = 0; kd < KD; ++kd) {  // S^T = K Q^T and dP^T = V dO^T
-          uint32_t a[4], b[4];
-          ldsm_a<SD>(a, sk, warp * 16, kd * 16, lane);
+          for (int kd = 0; kd < KD; ++kd) {  // S^T = K Q^T and dP^T = V dO^T
+            uint32_t a[4], b[4];
+            ldsm_a<SD>(a, sk, warp * 16, kd * 16, lane);
 #pragma unroll
-          for (int j = 0; j < NC; j += 2) {
-            ldsm_b<SD>(b, qs, c0 + j * 8, kd * 16, lane);
-            mma_bf16(st[j], a, b[0], b[1]);
-            mma_bf16(st[j + 1], a, b[2], b[3]);
-          }
-          ldsm_a<SD>(a, sv, warp * 16, kd * 16, lane);
-#pragma unroll
-          for (int j = 0; j < NC; j += 2) {
-            ldsm_b<SD>(b, dos, c0 + j * 8, kd * 16, lane);
-            mma_bf16(dpt[j], a, b[0], b[1]);
-            mma_bf16(dpt[j + 1], a, b[2], b[3]);
-          }
-        }
-        // P^T and dS^T: element (key wk0 + g + 8r, query q0 + c0 + 8j + 2t +
-        // e) is st[j][2r + e]; st becomes P^T, dpt dS^T = P^T (dP^T - dd) scale
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const float2 lc = *reinterpret_cast<const float2*>(lse_s + c0 + j * 8 + 2 * t);
-          const float2 dc = *reinterpret_cast<const float2*>(dd_s + c0 + j * 8 + 2 * t);
-          const float lsec[2] = {lc.x, lc.y}, ddc[2] = {dc.x, dc.y};
-          if (full) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              st[j][i] = expf(fmaf(st[j][i], scale, -lsec[i % 2]));
-              dpt[j][i] = st[j][i] * (dpt[j][i] - ddc[i % 2]) * scale;
+            for (int j = 0; j < NC; j += 2) {
+              ldsm_b<SD>(b, qs, c0 + j * 8, kd * 16, lane);
+              mma_bf16(st[j], a, b[0], b[1]);
+              mma_bf16(st[j + 1], a, b[2], b[3]);
             }
-          } else {
+            if (DK) {
+              ldsm_a<SD>(a, sv, warp * 16, kd * 16, lane);
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int row = q0 + c0 + j * 8 + 2 * t + e;  // query rows past Sq take part in nothing
-              const int qp = mask.q_pos(row);
-#pragma unroll
-              for (int r = 0; r < 2; ++r) {
-                const int key = wk0 + g + 8 * r;  // this lane's keys
-                float& x = st[j][2 * r + e];
-                x = row >= Sq || mask.dead(qp, mask.k_pos(key), key) ? 0.f : expf(fmaf(x, scale, -lsec[e]));
-                dpt[j][2 * r + e] = x * (dpt[j][2 * r + e] - ddc[e]) * scale;
+              for (int j = 0; j < NC; j += 2) {
+                ldsm_b<SD>(b, dos, c0 + j * 8, kd * 16, lane);
+                mma_bf16(dpt[j], a, b[0], b[1]);
+                mma_bf16(dpt[j + 1], a, b[2], b[3]);
               }
             }
           }
+          // P^T and dS^T: element (key wk0 + g + 8r, query q0 + c0 + 8j + 2t +
+          // e) is st[j][2r + e]; st becomes P^T, dpt dS^T = P^T (dP^T - dd) scale
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            const float2 lc = *reinterpret_cast<const float2*>(lse_s + c0 + j * 8 + 2 * t);
+            const float2 dc = *reinterpret_cast<const float2*>(dd_s + c0 + j * 8 + 2 * t);
+            const float lsec[2] = {lc.x, lc.y}, ddc[2] = {dc.x, dc.y};
+            if (full) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                st[j][i] = expf(fmaf(st[j][i], scale, -lsec[i % 2]));
+                dpt[j][i] = st[j][i] * (dpt[j][i] - ddc[i % 2]) * scale;
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int row = q0 + c0 + j * 8 + 2 * t + e;  // query rows past Sq take part in nothing
+                const int qp = mask.q_pos(row);
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  const int key = wk0 + g + 8 * r;  // this lane's keys
+                  float& x = st[j][2 * r + e];
+                  x = row >= Sq || mask.dead(qp, mask.k_pos(key), key) ? 0.f : expf(fmaf(x, scale, -lsec[e]));
+                  dpt[j][2 * r + e] = x * (dpt[j][2 * r + e] - ddc[e]) * scale;
+                }
+              }
+            }
+          }
+          // dV += bf16(P^T) dO, then dK += bf16(dS^T) Q, over this step's queries
+          uint32_t a[kDkvChunk / 16][4];
+          if (DV) {
+#pragma unroll
+            for (int kk = 0; kk < kDkvChunk / 16; ++kk) acc_to_a(a[kk], st, kk);
+            add_products<SD>(dva, a, dos, c0, lane);
+          }
+          if (DK) {
+#pragma unroll
+            for (int kk = 0; kk < kDkvChunk / 16; ++kk) acc_to_a(a[kk], dpt, kk);
+            add_products<SD>(dka, a, qs, c0, lane);
+          }
         }
-        // dV += bf16(P^T) dO, then dK += bf16(dS^T) Q, over this step's queries
-        uint32_t a[kDkvChunk / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < kDkvChunk / 16; ++kk) acc_to_a(a[kk], st, kk);
-        add_products<SD>(dva, a, dos, c0, lane);
-#pragma unroll
-        for (int kk = 0; kk < kDkvChunk / 16; ++kk) acc_to_a(a[kk], dpt, kk);
-        add_products<SD>(dka, a, qs, c0, lane);
       }
+      __syncthreads();  // every warp is done with this stage before it is refilled
+      it = nxt;
+      queries = next_queries;
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    it = nxt;
-    queries = next_queries;
-  }
+    // every thread's copies have landed, also where no item was live
+    cp_async_wait<0>();
+    __syncthreads();
+  };
 
-  // dk and dv through the warp's own rows of sk and sv (no other warp reads
-  // them), once every thread's K/V copies have landed, also where no item
-  // was live
-  cp_async_wait<0>();
-  __syncthreads();
-  store_acc_bf16<D, VEC>(dk + base, sk + warp * 16 * SD, dka, wk0, Sk, d, lane);
-  store_acc_bf16<D, VEC>(dv + base, sv + warp * 16 * SD, dva, wk0, Sk, d, lane);
+  if constexpr (D <= 128) {
+    float dka[NO][4], dva[NO][4];
+    run(true, true, dva, dka);
+    // dk and dv through the warp's own rows of sk and sv (no other warp reads them)
+    store_acc_bf16<D, VEC>(dk + base, sk + warp * 16 * SD, dka, wk0, Sk, d, lane);
+    store_acc_bf16<D, VEC>(dv + base, sv + warp * 16 * SD, dva, wk0, Sk, d, lane);
+  } else {
+    float acc[NO][4];
+    run(false, true, acc, acc);
+    // dk through the warp's own rows of sv: the dV pass reads no V
+    store_acc_bf16<D, VEC>(dk + base, sv + warp * 16 * SD, acc, wk0, Sk, d, lane);
+    __syncthreads();  // the dV pass refills the Q and dO stages
+    run(true, false, acc, acc);
+    store_acc_bf16<D, VEC>(dv + base, sv + warp * 16 * SD, acc, wk0, Sk, d, lane);
+  }
 }

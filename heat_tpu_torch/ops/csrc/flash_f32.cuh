@@ -93,8 +93,11 @@
 //     query) finds so in one parallel pass over the positions, writes its
 //     outputs (O = 0 and lse = -1e30, dq = 0, dk = dv = 0) and returns
 //     before it loads a tile;
-//   * any d in [1, 128]: tiles are zero-padded to D = 64 or 128 columns and
-//     rows past the end load as zeros, so S is never padded in memory.
+//   * any d in [1, 256]: tiles are zero-padded to D = 64, 128 or 256
+//     columns and rows past the end load as zeros, so S is never padded in
+//     memory.  At D = 256 a 64-row tile is 65 KB: the ring has one stage
+//     (kF32Stages), refilled after a barrier, and dq's blocks take 32 query
+//     rows (kDqRows), so every body fits in 227 KB of shared memory.
 // What holds them back: all three run at about half the FFMA rate (on an
 // NVIDIA H100 80GB HBM3 at 700 W, (64, 1024, 64) causal: dq 0.37 ms, dk/dv
 // 0.58 against bounds of 0.19 and 0.26; the forward's own time and what
@@ -116,19 +119,28 @@ static_assert(kF32Threads == 2 * BQ && BQ == 64 && BK == 64 && kDkvKeys == 32,
               "the thread map: 16 x 8 threads over 64-row tiles, one thread a row of lse or dd");
 template <int D>
 constexpr int kF32MinBlocks = D == 64 ? 2 : 1;  // as shared memory allows
+// Stages of the streamed operand's ring: two up to D = 128; at D = 256 one
+// (a tile of 64 rows is 65 KB), whose next tile is loaded once every warp
+// is done with it.  dq's query rows a block: 64, at D = 256 32, as the
+// resident Q and dO tiles and one stage of K and V fit in 227 KB then.
+template <int D>
+constexpr int kF32Stages = D <= 128 ? 2 : 1;
+template <int D>
+constexpr int kDqRows = D <= 128 ? BQ : BQ / 2;
 
 template <int D>
-constexpr size_t fwd_f32_smem() {  // sq [BQ][D + PAD]; sk, sv [2][BK][D + PAD]; P [BQ][TS]
-  return sizeof(float) * (5 * BQ * (D + PAD) + BQ * TS);
+constexpr size_t fwd_f32_smem() {  // sq [BQ][D + PAD]; sk, sv [stages][BK][D + PAD]; P [BQ][TS]
+  return sizeof(float) * ((1 + 2 * kF32Stages<D>) * BQ * (D + PAD) + BQ * TS);
 }
 template <int D>
-constexpr size_t dq_f32_smem() {  // sq, sdo [BQ][D + PAD]; sk, sv [2][BK][D + PAD]
-  return sizeof(float) * 6 * BQ * (D + PAD);
+constexpr size_t dq_f32_smem() {  // sq, sdo [kDqRows][D + PAD]; sk, sv [stages][BK][D + PAD]
+  return sizeof(float) * (2 * kDqRows<D> + 2 * kF32Stages<D> * BK) * (D + PAD);
 }
-// sk, sv [32][D + PAD]; sq, sdo [2][BQ][D + PAD]; P^T, dS^T [32][TS]; lse, dd [2][BQ]
+// sk, sv [32][D + PAD]; sq, sdo [stages][BQ][D + PAD]; P^T, dS^T [32][TS]; lse, dd [stages][BQ]
 template <int D>
 constexpr size_t dkv_f32_smem() {
-  return sizeof(float) * ((2 * kDkvKeys + 4 * BQ) * (D + PAD) + 2 * kDkvKeys * TS + 4 * BQ);
+  return sizeof(float) * ((2 * kDkvKeys + 2 * kF32Stages<D> * BQ) * (D + PAD) + 2 * kDkvKeys * TS +
+                          2 * kF32Stages<D> * BQ);
 }
 
 // component u of v, for a u the unrolled loops make a constant
@@ -333,12 +345,12 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                          float* __restrict__ out, float* __restrict__ lse, int rows, int d, int group, float scale,
                          const Mask mask) {
-  constexpr int SD = D + PAD, NG = D / 64;
+  constexpr int SD = D + PAD, NG = D / 64, ST = kF32Stages<D>;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);
-  float* sk = sq + BQ * SD;      // [2][BK][SD]
-  float* sv = sk + 2 * BK * SD;  // [2][BK][SD]
-  float* sp = sv + 2 * BK * SD;  // P [BQ][TS]: a warp writes and reads its own rows ty + 8i only
+  float* sk = sq + BQ * SD;       // [ST][BK][SD]
+  float* sv = sk + ST * BK * SD;  // [ST][BK][SD]
+  float* sp = sv + ST * BK * SD;  // P [BQ][TS]: a warp writes and reads its own rows ty + 8i only
 
   const int Sq = mask.q_rows(), Sk = mask.k_rows();
   const int nq = (Sq + BQ - 1) / BQ;
@@ -391,13 +403,15 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) acc[0][i][j] = 0.f;
 
-  for (int stage = 0; ik < nk; stage ^= 1) {
+  for (int stage = 0; ik < nk; stage = (stage + 1) % ST) {
     const int k0 = ik * BK;
     const int nxt = next_live(ik + 1, next_keys);
     cp_async_wait<0>();  // tile ik (and, the first time, Q) has landed
     __syncthreads();     // ... for every thread, and every warp is done with the other stage
-    if (nxt < nk) load_kv(nxt, stage ^ 1);
-    cp_async_commit();
+    if constexpr (ST == 2) {
+      if (nxt < nk) load_kv(nxt, stage ^ 1);
+      cp_async_commit();
+    }
     const float* ks = sk + stage * BK * SD;
     const float* vs = sv + stage * BK * SD;
     float s[1][8][4] = {};
@@ -438,6 +452,11 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
     }
     __syncwarp();
     mul_rows<BK, SD, 1, 8, NG>(acc, {sp}, {vs}, ty, tx);  // O += P V
+    if constexpr (ST == 1) {
+      __syncthreads();  // every warp is done with the one stage
+      if (nxt < nk) load_kv(nxt, 0);
+      cp_async_commit();
+    }
     ik = nxt;
     keys = next_keys;
   }
@@ -468,29 +487,33 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
                             const float* __restrict__ dout, const float* __restrict__ lse,
                             const float* __restrict__ dd, float* __restrict__ dq, int rows, int d, int group,
                             float scale, const Mask mask) {
-  constexpr int SD = D + PAD, NG = D / 64;
+  constexpr int SD = D + PAD, NG = D / 64, QR = kDqRows<D>, NI = QR / 8, ST = kF32Stages<D>;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);
-  float* sdo = sq + BQ * SD;
-  float* sk = sdo + BQ * SD;     // [2][BK][SD]
-  float* sv = sk + 2 * BK * SD;  // [2][BK][SD]; the current stage's holds dS [BQ][TS] once dP is taken
+  float* sdo = sq + QR * SD;
+  float* sk = sdo + QR * SD;      // [ST][BK][SD]
+  float* sv = sk + ST * BK * SD;  // [ST][BK][SD]; the current stage's holds dS [QR][TS] once dP is taken
 
   const int Sq = mask.q_rows(), Sk = mask.k_rows();
-  const int nq = (Sq + BQ - 1) / BQ;
+  const int nq = (Sq + QR - 1) / QR;
   const int iq = nq - 1 - int(blockIdx.x) / rows;  // heaviest causal tiles first, over every row
   const int bh = int(blockIdx.x) % rows;            // the query row; its K/V row is bh / group
-  const int q0 = iq * BQ;
+  const int q0 = iq * QR;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  const int qmax = mask.query_bound(q0);
+  // the 64-row tile of the masks that holds the block's rows: its bounds
+  // hold for any part of it (at QR = 32 the tile's other half only widens
+  // them, and a dropped pair is masked element by element)
+  const int t0 = q0 / BQ * BQ;
+  const int qmax = mask.query_bound(t0);
   if (!q_block_live(mask, qmax)) {  // no live pair: dq = 0
-    zero_rows_f32<BQ>(dq + int64_t(bh) * Sq * d, q0, Sq, d);
+    zero_rows_f32<QR>(dq + int64_t(bh) * Sq * d, q0, Sq, d);
     return;
   }
   const int64_t kv_base = int64_t(bh / group) * Sk * d;
   k += kv_base;
   v += kv_base;
-  const int nk = mask.key_end(iq);
+  const int nk = mask.key_end(t0 / BQ);
   auto next_live = [&](int ik, int2& keys) {  // the same in every warp; keys: the tile's (min, max) position
     for (; ik < nk; ++ik) {
       keys = mask.fwd_tile_range(ik * BK);
@@ -503,47 +526,49 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
     load_rows_f32<BK, D, VEC>(sv + stage * BK * SD, v, ik * BK, Sk, d);
   };
 
-  load_rows_f32<BQ, D, VEC>(sq, q + int64_t(bh) * Sq * d, q0, Sq, d);
-  load_rows_f32<BQ, D, VEC>(sdo, dout + int64_t(bh) * Sq * d, q0, Sq, d);
+  load_rows_f32<QR, D, VEC>(sq, q + int64_t(bh) * Sq * d, q0, Sq, d);
+  load_rows_f32<QR, D, VEC>(sdo, dout + int64_t(bh) * Sq * d, q0, Sq, d);
   int2 keys, next_keys;
   int ik = next_live(0, keys);
   if (ik < nk) load_kv(ik, 0);
   cp_async_commit();
   // this thread's rows q0 + ty + 8i: lse, dd and position; rows past Sq
   // compute on zeros (dS = 1 * (0 - 0) * scale) and are not written
-  float lse_r[8], dd_r[8];
-  int qp[8];
+  float lse_r[NI], dd_r[NI];
+  int qp[NI];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < NI; ++i) {
     const int row = q0 + ty + 8 * i;
     lse_r[i] = row < Sq ? lse[int64_t(bh) * Sq + row] : 0.f;
     dd_r[i] = row < Sq ? dd[int64_t(bh) * Sq + row] : 0.f;
     qp[i] = mask.q_pos(row);
   }
-  const int2 span = mask.bwd_tile_range(q0);  // the block's query positions (min, max)
-  float acc[1][8][NG * 4];
+  const int2 span = mask.bwd_tile_range(t0);  // the block's query positions (min, max), or wider
+  float acc[1][NI][NG * 4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int j = 0; j < NG * 4; ++j) acc[0][i][j] = 0.f;
 
-  for (int stage = 0; ik < nk; stage ^= 1) {
+  for (int stage = 0; ik < nk; stage = (stage + 1) % ST) {
     const int k0 = ik * BK;
     const int nxt = next_live(ik + 1, next_keys);
     cp_async_wait<0>();  // tile ik (and, the first time, Q and dO) has landed
     __syncthreads();     // ... for every thread, and every warp is done with the other stage
-    if (nxt < nk) load_kv(nxt, stage ^ 1);
-    cp_async_commit();
+    if constexpr (ST == 2) {
+      if (nxt < nk) load_kv(nxt, stage ^ 1);
+      cp_async_commit();
+    }
     const float* ks = sk + stage * BK * SD;
     float* vs = sv + stage * BK * SD;
-    float dp[1][8][4] = {}, s[1][8][4] = {};
-    dot_rows<D, SD, 1, 8>(dp, {sdo}, {vs}, ty, tx);  // dP = dO V^T
-    __syncthreads();                                 // every warp is done with V: dS goes over it
-    dot_rows<D, SD, 1, 8>(s, {sq}, {ks}, ty, tx);    // S = Q K^T
+    float dp[1][NI][4] = {}, s[1][NI][4] = {};
+    dot_rows<D, SD, 1, NI>(dp, {sdo}, {vs}, ty, tx);  // dP = dO V^T
+    __syncthreads();                                  // every warp is done with V: dS goes over it
+    dot_rows<D, SD, 1, NI>(s, {sq}, {ks}, ty, tx);    // S = Q K^T
     // _recompute_p and dS = P (dP - dd) scale; element (q0 + ty + 8i, k0 + tx + 16j)
     if (k0 + BK <= Sk && mask.fwd_tile_full(keys, span)) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[0][i][j] = p_of(s[0][i][j], scale, lse_r[i]) * (dp[0][i][j] - dd_r[i]) * scale;
     } else {
@@ -552,7 +577,7 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
         const int col = k0 + tx + 16 * j;
         const int kp = mask.k_pos(col);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < NI; ++i) {
           const float p = mask.dead(qp[i], kp, col) ? 0.f : p_of(s[0][i][j], scale, lse_r[i]);
           s[0][i][j] = p * (dp[0][i][j] - dd_r[i]) * scale;
         }
@@ -560,16 +585,21 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
     }
     // dS into this warp's own rows (ty + 8i) of the V stage; dQ += dS K
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) vs[(ty + 8 * i) * TS + tx + 16 * j] = s[0][i][j];
     __syncwarp();
-    mul_rows<BK, SD, 1, 8, NG>(acc, {vs}, {ks}, ty, tx);
+    mul_rows<BK, SD, 1, NI, NG>(acc, {vs}, {ks}, ty, tx);
+    if constexpr (ST == 1) {
+      __syncthreads();  // every warp is done with the one stage
+      if (nxt < nk) load_kv(nxt, 0);
+      cp_async_commit();
+    }
     ik = nxt;
     keys = next_keys;
   }
   cp_async_wait<0>();  // no copy outlives the block, also where no tile was live
-  store_rows_f32<8, NG, VEC>(dq + int64_t(bh) * Sq * d, acc[0], q0, Sq, d, ty, tx);
+  store_rows_f32<NI, NG, VEC>(dq + int64_t(bh) * Sq * d, acc[0], q0, Sq, d, ty, tx);
 }
 
 template <int D, bool VEC, typename Mask>
@@ -578,16 +608,16 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
                              const float* __restrict__ dout, const float* __restrict__ lse,
                              const float* __restrict__ dd, float* __restrict__ dk, float* __restrict__ dv, int rows,
                              int d, int group, float scale, const Mask mask) {
-  constexpr int SD = D + PAD, NG = D / 64, NK = kDkvKeys;
+  constexpr int SD = D + PAD, NG = D / 64, NK = kDkvKeys, ST = kF32Stages<D>;
   extern __shared__ float4 smem4[];
   float* sk = reinterpret_cast<float*>(smem4);
   float* sv = sk + NK * SD;
-  float* sq = sv + NK * SD;       // [2][BQ][SD]
-  float* sdo = sq + 2 * BQ * SD;  // [2][BQ][SD]
-  float* spt = sdo + 2 * BQ * SD;  // P^T [NK][TS]
-  float* sdst = spt + NK * TS;     // dS^T [NK][TS]
-  float* slse = sdst + NK * TS;    // [2][BQ]
-  float* sdd = slse + 2 * BQ;      // [2][BQ]
+  float* sq = sv + NK * SD;        // [ST][BQ][SD]
+  float* sdo = sq + ST * BQ * SD;  // [ST][BQ][SD]
+  float* spt = sdo + ST * BQ * SD;  // P^T [NK][TS]
+  float* sdst = spt + NK * TS;      // dS^T [NK][TS]
+  float* slse = sdst + NK * TS;     // [ST][BQ]
+  float* sdd = slse + ST * BQ;      // [ST][BQ]
 
   const int Sq = mask.q_rows(), Sk = mask.k_rows();
   const int ik = int(blockIdx.x) / rows;  // under causal the first key tiles have the most work: first
@@ -641,13 +671,15 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
     for (int j = 0; j < NG * 4; ++j) dvk[0][i][j] = dvk[1][i][j] = 0.f;
   }
 
-  for (int stage = 0; it < items; stage ^= 1) {
+  for (int stage = 0; it < items; stage = (stage + 1) % ST) {
     const int q0 = (qbegin + it % per_head) * BQ;
     const int nxt = next_live(it + 1, next_queries);
     cp_async_wait<0>();  // item it (and, the first time, K and V) has landed
     __syncthreads();     // ... for every thread, and every warp is done with the other stage
-    if (nxt < items) load_q(nxt, stage ^ 1);
-    cp_async_commit();
+    if constexpr (ST == 2) {
+      if (nxt < items) load_q(nxt, stage ^ 1);
+      cp_async_commit();
+    }
     const float* qs = sq + stage * BQ * SD;
     const float* dos = sdo + stage * BQ * SD;
     const float* lse_s = slse + stage * BQ;
@@ -682,6 +714,11 @@ __global__ void __launch_bounds__(kF32Threads, kF32MinBlocks<D>)
       }
     __syncwarp();
     mul_rows<BQ, SD, 2, 4, NG>(dvk, {spt, sdst}, {dos, qs}, ty, tx);
+    if constexpr (ST == 1) {
+      __syncthreads();  // every warp is done with the one stage
+      if (nxt < items) load_q(nxt, 0);
+      cp_async_commit();
+    }
     it = nxt;
     queries = next_queries;
   }

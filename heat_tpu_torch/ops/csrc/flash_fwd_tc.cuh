@@ -54,15 +54,17 @@
 //     Rows are padded by 16 bytes, so ldmatrix's 8 rows fall in 8
 //     distinct bank groups;
 //   * a block is kFwdWarps = 4 warps, 64 query rows, at 3 blocks an SM for
-//     D = 64 (ptxas: <= 170 registers, no spills) and 2 for D = 128.
+//     D = 64 (ptxas: <= 170 registers, no spills), 2 for D = 128 and 1 for
+//     D = 256, where the O accumulators alone take 128 registers a thread,
+//     so the Q fragments are read from shared memory each tile (169 KB).
 //     Blocks go out heaviest causal tile first over every row, against the
 //     grid's tail.  A warp skips a key tile wholly in the future of its
 //     rows.  Only a tile that the mask cuts (the causal diagonal, the
 //     ragged end, a positions tile not all live) is masked element by
 //     element.  Under PosMask each warp reads a tile's positions once (min
 //     and max), one tile ahead;
-//   * any d in [1, 128]: tiles are zero-padded to D = 64 or 128 columns in
-//     shared memory, and rows past the end load as zeros, so S is never
+//   * any d in [1, 256]: tiles are zero-padded to D = 64, 128 or 256 columns
+//     in shared memory, and rows past the end load as zeros, so S is never
 //     padded in device memory.  VEC (d % 8 == 0 and 16-byte aligned
 //     operands) loads by 16-byte cp.async.  Otherwise the same kernel
 //     loads element by element (d = 33, a tensor at an odd storage
@@ -269,9 +271,15 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
   cp_async_wait<1>();  // the Q tile
   __syncthreads();
 
-  uint32_t qf[KD][4];  // A fragments of the warp's 16 rows, d in k16 steps
+  // A fragments of the warp's 16 rows, d in k16 steps: in registers for the
+  // whole key loop up to D = 128; at D = 256 (O alone takes 128 registers)
+  // read again from the Q tile, which stays in shared memory, each tile
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) ldsm_a<SD>(qf[kd], sq, warp * 16, kd * 16, lane);
+    for (int kd = 0; kd < KD; ++kd) ldsm_a<SD>(qf[kd], sq, warp * 16, kd * 16, lane);
+  }
 
   const int2 span = mask.fwd_warp_span(wq0);  // the warp's query positions (min, max)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NO][4];  // m in log2 units
@@ -291,15 +299,25 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks<D>)
       float s[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      auto scores = [&](const uint32_t(&a)[4], int kd) {  // key tiles j and j + 1 against step kd of d
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd)  // S = Q K^T: 8 independent products a step of d
-#pragma unroll
-        for (int j = 0; j < NS; j += 2) {  // key tiles j and j + 1
+        for (int j = 0; j < NS; j += 2) {
           uint32_t b[4];
           ldsm_b<SD>(b, ks, j * 8, kd * 16, lane);
-          mma_bf16(s[j], qf[kd], b[0], b[1]);
-          mma_bf16(s[j + 1], qf[kd], b[2], b[3]);
+          mma_bf16(s[j], a, b[0], b[1]);
+          mma_bf16(s[j + 1], a, b[2], b[3]);
         }
+      };
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {  // S = Q K^T: 8 independent products a step of d
+        if constexpr (kQRegs) {
+          scores(qf[kd], kd);
+        } else {
+          uint32_t qr[4];
+          ldsm_a<SD>(qr, sq, warp * 16, kd * 16, lane);
+          scores(qr, kd);
+        }
+      }
       // _masked_scores, in log2 units (scale * log2 e): element (row g + 8r,
       // key k0 + 8j + 2t + e) is s[j][2r + e]
       if (k0 + BK <= Sk && mask.fwd_tile_full(keys, span)) {

@@ -361,17 +361,13 @@ __device__ __forceinline__ void load_a(const T* st, int s, int g, int t, uint32_
 
 // x.c of the tile's 32 rows and the 64 centres of n8 tiles tile[0..7], by
 // mma.sync: the centres' float32 fragments are split as they are loaded.
+// acc += those products over the tile's DP columns (the streamed route adds
+// d-tile after d-tile into one acc, in the same order of k-steps).
 template <typename T, int DP>
-__device__ __forceinline__ void products_mma(const T* st, const float* cs, const int (&tile)[kChunk], int lane,
-                                             float (&acc)[2][kChunk][4]) {
+__device__ __forceinline__ void accumulate_mma(const T* st, const float* cs, const int (&tile)[kChunk], int lane,
+                                                 float (&acc)[2][kChunk][4]) {
   constexpr int KS = DP / 8;
   const float2* cs2 = reinterpret_cast<const float2*>(cs);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
     uint32_t ahi[2][4], alo[2][4];
@@ -390,6 +386,22 @@ __device__ __forceinline__ void products_mma(const T* st, const float* cs, const
       }
     }
   }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[2][kChunk][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kChunk; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+}
+
+template <typename T, int DP>
+__device__ __forceinline__ void products_mma(const T* st, const float* cs, const int (&tile)[kChunk], int lane,
+                                             float (&acc)[2][kChunk][4]) {
+  zero_acc(acc);
+  accumulate_mma<T, DP>(st, cs, tile, lane, acc);
 }
 
 // The same for 64-centre chunk ch by wgmma: the warpgroup's 4 warps give
@@ -427,6 +439,78 @@ __device__ __forceinline__ void products_wgmma(const T* st, uint32_t cs_addr, in
   for (int b = 0; b < 2; ++b) hold(ahi[b][0]), hold(ahi[b][1]), hold(alo[b][0]), hold(alo[b][1]);
 }
 
+// Clamp the d^2 of a 64-centre chunk (n8 tiles tile[0..7]) and keep the
+// least of each of the lane's rows 16 mt + 8 h + g in best, its centre in
+// bi, in ascending centre order (strict <: the lower index wins a tie).
+// Centre j0 + 8 tile[nt] + 2t has |c|^2 cc[8 tile[nt] + 2t].
+__device__ __forceinline__ void fold_chunk(const float (&acc)[2][kChunk][4], const float* cc, int j0,
+                                           const int (&tile)[kChunk], int t, const float (&xr)[2][2],
+                                           float (&best)[2][2], int (&bi)[2][2]) {
+  // lane (g, t) holds rows g, g + 8 of each m16 tile at centres 2t, 2t + 1 of each n8 tile
+#pragma unroll
+  for (int nt = 0; nt < kChunk; ++nt) {
+    const int jl = 8 * tile[nt] + 2 * t, j = j0 + jl;
+    const float2 cj = *reinterpret_cast<const float2*>(cc + jl);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h], xr[mt][h] + cj.x), 0.f);
+        if (v0 < best[mt][h]) {
+          best[mt][h] = v0;
+          bi[mt][h] = j;
+        }
+        const float v1 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h + 1], xr[mt][h] + cj.y), 0.f);
+        if (v1 < best[mt][h]) {
+          best[mt][h] = v1;
+          bi[mt][h] = j + 1;
+        }
+      }
+  }
+}
+
+// The quad's least value of each row, the lower index on equal values;
+// then lane i takes row i: (best_out, bi_out)
+__device__ __forceinline__ void quad_argmin(float (&best)[2][2], int (&bi)[2][2], int lane, float& best_out,
+                                            int& bi_out) {
+  const int src = (lane & 7) << 2, mine = lane >> 3;
+  best_out = 0.f;
+  bi_out = 0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best[mt][h], off);
+        const int oj = __shfl_xor_sync(0xffffffffu, bi[mt][h], off);
+        if (ob < best[mt][h] || (ob == best[mt][h] && oj < bi[mt][h])) {
+          best[mt][h] = ob;
+          bi[mt][h] = oj;
+        }
+      }
+      const float vb = __shfl_sync(0xffffffffu, best[mt][h], src);
+      const int vj = __shfl_sync(0xffffffffu, bi[mt][h], src);
+      if (2 * mt + h == mine) {
+        best_out = vb;
+        bi_out = vj;
+      }
+    }
+}
+
+// Row 16 mt + 8 h + g's |x|^2 (xx of that lane) in xr, and best, bi empty
+__device__ __forceinline__ void start_rows(float xx, int g, float (&xr)[2][2], float (&best)[2][2],
+                                           int (&bi)[2][2]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xr[mt][h] = __shfl_sync(0xffffffffu, xx, 16 * mt + 8 * h + g);
+      best[mt][h] = __int_as_float(0x7f800000);  // +inf
+      bi[mt][h] = 0;
+    }
+}
+
 // The distance pass over one tile st: lane i gets row i's clamped min d^2
 // (best) and its lowest-index argmin (bi) over the k centres (kc padded).
 // WG: the products by wgmma (the whole warpgroup calls this together),
@@ -451,14 +535,7 @@ __device__ __forceinline__ void assign_tile(const T* st, const float* cs, const 
   }
   float xr[2][2], best[2][2];  // [m16 tile][h]: row 16 mt + 8 h + g
   int bi[2][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      xr[mt][h] = __shfl_sync(0xffffffffu, xx, 16 * mt + 8 * h + g);
-      best[mt][h] = __int_as_float(0x7f800000);  // +inf
-      bi[mt][h] = 0;
-    }
+  start_rows(xx, g, xr, best, bi);
   // Centres go 64 at a time.  For mma.sync a chunk past the last n8 tile
   // reads the last tile again: its products are those of the tile already
   // taken, to the bit, so under the strict < they never win, and no branch
@@ -474,52 +551,9 @@ __device__ __forceinline__ void assign_tile(const T* st, const float* cs, const 
       products_wgmma<T, DP>(st, smem_u32(cs), c0 >> 6, lane, acc);
     else
       products_mma<T, DP>(st, cs, tile, lane, acc);
-    // lane (g, t) holds rows g, g + 8 of each m16 tile at centres 2t, 2t + 1 of each n8 tile
-#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt) {
-      const int j = 8 * tile[nt] + 2 * t;
-      const float2 cj = *reinterpret_cast<const float2*>(cc + j);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float v0 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h], xr[mt][h] + cj.x), 0.f);
-          if (v0 < best[mt][h]) {
-            best[mt][h] = v0;
-            bi[mt][h] = j;
-          }
-          const float v1 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h + 1], xr[mt][h] + cj.y), 0.f);
-          if (v1 < best[mt][h]) {
-            best[mt][h] = v1;
-            bi[mt][h] = j + 1;
-          }
-        }
-    }
+    fold_chunk(acc, cc, 0, tile, t, xr, best, bi);
   }
-  // the quad's least value, the lower index on equal values; then lane i takes row i
-  const int src = (lane & 7) << 2, mine = lane >> 3;
-  best_out = 0.f;
-  bi_out = 0;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best[mt][h], off);
-        const int oj = __shfl_xor_sync(0xffffffffu, bi[mt][h], off);
-        if (ob < best[mt][h] || (ob == best[mt][h] && oj < bi[mt][h])) {
-          best[mt][h] = ob;
-          bi[mt][h] = oj;
-        }
-      }
-      const float vb = __shfl_sync(0xffffffffu, best[mt][h], src);
-      const int vj = __shfl_sync(0xffffffffu, bi[mt][h], src);
-      if (2 * mt + h == mine) {
-        best_out = vb;
-        bi_out = vj;
-      }
-    }
+  quad_argmin(best, bi, lane, best_out, bi_out);
 }
 
 // Run body(tile, r0, nr) over this warp's tiles of 32 rows (tile w, w +
@@ -727,6 +761,198 @@ __global__ void em_reduce_kernel(const float* __restrict__ psums, const int* __r
   }
 }
 
+// The streamed route: any d, any k.  Where the centres do not fit the
+// shared-memory layout above (d > 128, or k past the cap of each kernel),
+// assign and em_stats take the same distance pass with the centres streamed
+// through shared memory in tiles of 64 centres x kStreamD columns.  A block
+// of kStreamWarps warps, one 32-row tile a warp, walks the centres a chunk at
+// a time and, in each chunk, d a tile at a time: each d-tile's row tile and
+// centre tile go to shared memory (rows and columns past the ends zero on
+// both sides), and mma.sync adds the d-tile's split-TF32 products into the
+// chunk's accumulators, k-step after k-step in column order, as
+// products_mma does over DP; the chunk's d^2 are then clamped and folded
+// into each row's running (min d^2, label) by fold_chunk, and the rows'
+// argmin taken by quad_argmin, as in assign_tile.  |x|^2 and |c|^2 are FFMA
+// sums in column order, |c|^2 by center_norms_kernel before the launch.  So
+// where both routes take a shape (d <= 128, k past wgmma's centres), this
+// route gives the mma.sync route's bits.  em_stats adds each row of the
+// warp's tile, in row order, into the warp's own slot of a (slots, k, d)
+// float32 scratch in device memory and counts it in a (slots, k) int32 one;
+// em_reduce_kernel sums the slots in slot order.  No float atomics: the
+// sums repeat bit for bit.  It is simple first: x is read once a chunk of
+// 64 centres, and the fold goes through device memory.
+constexpr int kStreamD = 128;    // columns of a streamed d-tile
+constexpr int kStreamWarps = 4;  // warps of a streamed block
+constexpr size_t kStreamScratch = size_t(512) << 20;  // bytes of em_stats' slots at most (but >= one block's)
+
+size_t stream_smem_bytes(int tsize) {
+  return (size_t(8 * kChunk) * kStreamD + 8 * kChunk) * 4 + size_t(kStreamWarps) * kRows * row_stride(kStreamD, tsize) * tsize;
+}
+
+// |c|^2 of each centre, an FFMA sum in column order (load_centers' sum)
+__global__ void center_norms_kernel(const float* __restrict__ centers, int k, int d, float* __restrict__ cn) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= k) return;
+  float s = 0.f;
+  for (int t = 0; t < d; ++t) s = fmaf(centers[size_t(j) * d + t], centers[size_t(j) * d + t], s);
+  cn[j] = s;
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  if constexpr (sizeof(T) == 4) return 0.f; else return __float2bfloat16(0.f);
+}
+
+// EM false: labels and d2 of rows [0, n).  EM true: the warp's slot of
+// psums (k, d) and pcounts (k) gets the sums and counts of its rows.
+template <typename T, bool EM>
+__global__ void __launch_bounds__(kStreamWarps * 32) stream_kernel(const T* __restrict__ x,
+                                                                   const float* __restrict__ centers,
+                                                                   const float* __restrict__ cn, int64_t n, int k,
+                                                                   int d, int* __restrict__ labels,
+                                                                   float* __restrict__ d2out, float* __restrict__ psums,
+                                                                   int* __restrict__ pcounts) {
+  count_resident(true);
+  extern __shared__ float4 smem4[];
+  constexpr int XS = row_stride(kStreamD, sizeof(T)), KS = kStreamD / 8, CH = 8 * kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* cs = reinterpret_cast<float*>(smem4);  // (CH, kStreamD) in mma.sync fragment order
+  float* cc = cs + CH * kStreamD;               // (CH)
+  T* st = reinterpret_cast<T*>(cc + CH) + warp * kRows * XS;
+  const int64_t kd = int64_t(k) * d;
+  float* ws = nullptr;
+  int* wc = nullptr;
+  if constexpr (EM) {
+    const int64_t slot = int64_t(blockIdx.x) * kStreamWarps + warp;
+    ws = psums + slot * kd;
+    wc = pcounts + slot * k;
+    for (int64_t e = lane; e < kd; e += 32) ws[e] = 0.f;
+    for (int e = lane; e < k; e += 32) wc[e] = 0;
+    __syncwarp();
+  }
+  int tile[kChunk];
+#pragma unroll
+  for (int nt = 0; nt < kChunk; ++nt) tile[nt] = nt;
+  const int64_t groups = (n + kRows * kStreamWarps - 1) / (kRows * kStreamWarps);
+  for (int64_t gi = blockIdx.x; gi < groups; gi += gridDim.x) {  // block-uniform
+    const int64_t r0 = (gi * kStreamWarps + warp) * kRows;
+    const int nr = rows_left(n, r0, kRows);
+    float xx = 0.f, xr[2][2], best[2][2];
+    int bi[2][2];
+    for (int c0 = 0; c0 < k; c0 += CH) {
+      float acc[2][kChunk][4];
+      zero_acc(acc);
+      for (int d0 = 0; d0 < d; d0 += kStreamD) {
+        __syncthreads();  // every warp is done with the tiles of the step before
+        for (int e = threadIdx.x; e < CH * kStreamD; e += blockDim.x) {
+          const int q = e & 1, ln = (e >> 1) & 31, rest = e >> 6, s = rest % KS, tl = rest / KS;
+          const int j = c0 + tl * 8 + (ln >> 2), col = d0 + s * 8 + q * 4 + (ln & 3);
+          cs[e] = (j < k && col < d) ? centers[int64_t(j) * d + col] : 0.f;
+        }
+        if (d0 == 0)
+          for (int j = threadIdx.x; j < CH; j += blockDim.x)
+            cc[j] = c0 + j < k ? cn[c0 + j] : __int_as_float(0x7f800000);  // +inf: a pad centre never wins
+        for (int e = lane; e < kRows * kStreamD; e += 32) {
+          const int r = e / kStreamD, col = e % kStreamD;
+          st[r * XS + col] = (r < nr && d0 + col < d) ? x[(r0 + r) * d + d0 + col] : zero_of<T>();
+        }
+        __syncthreads();
+        if (c0 == 0)  // |x|^2 of row `lane`, in column order
+          for (int col = 0; col < kStreamD; ++col) {
+            const float v = to_f32(st[lane * XS + col]);
+            xx = fmaf(v, v, xx);
+          }
+        accumulate_mma<T, kStreamD>(st, cs, tile, lane, acc);
+      }
+      if (c0 == 0) start_rows(xx, g, xr, best, bi);
+      fold_chunk(acc, cc, c0, tile, t, xr, best, bi);
+    }
+    float bd;
+    int bl;
+    quad_argmin(best, bi, lane, bd, bl);
+    if constexpr (!EM) {
+      if (lane < nr) {
+        labels[r0 + lane] = bl;
+        d2out[r0 + lane] = bd;
+      }
+    } else {
+      for (int r = 0; r < nr; ++r) {  // warp-uniform; row order
+        const int lab = __shfl_sync(0xffffffffu, bl, r);
+        const T* row = x + (r0 + r) * d;
+        float* sum = ws + int64_t(lab) * d;
+        for (int col = lane; col < d; col += 32) sum[col] += to_f32(row[col]);
+        if (lane == 0) wc[lab] += 1;
+      }
+    }
+  }
+  count_resident(false);
+}
+
+// Blocks of the streamed route on the current card, resident ones at most:
+// ``blocks`` <= cap; the kernel's shared memory is set
+template <typename T, bool EM>
+int stream_config(int* cap) {
+  int dev = 0, sms = 0, blocks = 0;
+  const size_t bytes = stream_smem_bytes(sizeof(T));
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(stream_kernel<T, EM>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stream_kernel<T, EM>, kStreamWarps * 32, bytes);
+  if (err != cudaSuccess) return int(err);
+  if (blocks < 1) return kErrSharedMemory;
+  *cap = blocks * sms;
+  return 0;
+}
+
+int64_t stream_groups(int64_t n) { return (n + kRows * kStreamWarps - 1) / (kRows * kStreamWarps); }
+
+template <typename T>
+int stream_assign_launch(const void* x, const float* c, int64_t n, int k, int d, float* cn, int* labels, float* d2,
+                         cudaStream_t stream) {
+  int cap = 0;
+  const int err = stream_config<T, false>(&cap);
+  if (err != 0) return err;
+  const int64_t grid = stream_groups(n) < cap ? stream_groups(n) : cap;
+  if (grid == 0) return 0;
+  center_norms_kernel<<<(k + 127) / 128, 128, 0, stream>>>(c, k, d, cn);
+  stream_kernel<T, false><<<int(grid), kStreamWarps * 32, stream_smem_bytes(sizeof(T)), stream>>>(
+      static_cast<const T*>(x), c, cn, n, k, d, labels, d2, nullptr, nullptr);
+  return int(cudaGetLastError());
+}
+
+// em_stats' slots on the streamed route: kStreamWarps a block, as many
+// blocks as are resident and the scratch budget allows, at least one
+template <typename T>
+int stream_em_grid(int64_t n, int k, int d) {
+  int cap = 0;
+  const int err = stream_config<T, true>(&cap);
+  if (err != 0) return err > 0 ? -1000 - err : err;
+  const int64_t per_block = int64_t(kStreamWarps) * k * d * 4, budget = int64_t(kStreamScratch) / per_block;
+  int64_t blocks = stream_groups(n);
+  if (blocks > cap) blocks = cap;
+  if (blocks > budget) blocks = budget;
+  if (blocks < 1) blocks = 1;
+  return int(blocks * kStreamWarps);
+}
+
+template <typename T>
+int stream_em_launch(const void* x, const float* c, int64_t n, int k, int d, int slots, float* cn, float* psums,
+                     int* pcounts, float* sums, float* counts, cudaStream_t stream) {
+  int cap = 0;
+  const int err = stream_config<T, true>(&cap);
+  if (err != 0) return err;
+  if (slots < kStreamWarps || slots % kStreamWarps != 0) return kErrBadGrid;
+  center_norms_kernel<<<(k + 127) / 128, 128, 0, stream>>>(c, k, d, cn);
+  stream_kernel<T, true><<<slots / kStreamWarps, kStreamWarps * 32, stream_smem_bytes(sizeof(T)), stream>>>(
+      static_cast<const T*>(x), c, cn, n, k, d, nullptr, nullptr, psums, pcounts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  const int total = k * d + k;
+  em_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(psums, pcounts, slots, k, k * d, sums, counts);
+  return int(cudaGetLastError());
+}
+
 struct Config {
   bool wg;  // products by wgmma, else by mma.sync
   int warps;
@@ -864,6 +1090,24 @@ int launch_config(int k, bool em, int* out) {
   out[2] = cfg.stages;
   out[3] = cfg.blocks_per_sm;
   out[4] = int(cfg.smem);
+  out[5] = 0;
+  return 0;
+}
+
+template <typename T, bool EM>
+int stream_launch_config(int* out) {
+  int cap = 0, sms = 0, dev = 0;
+  const int err = stream_config<T, EM>(&cap);
+  if (err != 0) return err;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return int(e);
+  out[0] = 0;
+  out[1] = kStreamWarps;
+  out[2] = 1;
+  out[3] = cap / sms;
+  out[4] = int(stream_smem_bytes(sizeof(T)));
+  out[5] = 1;
   return 0;
 }
 
@@ -887,39 +1131,71 @@ int launch_config(int k, bool em, int* out) {
 
 extern "C" {
 
-// Labels (int32) and clamped min d^2 (float32) of rows [0, n) of x (n, d).
+// Each entry takes the tiled route where the centres fit its shared-memory
+// layout (d <= 128 and k under the kernel's cap: configure() finds a
+// launch), else the streamed route.  Both kernels decide by the same
+// configure_for, so em_stats_grid and em_stats agree.
+
+// Labels (int32) and clamped min d^2 (float32) of rows [0, n) of x (n, d);
+// cnorm (k) float32 is scratch of the streamed route.
 int heat_kmeans_assign(int device, const void* x, const float* centers, int64_t n, int k, int d, int bf16,
-                       int* labels, float* d2, void* stream) {
+                       float* cnorm, int* labels, float* d2, void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_KMEANS_DISPATCH(bf16, d, return (assign_launch<T, DP>(x, centers, n, k, d, labels, d2,
-                                                              static_cast<cudaStream_t>(stream))));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 128) {
+    const int rc = [&]() -> int {
+      HEAT_KMEANS_DISPATCH(bf16, d, return (assign_launch<T, DP>(x, centers, n, k, d, labels, d2, s)));
+    }();
+    if (rc != kErrSharedMemory) return rc;
+  }
+  return bf16 ? stream_assign_launch<__nv_bfloat16>(x, centers, n, k, d, cnorm, labels, d2, s)
+              : stream_assign_launch<float>(x, centers, n, k, d, cnorm, labels, d2, s);
 }
 
-// Number of row-tile partitions (>= 1) em_stats uses for n rows; the caller
+// Number of partial-sum slots (>= 1) em_stats uses for n rows; the caller
 // allocates (grid, k, d) float32 and (grid, k) int32 scratch.  < 0: error.
 int heat_kmeans_em_grid(int device, int64_t n, int k, int d, int bf16) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return -1000 - int(guard.error());
-  HEAT_KMEANS_DISPATCH(bf16, d, return (em_grid<T, DP>(n, k)));
+  if (d <= 128) {
+    const int rc = [&]() -> int { HEAT_KMEANS_DISPATCH(bf16, d, return (em_grid<T, DP>(n, k))); }();
+    if (rc != kErrSharedMemory) return rc;
+  }
+  return bf16 ? stream_em_grid<__nv_bfloat16>(n, k, d) : stream_em_grid<float>(n, k, d);
 }
 
-// Per-cluster sums (k, d) and counts (k,) over rows [0, n) of x.
+// Per-cluster sums (k, d) and counts (k,) over rows [0, n) of x; cnorm (k)
+// float32 is scratch of the streamed route.
 int heat_kmeans_em_stats(int device, const void* x, const float* centers, int64_t n, int k, int d, int bf16,
-                         int grid, float* psums, int* pcounts, float* sums, float* counts, void* stream) {
+                         int grid, float* cnorm, float* psums, int* pcounts, float* sums, float* counts,
+                         void* stream) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_KMEANS_DISPATCH(bf16, d, return (em_launch<T, DP>(x, centers, n, k, d, grid, psums, pcounts, sums,
-                                                          counts, static_cast<cudaStream_t>(stream))));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (d <= 128) {
+    const int rc = [&]() -> int {
+      HEAT_KMEANS_DISPATCH(bf16, d, return (em_launch<T, DP>(x, centers, n, k, d, grid, psums, pcounts, sums,
+                                                              counts, s)));
+    }();
+    if (rc != kErrSharedMemory) return rc;
+  }
+  return bf16 ? stream_em_launch<__nv_bfloat16>(x, centers, n, k, d, grid, cnorm, psums, pcounts, sums, counts, s)
+              : stream_em_launch<float>(x, centers, n, k, d, grid, cnorm, psums, pcounts, sums, counts, s);
 }
 
 // The launch assign (em = 0) or em_stats (em = 1) makes for k centres of
-// width d: out[5] = wgmma (1) or mma.sync (0), warps a block, ring stages,
-// resident blocks an SM, shared bytes a block.
+// width d: out[6] = wgmma (1) or mma.sync (0), warps a block, ring stages,
+// resident blocks an SM, shared bytes a block, route (0 tiled, 1 streamed).
 int heat_kmeans_launch_config(int device, int k, int d, int bf16, int em, int* out) {
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
-  HEAT_KMEANS_DISPATCH(bf16, d, return (launch_config<T, DP>(k, em != 0, out)));
+  if (d <= 128) {
+    const int rc = [&]() -> int { HEAT_KMEANS_DISPATCH(bf16, d, return (launch_config<T, DP>(k, em != 0, out))); }();
+    if (rc != kErrSharedMemory) return rc;
+  }
+  if (bf16) return em ? stream_launch_config<__nv_bfloat16, true>(out) : stream_launch_config<__nv_bfloat16, false>(out);
+  return em ? stream_launch_config<float, true>(out) : stream_launch_config<float, false>(out);
 }
 
 // Turn the residency counter on (on = 1) or off, after the device is idle;
@@ -938,8 +1214,8 @@ int heat_kmeans_residency(int device, int on, int* peak, int sms) {
 }
 
 const char* heat_kmeans_strerror(int code) {
-  if (code == kErrUnsupportedD) return "d > 128 is not supported by the kmeans kernels";
-  if (code == kErrSharedMemory) return "k * d too large for the kernels' shared-memory layout";
+  if (code == kErrUnsupportedD) return "d out of range for the kmeans kernels";
+  if (code == kErrSharedMemory) return "no launch of the kmeans kernels fits this card's shared memory";
   if (code == kErrBadGrid) return "grid must be >= 1";
   if (code <= -1000) return cudaGetErrorString(static_cast<cudaError_t>(-1000 - code));
   return cudaGetErrorString(static_cast<cudaError_t>(code));

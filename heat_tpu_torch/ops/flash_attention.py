@@ -82,7 +82,7 @@ __all__ = ["flash_attention", "flash_attention_gqa", "flash_attention_block", "f
 launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_gqa_fwd": 0, "flash_gqa_bwd_dq": 0,
                  "flash_gqa_bwd_dkv": 0, "flash_pos_fwd": 0, "flash_pos_bwd_dq": 0, "flash_pos_bwd_dkv": 0}
 
-MAX_D = 128  # tiles are zero-padded to 64 or 128 columns
+MAX_D = 256  # tiles are zero-padded to 64, 128 or 256 columns
 KEY_TILE = 64  # keys per step of the forward kernel's loop (BK in the CUDA source)
 NO_MASS = -1e30  # lse of a row with no live key (_finalize's sentinel)
 POS_PAD = 2**30  # the position of a pad query or key: never attends (s_valid is capped at it)
@@ -110,7 +110,8 @@ def _check(q, k, v, *qlike, grouped: bool = False, positions: bool = False) -> N
         raise ValueError("flash attention operands must be contiguous")
     if q.device.type == "cuda":
         if not 1 <= q.shape[2] <= MAX_D:
-            raise ValueError(f"the CUDA flash-attention kernels take 1 <= d <= {MAX_D}, got d={q.shape[2]}")
+            raise ValueError(f"the CUDA flash-attention kernels take 1 <= d <= {MAX_D}, got d={q.shape[2]} "
+                             "(R5b: the reference's Pallas kernels admit d up to 1126)")
     elif q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
 

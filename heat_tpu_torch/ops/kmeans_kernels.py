@@ -40,7 +40,6 @@ __all__ = ["fused_assign", "fused_em_stats", "launch_config", "launch_counts", "
 # kernel launches since the last reset, one count per kernel
 launch_counts = {"assign": 0, "em_stats": 0}
 
-MAX_D = 128  # row tiles and centres are padded to 32, 64 or 128 columns
 BLOCK = 1 << 20  # rows per step of the torch paths: bounds their (rows, k) temporaries
 
 
@@ -78,11 +77,7 @@ def _check(x: torch.Tensor, centers: torch.Tensor) -> None:
         raise ValueError(f"x is on {x.device} but centers on {centers.device}")
     if not (x.is_contiguous() and centers.is_contiguous()):
         raise ValueError("x and centers must be contiguous")
-    if x.device.type == "cuda":
-        # k * d past the shared-memory layout is refused by the library itself
-        if centers.shape[1] > MAX_D:
-            raise ValueError(f"the CUDA kernels take d <= {MAX_D}, got d={centers.shape[1]}")
-    elif x.device.type != "cpu":
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {x.device}")
 
 
@@ -102,10 +97,11 @@ def fused_assign(x: torch.Tensor, centers: torch.Tensor):
     d2 = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return labels, d2
+    cnorm = torch.empty(k, dtype=torch.float32, device=x.device)
     lib = _build.load()
     rc = lib.heat_kmeans_assign(
         x.device.index, x.data_ptr(), centers.data_ptr(), n, k, d, int(x.dtype == torch.bfloat16),
-        labels.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        cnorm.data_ptr(), labels.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(lib, rc, "assign")
     launch_counts["assign"] += 1
@@ -132,8 +128,9 @@ def fused_em_stats(x: torch.Tensor, centers: torch.Tensor, n=None):
     pcounts = torch.empty((grid, k), dtype=torch.int32, device=x.device)
     sums = torch.empty((k, d), dtype=torch.float32, device=x.device)
     counts = torch.empty(k, dtype=torch.float32, device=x.device)
+    cnorm = torch.empty(k, dtype=torch.float32, device=x.device)
     rc = lib.heat_kmeans_em_stats(
-        x.device.index, x.data_ptr(), centers.data_ptr(), n, k, d, bf16, grid,
+        x.device.index, x.data_ptr(), centers.data_ptr(), n, k, d, bf16, grid, cnorm.data_ptr(),
         psums.data_ptr(), pcounts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -144,18 +141,21 @@ def fused_em_stats(x: torch.Tensor, centers: torch.Tensor, n=None):
 
 def launch_config(k: int, d: int, dtype=torch.float32, em: bool = False) -> dict:
     """The launch ``fused_assign`` (or, with ``em``, ``fused_em_stats``)
-    makes on the current card for ``k`` centres of width ``d``: the
-    tensor-core instruction of its products (``wgmma`` where the centres'
-    TF32 parts fit in shared memory, else ``mma.sync``), warps a block, row
-    tiles in each warp's copy ring, blocks and warps resident on an SM (the
-    CUDA runtime's occupancy calculator) and shared bytes a block."""
+    makes on the current card for ``k`` centres of width ``d``: its route
+    (``tiled`` where the centres fit the kernel's shared-memory layout, d <=
+    128 and k under its cap; else ``streamed``, the centres through shared
+    memory in tiles of 64 x 128), the tensor-core instruction of its
+    products (``wgmma`` where the centres' TF32 parts fit in shared memory,
+    else ``mma.sync``), warps a block, row tiles in each warp's copy ring,
+    blocks and warps resident on an SM (the CUDA runtime's occupancy
+    calculator) and shared bytes a block."""
     lib = _build.load()
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     rc = lib.heat_kmeans_launch_config(torch.cuda.current_device(), k, d, int(dtype == torch.bfloat16), int(em), out)
     _raise_on(lib, rc, "em_stats" if em else "assign")
-    wg, warps, stages, blocks, smem = out
-    return {"products": "wgmma" if wg else "mma.sync", "warps": warps, "stages": stages, "blocks_per_sm": blocks,
-            "resident_warps": blocks * warps, "smem_bytes": smem}
+    wg, warps, stages, blocks, smem, streamed = out
+    return {"route": "streamed" if streamed else "tiled", "products": "wgmma" if wg else "mma.sync", "warps": warps,
+            "stages": stages, "blocks_per_sm": blocks, "resident_warps": blocks * warps, "smem_bytes": smem}
 
 
 def resident_warps(run) -> list:

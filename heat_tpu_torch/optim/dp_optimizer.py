@@ -255,6 +255,16 @@ class DASO:
         self.module = None
         self._step_count = 0
         self._pending = None  # (dispatched average, due step)
+        from ..utils import profiler as _profiler
+
+        # unique per instance ("daso", "daso2", ...); the bound method is
+        # held weakly, so the provider dies with the optimizer
+        self.profiler_key = _profiler.register_counter_provider("daso", self._counter_snapshot)
+
+    def _counter_snapshot(self) -> dict:
+        """``utils.profiler`` counter provider (polled at reporting time)."""
+        s = self.skip_stats()
+        return {"steps": s["steps"], "skipped_steps": s["skipped"]}
 
     # ------------------------------------------------------------------ #
     def init(self, module: torch.nn.Module, key=None, sample_input=None) -> torch.nn.Module:
@@ -338,6 +348,12 @@ class DASO:
                                                                               ici=ici), t + self.stale_steps)
         if self.checkpoint_every and t % self.checkpoint_every == 0:
             self.checkpoint()
+        # fault site ``proc.exit``: ``proc.exit:exit=N`` on one rank
+        # SIGKILLs it after its Nth step, the deterministic rank death the
+        # supervisor detects and recovers from.  Disarmed: one dict miss.
+        from ..utils import faults as _faults
+
+        _faults.fire("proc.exit")
         return lval
 
     def epoch_loss_logic(self, epoch_loss) -> int:
@@ -504,6 +520,9 @@ class DASO:
                 raise
             warnings.warn(f"newest DASO checkpoint is unusable ({e}); falling back to the preserved previous "
                           f"state {prev!r}")
+            from ..utils import health as _health
+
+            _health.counter_inc("health.resume.fallbacks")
             tree = _io.load_checkpoint(like, prev)
         mine = self.comm.rank // self.ici_size
         with torch.no_grad():

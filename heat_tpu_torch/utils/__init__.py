@@ -3,3 +3,9 @@
 from . import data
 from . import convert
 from . import faults
+from . import flightrec
+from . import health
+from . import memledger
+from . import monitor
+from . import profiler
+from . import telemetry

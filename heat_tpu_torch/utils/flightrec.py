@@ -1,0 +1,657 @@
+"""Flight recorder: a crash-durable, bounded, per-rank event ring.
+
+The reference's ``utils/flightrec.py`` over the port, in the same ring
+layout, so either package's tools read the other's rings.  The supervisor
+can tell *that* a world hung and restart it; this module tells *which
+collective* the ranks disagreed on, *which rank* fell behind, and what the
+last healthy operation was (the telemetry ring dies with the process,
+because ``atexit`` never runs under SIGKILL).  It is the black box: every
+collective (and the coarse
+local events around it) is appended to a **preallocated mmap'd ring
+file**, so the last N events survive any process death without an exit
+handler.  ``scripts/postmortem.py`` merges the per-rank rings into a
+verdict naming the first divergent sequence or the straggler rank.
+
+**Durability contract.**  Appends go through an ``mmap`` of a fully
+preallocated file; there is NO ``msync``/``fsync`` on the hot path.  The
+written pages live in the OS page cache, which outlives the process: the
+ring survives SIGKILL, an uncaught exception, an OOM kill — anything that
+kills the *process*.  It does NOT survive kernel panic or power loss
+(that tier needs fsync, which would put a disk round-trip on the
+collective staging path).  The file itself is created tmp + rename, so a
+reader never sees a half-initialized header.
+
+**Record taxonomy** (the ``k`` field):
+
+- ``coll`` — a collective, stamped at the one choke point every
+  collective passes through (``Communication._account_bytes``).  Carries
+  the per-rank monotone **collective sequence number** ``seq`` plus the
+  fingerprint ``(op, gshape, dtype, src/dst split, wire bytes, epoch ts,
+  deadline remaining)``; ``gshape`` and ``dtype`` are the shape and the
+  dtype (``float32``, without ``torch.``) of the tensor the rank passed.  In lockstep SPMD every rank stages the identical
+  ``seq → fingerprint`` stream; the first index where streams differ IS
+  the desync, and the rank whose stream is shortest IS the straggler.
+- ``d`` — a coalesced cached-dispatch summary ``{"ops": {name: count}}``:
+  every local dispatch since the previous full record, flushed immediately
+  before the next collective/span/checkpoint append (and on ``sync()``) —
+  the "last healthy local operations" context around the collectives.
+  Coalescing keeps the per-dispatch hot path to ONE dict increment (the
+  same cost class as the telemetry hook); the window of local op names
+  since the last full record is the only thing a SIGKILL can lose, never
+  a collective stamp.
+- ``span`` / ``span_end`` — telemetry span open/close (named phases).
+- ``ckpt`` / ``resume`` / ``shutdown`` — checkpoint IO, restart-resume,
+  and clean teardown markers (the analyzer's "clean" evidence).
+
+Every record additionally carries the per-rank event counter ``e`` (its
+ring slot is ``e % n_slots``) and an epoch timestamp ``t``.
+
+**Arming.**  ``flightrec.enable(directory)`` (ring file
+``{dir}/flight_rank{k}.ring``) or ``HEAT_TPU_FLIGHTREC_DIR`` in the
+environment.  Like the telemetry module, enabling pokes module globals
+*into* the hot-path modules (``core.communication._FLIGHTREC``,
+``utils.telemetry._FLIGHTREC``), so the recorder-off cost on the
+collective path is ONE module-global load.
+
+Stdlib-only and standalone-loadable on purpose: ``scripts/postmortem.py``
+and ``scripts/telemetry_report.py`` load this file via
+``spec_from_file_location`` to read rings on machines that never import
+torch (a login node, the supervising launcher).
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import struct
+import sys
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+__all__ = [
+    "FlightRecorder",
+    "enable",
+    "disable",
+    "enabled",
+    "recorder",
+    "record_event",
+    "record_collective",
+    "record_dispatch",
+    "last_collective",
+    "sync",
+    "read_ring",
+    "find_ring_files",
+    "counters",
+    "slots_skipped_total",
+    "RING_MAGIC",
+    "RING_VERSION",
+    "DEFAULT_SLOTS",
+    "DEFAULT_SLOT_SIZE",
+]
+
+RING_MAGIC = b"HTFR"
+RING_VERSION = 1
+DEFAULT_SLOTS = 2048
+DEFAULT_SLOT_SIZE = 256
+
+# header: magic(4s) version(u32) slot_size(u32) n_slots(u32) rank(i32)
+#         pid(u32) created(f64) ev_count(u64) — 40 bytes used, padded to 64
+_HEADER_FMT = "<4sIIIiIdQ"
+_HEADER_SIZE = 64
+_EV_COUNT_OFF = struct.calcsize("<4sIIIiId")  # offset of the ev_count field
+_LEN_FMT = "<I"
+_LEN_SIZE = 4
+
+
+class FlightRecorder:
+    """One rank's ring: fixed-size length-prefixed JSON slots over mmap.
+
+    Appends are O(slot) memory writes under a lock (collective staging and
+    span boundaries are never the per-op hot path; the dispatch-path
+    recorder only bumps an in-memory per-op counter, coalesced into one
+    record at the next append).  The header's event counter is rewritten after every append
+    so a reader knows the cursor, but records are self-describing (each
+    carries its own ``e``), so a torn counter only costs the reader a
+    sort, never a record."""
+
+    def __init__(
+        self,
+        path: str,
+        slots: int = DEFAULT_SLOTS,
+        slot_size: int = DEFAULT_SLOT_SIZE,
+        rank: int = 0,
+    ):
+        if slots < 1 or slot_size < _LEN_SIZE + 16:
+            raise ValueError(f"ring too small: slots={slots} slot_size={slot_size}")
+        self.path = path
+        self.n_slots = int(slots)
+        self.slot_size = int(slot_size)
+        self.rank = int(rank)
+        self._ev = 0  # per-rank event counter (ring cursor)
+        self._closed = False  # set under the lock; appends become no-ops
+        self._seq = 0  # per-rank COLLECTIVE sequence number
+        self._last_coll: Optional[Tuple[int, str]] = None
+        self._lock = threading.Lock()
+        # dispatch fast path: per-op counts accumulated lock-free (GIL) and
+        # flushed as ONE coalesced "d" record at the next full append
+        self._d_pending: Dict[str, int] = {}
+        size = _HEADER_SIZE + self.n_slots * self.slot_size
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        # tmp + rename: a reader (the supervisor harvesting mid-teardown)
+        # never maps a half-initialized header.  Unique tmp per pid — SPMD
+        # ranks share the directory.
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as fh:
+            fh.truncate(size)
+            fh.seek(0)
+            fh.write(
+                struct.pack(
+                    _HEADER_FMT,
+                    RING_MAGIC,
+                    RING_VERSION,
+                    self.slot_size,
+                    self.n_slots,
+                    self.rank,
+                    os.getpid() & 0xFFFFFFFF,
+                    time.time(),
+                    0,
+                )
+            )
+        os.replace(tmp, path)
+        self._fh = open(path, "r+b")
+        self._mm = mmap.mmap(self._fh.fileno(), size)
+
+    # ------------------------------------------------------------------ #
+    def _append(self, build) -> int:
+        """Allocate the next slot and write ``build(ev)``'s bytes into it;
+        returns the event index.  ``build`` runs under the lock so the
+        ``e`` field inside the payload always matches the slot it lands in
+        (collectives may be stamped from the watchdog worker thread while
+        the main thread records spans)."""
+        mm = self._mm
+        with self._lock:
+            if self._closed:
+                # disable() raced an in-flight stamp (the watchdog worker
+                # thread may stamp while the main thread disarms): dropping
+                # the record beats a ValueError out of collective staging
+                return self._ev
+            ev = self._ev
+            self._ev = ev + 1
+            payload = build(ev)
+            off = _HEADER_SIZE + (ev % self.n_slots) * self.slot_size
+            n = len(payload)
+            limit = self.slot_size - _LEN_SIZE
+            if n > limit:  # defensive: callers pre-shrink oversize records
+                payload = payload[:limit]
+                n = limit
+            # length LAST: a reader of a torn slot sees either the old
+            # record (old length, old bytes intact) or the new one — never
+            # a new length over old bytes.  Zero the tail so a shorter new
+            # record can't leave parseable garbage from the evicted one.
+            mm[off + _LEN_SIZE : off + _LEN_SIZE + n] = payload
+            tail = self.slot_size - _LEN_SIZE - n
+            if tail:
+                mm[off + _LEN_SIZE + n : off + self.slot_size] = b"\x00" * tail
+            struct.pack_into(_LEN_FMT, mm, off, n)
+            struct.pack_into("<Q", mm, _EV_COUNT_OFF, self._ev)
+        return ev
+
+    def _flush_dispatch(self, blocking: bool = True) -> None:
+        """Fold the pending per-op dispatch counts into one ``d`` record.
+        Called before every full append so the summary lands immediately
+        BEFORE the record that closed its window ("these local ops ran
+        since the previous full record"), and from :meth:`sync`.
+
+        The detach + snapshot happens under the lock (two concurrent full
+        appends must not both serialize the same window), and the snapshot
+        is a C-level ``dict()`` copy — atomic under the GIL — because a
+        preempted lock-free ``record_dispatch`` may still insert into the
+        detached dict: ``json.dumps`` iterating a live dict would raise
+        ``RuntimeError`` straight through collective staging, whereas a
+        late insert into the detached original after the copy costs one
+        context count, which is the documented trade.  ``blocking=False``
+        is the signal-flush path: the handler can interrupt THIS thread
+        inside the locked region, and a blocking acquire there would
+        self-deadlock — skipping the flush just leaves the counts pending."""
+        if not self._lock.acquire(blocking):
+            return
+        try:
+            if not self._d_pending:
+                return
+            pend = dict(self._d_pending)
+            self._d_pending = {}
+        finally:
+            self._lock.release()
+        t = time.time()
+
+        def build(ev: int) -> bytes:
+            rec = {"e": ev, "t": t, "k": "d", "ops": pend}
+            payload = json.dumps(rec, separators=(",", ":"), default=str).encode()
+            if len(payload) > self.slot_size - _LEN_SIZE:
+                payload = json.dumps(
+                    {"e": ev, "t": t, "k": "d", "n": sum(pend.values()), "trunc": 1},
+                    separators=(",", ":"),
+                ).encode()
+            return payload
+
+        self._append(build)
+
+    def record(self, kind: str, **fields: Any) -> int:
+        """Append one event of ``kind`` with JSON-able ``fields``."""
+        self._flush_dispatch()
+        t = time.time()
+
+        def build(ev: int) -> bytes:
+            rec: Dict[str, Any] = {"e": ev, "t": t, "k": kind}
+            rec.update(fields)
+            limit = self.slot_size - _LEN_SIZE
+            payload = json.dumps(rec, separators=(",", ":"), default=str).encode()
+            if len(payload) > limit:
+                # too big for a slot: shed the bulky attributes (gshape,
+                # path, span attrs...) but KEEP the small identity fields —
+                # dropping a coll record's seq/op would punch a hole in the
+                # very stream the post-mortem diagnoses from
+                small = {
+                    f: rec[f]
+                    for f in ("seq", "op", "name", "wire", "dtype", "src",
+                              "dst", "tid")
+                    if f in rec
+                }
+                rec = {"e": ev, "t": t, "k": kind, **small, "trunc": 1}
+                payload = json.dumps(
+                    rec, separators=(",", ":"), default=str
+                ).encode()
+                if len(payload) > limit:  # pathological field values
+                    payload = json.dumps(
+                        {"e": ev, "t": t, "k": kind, "trunc": 1},
+                        separators=(",", ":"),
+                    ).encode()
+            return payload
+
+        return self._append(build)
+
+    def record_collective(
+        self,
+        name: str,
+        wire_bytes: int,
+        x: Any = None,
+        src_split: Optional[int] = None,
+        dst_split: Optional[int] = None,
+    ) -> int:
+        """Stamp one collective: bump the per-rank sequence number and
+        append the fingerprint.  ``x`` may be a tensor (shape and dtype are
+        read defensively) or None."""
+        gshape = dtype = None
+        if x is not None:
+            try:
+                gshape = [int(s) for s in x.shape]
+                dtype = str(x.dtype).replace("torch.", "")
+            except Exception:
+                pass
+        dl = _deadline_remaining()
+        tid = _trace_id()
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+            self._last_coll = (seq, name)
+        fields: Dict[str, Any] = {"seq": seq, "op": name, "wire": int(wire_bytes)}
+        if gshape is not None:
+            fields["gshape"] = gshape
+            fields["dtype"] = dtype
+        if src_split is not None:
+            fields["src"] = src_split
+        if dst_split is not None:
+            fields["dst"] = dst_split
+        if dl is not None:
+            fields["dl"] = round(dl, 3)
+        if tid is not None:
+            # the causal join key: this staged collective belongs to the
+            # ambient trace (a scheduler job's dispatch, a traced train
+            # step) — deliberately NOT part of the post-mortem fingerprint
+            # (postmortem._FP_FIELDS), so trace identity can never convict
+            # a rank of desync
+            fields["tid"] = tid
+        self.record("coll", **fields)
+        return seq
+
+    def record_dispatch(self, op_name: str) -> None:
+        """The ONE recorder call on the per-op hot path, so it is a single
+        dict increment — the same cost class as the telemetry dispatch
+        hook, and what keeps the recorder-on cost inside the ±5%
+        ``--flightrec-gate``.  The counts coalesce into one ``d`` summary
+        record at the next full append (:meth:`_flush_dispatch`): a ring
+        write per dispatch measured ~10× that, because any main-thread
+        Python burns GIL time the device's launch queue is bidding for.  No
+        lock: a lost increment under cross-thread interleaving costs one
+        count in a context record, never a collective stamp."""
+        pend = self._d_pending
+        pend[op_name] = pend.get(op_name, 0) + 1
+
+    def last_collective(self) -> Optional[Tuple[int, str]]:
+        """(seq, op name) of the most recently stamped collective, or None
+        — folded into the heartbeat beacon by ``health.write_heartbeat``."""
+        return self._last_coll
+
+    def sync(self) -> None:
+        """Flush pending dispatch counts into the ring, then the mapped
+        pages to disk (graceful-exit path only — the signal-flush handler
+        and tests; never the hot path).  The dispatch flush is
+        NON-blocking: this can run from a signal handler that interrupted
+        the very thread holding the append lock."""
+        self._flush_dispatch(blocking=False)
+        try:
+            self._mm.flush()
+        except (OSError, ValueError):
+            pass
+
+    def close(self) -> None:
+        self._flush_dispatch()
+        # the flag flips under the append lock: a stamp that held the lock
+        # when we got here has fully written its slot; any later one sees
+        # the flag and drops the record instead of writing a closed mmap
+        with self._lock:
+            self._closed = True
+        try:
+            self._mm.flush()
+            self._mm.close()
+        except (OSError, ValueError):
+            pass
+        try:
+            self._fh.close()
+        except OSError:
+            pass
+
+
+def _deadline_remaining() -> Optional[float]:
+    """Remaining budget of the armed ``comm.deadline`` — via ``sys.modules``
+    so a standalone load of this file never imports the package."""
+    hlth = sys.modules.get("heat_tpu_torch.utils.health")
+    if hlth is None:
+        return None
+    try:
+        dl = hlth.active_deadline()
+        return dl.remaining() if dl is not None else None
+    except Exception:
+        return None
+
+
+def _trace_id() -> Optional[str]:
+    """The ambient trace id (``telemetry.tracing``) — via ``sys.modules``
+    for the same standalone-load reason.  Works with telemetry DISABLED:
+    trace identity is a contextvar, not span-ring state, so the
+    crash-durable ring carries a job's causal path even when nothing
+    exports spans."""
+    tel = sys.modules.get("heat_tpu_torch.utils.telemetry")
+    if tel is None:
+        return None
+    try:
+        return tel.current_trace_id()
+    except Exception:
+        return None
+
+
+# ---------------------------------------------------------------------- #
+# module-global recorder + hot-path hook poking (the telemetry pattern)
+# ---------------------------------------------------------------------- #
+_RECORDER: Optional[FlightRecorder] = None
+
+
+def _rank() -> int:
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None:
+        try:
+            if dist.is_available() and dist.is_initialized():
+                return int(dist.get_rank())
+        except Exception:
+            pass
+    return int(
+        os.environ.get(
+            "HEAT_TPU_FLIGHTREC_RANK",
+            os.environ.get("HEAT_TPU_TELEMETRY_RANK", "0"),
+        )
+        or 0
+    )
+
+
+def _poke_hooks(on: bool) -> None:
+    """Arm/disarm the hot-path hooks: each consumer module reads its OWN
+    ``_FLIGHTREC`` global (one load, no call) to decide whether to record."""
+    me = sys.modules.get(__name__) if on else None
+    for name in (
+        "heat_tpu_torch.core.communication",
+        "heat_tpu_torch.utils.telemetry",
+    ):
+        mod = sys.modules.get(name)
+        if mod is not None:
+            mod._FLIGHTREC = me
+
+
+def enabled() -> bool:
+    return _RECORDER is not None
+
+
+def recorder() -> Optional[FlightRecorder]:
+    return _RECORDER
+
+
+def enable(
+    directory: Optional[str] = None,
+    rank: Optional[int] = None,
+    slots: int = DEFAULT_SLOTS,
+    slot_size: int = DEFAULT_SLOT_SIZE,
+) -> str:
+    """Arm the flight recorder: ring file ``{dir}/flight_rank{k}.ring``
+    (``directory`` or ``HEAT_TPU_FLIGHTREC_DIR``).  Re-enabling replaces
+    the ring — each supervisor generation starts a clean black box (the
+    previous generation's ring was harvested at teardown).  Returns the
+    ring path."""
+    global _RECORDER
+    directory = directory or os.environ.get("HEAT_TPU_FLIGHTREC_DIR")
+    if not directory:
+        raise ValueError(
+            "flightrec.enable() needs a directory (arg or HEAT_TPU_FLIGHTREC_DIR)"
+        )
+    r = _rank() if rank is None else int(rank)
+    old, _RECORDER = _RECORDER, None
+    if old is not None:
+        old.close()
+    path = os.path.join(directory, f"flight_rank{r}.ring")
+    _RECORDER = FlightRecorder(path, slots=slots, slot_size=slot_size, rank=r)
+    _poke_hooks(True)
+    # graceful kills (SIGTERM/SIGINT) flush the telemetry ring AND msync
+    # this one — the satellite hardening; in-package only (a standalone
+    # load is tooling that must not install process-wide handlers)
+    if __package__:
+        try:
+            from . import telemetry
+
+            telemetry.install_signal_flush()
+        except Exception:
+            pass
+    return path
+
+
+def disable() -> None:
+    """Disarm and close the ring (the file stays on disk for the analyzer)."""
+    global _RECORDER
+    old, _RECORDER = _RECORDER, None
+    _poke_hooks(False)
+    if old is not None:
+        old.close()
+
+
+def record_event(kind: str, **fields: Any) -> None:
+    """Append one event when armed; no-op (one global check) when not."""
+    r = _RECORDER
+    if r is not None:
+        r.record(kind, **fields)
+
+
+def record_collective(
+    name: str,
+    wire_bytes: int,
+    x: Any = None,
+    src_split: Optional[int] = None,
+    dst_split: Optional[int] = None,
+) -> None:
+    r = _RECORDER
+    if r is not None:
+        r.record_collective(name, wire_bytes, x, src_split, dst_split)
+
+
+def record_dispatch(op_name: str) -> None:
+    r = _RECORDER
+    if r is not None:
+        r.record_dispatch(op_name)
+
+
+def last_collective() -> Optional[Tuple[int, str]]:
+    r = _RECORDER
+    return r.last_collective() if r is not None else None
+
+
+def sync() -> None:
+    r = _RECORDER
+    if r is not None:
+        r.sync()
+
+
+# ---------------------------------------------------------------------- #
+# reader — used by scripts/postmortem.py and scripts/telemetry_report.py
+# (loaded standalone); tolerant of torn slots and foreign garbage
+# ---------------------------------------------------------------------- #
+# torn/unparseable slots seen inside written ring regions by THIS
+# process's read_ring calls — the reader-side honesty counter (the writer
+# path stays untouched: zero new hot-path cost).  Rides /metrics via
+# monitor._runtime_counters when nonzero.
+_SLOTS_SKIPPED = 0
+
+
+def slots_skipped_total() -> int:
+    """Torn/unparseable written slots skipped by reads in this process."""
+    return _SLOTS_SKIPPED
+
+
+def counters() -> Dict[str, int]:
+    """Monitor-facing counters (empty while nothing was skipped, keeping
+    /metrics noise-free — like ``telemetry.ring.dropped``)."""
+    if _SLOTS_SKIPPED:
+        return {"flightrec.slots.skipped": _SLOTS_SKIPPED}
+    return {}
+
+
+def read_ring(path: str) -> Dict[str, Any]:
+    """Parse one ring file: header fields + records sorted by event index.
+
+    Unparseable slots (torn writes, zeroed tails) are skipped — the black
+    box must be readable after ANY crash, so a bad slot costs one record,
+    never the file.  Skips inside the *written* region are COUNTED
+    (``slots_skipped`` in the result, accumulated into
+    ``flightrec.slots.skipped``): a lossy ring must never read as a
+    complete one.  Slots the writer never reached (``ev_count`` short of a
+    full ring) are simply empty, not torn, and are not counted."""
+    with open(path, "rb") as fh:
+        head = fh.read(_HEADER_SIZE)
+        if len(head) < _HEADER_SIZE:
+            raise ValueError(f"{path}: truncated ring header")
+        magic, version, slot_size, n_slots, rank, pid, created, ev_count = (
+            struct.unpack_from(_HEADER_FMT, head)
+        )
+        if magic != RING_MAGIC:
+            raise ValueError(f"{path}: not a flight-recorder ring (magic {magic!r})")
+        records: List[dict] = []
+        skipped = 0
+        # slots the writer reached: the whole ring once it has wrapped,
+        # else the first ev_count.  (A torn ev_count merely shifts this
+        # boundary by the one in-flight record; it cannot hide a torn slot
+        # deep inside the written region.)
+        written = n_slots if ev_count >= n_slots else ev_count
+        for i in range(n_slots):
+            slot = fh.read(slot_size)
+            if len(slot) < _LEN_SIZE:
+                break
+            (n,) = struct.unpack_from(_LEN_FMT, slot)
+            if n == 0 or n > slot_size - _LEN_SIZE:
+                if i < written:
+                    skipped += 1
+                continue
+            try:
+                rec = json.loads(slot[_LEN_SIZE : _LEN_SIZE + n])
+            except ValueError:
+                if i < written:
+                    skipped += 1
+                continue
+            if isinstance(rec, dict) and "e" in rec:
+                records.append(rec)
+            elif i < written:
+                skipped += 1
+    if skipped:
+        global _SLOTS_SKIPPED
+        _SLOTS_SKIPPED += skipped
+    records.sort(key=lambda r: r.get("e", 0))
+    return {
+        "path": path,
+        "version": version,
+        "rank": rank,
+        "pid": pid,
+        "created": created,
+        "ev_count": ev_count,
+        "n_slots": n_slots,
+        "slot_size": slot_size,
+        "slots_skipped": skipped,
+        "records": records,
+    }
+
+
+def find_ring_files(directory: str) -> List[str]:
+    """``flight_rank*.ring`` files under ``directory`` (non-recursive),
+    sorted by rank number."""
+    out = []
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    for name in names:
+        if name.startswith("flight_rank") and name.endswith(".ring"):
+            out.append(os.path.join(directory, name))
+
+    def key(p: str) -> Tuple[int, str]:
+        base = os.path.basename(p)[len("flight_rank") : -len(".ring")]
+        try:
+            return (int(base), p)
+        except ValueError:
+            return (1 << 30, p)
+
+    return sorted(out, key=key)
+
+
+# env arming: one check at import (io.py imports this module at package
+# import, so HEAT_TPU_FLIGHTREC_DIR takes effect process-wide).  Gated on
+# __package__ exactly like telemetry: a STANDALONE load of this file is
+# tooling (the postmortem reader) and must not create ring files.
+def _env_arm() -> None:
+    directory = os.environ.get("HEAT_TPU_FLIGHTREC_DIR")
+    if not directory:
+        return
+    try:
+        enable()
+    except OSError as e:
+        # an unwritable dir must not kill the runtime import — but a
+        # silently-disarmed black box is exactly the failure this module
+        # exists to prevent, so say it happened
+        import warnings
+
+        warnings.warn(
+            f"HEAT_TPU_FLIGHTREC_DIR={directory!r} is set but the flight "
+            f"recorder could not arm ({e!r}); this process will leave NO "
+            "ring file for the post-mortem",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+
+
+if __package__:
+    _env_arm()

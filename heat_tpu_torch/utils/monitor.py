@@ -1,0 +1,703 @@
+"""Live observability endpoint: a scrapeable ``/metrics`` + ``/healthz``.
+
+Everything observable so far is post-hoc: telemetry exports on flush,
+flight rings on death, journals on replay.  Nothing answers "what is this
+world doing RIGHT NOW?" — the serving direction needs live queue/SLO/
+health visibility, and a pod operator needs one URL to point Prometheus
+at.  This module is that surface: an **opt-in**, rank-0/supervisor-hosted
+HTTP server (stdlib ``http.server``, daemon thread) exposing
+
+- ``GET /metrics`` — Prometheus text format (v0.0.4).  One snapshot per
+  scrape of the registries that already exist: the ``utils.profiler``
+  counter store (``comm.*`` byte accounting, ``cache.*`` hit/miss,
+  ``sched.*`` admission/outcome counters, ``health.*``, ``retry.*`` —
+  dots become underscores, so the serving reconciliation reads
+  ``sched_offered = sched_accepted + sched_shed`` straight off the
+  scrape), the telemetry histograms (as ``<name>_seconds`` summaries with
+  p50/p90/p99/p99.9 quantile samples), the telemetry ring-eviction count,
+  registered **gauge sources** (the scheduler registers queue depth and
+  per-tenant in-flight), and — when a heartbeat directory is configured —
+  per-rank beacon age and flight-recorder ``seq`` lag.
+
+- ``GET /healthz`` — the worst-rank staleness verdict as JSON: 200 when
+  every expected rank's beacon is fresher than ``stale_after`` seconds,
+  503 naming the worst rank otherwise (the supervisor's staleness rule,
+  readable by a load balancer).  With a **federation source** armed
+  (:func:`set_federation_source`) the body also carries per-world rows
+  and the verdict tightens: 200 only when every world that is not
+  quarantined/retired is healthy — a draining world is a 503 a load
+  balancer acts on, a quarantined one is already-handled degradation.
+
+- **Ingress** (armed via :func:`set_ingress`, typically by the
+  federation layer): ``POST /submit`` admits a job through the backend's
+  journaled submit path and answers 200 with ``{"id", "trace_id"}``;
+  a structured shed (``JobRejected``) surfaces as HTTP **429** (or
+  **413** for an oversized body) with the machine-readable reason in the
+  JSON body, so load-shedding stays a synchronous backpressure signal on
+  the wire.  ``GET /status/<id>`` / ``GET /result/<id>`` read the job's
+  journal-backed view (404 for ids never accepted).  Trace ids are
+  minted at the edge — the same choke-point identity the journals and
+  flight rings correlate on.
+
+**Hot-path contract.**  Arming starts ONE daemon thread that blocks in
+``accept()``; nothing is added to any dispatch/staging path — there is no
+hook to poke, so the off-cost AND the armed-idle cost are both zero
+Python on the hot path.  A scrape reads the registries at that moment
+(the same reporting-boundary semantics as ``telemetry.report()``: counter
+providers may sync device-resident counters, so point scrapers at a
+sane interval, not a busy loop).  The bench lane's ``--monitor-gate``
+measures a concurrently-scraped dispatch loop against the unarmed one
+and holds the same ≤5% contract as the telemetry gate.
+
+**Security posture.**  Binds ``127.0.0.1`` by default — the endpoint
+exposes operational metadata (op names, tenant names, queue depths) and
+has no auth, so exposure beyond the host is an explicit operator decision
+(``addr=`` / ``HEAT_TPU_MONITOR_ADDR``), expected to sit behind the
+cluster's scrape fabric.  Port 0 (the default) asks the OS for an
+ephemeral port; :func:`address` returns what was bound.
+
+Stdlib-only and standalone-loadable on purpose: the supervisor process
+(which never imports torch) can host the endpoint for a whole world from
+the heartbeat directory alone.  All runtime registries are reached via
+``sys.modules`` — whatever is loaded is served, whatever is not is
+silently absent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import sys
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+__all__ = [
+    "enable",
+    "disable",
+    "enabled",
+    "address",
+    "register_gauge_source",
+    "unregister_gauge_source",
+    "set_ingress",
+    "clear_ingress",
+    "set_federation_source",
+    "clear_federation_source",
+    "metrics_text",
+    "healthz",
+    "timeline_json",
+    "Monitor",
+    "MAX_BODY_BYTES",
+]
+
+_METRIC_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+# scrape-time gauge callbacks: name -> fn() -> {metric: value} | None
+# (None = owner gone, source is pruned — the profiler provider contract)
+_gauge_sources: Dict[str, Callable[[], Optional[Dict[str, float]]]] = {}
+
+_MONITOR: Optional["Monitor"] = None
+_T0 = time.time()
+
+# ---------------------------------------------------------------------- #
+# ingress + federation wiring (armed by the federation layer)
+# ---------------------------------------------------------------------- #
+# Request bodies beyond this are refused 413 BEFORE being read — the
+# cheapest possible shed, and the cap that keeps an unauthenticated-LAN
+# endpoint from being a memory amplifier.
+MAX_BODY_BYTES = 1 << 20
+
+# The ingress backend: an object with ingress_submit(payload) -> dict,
+# ingress_status(id) -> dict|None, ingress_result(id) -> dict|None
+# (the federation.Federation protocol).  Duck-typed on purpose: a
+# standalone-loaded federation's JobRejected is a DIFFERENT class object
+# from the in-package one, so the handler matches sheds by their
+# ``reason`` attribute, never by isinstance.
+_INGRESS: Optional[object] = None
+
+# The federation health view: fn() -> report dict (federation.
+# Federation.health_report shape) | None when the federation is gone.
+_FED_SOURCE: Optional[Callable[[], Optional[dict]]] = None
+
+
+def set_ingress(backend: object) -> None:
+    """Arm the HTTP ingress: ``backend`` handles ``/submit``,
+    ``/status/<id>`` and ``/result/<id>`` (see :data:`_INGRESS` for the
+    protocol).  Re-arming replaces — a restarted federator wins."""
+    global _INGRESS
+    _INGRESS = backend
+
+
+def clear_ingress() -> None:
+    global _INGRESS
+    _INGRESS = None
+
+
+def set_federation_source(fn: Callable[[], Optional[dict]]) -> None:
+    """Arm the federation view: ``fn()`` returns a
+    ``Federation.health_report()`` dict (or None when the federation was
+    collected — the source is then pruned).  Feeds both the ``/healthz``
+    world rows/verdict and the ``fed_worlds_*`` ``/metrics`` gauges, so
+    the two surfaces reconcile by construction: same report, same
+    scrape."""
+    global _FED_SOURCE
+    _FED_SOURCE = fn
+
+
+def clear_federation_source() -> None:
+    global _FED_SOURCE
+    _FED_SOURCE = None
+
+
+def _federation_report() -> Optional[dict]:
+    """One scrape's federation view, pruning a collected source."""
+    global _FED_SOURCE
+    fn = _FED_SOURCE
+    if fn is None:
+        return None
+    try:
+        report = fn()
+    except Exception:
+        return None
+    if report is None:  # owner collected
+        _FED_SOURCE = None
+        return None
+    return report if isinstance(report, dict) else None
+
+
+def metric_name(name: str) -> str:
+    """Sanitize a dotted counter name into a legal Prometheus metric name
+    (``comm.resplit.bytes`` → ``comm_resplit_bytes``)."""
+    name = _METRIC_BAD.sub("_", str(name))
+    if not name or name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def register_gauge_source(
+    name: str, fn: Callable[[], Optional[Dict[str, float]]]
+) -> str:
+    """Register a scrape-time gauge callback.  ``fn()`` returns a dict of
+    dotted-name → value, or None when its owner is gone (the source is
+    then pruned at that scrape).  Re-registering a name replaces it — a
+    restarted scheduler's fresh gauges win over its predecessor's."""
+    _gauge_sources[str(name)] = fn
+    return str(name)
+
+
+def unregister_gauge_source(name: str) -> None:
+    _gauge_sources.pop(str(name), None)
+
+
+# ---------------------------------------------------------------------- #
+# snapshot assembly (pure functions — unit-testable without a socket)
+# ---------------------------------------------------------------------- #
+def _runtime_counters() -> Dict[str, float]:
+    """Everything the loaded runtime counts, via ``sys.modules`` only.
+    ``utils.profiler`` (when loaded) already merges the health/sched/
+    cache providers; the module-local stores are read directly as well so
+    a supervisor-side monitor (profiler never loaded — it imports torch)
+    still serves health/sched counters."""
+    out: Dict[str, float] = {}
+    for modname, reader in (
+        ("heat_tpu_torch.utils.health", "counters"),
+        ("heat_tpu_torch.parallel.scheduler", "counters"),
+        ("heat_tpu_torch.utils.faults", "counters"),
+        ("heat_tpu_torch.utils.memledger", "counters"),  # mem_live/peak gauges
+        ("heat_tpu_torch.utils.flightrec", "counters"),  # torn slots seen by reads
+        ("heat_tpu_torch.utils.profiler", "counters"),  # last: the merged superset
+    ):
+        mod = sys.modules.get(modname)
+        if mod is None:
+            continue
+        try:
+            vals = getattr(mod, reader)()
+        except Exception:
+            continue
+        for k, v in (vals or {}).items():
+            try:
+                out[str(k)] = float(v)
+            except (TypeError, ValueError):
+                continue
+    tel = sys.modules.get("heat_tpu_torch.utils.telemetry")
+    if tel is not None:
+        try:
+            dropped = tel.ring_dropped()
+            if dropped:
+                out["telemetry.ring.dropped"] = float(dropped)
+        except Exception:
+            pass
+    return out
+
+
+def _histogram_lines() -> List[str]:
+    """The telemetry histograms as ``<name>_seconds`` summary families."""
+    tel = sys.modules.get("heat_tpu_torch.utils.telemetry")
+    if tel is None:
+        return []
+    try:
+        hists = dict(tel._histograms)
+    except Exception:
+        return []
+    lines: List[str] = []
+    for name, h in sorted(hists.items()):
+        try:
+            s = h.summary()
+        except Exception:
+            continue
+        if not s.get("count"):
+            continue
+        base = metric_name(name) + "_seconds"
+        lines.append(f"# TYPE {base} summary")
+        for q, key in (("0.5", "p50_s"), ("0.9", "p90_s"),
+                       ("0.99", "p99_s"), ("0.999", "p999_s")):
+            lines.append(f'{base}{{quantile="{q}"}} {s.get(key, 0.0)}')
+        lines.append(f"{base}_count {s['count']}")
+        lines.append(f"{base}_sum {s.get('total_s', 0.0)}")
+    return lines
+
+
+def _heartbeat_view(
+    heartbeat_dir: Optional[str], stale_after: float
+) -> Tuple[List[dict], Optional[dict]]:
+    """Per-rank beacon view + the worst (stalest) rank, from file mtimes
+    and payloads — the supervisor's exact staleness rule, read-only."""
+    if not heartbeat_dir or not os.path.isdir(heartbeat_dir):
+        return [], None
+    rows: List[dict] = []
+    now = time.time()
+    for fname in sorted(os.listdir(heartbeat_dir)):
+        if not (fname.startswith("rank") and fname.endswith(".json")):
+            continue
+        try:
+            rank = int(fname[len("rank"):-len(".json")])
+        except ValueError:
+            continue
+        path = os.path.join(heartbeat_dir, fname)
+        try:
+            age = now - os.path.getmtime(path)
+        except OSError:
+            continue
+        row = {"rank": rank, "age_s": round(age, 3), "stale": age > stale_after}
+        try:
+            with open(path) as fh:
+                payload = json.load(fh)
+            if isinstance(payload, dict):
+                for k in ("step", "seq", "status", "restart_epoch", "mem_live"):
+                    if payload.get(k) is not None:
+                        row[k] = payload[k]
+        except (OSError, ValueError):
+            pass  # a torn beacon still has an mtime — age is the verdict
+        rows.append(row)
+    worst = max(rows, key=lambda r: r["age_s"]) if rows else None
+    return rows, worst
+
+
+def metrics_text(
+    heartbeat_dir: Optional[str] = None, stale_after: float = 120.0
+) -> str:
+    """The full ``/metrics`` payload (Prometheus text format v0.0.4).
+    Pure snapshot — callable without a server for tests and one-shot
+    dumps."""
+    lines: List[str] = []
+    for name, value in sorted(_runtime_counters().items()):
+        mname = metric_name(name)
+        lines.append(f"# TYPE {mname} counter")
+        lines.append(f"{mname} {int(value) if float(value).is_integer() else value}")
+    # gauge sources (scheduler queue depth / per-tenant in-flight, ...)
+    for src in list(_gauge_sources):
+        fn = _gauge_sources.get(src)
+        if fn is None:
+            continue
+        try:
+            vals = fn()
+        except Exception:
+            continue
+        if vals is None:  # owner collected
+            _gauge_sources.pop(src, None)
+            continue
+        for name, value in sorted(vals.items()):
+            mname = metric_name(name)
+            lines.append(f"# TYPE {mname} gauge")
+            lines.append(f"{mname} {value}")
+    # federation world-state census — same health_report() the /healthz
+    # rows render, so the gauges reconcile with the federator's view
+    fed = _federation_report()
+    if fed is not None:
+        for key in ("healthy", "draining", "quarantined", "retired"):
+            lines.append(f"# TYPE fed_worlds_{key} gauge")
+            lines.append(f"fed_worlds_{key} {int(fed.get(key, 0) or 0)}")
+        lines.append("# TYPE fed_queue_depth gauge")
+        lines.append(f"fed_queue_depth {int(fed.get('queue_depth', 0) or 0)}")
+    lines.extend(_histogram_lines())
+    # heartbeat staleness + flight-recorder seq lag per rank
+    rows, _worst = _heartbeat_view(heartbeat_dir, stale_after)
+    if rows:
+        lines.append("# TYPE heartbeat_age_seconds gauge")
+        for r in rows:
+            lines.append(
+                f'heartbeat_age_seconds{{rank="{r["rank"]}"}} {r["age_s"]}'
+            )
+        seqs = {r["rank"]: r["seq"] for r in rows if isinstance(r.get("seq"), int)}
+        if seqs:
+            top = max(seqs.values())
+            lines.append("# TYPE heartbeat_seq_lag gauge")
+            for rank, seq in sorted(seqs.items()):
+                lines.append(f'heartbeat_seq_lag{{rank="{rank}"}} {top - seq}')
+        # per-rank device-memory live bytes, carried in the beacons by the
+        # memory ledger — the supervisor-side memory view of a whole world
+        mems = {
+            r["rank"]: r["mem_live"]
+            for r in rows
+            if isinstance(r.get("mem_live"), int)
+        }
+        if mems:
+            lines.append("# TYPE heartbeat_mem_live_bytes gauge")
+            for rank, v in sorted(mems.items()):
+                lines.append(f'heartbeat_mem_live_bytes{{rank="{rank}"}} {v}')
+    lines.append("# TYPE restart_epoch gauge")
+    try:
+        epoch = int(os.environ.get("HEAT_TPU_RESTART_EPOCH", "0") or 0)
+    except ValueError:
+        epoch = 0
+    lines.append(f"restart_epoch {epoch}")
+    lines.append("# TYPE monitor_uptime_seconds gauge")
+    lines.append(f"monitor_uptime_seconds {round(time.time() - _T0, 3)}")
+    return "\n".join(lines) + "\n"
+
+
+def healthz(
+    heartbeat_dir: Optional[str] = None, stale_after: float = 120.0
+) -> Tuple[bool, dict]:
+    """The ``/healthz`` verdict: ``(ok, body)``.  With a heartbeat dir,
+    ok ⇔ every rank's beacon is fresher than ``stale_after`` (the body
+    names the worst rank either way); without one, ok attests only this
+    process's liveness.  With a federation source armed, the verdict
+    additionally requires every non-quarantined, non-retired world to be
+    healthy (a draining world → 503; a quarantined world is excluded —
+    degradation the federator already handled must not page)."""
+    rows, worst = _heartbeat_view(heartbeat_dir, stale_after)
+    body: dict = {"pid": os.getpid(), "uptime_s": round(time.time() - _T0, 3)}
+    fed = _federation_report()
+    if not rows and fed is None:
+        body["ok"] = True
+        body["detail"] = "no heartbeat dir configured; process is up"
+        return True, body
+    details: List[str] = []
+    ok = True
+    if rows:
+        stale = [r for r in rows if r["stale"]]
+        ok = not stale
+        body["ranks"] = rows
+        body["worst_rank"] = {k: worst[k] for k in ("rank", "age_s", "stale")
+                              if k in worst}
+        body["stale_after_s"] = stale_after
+        details.append(
+            f"all {len(rows)} rank(s) fresh (worst: rank {worst['rank']} at "
+            f"{worst['age_s']}s)"
+            if ok
+            else f"rank(s) {[r['rank'] for r in stale]} stale "
+                 f"(> {stale_after}s); worst: rank {worst['rank']} at "
+                 f"{worst['age_s']}s"
+        )
+    if fed is not None:
+        fed_ok = bool(fed.get("ok", True))
+        body["federation"] = fed
+        unhealthy = [
+            w.get("world")
+            for w in fed.get("worlds", [])
+            if w.get("state") not in ("healthy", "quarantined", "retired")
+        ]
+        details.append(
+            f"federation: {fed.get('healthy', 0)} healthy / "
+            f"{fed.get('draining', 0)} draining / "
+            f"{fed.get('quarantined', 0)} quarantined"
+            + (f"; gating world(s) {unhealthy}" if not fed_ok else "")
+        )
+        ok = ok and fed_ok
+    body["ok"] = ok
+    body["detail"] = "; ".join(details)
+    return ok, body
+
+
+def timeline_json(trace_id: str) -> dict:
+    """``GET /timeline/<trace_id>``: ONE trace's causal timeline assembled
+    from the LIVE registries — the telemetry span ring and the armed
+    flight recorder's ring file — via ``sys.modules`` only, so the route
+    works on a standalone-loaded monitor (a supervisor that never
+    imported torch simply serves whatever registries exist: none → an empty
+    event list → 404 at the route).  The post-hoc twin of this view is
+    ``telemetry_report.py --trace`` over the exported artifacts; this one
+    answers while the process is still alive.  Pure snapshot — callable
+    without a server."""
+    trace_id = str(trace_id)
+    events: List[dict] = []
+    sources = {"spans": 0, "flightrec": 0}
+    tel = sys.modules.get("heat_tpu_torch.utils.telemetry")
+    if tel is not None:
+        try:
+            ring = list(tel._ring)
+        except Exception:
+            ring = []
+        for rec in ring:
+            try:
+                name, ts, dur_s, self_s, depth, attrs = rec
+            except (TypeError, ValueError):
+                continue
+            if not isinstance(attrs, dict) or attrs.get("trace_id") != trace_id:
+                continue
+            events.append({
+                "source": "span", "t": ts, "dur_s": dur_s, "name": name,
+                "depth": depth,
+                "span_id": attrs.get("span_id"),
+                "parent_id": attrs.get("parent_id"),
+            })
+            sources["spans"] += 1
+    fr = sys.modules.get("heat_tpu_torch.utils.flightrec")
+    if fr is not None:
+        try:
+            rec_obj = fr.recorder()
+            if rec_obj is not None:
+                fr.sync()  # pending dispatch window + msync before the read
+                ring = fr.read_ring(rec_obj.path)
+            else:
+                ring = None
+        except Exception:
+            ring = None
+        if ring is not None:
+            for rec in ring.get("records", []):
+                if rec.get("tid") != trace_id:
+                    continue
+                events.append({
+                    "source": "flightrec", "t": rec.get("t"),
+                    "kind": rec.get("k"), "name": rec.get("op"),
+                    "seq": rec.get("seq"), "wire": rec.get("wire"),
+                })
+                sources["flightrec"] += 1
+    events.sort(key=lambda e: e.get("t") or 0.0)
+    return {"trace_id": trace_id, "events": events, "sources": sources}
+
+
+# ---------------------------------------------------------------------- #
+# the server
+# ---------------------------------------------------------------------- #
+class Monitor:
+    """One endpoint instance: a ``ThreadingHTTPServer`` on a daemon
+    thread.  Construct via :func:`enable` in normal use."""
+
+    def __init__(
+        self,
+        port: int = 0,
+        addr: str = "127.0.0.1",
+        heartbeat_dir: Optional[str] = None,
+        stale_after: float = 120.0,
+    ):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.heartbeat_dir = heartbeat_dir
+        self.stale_after = float(stale_after)
+        self.scrapes = 0
+        mon = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):  # no stderr spam per scrape
+                pass
+
+            def _send(self, code: int, body: bytes, ctype: str) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _send_json(self, code: int, body: dict) -> None:
+                self._send(code, (json.dumps(body, indent=1) + "\n").encode(),
+                           "application/json")
+
+            def do_GET(self):  # noqa: N802 — http.server API
+                path = self.path.split("?", 1)[0]
+                try:
+                    if path == "/metrics":
+                        mon.scrapes += 1
+                        text = metrics_text(mon.heartbeat_dir, mon.stale_after)
+                        text += f"# TYPE monitor_scrapes_total counter\nmonitor_scrapes_total {mon.scrapes}\n"
+                        self._send(
+                            200, text.encode(),
+                            "text/plain; version=0.0.4; charset=utf-8",
+                        )
+                    elif path == "/healthz":
+                        ok, body = healthz(mon.heartbeat_dir, mon.stale_after)
+                        self._send_json(200 if ok else 503, body)
+                    elif path.startswith(("/status/", "/result/")):
+                        self._ingress_get(path)
+                    elif path.startswith("/timeline/"):
+                        tid = path[len("/timeline/"):]
+                        body = timeline_json(tid)
+                        if body["events"]:
+                            self._send_json(200, body)
+                        else:
+                            self._send_json(
+                                404, {"error": "unknown_trace", "trace_id": tid}
+                            )
+                    else:
+                        self._send(404, b"try /metrics or /healthz\n",
+                                   "text/plain")
+                except BrokenPipeError:  # scraper hung up mid-write
+                    pass
+
+            def _ingress_get(self, path: str) -> None:
+                backend = _INGRESS
+                if backend is None:
+                    self._send_json(503, {"error": "no_ingress",
+                                          "detail": "no ingress backend armed"})
+                    return
+                verb, job_id = path[1:].split("/", 1)
+                reader = getattr(backend, f"ingress_{verb}")
+                try:
+                    view = reader(job_id)
+                except Exception as exc:
+                    self._send_json(500, {"error": "ingress_error",
+                                          "detail": str(exc)})
+                    return
+                if view is None:
+                    self._send_json(404, {"error": "unknown_job",
+                                          "id": job_id})
+                    return
+                self._send_json(200, view)
+
+            def do_POST(self):  # noqa: N802 — http.server API
+                path = self.path.split("?", 1)[0]
+                try:
+                    if path != "/submit":
+                        self._send(404, b"POST /submit\n", "text/plain")
+                        return
+                    backend = _INGRESS
+                    if backend is None:
+                        self._send_json(503, {"error": "no_ingress",
+                                              "detail": "no ingress backend armed"})
+                        return
+                    try:
+                        length = int(self.headers.get("Content-Length", 0) or 0)
+                    except ValueError:
+                        length = 0
+                    if length > MAX_BODY_BYTES:
+                        # refused BEFORE the body is read — 413 is the
+                        # structured "payload too large" shed at the edge
+                        self._send_json(413, {
+                            "error": "payload_too_large",
+                            "detail": f"body {length} B exceeds the "
+                                      f"{MAX_BODY_BYTES} B ingress cap",
+                        })
+                        return
+                    try:
+                        payload = json.loads(self.rfile.read(length) or b"{}")
+                    except ValueError:
+                        self._send_json(400, {"error": "bad_request",
+                                              "detail": "body is not JSON"})
+                        return
+                    try:
+                        out = backend.ingress_submit(payload)
+                    except ValueError as exc:
+                        self._send_json(400, {"error": "bad_request",
+                                              "detail": str(exc)})
+                        return
+                    except Exception as exc:
+                        # a structured shed (JobRejected — matched by its
+                        # reason attribute, never isinstance: a standalone-
+                        # loaded federation raises a different class object)
+                        reason = getattr(exc, "reason", None)
+                        if reason is None:
+                            self._send_json(500, {"error": "ingress_error",
+                                                  "detail": str(exc)})
+                            return
+                        code = 413 if reason == "payload_too_large" else 429
+                        self._send_json(code, {
+                            "error": str(reason),
+                            "id": getattr(exc, "job_id", None),
+                            "tenant": getattr(exc, "tenant", None),
+                            "detail": getattr(exc, "detail", "") or str(exc),
+                        })
+                        return
+                    self._send_json(200, out)
+                except BrokenPipeError:  # client hung up mid-write
+                    pass
+
+        self._server = ThreadingHTTPServer((addr, int(port)), Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(
+            target=self._server.serve_forever,
+            kwargs={"poll_interval": 0.25},
+            name="heat-monitor",
+            daemon=True,
+        )
+        self._thread.start()
+
+    @property
+    def addr(self) -> Tuple[str, int]:
+        host, port = self._server.server_address[:2]
+        return str(host), int(port)
+
+    @property
+    def url(self) -> str:
+        host, port = self.addr
+        return f"http://{host}:{port}"
+
+    def close(self) -> None:
+        try:
+            self._server.shutdown()
+            self._server.server_close()
+        except OSError:
+            pass
+        self._thread.join(timeout=2.0)
+
+
+def enabled() -> bool:
+    return _MONITOR is not None
+
+
+def address() -> Optional[Tuple[str, int]]:
+    """(host, port) of the armed endpoint, or None."""
+    return _MONITOR.addr if _MONITOR is not None else None
+
+
+def enable(
+    port: Optional[int] = None,
+    addr: Optional[str] = None,
+    heartbeat_dir: Optional[str] = None,
+    stale_after: float = 120.0,
+) -> Tuple[str, int]:
+    """Arm the endpoint (idempotent: re-enabling replaces the server).
+    Defaults: ``HEAT_TPU_MONITOR_PORT`` (else 0 = OS-assigned) on
+    ``HEAT_TPU_MONITOR_ADDR`` (else localhost); ``heartbeat_dir`` enables
+    the staleness verdict + per-rank gauges.  Returns the bound
+    (host, port)."""
+    global _MONITOR
+    if port is None:
+        try:
+            port = int(os.environ.get("HEAT_TPU_MONITOR_PORT", "0") or 0)
+        except ValueError:
+            port = 0
+    addr = addr or os.environ.get("HEAT_TPU_MONITOR_ADDR") or "127.0.0.1"
+    old, _MONITOR = _MONITOR, None
+    if old is not None:
+        old.close()
+    _MONITOR = Monitor(port=port, addr=addr, heartbeat_dir=heartbeat_dir,
+                       stale_after=stale_after)
+    return _MONITOR.addr
+
+
+def disable() -> None:
+    global _MONITOR
+    old, _MONITOR = _MONITOR, None
+    if old is not None:
+        old.close()
+
+
+# env arming: HEAT_TPU_MONITOR=1 (with HEAT_TPU_MONITOR_PORT/_ADDR as the
+# knobs) arms at import — gated on __package__ like telemetry/flightrec:
+# a STANDALONE load of this file is tooling and must not open sockets.
+if __package__ and os.environ.get("HEAT_TPU_MONITOR", "").strip().lower() in (
+    "1", "true", "on", "yes"
+):
+    enable(heartbeat_dir=os.environ.get("HEAT_TPU_MONITOR_HB") or None)

@@ -1,0 +1,859 @@
+"""Runtime telemetry: spans, collective byte accounting, structured export.
+
+The reference's ``utils/telemetry.py`` over the port.  Three layers:
+
+- **Spans**: :func:`span` is a nestable context manager that records wall
+  time, carries attributes (op name, shapes, split, bytes), tracks
+  *self-time* (own duration minus children), and forwards its name to
+  ``torch.profiler.record_function``, so a ``torch.profiler`` trace carries
+  the runtime's vocabulary.  Records land in a bounded ring buffer:
+  telemetry memory is O(ring), never O(run length).
+
+- **Counters & histograms**: byte accounting of every ``Communication``
+  collective (``comm.<name>.calls`` / ``comm.<name>.bytes``, wire bytes as
+  ``Communication._account_bytes`` computes them) rides the generic
+  ``utils.profiler`` counter store; latencies go into fixed log-spaced-bin
+  histograms (:class:`Histogram`) with O(1) observation and bounded memory.
+
+- **Export**: :func:`flush` drains the span ring as JSON-lines to a
+  per-rank file (``{dir}/rank{k}.jsonl``, the reference's format) together
+  with counter and histogram snapshots; the reference's stdlib CLI
+  ``scripts/telemetry_report.py`` merges multi-rank files into one
+  timeline/summary.  :func:`report` returns the in-process merged view
+  (counters, histograms, top spans by self-time).
+
+**Overhead contract.**  Disabled (the default), every instrumentation site
+reduces to one module-global load.  Enabled, a span costs two clock reads,
+a ring append and (optionally) a ``record_function``.
+
+Arming: ``telemetry.enable()`` in-process, or ``HEAT_TPU_TELEMETRY=1`` in
+the environment (checked once at import).  ``HEAT_TPU_TELEMETRY_DIR``
+additionally registers an atexit flush of the rank file.
+
+Collectives here run eagerly, so ``comm.*.calls`` counts every call (the
+reference counts staged collectives, once per compilation).
+
+Stdlib-only at module level on purpose: imported (lazily) from the
+innermost comm/IO paths, where a heavy import would be a cycle.
+"""
+
+from __future__ import annotations
+
+import atexit
+import contextlib
+import contextvars
+import functools
+import hashlib
+import json
+import math
+import os
+import sys
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+__all__ = [
+    "enable",
+    "disable",
+    "enabled",
+    "span",
+    "traced",
+    "tracing",
+    "mint_trace_id",
+    "current_trace_id",
+    "current_span_id",
+    "record_event",
+    "observe",
+    "histogram",
+    "Histogram",
+    "account_collective",
+    "counter_inc",
+    "counter_max",
+    "report",
+    "span_summary",
+    "flush",
+    "write_counters_line",
+    "install_signal_flush",
+    "reset",
+    "ring_dropped",
+]
+
+RING_SIZE = 4096
+
+_ENABLED = False
+_ring: deque = deque(maxlen=RING_SIZE)
+# evicted-by-overwrite span records since the last reset(): the bounded
+# ring silently drops the OLDEST record on overflow, and a truncated trace
+# must never be mistaken for a complete one — surfaced as the counter
+# ``telemetry.ring.dropped`` in report()/flush() and the merged CLI report
+_ring_dropped = 0
+_histograms: Dict[str, "Histogram"] = {}
+_hist_lock = threading.Lock()
+_tls = threading.local()
+_flush_dir: Optional[str] = None
+_atexit_registered = False
+_trace_annotation = None  # torch.profiler.record_function, resolved at enable()
+_profiler = None  # utils.profiler, resolved on first counter touch
+
+# flight-recorder hook (``utils.flightrec.enable()`` pokes the module in):
+# armed, context-manager span open/close boundaries are mirrored into the
+# crash-durable ring — the named phases around the seq-stamped collectives.
+# The leaf-record fast path (record_event) is NOT hooked here.
+_FLIGHTREC = None
+
+# wall-clock anchor: span timestamps are perf_counter-based for precision
+# but exported in epoch seconds so multi-rank timelines merge on one axis
+_T0_PERF = time.perf_counter()
+_T0_WALL = time.time()
+
+
+def _prof():
+    global _profiler
+    if _profiler is None:
+        from . import profiler
+
+        _profiler = profiler
+    return _profiler
+
+
+def _stack() -> list:
+    s = getattr(_tls, "stack", None)
+    if s is None:
+        s = _tls.stack = []
+    return s
+
+
+def _ring_push(rec: tuple) -> None:
+    """Append into the bounded span ring, counting an eviction under
+    ``telemetry.ring.dropped`` first — ring truncation is always visible
+    in the export.  (``record_dispatch`` inlines this with identical
+    semantics: the hottest recorder cannot afford the call frame.)"""
+    global _ring_dropped
+    if len(_ring) == _ring.maxlen:
+        _ring_dropped += 1
+    _ring.append(rec)
+
+
+def ring_dropped() -> int:
+    """Span records evicted from the bounded ring since the last reset."""
+    return _ring_dropped
+
+
+# ---------------------------------------------------------------------- #
+# trace identity — the causal join key across ranks, spans and restarts
+# ---------------------------------------------------------------------- #
+# The contextvar carries ``(trace_id, parent_span_id)``.  It is set by
+# :func:`tracing` (the ONE sanctioned way to adopt or mint trace identity —
+# heatlint HT109 flags manual trace_id fiddling in library code) and read
+# by every recording site below: spans, leaf events and dispatch records
+# stamp the ambient trace into their attrs, and the flight recorder reads
+# :func:`current_trace_id` at the ``_account_bytes`` choke point so staged
+# collectives carry the same id into the crash-durable ring.  Contextvars
+# flow into ``health.guard_blocking`` worker threads and ``faults``
+# retries automatically, so one job's whole causal path — dispatch spans,
+# collective stamps, retry attempts — shares one id without any plumbing.
+_TRACE: contextvars.ContextVar = contextvars.ContextVar(
+    "heat_tpu_trace", default=None
+)
+_trace_seq = 0
+_span_seq = 0
+
+
+def mint_trace_id(name: str = "trace") -> str:
+    """A new 16-hex-digit trace id, minted DETERMINISTICALLY from a
+    per-process counter + ``name`` + the restart epoch — NOT from process
+    entropy: under multi-process SPMD every rank executes the identical
+    trace-opening sites in lockstep, so every rank derives the IDENTICAL
+    id for the same logical trace (the whole point of a cross-rank join
+    key; per-rank entropy would shatter it — the HT105 divergence class).
+    Callers whose traces are NOT lockstep-opened (a per-tenant job) should
+    pass a name that is itself rank-invariant (the scheduler derives ids
+    from the job id)."""
+    global _trace_seq
+    _trace_seq += 1
+    epoch = os.environ.get("HEAT_TPU_RESTART_EPOCH", "0")
+    return hashlib.sha1(
+        f"{name}|{_trace_seq}|{epoch}".encode()
+    ).hexdigest()[:16]
+
+
+def _mint_span_id() -> str:
+    global _span_seq
+    _span_seq += 1
+    return f"s{_span_seq:x}"
+
+
+def current_trace_id() -> Optional[str]:
+    """The ambient trace id, or None outside any :func:`tracing` block.
+    Read by the flight recorder at collective staging — safe to call with
+    telemetry disabled (one contextvar load)."""
+    t = _TRACE.get()
+    return t[0] if t is not None else None
+
+
+def current_span_id() -> Optional[str]:
+    """The innermost open span's id (None outside a traced span)."""
+    stack = _stack()
+    for s in reversed(stack):
+        sid = getattr(s, "span_id", None)
+        if sid is not None:
+            return sid
+    t = _TRACE.get()
+    return t[1] if t is not None else None
+
+
+@contextlib.contextmanager
+def tracing(trace_id: Optional[str] = None, name: str = "trace",
+            parent_id: Optional[str] = None):
+    """Arm a trace context for the block: every span/event/dispatch record
+    (and every flight-recorder collective stamp) inside it carries
+    ``trace_id``.  Minted via :func:`mint_trace_id` when not given;
+    ``parent_id`` links into an enclosing trace from another process (a
+    job's submit-side span).  Works with telemetry DISABLED too — the
+    flight recorder stamps trace ids independently of the span ring, so a
+    crash-durable causal path exists even when nothing else is armed.
+    Yields the trace id."""
+    tid = trace_id or mint_trace_id(name)
+    token = _TRACE.set((tid, parent_id))
+    try:
+        yield tid
+    finally:
+        _TRACE.reset(token)
+
+
+def _trace_attrs(attrs: Optional[dict], span_id: Optional[str] = None,
+                 parent_id: Optional[str] = None) -> Optional[dict]:
+    """Fold the ambient trace identity into a record's attrs (shared by
+    spans, leaf events and dispatch records).  No active trace: attrs pass
+    through untouched — zero cost added to untraced recording."""
+    t = _TRACE.get()
+    if t is None:
+        return attrs
+    out = dict(attrs) if attrs else {}
+    out["trace_id"] = t[0]
+    if span_id is not None:
+        out["span_id"] = span_id
+    if parent_id is None:
+        parent_id = t[1]
+    if parent_id is not None:
+        out["parent_id"] = parent_id
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# enable / disable
+# ---------------------------------------------------------------------- #
+def enabled() -> bool:
+    return _ENABLED
+
+
+def enable(directory: Optional[str] = None, ring_size: Optional[int] = None) -> None:
+    """Arm telemetry.  ``directory`` (or ``HEAT_TPU_TELEMETRY_DIR``) also
+    registers an atexit :func:`flush` of this process's rank file."""
+    global _ENABLED, _ring, _flush_dir, _atexit_registered, _trace_annotation
+    if ring_size is not None and ring_size != _ring.maxlen:
+        _ring = deque(_ring, maxlen=int(ring_size))
+    if _trace_annotation is None:
+        try:
+            import torch.profiler
+
+            _trace_annotation = torch.profiler.record_function
+        except Exception:  # pragma: no cover - torch always present in-tree
+            _trace_annotation = None
+    if directory:
+        _flush_dir = directory
+    elif _flush_dir is None:
+        _flush_dir = os.environ.get("HEAT_TPU_TELEMETRY_DIR") or None
+    if _flush_dir and not _atexit_registered:
+        atexit.register(_atexit_flush)
+        _atexit_registered = True
+    if _flush_dir:
+        # graceful kills (SIGTERM/SIGINT) must export too — atexit never
+        # runs when a supervisor tears the world down with signals
+        install_signal_flush()
+    _ENABLED = True
+
+
+def disable() -> None:
+    global _ENABLED
+    _ENABLED = False
+
+
+def reset() -> None:
+    """Drop recorded spans and histograms (counters have their own reset in
+    ``utils.profiler``), and zero the ring-eviction counter."""
+    global _ring_dropped
+    _ring.clear()
+    _ring_dropped = 0
+    with _hist_lock:
+        _histograms.clear()
+
+
+def _atexit_flush() -> None:  # pragma: no cover - exercised by the mp lane
+    try:
+        if _ENABLED and _flush_dir:
+            flush(_flush_dir)
+    except Exception:
+        pass
+
+
+# ---------------------------------------------------------------------- #
+# graceful-kill flush: SIGTERM/SIGINT export what atexit cannot
+# ---------------------------------------------------------------------- #
+_signal_prev: Dict[int, Any] = {}
+_signal_installed = False
+
+
+def _signal_flush_handler(signum, frame):  # pragma: no cover - exercised
+    # via os.kill in tests; keep it exception-proof: a failed flush must
+    # never mask the signal's real semantics
+    try:
+        from . import health as _hlth
+
+        _hlth.counter_inc("health.signal_flush")
+    except Exception:
+        pass
+    try:
+        if _ENABLED:
+            flush()
+    except Exception:
+        pass
+    try:
+        fr = sys.modules.get("heat_tpu_torch.utils.flightrec")
+        if fr is not None:
+            fr.sync()
+    except Exception:
+        pass
+    prev = _signal_prev.get(signum)
+    if callable(prev):
+        prev(signum, frame)  # chain (incl. Python's default SIGINT handler)
+    else:
+        # SIG_DFL (or unset): restore the default disposition and re-raise
+        # so the process still dies of the signal with the right exit code
+        import signal as _signal
+
+        _signal.signal(signum, _signal.SIG_DFL if prev is None else prev)
+        os.kill(os.getpid(), signum)
+
+
+def install_signal_flush() -> bool:
+    """Arm a SIGTERM/SIGINT handler that flushes the telemetry ring and
+    msyncs the flight recorder before chaining to whatever handler was
+    installed before (or re-raising the default disposition) — so a
+    *graceful* kill exports even without the ``HEAT_TPU_TELEMETRY_DIR``
+    atexit hook (SIGKILL needs no help: the flight recorder's mmap
+    survives it by construction).  Invocations count under
+    ``health.signal_flush``.  Idempotent; returns False off the main
+    thread (signal handlers can only be installed there) and on platforms
+    without the signals."""
+    global _signal_installed
+    if _signal_installed:
+        return True
+    import signal as _signal
+
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    ok = False
+    for sig in (_signal.SIGTERM, _signal.SIGINT):
+        try:
+            prev = _signal.getsignal(sig)
+            _signal.signal(sig, _signal_flush_handler)
+        except (ValueError, OSError):  # non-main thread race / exotic platform
+            continue
+        _signal_prev[sig] = None if prev is _signal.SIG_DFL else prev
+        ok = True
+    _signal_installed = ok
+    return ok
+
+
+def _uninstall_signal_flush() -> None:
+    """Test hook: restore the pre-install handlers."""
+    global _signal_installed
+    if not _signal_installed:
+        return
+    import signal as _signal
+
+    for sig, prev in list(_signal_prev.items()):
+        try:
+            _signal.signal(sig, _signal.SIG_DFL if prev is None else prev)
+        except (ValueError, OSError):
+            pass
+    _signal_prev.clear()
+    _signal_installed = False
+
+
+# ---------------------------------------------------------------------- #
+# spans
+# ---------------------------------------------------------------------- #
+class _NullSpan:
+    """Singleton returned by :func:`span` when telemetry is disabled."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "t0", "child", "_ta", "_depth", "span_id",
+                 "_parent_id")
+
+    def __init__(self, name: str, attrs: dict, xprof: bool):
+        self.name = name
+        self.attrs = attrs
+        self.child = 0.0
+        self.span_id = None
+        self._parent_id = None
+        self._ta = (
+            _trace_annotation(name)
+            if (xprof and _trace_annotation is not None)
+            else None
+        )
+
+    def __enter__(self):
+        stack = _stack()
+        self._depth = len(stack)
+        if _TRACE.get() is not None:
+            # inside a trace: this span gets its own id, parented on the
+            # innermost traced span (or the context's cross-process parent)
+            self._parent_id = current_span_id()
+            self.span_id = _mint_span_id()
+        stack.append(self)
+        if self._ta is not None:
+            self._ta.__enter__()
+        if _FLIGHTREC is not None:
+            _FLIGHTREC.record_event("span", name=self.name)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        t1 = time.perf_counter()
+        if self._ta is not None:
+            self._ta.__exit__(et, ev, tb)
+        if _FLIGHTREC is not None:
+            _FLIGHTREC.record_event(
+                "span_end", name=self.name, dur=round(t1 - self.t0, 6),
+                **({"error": et.__name__} if et is not None else {}),
+            )
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        dur = t1 - self.t0
+        if stack:
+            stack[-1].child += dur
+        if et is not None:
+            self.attrs = dict(self.attrs, error=et.__name__)
+        _ring_push(
+            (
+                self.name,
+                _T0_WALL + (self.t0 - _T0_PERF),
+                dur,
+                max(dur - self.child, 0.0),
+                self._depth,
+                _trace_attrs(self.attrs, self.span_id, self._parent_id)
+                or None,
+            )
+        )
+        return False
+
+    def set(self, **attrs):
+        """Attach/override attributes mid-span (e.g. bytes known at the end)."""
+        self.attrs = dict(self.attrs, **attrs)
+        return self
+
+
+def span(name: str, xprof: bool = True, **attrs):
+    """Record a named, attributed, nested wall-time span of the block.
+
+    No-op (a shared null object) when telemetry is disabled.  ``xprof=False``
+    skips the ``torch.profiler.record_function`` forwarding — for sites hot
+    enough that creating the annotation object is measurable."""
+    if not _ENABLED:
+        return _NULL_SPAN
+    return _Span(name, attrs, xprof)
+
+
+def traced(name: str):
+    """Decorator form of :func:`span` for whole functions (checkpoint
+    save/load entry points).  Disabled cost: one flag check."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _ENABLED:
+                return fn(*args, **kwargs)
+            with _Span(name, {}, True):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
+def record_event(name: str, dur_s: float, attrs: Optional[dict] = None) -> None:
+    """Leaf span record for a duration the caller already measured — no
+    enter/exit machinery, no record_function."""
+    if not _ENABLED:
+        return
+    if _TRACE.get() is not None:  # one contextvar load when untraced
+        attrs = _trace_attrs(attrs, None, current_span_id())
+    stack = _stack()
+    if stack:
+        stack[-1].child += dur_s
+    _ring_push(
+        (
+            name,
+            _T0_WALL + (time.perf_counter() - dur_s - _T0_PERF),
+            dur_s,
+            dur_s,
+            len(stack),
+            attrs or None,
+        )
+    )
+
+
+def record_dispatch(name: str, t0: float, t1: float, op_name: str, cache_hit: bool) -> None:
+    """The dispatch tails' recorder — the leanest path here: the caller
+    supplies both perf_counter readings and the pre-resolved span name, so
+    one call records a leaf span with the op/cache attributes and nothing
+    else happens on the hot path."""
+    if not _ENABLED:
+        return
+    global _ring_dropped
+    dur = t1 - t0
+    attrs = {"op": op_name, "cache": "hit" if cache_hit else "miss"}
+    if _TRACE.get() is not None:  # the leanest-path tax when untraced is
+        attrs = _trace_attrs(attrs, None, current_span_id())  # this ONE load
+    stack = _stack()
+    if stack:
+        stack[-1].child += dur
+    # _ring_push inlined (same eviction-count semantics): this is the
+    # hottest recorder and an extra call frame is measurable against the
+    # telemetry-gate budget
+    if len(_ring) == _ring.maxlen:
+        _ring_dropped += 1
+    _ring.append(
+        (
+            name,
+            _T0_WALL + (t0 - _T0_PERF),
+            dur,
+            dur,
+            len(stack),
+            attrs,
+        )
+    )
+
+
+def span_summary(top: Optional[int] = None) -> List[dict]:
+    """Spans currently in the ring aggregated by name, sorted by total
+    self-time (descending)."""
+    agg: Dict[str, list] = {}
+    for name, _ts, dur, self_s, _depth, _attrs in list(_ring):
+        row = agg.get(name)
+        if row is None:
+            row = agg[name] = [0, 0.0, 0.0, 0.0]
+        row[0] += 1
+        row[1] += dur
+        row[2] += self_s
+        row[3] = max(row[3], dur)
+    rows = [
+        {
+            "name": name,
+            "count": c,
+            "total_s": round(total, 6),
+            "self_s": round(self_s, 6),
+            "mean_us": round(total / c * 1e6, 2),
+            "max_us": round(mx * 1e6, 2),
+        }
+        for name, (c, total, self_s, mx) in agg.items()
+    ]
+    rows.sort(key=lambda r: -r["self_s"])
+    return rows[:top] if top is not None else rows
+
+
+# ---------------------------------------------------------------------- #
+# counters (delegated to utils.profiler — one store for retry.*, comm.*,
+# io.*, daso.*; telemetry.report() reads them all back)
+# ---------------------------------------------------------------------- #
+def counter_inc(name: str, n: int = 1) -> None:
+    """Increment a named counter in the shared ``utils.profiler`` store."""
+    _prof().counter_inc(name, n)
+
+
+def counter_max(name: str, value: int) -> None:
+    """High-water-mark update of a counter in the shared store."""
+    _prof().counter_max(name, value)
+
+
+def account_collective(name: str, nbytes: float) -> None:
+    """``comm.<name>.calls`` += 1 and ``comm.<name>.bytes`` += nbytes.
+
+    Always on (two dict increments at collective *staging* time — nowhere
+    near a hot path); ``nbytes`` is payload × algorithmic traffic factor,
+    already computed by the caller."""
+    p = _prof()
+    p.counter_inc(f"comm.{name}.calls")
+    if nbytes:
+        p.counter_inc(f"comm.{name}.bytes", int(round(nbytes)))
+
+
+# ---------------------------------------------------------------------- #
+# histograms — fixed log-spaced bins, bounded memory, O(1) observe
+# ---------------------------------------------------------------------- #
+_H_LO = 1e-6  # 1 µs
+_H_PER_DECADE = 5
+_H_DECADES = 9  # 1 µs .. 1000 s
+_H_NBINS = _H_DECADES * _H_PER_DECADE
+
+
+class Histogram:
+    """Latency histogram over fixed log-spaced bins (1 µs – 1000 s at 5
+    bins/decade, plus under/overflow): memory is a constant 47 ints however
+    many observations arrive — no unbounded sample lists.
+
+    **Percentile resolution caveat.**  Quantiles are upper-edge estimates
+    from the bin counts: at 5 bins/decade each bin spans ~58% of its lower
+    edge, so a reported percentile can overstate the true value by up to
+    one bin width.  This matters most for the deep tail — **p99.9** (the
+    serving-SLO tail beyond the p99 the tables historically stopped at) is
+    exact about WHICH bin the 99.9th observation landed in, but within
+    that bin only the upper edge (clamped to the observed max) is known.
+    At pod scale that is the right trade: the alternative, an exact
+    reservoir, is unbounded memory on the hot path."""
+
+    __slots__ = ("name", "counts", "count", "total", "vmin", "vmax")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.counts = [0] * (_H_NBINS + 2)  # [underflow, bins..., overflow]
+        self.count = 0
+        self.total = 0.0
+        self.vmin = math.inf
+        self.vmax = 0.0
+
+    def observe(self, value_s: float) -> None:
+        v = float(value_s)
+        if not (v > 0.0):  # <=0 and NaN both land in the underflow bin
+            idx = 0
+            v = 0.0
+        else:
+            i = int(math.floor(math.log10(v / _H_LO) * _H_PER_DECADE))
+            idx = min(max(i, -1), _H_NBINS) + 1
+        self.counts[idx] += 1
+        self.count += 1
+        self.total += v
+        if v < self.vmin:
+            self.vmin = v
+        if v > self.vmax:
+            self.vmax = v
+
+    def quantile(self, q: float) -> float:
+        """Upper-edge estimate of the ``q``-quantile from the bin counts."""
+        if self.count == 0:
+            return 0.0
+        target = q * self.count
+        seen = 0
+        for idx, n in enumerate(self.counts):
+            seen += n
+            if n and seen >= target:
+                if idx == 0:
+                    return self.vmin if self.vmin is not math.inf else 0.0
+                # upper edge of bin idx-1; overflow and the top bin clamp
+                # to the observed max
+                return min(_H_LO * 10 ** (idx / _H_PER_DECADE), self.vmax)
+        return self.vmax
+
+    def summary(self) -> dict:
+        if self.count == 0:
+            return {"count": 0}
+        return {
+            "count": self.count,
+            "total_s": round(self.total, 6),
+            "mean_s": round(self.total / self.count, 9),
+            "min_s": round(0.0 if self.vmin is math.inf else self.vmin, 9),
+            "max_s": round(self.vmax, 9),
+            "p50_s": round(self.quantile(0.50), 9),
+            "p90_s": round(self.quantile(0.90), 9),
+            "p99_s": round(self.quantile(0.99), 9),
+            "p999_s": round(self.quantile(0.999), 9),
+        }
+
+
+def histogram(name: str) -> Histogram:
+    """Get-or-create the named histogram."""
+    h = _histograms.get(name)
+    if h is None:
+        with _hist_lock:
+            h = _histograms.setdefault(name, Histogram(name))
+    return h
+
+
+def observe(name: str, value_s: float) -> None:
+    """Record ``value_s`` (seconds) into the named histogram."""
+    histogram(name).observe(value_s)
+
+
+# ---------------------------------------------------------------------- #
+# report & export
+# ---------------------------------------------------------------------- #
+def report(top: int = 15) -> dict:
+    """In-process merged view: counters ∪ histograms ∪ top spans by
+    self-time.  May sync device-resident counters — reporting boundary
+    only, never the hot loop."""
+    counters = _prof().counters()
+    if _ring_dropped:
+        # eviction is telemetry-internal state, not a profiler counter —
+        # injected at the reporting boundary so a truncated span ring is
+        # never mistaken for a complete trace
+        counters["telemetry.ring.dropped"] = _ring_dropped
+    return {
+        "enabled": _ENABLED,
+        "rank": _rank(),
+        "counters": counters,
+        "histograms": {n: h.summary() for n, h in sorted(_histograms.items())},
+        "top_spans": span_summary(top),
+    }
+
+
+def _rank() -> int:
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None:
+        try:
+            if dist.is_available() and dist.is_initialized():
+                return int(dist.get_rank())
+        except Exception:
+            pass
+    return int(os.environ.get("HEAT_TPU_TELEMETRY_RANK", "0") or 0)
+
+
+def _jsonable(v: Any):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    if isinstance(v, (tuple, list)):
+        return [_jsonable(x) for x in v]
+    return str(v)
+
+
+def flush(directory: Optional[str] = None) -> Optional[str]:
+    """Drain the span ring to ``{dir}/rank{k}.jsonl`` (appending), together
+    with a meta line and current counter/histogram snapshots.  Returns the
+    path written, or None when no directory is configured (arg,
+    ``enable(directory=...)`` or ``HEAT_TPU_TELEMETRY_DIR``)."""
+    directory = directory or _flush_dir or os.environ.get("HEAT_TPU_TELEMETRY_DIR")
+    if not directory:
+        return None
+    os.makedirs(directory, exist_ok=True)
+    rank = _rank()
+    path = os.path.join(directory, f"rank{rank}.jsonl")
+    spans = []
+    while True:
+        try:
+            spans.append(_ring.popleft())
+        except IndexError:
+            break
+    with open(path, "a") as fh:
+        fh.write(
+            json.dumps(
+                {
+                    "type": "meta",
+                    "rank": rank,
+                    "pid": os.getpid(),
+                    "wall_time": time.time(),
+                    "ring_size": _ring.maxlen,
+                }
+            )
+            + "\n"
+        )
+        for name, ts, dur, self_s, depth, attrs in spans:
+            rec = {
+                "type": "span",
+                "rank": rank,
+                "name": name,
+                "ts": round(ts, 6),
+                "dur_s": round(dur, 9),
+                "self_s": round(self_s, 9),
+                "depth": depth,
+            }
+            if attrs:
+                rec["attrs"] = {k: _jsonable(v) for k, v in attrs.items()}
+            fh.write(json.dumps(rec) + "\n")
+        values = _prof().counters()
+        if _ring_dropped:
+            values["telemetry.ring.dropped"] = _ring_dropped
+        fh.write(
+            json.dumps({"type": "counters", "rank": rank, "values": values})
+            + "\n"
+        )
+        for name, h in sorted(_histograms.items()):
+            fh.write(
+                json.dumps(
+                    {
+                        "type": "hist",
+                        "rank": rank,
+                        "name": name,
+                        "count": h.count,
+                        "total_s": h.total,
+                        "min_s": 0.0 if h.vmin is math.inf else h.vmin,
+                        "max_s": h.vmax,
+                        "lo": _H_LO,
+                        "per_decade": _H_PER_DECADE,
+                        "bins": {str(i): c for i, c in enumerate(h.counts) if c},
+                    }
+                )
+                + "\n"
+            )
+    return path
+
+
+def write_counters_line(directory: str, rank: int, values: Dict[str, int]) -> str:
+    """Append ONE counters record for ``rank`` to ``{dir}/rank{rank}.jsonl``.
+
+    This is how a process that is NOT a rank of the world (the supervising
+    launcher, chiefly) folds its own counters (``watchdog.dumps``,
+    ``watchdog.kills``, ``health.restarts``) into the same multi-rank merge
+    ``scripts/telemetry_report.py`` performs: give it a rank id outside the
+    worker range (launchers use ``n_workers``) so its last-wins counters
+    record never shadows a real rank's.  Stdlib-only, and safe to call from
+    a module loaded standalone (no profiler/torch touch)."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"rank{int(rank)}.jsonl")
+    with open(path, "a") as fh:
+        fh.write(
+            json.dumps(
+                {"type": "counters", "rank": int(rank), "values": dict(values)}
+            )
+            + "\n"
+        )
+    return path
+
+
+# env arming: one check at import, the documented subprocess story.  Gated
+# on __package__: a STANDALONE load of this file (the supervising launcher
+# pulls write_counters_line via spec_from_file_location — a process that
+# must never import torch) is tooling, not the runtime, and must not run
+# enable() (which resolves torch.profiler.record_function) nor register an
+# atexit flush into a shared telemetry dir it has no rank in.
+if __package__ and os.environ.get(
+    "HEAT_TPU_TELEMETRY", ""
+).strip().lower() in ("1", "true", "on", "yes"):
+    enable()
+
+# the flight recorder may have been env-armed while this module was still
+# importing (flightrec's poke would hit the half-initialized module and the
+# `_FLIGHTREC = None` line above clobbered it) — re-read the flag now, same
+# defensive pattern as core.communication
+if __package__:
+    _fr_mod = sys.modules.get("heat_tpu_torch.utils.flightrec")
+    if _fr_mod is not None and _fr_mod.enabled():
+        _FLIGHTREC = _fr_mod
+    del _fr_mod

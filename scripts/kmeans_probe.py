@@ -45,25 +45,25 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 _EPILOGUE = """#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt) {
-      const int j = 8 * tile[nt] + 2 * t;
-      const float2 cj = *reinterpret_cast<const float2*>(cc + j);
+  for (int nt = 0; nt < kChunk; ++nt) {
+    const int jl = 8 * tile[nt] + 2 * t, j = j0 + jl;
+    const float2 cj = *reinterpret_cast<const float2*>(cc + jl);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float v0 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h], xr[mt][h] + cj.x), 0.f);
-          if (v0 < best[mt][h]) {
-            best[mt][h] = v0;
-            bi[mt][h] = j;
-          }
-          const float v1 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h + 1], xr[mt][h] + cj.y), 0.f);
-          if (v1 < best[mt][h]) {
-            best[mt][h] = v1;
-            bi[mt][h] = j + 1;
-          }
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h], xr[mt][h] + cj.x), 0.f);
+        if (v0 < best[mt][h]) {
+          best[mt][h] = v0;
+          bi[mt][h] = j;
         }
-    }
+        const float v1 = fmaxf(fmaf(-2.f, acc[mt][nt][2 * h + 1], xr[mt][h] + cj.y), 0.f);
+        if (v1 < best[mt][h]) {
+          best[mt][h] = v1;
+          bi[mt][h] = j + 1;
+        }
+      }
+  }
 """
 _PRODUCTS = """    if constexpr (WG)
       products_wgmma<T, DP>(st, smem_u32(cs), c0 >> 6, lane, acc);
@@ -74,11 +74,11 @@ _PRODUCTS = """    if constexpr (WG)
 VARIANTS = {
     "kept": [],
     "no_epilogue": [(_EPILOGUE, """#pragma unroll
-    for (int nt = 0; nt < kChunk; ++nt)
+  for (int nt = 0; nt < kChunk; ++nt)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) best[mt][h] = fminf(best[mt][h], acc[mt][nt][2 * h] + acc[mt][nt][2 * h + 1]);
+      for (int h = 0; h < 2; ++h) best[mt][h] = fminf(best[mt][h], acc[mt][nt][2 * h] + acc[mt][nt][2 * h + 1]);
 """)],
     "no_products": [(_PRODUCTS, """#pragma unroll
     for (int mt = 0; mt < 2; ++mt)

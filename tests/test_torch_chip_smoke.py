@@ -389,11 +389,12 @@ def test_em_edge_checks_cover_the_kernels_edges(chip_smoke):
     300); k past what wgmma's centres hold in shared memory, so mma.sync
     takes the products (300 at d = 32, 64 at d = 128, 127 at d = 100); d of
     1, 8, off and on the 32-, 64- and 128-column tiles (33, 36, 100), up to
-    128; n of 0, 1, under one 32-row tile, off a block's tiles, and past the
-    rows; both dtypes; rows contiguous by cluster and in random order; rows
-    off 16-byte alignment in both dtypes, at d = 32 where they would
-    otherwise take 16-byte copies; one cluster holding DOMINANT_SHARE of 1e6
-    rows in both dtypes."""
+    128; the streamed route at d = 129, 200, 256 and 512 and at k one past
+    each kernel's cap; n of 0, 1, under one 32-row tile, off a block's
+    tiles, and past the rows; both dtypes; rows contiguous by cluster and
+    in random order; rows off 16-byte alignment in both dtypes, at d = 32
+    where they would otherwise take 16-byte copies; one cluster holding
+    DOMINANT_SHARE of 1e6 rows in both dtypes."""
     edges = chip_smoke.EM_EDGE_CHECKS
     assert {k for _, _, k, _, _, _ in edges} >= {1, 3, 9, 61, 64, 127, 200, 300}
     assert {k % 8 for _, _, k, _, _, _ in edges} >= {1, 3, 5, 7}
@@ -410,7 +411,28 @@ def test_em_edge_checks_cover_the_kernels_edges(chip_smoke):
     assert {(rows, dt) for rows, _, _, _, dt, lay in edges if lay == "dominant"} == {
         (1_000_000, "float32"), (1_000_000, "bfloat16")}
     assert chip_smoke.DOMINANT_SHARE >= 0.99
-    assert all(1 <= d <= kk.MAX_D and k >= 1 and n >= 0 for _, n, k, d, _, _ in edges)
+    assert all(d >= 1 and k >= 1 and n >= 0 for _, n, k, d, _, _ in edges)
+    # the streamed route: d past the 128-column tiles, and k one centre past
+    # each kernel's cap (em_stats 862 and 208, assign 1720 and 416 at d = 32
+    # and 128 in float32; em_stats 216 at d = 128 in bfloat16)
+    assert {d for _, _, _, d, _, _ in edges} >= {129, 200, 256, 512}
+    assert {(k, d, dt) for _, _, k, d, dt, _ in edges} >= {
+        (863, 32, "float32"), (1721, 32, "float32"), (209, 128, "float32"), (417, 128, "float32"),
+        (217, 128, "bfloat16")}
+
+
+def test_serving_stream_accepts_64_jobs_and_sheds_the_rest(chip_smoke):
+    """The serving phase offers more jobs than its queue holds, as the
+    reference's serve scenario does: at least 64 are accepted, the rest
+    are shed, and its KMeans jobs' width and k are among the edges."""
+    from heat_tpu_torch.parallel import serve_world as sw
+
+    jobs = sw.job_stream(chip_smoke.SERVE_JOBS, **chip_smoke.SERVE_SIZES)
+    accepted = sw.queue_bound(len(jobs))
+    assert 64 <= accepted < len(jobs)
+    assert {j["kind"] for j in jobs[:accepted]} == {"kmeans", "matmul", "solve", "nn_forward"}
+    assert {j["tenant"] for j in jobs} == set(sw.TENANTS) and {j["priority"] for j in jobs} == {0, 1, 2}
+    assert (2, 2, "float32") in {(k, d, dt) for _, _, k, d, dt, _ in chip_smoke.EM_EDGE_CHECKS}
 
 
 @pytest.mark.parametrize("layout", ["blobs", "shuffled", "dominant"])

@@ -131,17 +131,28 @@ def test_cuda_kmeans_kernels_match_plain_versions():
         kk.fused_assign(xt.double(), ct)
     with pytest.raises(ValueError):
         kk.fused_assign(xt, ct.cpu())
-    with pytest.raises(ValueError):
-        kk.fused_assign(torch.zeros(8, 200, device="cuda"), torch.zeros(2, 200, device="cuda"))
+    # d past the tiles takes the streamed route (it raised before R6)
+    lab200, d2_200 = kk.fused_assign(torch.zeros(8, 200, device="cuda"), torch.zeros(2, 200, device="cuda"))
+    assert lab200.tolist() == [0] * 8 and d2_200.abs().max().item() == 0.0
+    assert kk.launch_config(2, 200)["route"] == "streamed"
 
 
 def test_auto_on_cuda_raises_past_the_kernels_limits():
+    """Past the kernels' old limits (k = 2048 at d = 32 raised a
+    shared-memory error before R6) 'auto' on a CUDA tensor still takes the
+    kernels, now their streamed route, and fits as the torch path does.
+    The name is the one the test had while it checked the refusal."""
     X = np.random.default_rng(0).standard_normal((4096, 32)).astype(np.float32)
     x = htt.array(X, split=0, device="gpu")
     km = htt.cluster.KMeans(n_clusters=2048, init=X[:2048], max_iter=1)
     assert km._use_kernel(x)  # 'auto' on a CUDA tensor: the kernels, never the torch path
-    with pytest.raises(RuntimeError, match="shared-memory"):
-        km.fit(x)
+    assert kk.launch_config(2048, 32, em=True)["route"] == "streamed"
+    before = dict(kk.launch_counts)
+    km.fit(x)
+    assert kk.launch_counts["em_stats"] > before["em_stats"]
+    lab, d2 = kk.fused_assign(x.larray, km._centers)
+    lab_p, d2_p = kk._torch_assign(x.larray, km._centers)
+    _CHIP_SMOKE.compare_assign(x.larray, km._centers, lab, d2, lab_p, d2_p)  # labels apart only at near ties
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -212,13 +223,20 @@ def test_cuda_gqa_flash_kernels_match_plain_versions(S, d, causal, hq, hk, dtype
 
 
 def test_cuda_flash_kernels_refuse_d_256():
-    q = torch.zeros((2, 16, 256), device="cuda")
-    with pytest.raises(ValueError):
+    """Past the kernels' head dims, now 256 (R5), d = 257 raises, naming
+    R5b; d = 256 itself launches (it raised before R5)."""
+    q = torch.zeros((2, 16, 257), device="cuda")
+    with pytest.raises(ValueError, match="R5b"):
         fa.flash_fwd(q, q, q, True, 1.0)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="R5b"):
         fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError):
-        fa.flash_attention_gqa(q.view(1, 2, 16, 256), q[:1].view(1, 1, 16, 256), q[:1].view(1, 1, 16, 256))
+    with pytest.raises(ValueError, match="R5b"):
+        fa.flash_attention_gqa(q.view(1, 2, 16, 257), q[:1].view(1, 1, 16, 257), q[:1].view(1, 1, 16, 257))
+    pos = torch.arange(16, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="R5b"):
+        fa.flash_pos_fwd(q, q, q, pos, pos, True, 1.0, 16, True)
+    out, _ = fa.flash_fwd(q[..., :256].contiguous(), q[..., :256].contiguous(), q[..., :256].contiguous(), True, 1.0)
+    assert out.shape == (2, 16, 256)
 
 
 # positions blocks: (Sq, Sk, d, query offset, key offset, causal, s_valid)
@@ -446,11 +464,24 @@ def test_cuda_kmeans_kernels_launch_at_the_old_k_limits(d, dtype, limits):
     _CHIP_SMOKE.compare_em(x, ce, x.shape[0], sums, counts, lab_e, sums_p, counts_p, int((lab_e != lab_ep).sum()))
     for k, em in ((k_assign, False), (k_em, True)):
         assert kk.launch_config(k, d, dtype, em=em)["products"] == "mma.sync"
+        assert kk.launch_config(k, d, dtype, em=em)["route"] == "tiled"
     if limits == "new":
-        with pytest.raises(RuntimeError, match="shared-memory layout"):
-            kk.fused_assign(x, c)
-        with pytest.raises(RuntimeError, match="shared-memory layout"):
-            kk.fused_em_stats(x, c[:k_em + 1].contiguous())
+        # one centre more raised a shared-memory error before R6: it now
+        # takes the streamed route and matches the plain version, and
+        # em_stats' counts stay those of assign's labels (the streamed
+        # route's products are the mma.sync route's to the bit)
+        lab_p, d2_p = kk._torch_assign(x, c)
+        lab, d2 = kk.fused_assign(x, c)
+        assert kk.launch_config(k_assign + 1, d, dtype)["route"] == "streamed"
+        _CHIP_SMOKE.compare_assign(x, c, lab, d2, lab_p, d2_p)
+        ce = c[:k_em + 1].contiguous()
+        assert kk.launch_config(k_em + 1, d, dtype, em=True)["route"] == "streamed"
+        sums, counts = kk.fused_em_stats(x, ce)
+        lab_e, _ = kk.fused_assign(x, ce)
+        sums_p, counts_p = kk._torch_em_stats(x, ce, x.shape[0])
+        lab_ep, _ = kk._torch_assign(x, ce)
+        _CHIP_SMOKE.compare_em(x, ce, x.shape[0], sums, counts, lab_e, sums_p, counts_p,
+                               int((lab_e != lab_ep).sum()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1327,3 +1358,96 @@ def test_cuda_seq2seq_forward_launches_the_flash_forward():
     assert logits.is_cuda and logits.shape == (2, 96, 103)
     assert launched["flash_fwd"] == 2 + 3 + 3, launched
     assert sum(launched.values()) == launched["flash_fwd"], launched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [129, 200, 256, 512])
+def test_cuda_kmeans_streamed_route_matches_plain_versions(d, dtype):
+    """Past 128 columns both kernels take the streamed route (R6): each
+    against its plain version with chip_smoke.py's checks, em_stats' counts
+    those of assign's labels, both the same bits twice, one launch each."""
+    name = str(dtype).replace("torch.", "")
+    x, c = _CHIP_SMOKE.em_edge_inputs(6001, 37, d, name, "shuffled", seed=d)
+    assert kk.launch_config(37, d, dtype)["route"] == kk.launch_config(37, d, dtype, em=True)["route"] == "streamed"
+    before = dict(kk.launch_counts)
+    lab, d2 = kk.fused_assign(x, c)
+    sums, counts = kk.fused_em_stats(x, c, 5999)
+    assert {key: kk.launch_counts[key] - before[key] for key in before} == {"assign": 1, "em_stats": 1}
+    lab_p, d2_p = kk._torch_assign(x, c)
+    _CHIP_SMOKE.compare_assign(x, c, lab, d2, lab_p, d2_p)
+    sums_p, counts_p = kk._torch_em_stats(x, c, 5999)
+    _CHIP_SMOKE.compare_em(x, c, 5999, sums, counts, lab, sums_p, counts_p, int((lab[:5999] != lab_p[:5999]).sum()))
+    again = kk.fused_em_stats(x, c, 5999)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
+
+
+def test_cuda_estimators_fit_d256():
+    """KMedians, KMedoids, the batch-parallel fits and Spectral fit 256-column
+    data on the card through the kernels (they raised past d = 128 before
+    R6); started at the blobs, KMedians and KMedoids recover them."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    means = torch.randn(4, 256, generator=g, device="cuda") * 8
+    lab = torch.randint(0, 4, (4000,), generator=g, device="cuda")
+    X = means[lab] + 0.5 * torch.randn(4000, 256, generator=g, device="cuda")
+    x = htt.array(X, split=0)
+    init = means + 0.1
+    for name in ("KMedians", "KMedoids", "BatchParallelKMeans", "BatchParallelKMedians"):
+        before = dict(kk.launch_counts)
+        kw = {"init": init, "max_iter": 6} if name in ("KMedians", "KMedoids") else {"random_state": 1}
+        est = getattr(htt.cluster, name)(4, **kw).fit(x)
+        assert kk.launch_counts["assign"] > before["assign"], name
+        assert est.cluster_centers_.larray.is_cuda and est.cluster_centers_.shape == (4, 256)
+        got = est.predict(x).larray.long()
+        assert got.is_cuda and int(got.min()) >= 0 and int(got.max()) < 4
+        if "init" in kw:  # started at the blobs: each blob one label, the generating partition
+            assert torch.unique(torch.stack([lab, got]), dim=1).shape[1] == 4, name
+    before = dict(kk.launch_counts)
+    sp = htt.cluster.Spectral(4, gamma=1e-4, n_lanczos=60).fit(htt.array(X[:600], split=0))
+    assert kk.launch_counts["em_stats"] > before["em_stats"] and sp.labels_.larray.is_cuda
+
+
+FLASH_WIDE_CASES = [(kind, d, causal) for kind in ("mha", "gqa", "pos") for d in (96, 160, 256)
+                    for causal in (True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,d,causal", FLASH_WIDE_CASES)
+def test_cuda_flash_head_dims_past_128(kind, d, causal, dtype):
+    """Every body (forward, dq, dk/dv) under both masks (the static one for
+    multi-head and grouped attention, the positions one for a ring block)
+    at d = 96, 160 and 256 (R5: 160 and 256 raised before), against the
+    plain versions with the tolerances above, one launch each."""
+    g = torch.Generator(device="cuda").manual_seed(d + causal)
+    S, scale = 300, d**-0.5
+    if kind == "pos":
+        q, k, v, do = (torch.randn((4, S, d), generator=g, device="cuda").to(dtype) for _ in range(4))
+        qpos = torch.arange(S, 2 * S, dtype=torch.int32, device="cuda")
+        kpos = torch.arange(S, 2 * S, dtype=torch.int32, device="cuda") - (0 if causal else S)
+        extra = (qpos, kpos)
+        tail = (scale, 2 * S, True)
+        names = ("flash_pos_fwd", "flash_pos_bwd_dq", "flash_pos_bwd_dkv")
+    else:
+        hk = 2 if kind == "gqa" else 8
+        q, do = (torch.randn((8, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((hk, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        extra, tail = (), (scale,)
+        names = ("flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv") if kind == "gqa" else (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    fwd, bdq, bdkv = (getattr(fa, n) for n in names)
+    fwd_p, bdq_p, bdkv_p = (getattr(fa, f"_torch_{n}") for n in names)
+    before = dict(fa.launch_counts)
+    out, lse = fwd(q, k, v, *extra, causal, *tail)
+    dd = (do.float() * out.float()).sum(-1)
+    dq = bdq(q, k, v, do, lse, dd, *extra, causal, *tail)
+    dk, dv = bdkv(q, k, v, do, lse, dd, *extra, causal, *tail)
+    torch.cuda.synchronize()
+    assert {n: fa.launch_counts[n] - before[n] for n in names} == dict.fromkeys(names, 1)
+    out_p, lse_p = fwd_p(q, k, v, *extra, causal, *tail)
+    dq_p = bdq_p(q, k, v, do, lse, dd, *extra, causal, *tail)
+    dk_p, dv_p = bdkv_p(q, k, v, do, lse, dd, *extra, causal, *tail)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+    for got, want, what in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
+        assert row_err(got, want) <= tol[what], what
+        if dtype == torch.bfloat16:
+            assert float((got != want).float().mean()) <= 0.01, what
