@@ -206,8 +206,12 @@
    ``EDGE_F32_ATOL`` over the rows below it.  Every kernel twice to the
    same bits, the forward again with q and dq and dk/dv again with dO off
    16-byte alignment, to the same bits; d = 160 and 256 in every body
-   (``FLASH_CHECKS``, ``GQA_CHECKS``, ``POS_CHECKS``), and d = 257 refused
-   with a message that names R5b.  Every bfloat16
+   (``FLASH_CHECKS``, ``GQA_CHECKS``, ``POS_CHECKS``), and the wide route
+   past d = 256 (``csrc/flash_wide.cuh``) at d = 257, 320, 512 and 1126
+   (``WIDE_DS``) in both dtypes through the multi-head, grouped and
+   positions wrappers, to the same tolerances, each wrapper's launches at
+   those shapes counted and every such d reported on the wide route by the
+   C dispatch (``flash_attention.route``).  Every bfloat16
    launch runs a tensor-core body (``mma.sync``): the forward
    ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``; every float32
    launch the CUDA-core bodies of ``flash_f32.cuh``.
@@ -226,6 +230,10 @@
    ``num_kv_heads=2, positions="rope"`` (four query heads to a K/V head):
    its training launches each grouped kernel 8 x 20 times and the
    multi-head ones none, and it decodes from a cache of 2 K/V heads.
+   After the bfloat16 training, one step of ``TransformerLM(32768, 1024, 2,
+   depth=2)`` (head dim 512, ``LM_D512``) through the kernels against their
+   plain versions: each multi-head kernel launches once a block, every
+   launch on the wide route (``lm_d512_step``).
 9. Holds the three positions kernels of ring attention's block against
    their plain versions: float32 and bfloat16, d = 8, 33, 64, 100 and 128,
    the ring step's diagonal, past and dead blocks at (B*H, Sq, Sk, d) =
@@ -289,8 +297,11 @@
    streamed route's times at 1e7 x 256, k = 64 (``KMEANS_WIDE``) and at
    1e7 x 128 past the caps, k = 417 (``KMEANS_PAST_CAP``); every flash
    row at head dim 256 in both dtypes (``d256_<dtype>``: ``FLASH_WIDE``,
-   ``GQA_WIDE``, the ring blocks at ``POS_WIDE``), with
-   ``scaled_dot_product_attention`` as the library call.
+   ``GQA_WIDE``, the ring blocks at ``POS_WIDE``) and at head dim 512, the
+   wide route (``d512_<dtype>``: ``FLASH_D512``, ``GQA_D512``, the ring
+   blocks at ``POS_D512``, with the wide route's errors there), with
+   ``scaled_dot_product_attention`` as the library call and the backend
+   that served it (``library_backend``, read from its kernels' names).
 14. The serving tier (``serving_phase``): a stream of SERVE_JOBS jobs from
    three tenants (KMeans fits of 1e7 two-blob points, k = 2, 5 iterations;
    8192^2 matmul; 4096 triangular solves; ``nn_forward`` of width 1024,
@@ -308,18 +319,28 @@
    the stream, assign and em_stats are held against their plain versions
    on one KMeans job's own points at the shapes the jobs give them (1e7 x 2
    at world size 1, each rank's 5e6 x 2 at 2 ranks, k = 2).
-15. Ends with the line ``{"ok": true, "device": {...}}``.
+15. The chaos scenarios (``chaos_phase``): the five specs of
+   ``heat_tpu_torch.chaos.scenarios`` (kill-resume-train,
+   serve-sigkill-mid-queue, hang-straggler-verdict on 2 ranks,
+   desync-minority-verdict on 3, fed-world-kill), each a supervised world
+   of ``chaos/world.py`` whose ranks run the port on this card over gloo,
+   in two waves of worlds run at once (CHAOS_WAVES); each run must meet
+   its spec's lines (``check_scenario``), and the post-mortem worlds'
+   supervisor reports must carry the straggler and desync verdicts naming
+   rank 1 under ``postmortems``.  Prints each scenario's seconds.
+16. Ends with the line ``{"ok": true, "device": {...}}``.
 
 The phases run in this order: 1, 2, 3, the world-size-1 parts of 3b, 4,
 4b and 4c, then 5 to 9, 11, 11b's world-size-1 part and 12's timings,
 then 3e; then the phases on spawned ranks, 10 first (with 11b's two-rank
-part), then the 2-rank parts of 3b, 4, 4b and 4c; then 3c, 3d, 3f, 3g
-and 14.  Every check in this process that reads the profiler so runs before
+part), then the 2-rank parts of 3b, 4, 4b and 4c; then 3c, 3d, 3f, 3g,
+14 and 15.  Every check in this process that reads the profiler so runs before
 the first spawned rank: after ranks on the card exit, CUPTI can record no
 device activity for as long as it was watched (``profiled``, which also
 starts CUPTI afresh for each session of this process).  Each profiled
-check takes its session again at once while it records none, for at most
-PROFILE_WAIT_S, and then fails; 10's rank 0 takes one session only.  The
+check takes its session again at once while it records none (or, where it
+reads the kmeans kernels, fewer launches than their wrappers counted), for
+at most PROFILE_WAIT_S, and then fails; 10's rank 0 takes one session only.  The
 script leaves by ``os._exit``, its output flushed.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -329,6 +350,7 @@ line.  Without CUDA it exits 2 at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import queue
 import socket
@@ -405,6 +427,7 @@ POS_MAIN = (16, 2048, 2048, 64)
 POS_BLOCKS = {"diagonal": (2048, 2048), "past": (2048, 0), "dead": (0, 2048)}
 POS_MIX = {"diagonal": 2, "past": 1, "dead": 1}
 POS_WIDE = (16, 2048, 2048, 256)  # the ring step's blocks at head dim 256: the D = 256 bodies timed
+POS_D512 = (16, 2048, 2048, 512)  # and at head dim 512: the wide route timed
 # positions-kernel checks: (B, Sq, Sk, d, query offset, key offset, causal, s_valid)
 POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64, 2048, 0, True, 4096),
               (16, 2048, 2048, 64, 0, 2048, True, 4096), (8, 1000, 600, 128, 300, 0, True, 1000),
@@ -417,17 +440,27 @@ POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64,
               (4, 300, 300, 33, 300, 0, True, 600), (4, 300, 300, 8, 0, 300, True, 600),
               # the ring's diagonal, past and dead blocks at d = 256, ragged at d = 160
               (4, 300, 300, 256, 300, 300, True, 600), (4, 300, 300, 256, 300, 0, True, 600),
-              (4, 300, 300, 256, 0, 300, True, 600), (4, 200, 333, 160, 100, 50, True, 383)]
+              (4, 300, 300, 256, 0, 300, True, 600), (4, 200, 333, 160, 100, 50, True, 383),
+              # the wide route past d = 256: the ring's diagonal, past and dead blocks at d = 512,
+              # ragged and rectangular at 257, unmasked at 320, the diagonal at 1126
+              (4, 300, 300, 512, 300, 300, True, 600), (4, 300, 300, 512, 300, 0, True, 600),
+              (4, 300, 300, 512, 0, 300, True, 600), (4, 200, 333, 257, 100, 50, True, 383),
+              (4, 129, 300, 320, 0, 0, False, 2**30), (2, 300, 300, 1126, 300, 300, True, 600)]
 # flash kernel checks: (query rows B*Hq, K/V rows B*Hkv, S, d, causal)
 FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 129, 128, True),
                 (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False),
                 (16, 16, 1000, 33, True), (16, 16, 129, 8, False),
                 # d past 128: the D = 256 tiles (one stage, dq's 32-row blocks, dk/dv's two passes)
-                (16, 16, 1024, 256, True), (16, 16, 200, 160, False), (16, 16, 100, 96, True)]
+                (16, 16, 1024, 256, True), (16, 16, 200, 160, False), (16, 16, 100, 96, True),
+                # d past 256: the wide route (WIDE_DS), the d512 timings' shape among them
+                (16, 16, 300, 257, True), (16, 16, 200, 320, False), (64, 64, 1024, 512, True),
+                (16, 16, 129, 512, False), (8, 8, 333, 1126, True), (8, 8, 200, 1126, False)]
 GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 128, True), (16, 2, 129, 128, False),
               (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False),
-              (32, 4, 1000, 128, True), (16, 4, 1024, 256, True), (16, 2, 200, 160, False)]
-FLASH_MAX_D = 256  # the kernels' largest head dim; one more is refused, naming R5b
+              (32, 4, 1000, 128, True), (16, 4, 1024, 256, True), (16, 2, 200, 160, False),
+              (16, 4, 300, 257, False), (16, 2, 200, 320, True), (64, 16, 1024, 512, True), (8, 2, 333, 1126, True)]
+WIDE_D = 256  # head dims past this run the wide route (flash_attention.route, checked in check_wide_launched)
+WIDE_DS = (257, 320, 512, 1126)  # the head dims the wide route is held at, in every wrapper and both dtypes
 # the tiles' edges, through all three kernels: S of one row and under the
 # 64-key and 128-row tiles; d = 33 and 100 load element by element, 8 pads one
 # k16 step.  Below ~129 rows whole rows of dq and dk cancel to float32 noise
@@ -443,12 +476,19 @@ FLASH_MAX_D = 256  # the kernels' largest head dim; one more is refused, naming 
 # dq, dk and dv are held by _edge_err: a row whose plain value reaches the
 # floor to FLASH_TOL's row error, a row below it to EDGE_F32_ATOL absolutely
 FWD_EDGE_CHECKS = [(16, 16, 1, 8, True), (16, 16, 15, 33, False), (16, 16, 127, 100, True), (16, 16, 64, 64, True)]
+# the wide route's edges, by the same criteria: one row, and under a tile at d = 257
+WIDE_EDGE_CHECKS = [(16, 16, 1, 320, True), (16, 16, 127, 257, False)]
 GQA_FWD_EDGE_CHECKS = [(16, 4, 127, 33, True), (16, 2, 15, 100, False), (32, 4, 1, 128, True)]
 FLASH_MAIN = (64, 64, 1024, 64)  # the training step's attention: B*H = 8*8, S = 1024, d = 64, causal
 GQA_MAIN = (64, 16, 1024, 64)  # the grouped LM's: 8 batches of 8 query and 2 K/V heads
 FLASH_BENCH = (32, 32, 4096, 64)  # the repo's attention benchmark shape (bench.py, flash_attention_ab), causal bf16
 FLASH_WIDE = (64, 64, 1024, 256)  # head dim 256 at the training step's rows and length: the D = 256 bodies timed
 GQA_WIDE = (64, 16, 1024, 256)
+FLASH_D512 = (64, 64, 1024, 512)  # head dim 512 at the training step's rows and length: the wide route timed
+GQA_D512 = (64, 16, 1024, 512)
+# one training step of an LM of head dim 512 (d_model 1024, 2 heads) through
+# the wide route against the plain versions; two blocks keep it short
+LM_D512 = dict(LM, embed_dim=1024, num_heads=2, depth=2)
 # assign and em_stats at their edges: (rows, n, k, d, dtype, layout).  k from
 # one cluster to past a 64-centre chunk, off the n8 tiles (1, 3, 9, 61,
 # 127), and past what wgmma's centres hold in shared memory, so mma.sync
@@ -524,6 +564,24 @@ EDGE_F32_ATOL = 2.0**-16
 # floor only (see FWD_EDGE_CHECKS): those that are float32 noise of a sum
 # that cancels are held by the row error instead
 BF16_DIFF_SHARE = 0.01
+# ... and past d = 256 (the wide route), BF16_DIFF_SHARE * sqrt(d / 256).
+# There the share grows with d: a score sums d products, the tensor cores
+# add them in 16-term groups and the plain version's float32 product in a
+# sequential chain, so the two scores differ by ~sqrt(d) float32 ulps (a
+# unit-scale score after the d^-1/2 scale) and a P or dS rounds to the other
+# side of a bfloat16 boundary in proportion: the d <= 256 limit, scaled by
+# that growth from d = 256.  Largest shares read on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W), of out, dq, dk, dv over every shape at each d: 0.50%
+# at d = 256, 0.44% at 257, 0.48% at 320, 0.91% at 512, 1.11% at 1126,
+# against limits of 1%, 1.00%, 1.12%, 1.41% and 2.10%; the row error stays
+# held to FLASH_TOL's 2^-6 at every d
+
+
+def bf16_share_limit(d: int) -> float:
+    """The bfloat16 differing share a shape of head dim ``d`` is held to."""
+    return BF16_DIFF_SHARE * math.sqrt(max(d, WIDE_D) / WIDE_D)
+
+
 LSE_ATOL = 2e-5  # lse is float32 in both dtypes, of magnitude ~log(S) + |s|: a few float32 ulps
 # one training step through the kernels vs through the plain versions
 # (float32): loss to 1e-5 relative; each parameter's gradient to 1e-3 of its
@@ -1145,7 +1203,8 @@ def check_edges(names, edges) -> None:
             edge = {key: _edge_err(a, b) for key, a, b in pairs[1:]}
             if dtype == torch.bfloat16:
                 bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
-                bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
+                bad.update({f"{key}_differing": val for key, val in share.items()
+                            if not val <= bf16_share_limit(d)})
             else:
                 bad = {key: val for key, val in edge.items() if not _edge_ok(val)}
                 if not res["out"] <= tol["out"]:
@@ -1162,20 +1221,25 @@ def check_edges(names, edges) -> None:
                               "misaligned_bitwise": True, "check": "pass"}), flush=True)
 
 
-def check_flash_kernels(names, checks, main, edges) -> dict:
+def check_flash_kernels(names, checks, main, edges, wide_main=None) -> dict:
     """Each flash kernel, through the wrappers ``names`` (multi-head or
     grouped), against its plain version on the card, and at the tiles'
     edges ``edges``; returns the errors at the main path's shape ``main`` per
-    dtype for the kernels line."""
+    dtype (and at ``wide_main``, head dim 512, under ``d512_<dtype>``) for
+    the kernels line."""
     import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
 
     (fwd, bwd_dq, bwd_dkv), (fwd_p, bwd_dq_p, bwd_dkv_p) = _flash_fns(names)
     errs = {}
+    wide = dict.fromkeys(names, 0)  # each wrapper's launches at the shapes past WIDE_D
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         tol = FLASH_TOL[name]
         for bhq, bhk, S, d, causal in checks:
             shape = (bhq, bhk, S, d, causal)
+            before = {n: fa.launch_counts[n] for n in names}
             q, k, v, do = _flash_inputs(bhq, bhk, S, d, dtype, seed=S + d + causal + bhq // bhk - 1)
             scale = d**-0.5
             out, lse = fwd(q, k, v, causal, scale)
@@ -1194,6 +1258,8 @@ def check_flash_kernels(names, checks, main, edges) -> dict:
             do_off = _misaligned(do)
             dq3 = bwd_dq(q, k, v, do_off, lse, dd, causal, scale)
             dk3, dv3 = bwd_dkv(q, k, v, do_off, lse, dd, causal, scale)
+            if d > WIDE_D:
+                wide = {n: wide[n] + fa.launch_counts[n] - before[n] for n in names}
             out_p, lse_p = fwd_p(q, k, v, causal, scale)
             dq_p = bwd_dq_p(q, k, v, do, lse, dd, causal, scale)
             dk_p, dv_p = bwd_dkv_p(q, k, v, do, lse, dd, causal, scale)
@@ -1209,7 +1275,8 @@ def check_flash_kernels(names, checks, main, edges) -> dict:
                      for key, a, b in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))}
             bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
             if dtype == torch.bfloat16:
-                bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
+                bad.update({f"{key}_differing": val for key, val in share.items()
+                            if not val <= bf16_share_limit(d)})
             if bad or not lse_err <= LSE_ATOL:
                 fail(f"flash kernels vs plain at {shape} {name}: {res}, {share}, lse {lse_err}")
             abs_err = {key: float((a.float() - b.float()).abs().max())
@@ -1220,29 +1287,32 @@ def check_flash_kernels(names, checks, main, edges) -> dict:
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
                               "misaligned_q_bitwise": True, "misaligned_do_bitwise": True, "check": "pass"}),
                   flush=True)
-            if (bhq, bhk, S, d) == main and causal:
-                errs[name] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
+            if (bhq, bhk, S, d) in (main, wide_main) and causal:
+                errs[name if (bhq, bhk, S, d) == main else f"d512_{name}"] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
                                               (max(abs_err["dk"], abs_err["dv"]), max(res["dk"], res["dv"])))))
     check_edges(names, edges)
-    grouped = names == GQA_KERNELS
-    check_refused(names[0], lambda q: fwd(q, q[:2] if grouped else q, q[:2] if grouped else q, True, 1.0))
+    check_wide_launched(names, checks, wide)
     return errs
 
 
-def check_refused(name: str, call) -> None:
-    """``call(q)`` on q (4, 16, FLASH_MAX_D + 1) raises, and the message names R5b."""
-    import torch
+def check_wide_launched(names, checks, launched: dict) -> None:
+    """The checks hold each of WIDE_DS; the C dispatch reports every head dim
+    of ``checks`` past WIDE_D on the wide route and WIDE_D itself on the
+    D = 256 bodies (``flash_attention.route``); and every wrapper of
+    ``names`` launched at least once a shape past WIDE_D in both dtypes
+    (``launched``: its launch_counts over those shapes)."""
+    from heat_tpu_torch.ops import flash_attention as fa
 
-    d = FLASH_MAX_D + 1
-    try:
-        call(torch.zeros((4, 16, d), device="cuda"))
-    except ValueError as e:
-        if "R5b" not in str(e):
-            fail(f"{name} refused d = {d} without naming R5b: {e}")
-        print(json.dumps({"phase": "kernel_check", "kernel": name, "d": d, "raised": str(e), "check": "pass"}),
-              flush=True)
-    else:
-        fail(f"{name} took d = {d}")
+    ds = {c[3] for c in checks if c[3] > WIDE_D}
+    if not set(WIDE_DS) <= ds:
+        fail(f"{names} checked the wide route at d = {sorted(ds)}, not at every one of {WIDE_DS}")
+    routes = {d: fa.route(d) for d in sorted(ds | {WIDE_D})}
+    if any(routes[d] != "wide" for d in ds) or routes[WIDE_D] != "d256":
+        fail(f"{names}: the C dispatch routes head dims {routes}, want the wide route past {WIDE_D} only")
+    if not all(launched[n] >= 2 * sum(c[3] > WIDE_D for c in checks) for n in names):
+        fail(f"{names}: launched {launched} times over the shapes past d = {WIDE_D}")
+    print(json.dumps({"phase": "kernel_check", "kernel": "+".join(names), "launches_past_wide_d": launched,
+                      "routes": {str(d): r for d, r in routes.items()}, "check": "pass"}), flush=True)
 
 
 def lm_batches(steps: int, seed: int, batch: int = LM_BATCH, seq: int = LM_SEQ):
@@ -1341,21 +1411,25 @@ def device_events(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profiled(fn, label: str, cpu: bool = False, wait_s: float = PROFILE_WAIT_S) -> tuple:
+def profiled(fn, label: str, cpu: bool = False, wait_s: float = PROFILE_WAIT_S, complete=None) -> tuple:
     """(a finished ``torch.profiler`` session over one ``fn()``, the wall
     seconds of that call, the card synchronised), with the CPU's activity
     too where ``cpu``.  A process that keeps CUPTI from one session to the
     next can lose every record for good: on an H100, in two runs of
     ``scripts/profiler_probe.py``, 94 of 104 sessions recorded nothing
     once ranks the process spawned on the card had exited, and one run of
-    this script lost 42 sessions in a row with no rank spawned.  So in the
+    this script lost 42 sessions in a row with no rank spawned.  A session
+    can also lose part of its records: two runs saw a BatchParallelKMeans
+    fit's ``assign`` kernel, or both its ``assign`` and ``em_stats``
+    kernels, launch no time where their wrappers had counted 1 and 4.  So in the
     script's own process (``_TEARDOWN_CUPTI``) each session runs with
     ``TEARDOWN_CUPTI=1``, which makes the profiler finalize CUPTI when the
     session ends (with it, 1 of 52 recorded nothing after a spawn); spawned
     ranks, fresh processes, never inherit it.  A session that still
-    records no device activity measured nothing, so ``fn()`` runs again at
-    once under a new session, for at most ``wait_s`` seconds, and then the
-    run fails.  Every ``fn`` here does work on the card."""
+    records no device activity measured nothing, and so does one for which
+    ``complete(prof)`` is false: ``fn()`` runs again at once under a new
+    session, for at most ``wait_s`` seconds, and then the run fails.  Every
+    ``fn`` here does work on the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1374,10 +1448,12 @@ def profiled(fn, label: str, cpu: bool = False, wait_s: float = PROFILE_WAIT_S) 
         finally:
             os.environ.pop("TEARDOWN_CUPTI", None)
         sessions += 1
-        if device_events(prof):
+        seen = bool(device_events(prof))
+        if seen and (complete is None or complete(prof)):
             return prof, wall
         if time.monotonic() >= deadline:
-            fail(f"{label}: {sessions} profiler sessions over {wait_s} s recorded no device activity")
+            what = "recorded fewer launches than the wrappers counted" if seen else "recorded no device activity"
+            fail(f"{label}: {sessions} profiler sessions over {wait_s} s {what}")
 
 
 def profile_device(fn, label: str) -> dict:
@@ -1481,6 +1557,32 @@ def lm_step_vs_plain(ht, lm, batch, kernels, label: str, tol=(STEP_LOSS_RTOL, ST
     return row
 
 
+def lm_d512_step(ht) -> dict:
+    """One training step of ``TransformerLM(**LM_D512)``, head dim 512,
+    through the kernels against their plain versions (``lm_step_vs_plain``):
+    each multi-head wrapper launches once a block, and the C dispatch
+    reports head dim 512 on the wide route (``flash_attention.route``)."""
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    torch.manual_seed(0)
+    lm = ht.nn.models.TransformerLM(**LM_D512)
+    batch = torch.from_numpy(lm_batches(1, seed=13)[0]).cuda()
+    label = "TransformerLM(embed_dim=1024, num_heads=2): head dim 512"
+    t0 = time.perf_counter()
+    row = lm_step_vs_plain(ht, lm, batch, MHA_KERNELS, label, want=LM_D512["depth"])
+    route = fa.route(LM_D512["embed_dim"] // LM_D512["num_heads"])
+    if route != "wide":
+        fail(f"{label}: the C dispatch routes head dim 512 to {route!r}, want the wide route")
+    print(json.dumps({"phase": "main_path", "path": f"{label}, one step vs plain", **LM_D512, "head_dim": 512,
+                      "params": sum(p.numel() for p in lm.parameters()), "batch": [LM_BATCH, LM_SEQ + 1],
+                      "seconds": time.perf_counter() - t0, "route": route, "check": "pass"}), flush=True)
+    del lm, batch
+    torch.cuda.empty_cache()
+    return row
+
+
 def lm_generate(ht, lm, fwd_kernel: str, label: str) -> None:
     """Generation in bfloat16 at bench's lm_generate shape; then decoding
     against the bfloat16 forward over the prompt, which launches
@@ -1580,6 +1682,19 @@ def device_kernels(fn, top: int = 2, reps: int = 3) -> list:
     return [e.key[:120] for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:top]]
 
 
+def sdpa_backend(kernels) -> str:
+    """Which backend of ``scaled_dot_product_attention`` served a call, read
+    from the names of its kernels (``device_kernels``): cuDNN's, the flash
+    kernels, the memory-efficient (CUTLASS fmha) kernels, or the math path's
+    products and softmax."""
+    low = " ".join(kernels).lower()
+    if "cudnn" in low:
+        return "cudnn"
+    if "fmha" in low or "memeff" in low:
+        return "efficient"
+    return "flash" if "flash" in low else "math"
+
+
 def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
     """ms of each kernel, its plain version and the library call, causal, at
     q (bhq, S, d) and k, v (bhk, S, d), through the wrappers ``names``."""
@@ -1618,7 +1733,8 @@ def time_flash(names, bhq, bhk, S, d, dtype, reps: int) -> dict:
     for name, (ms, plain_ms, lib_ms, lib_kernels) in res.items():
         b_ms, b_by = flash_bound(name, bhq, bhk, S, d, q.element_size())
         rows[name] = {"shape": [bhq, bhk, S, d], "causal": True, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": lib_ms, "library_kernels": lib_kernels}
+                      "bound_by": b_by, "library_ms": lib_ms, "library_kernels": lib_kernels,
+                      "library_backend": sdpa_backend(lib_kernels)}
     return rows
 
 
@@ -1693,12 +1809,13 @@ def kmeans_ptxas_report(log: str, word: str) -> list:
 
 
 def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, launches_bf16=None,
-               wide=None) -> list:
+               wide=None, d512=None) -> list:
     """The kernels line's rows of the wrappers ``names``: float32 at the
     training step's shape ``main``, with bfloat16 at that shape (and its
     launches in the bfloat16 training phase, ``launches_bf16``) and, given
     ``bench`` and ``wide``, at the attention benchmark's shape and at head
-    dim 256 (``d256_<dtype>``), in both dtypes."""
+    dim 256 (``d256_<dtype>``), and given ``d512`` at head dim 512, the wide
+    route (``d512_<dtype>``, with its errors there), in both dtypes."""
     import torch
 
     f32 = time_flash(names, *main, torch.float32, 20)
@@ -1706,6 +1823,7 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
     at_bench = {dt: time_flash(names, *bench, getattr(torch, dt), 5) for dt in ("float32", "bfloat16")
                 if bench}
     at_wide = {dt: time_flash(names, *wide, getattr(torch, dt), 5) for dt in ("float32", "bfloat16") if wide}
+    at_d512 = {dt: time_flash(names, *d512, getattr(torch, dt), 3) for dt in ("float32", "bfloat16") if d512}
     gqa = ", enable_gqa=True" if main[0] != main[1] else ""
     lib = [f"scaled_dot_product_attention(is_causal=True{gqa}) forward"] + \
         [f"scaled_dot_product_attention(is_causal=True{gqa}) backward: dq, dk and dv together"] * 2
@@ -1722,7 +1840,10 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
                          "row_rel_err": errs["bfloat16"][name][1],
                          **({"launches": launches_bf16[name]} if launches_bf16 else {})},
             **{f"bench_shape_{dt}": timed[name] for dt, timed in at_bench.items()},
-            **{f"d256_{dt}": timed[name] for dt, timed in at_wide.items()}, "check": "pass",
+            **{f"d256_{dt}": timed[name] for dt, timed in at_wide.items()},
+            **{f"d512_{dt}": {**timed[name], "route": "wide (flash_wide.cuh)", "max_abs_err": errs[f"d512_{dt}"][name][0],
+                              "row_rel_err": errs[f"d512_{dt}"][name][1]} for dt, timed in at_d512.items()},
+            "check": "pass",
         })
     return rows
 
@@ -1748,11 +1869,13 @@ def check_pos_kernels() -> dict:
     from heat_tpu_torch.ops import flash_attention as fa
 
     errs = {}
+    wide = dict.fromkeys(POS_KERNELS, 0)  # each wrapper's launches at the shapes past WIDE_D
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         tol = FLASH_TOL[name]
         for B, Sq, Sk, d, qo, ko, causal, s_valid in POS_CHECKS:
             shape = (B, Sq, Sk, d, qo, ko, causal, s_valid)
+            before = {n: fa.launch_counts[n] for n in POS_KERNELS}
             q, k, v, do, g_lse, qpos, kpos = _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed=Sq + Sk + d + qo)
             args = (qpos, kpos, causal, d**-0.5, s_valid, causal or s_valid < 2**30)
             out, lse = fa.flash_pos_fwd(q, k, v, *args)
@@ -1766,6 +1889,8 @@ def check_pos_kernels() -> dict:
             k_off = _misaligned(k)
             dq3 = fa.flash_pos_bwd_dq(q, k_off, v, do, lse, dd, *args)
             dk3, dv3 = fa.flash_pos_bwd_dkv(q, k_off, v, do, lse, dd, *args)
+            if d > WIDE_D:
+                wide = {n: wide[n] + fa.launch_counts[n] - before[n] for n in POS_KERNELS}
             torch.cuda.synchronize()
             if not (torch.equal(out, again) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
                     and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
@@ -1783,7 +1908,8 @@ def check_pos_kernels() -> dict:
             lse_err = float((lse - lse_p).abs().max())
             bad = {key: val for key, val in res.items() if not val <= tol["out" if key == "out" else "grad"]}
             if dtype == torch.bfloat16:
-                bad.update({f"{key}_differing": val for key, val in share.items() if not val <= BF16_DIFF_SHARE})
+                bad.update({f"{key}_differing": val for key, val in share.items()
+                            if not val <= bf16_share_limit(d)})
             if qo + Sq <= ko and causal and (out.any() or dq.any() or dk.any() or dv.any()
                                              or not bool((lse == -1e30).all())):
                 bad["dead_block"] = "a block after every query gave out, dq, dk or dv != 0 or lse != -1e30"
@@ -1797,12 +1923,15 @@ def check_pos_kernels() -> dict:
                               "max_abs_err": abs_err, "lse_max_abs_err": lse_err, "row_rel_err": res,
                               "row_rel_tol": tol, "differing_share": share, "lse_atol": LSE_ATOL,
                               "repeats_bitwise": True, "misaligned_k_bitwise": True, "check": "pass"}), flush=True)
+            if d == 512:  # the wide route's errors at the d512 timings' head dim
+                errs.setdefault(f"d512_{name}", {})[str(shape)] = {
+                    "flash_pos_fwd": max(abs_err["out"], lse_err), "flash_pos_bwd_dq": abs_err["dq"],
+                    "flash_pos_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}
             if block:
                 errs.setdefault(name, {})[block] = {
                     "flash_pos_fwd": max(abs_err["out"], lse_err), "flash_pos_bwd_dq": abs_err["dq"],
                     "flash_pos_bwd_dkv": max(abs_err["dk"], abs_err["dv"])}
-    pos = torch.arange(16, dtype=torch.int32, device="cuda")
-    check_refused("flash_pos_fwd", lambda q: fa.flash_pos_fwd(q, q, q, pos, pos, True, 1.0, 16, True))
+    check_wide_launched(POS_KERNELS, POS_CHECKS, wide)
     return errs
 
 
@@ -2806,10 +2935,11 @@ def time_pos(dtype, reps: int, shape=POS_MAIN) -> dict:
         kernels = {"forward": device_kernels(lib_fwd), "backward": device_kernels(lib_bwd)}
         for name, (run, plain, lib_ms) in runs.items():
             b_ms, b_by = pos_bound(name, B, Sq, Sk, d, live, q.element_size())
+            lib_kernels = kernels["forward" if name == "flash_pos_fwd" else "backward"]
             out_rows.setdefault(name, {})[block] = {
                 "live_pairs": live, "ms": cuda_ms(run, reps), "plain_ms": cuda_ms(plain, 2), "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms,
-                "library_kernels": kernels["forward" if name == "flash_pos_fwd" else "backward"]}
+                "bound_by": b_by, "library_ms": lib_ms, "library_kernels": lib_kernels,
+                "library_backend": sdpa_backend(lib_kernels)}
         del q, k, v, do, lib_out, qg, kg, vg
     return out_rows
 
@@ -2832,6 +2962,7 @@ def pos_rows(errs: dict) -> list:
 
     f32, bf16 = time_pos(torch.float32, 10), time_pos(torch.bfloat16, 10)
     wide = {dt: time_pos(getattr(torch, dt), 3, POS_WIDE) for dt in ("float32", "bfloat16")}
+    d512 = {dt: time_pos(getattr(torch, dt), 2, POS_D512) for dt in ("float32", "bfloat16")}
     lib = ["scaled_dot_product_attention(attn_mask=positions mask) forward"] + \
         ["scaled_dot_product_attention(attn_mask=positions mask) backward: dq, dk and dv together"] * 2
     rows = []
@@ -2845,6 +2976,10 @@ def pos_rows(errs: dict) -> list:
             "bfloat16": {**mix(bf16[name]), "max_abs_err": max(e[name] for e in errs["bfloat16"].values()),
                          "blocks": bf16[name]},
             **{f"d256_{dt}": {**mix(timed[name]), "shape": list(POS_WIDE)} for dt, timed in wide.items()},
+            **{f"d512_{dt}": {**mix(timed[name]), "shape": list(POS_D512), "route": "wide (flash_wide.cuh)",
+                              "library_backend": timed[name]["diagonal"]["library_backend"], "blocks": timed[name],
+                              "max_abs_err": max(e[name] for e in errs[f"d512_{dt}"].values())}
+               for dt, timed in d512.items()},
             "check": "pass",
         })
     return rows
@@ -4438,6 +4573,23 @@ def _launches() -> dict:
     return dict(kk.launch_counts)
 
 
+def profiled_launches(fn, label: str) -> tuple:
+    """(the launches of the ``assign`` and ``em_stats`` kernels that the
+    profiler saw over one ``fn()``, the wrappers' counts over that same
+    call).  A session that saw fewer launches of a kernel than its wrapper
+    counted lost records, and ``profiled`` takes it again."""
+    def seen(prof) -> dict:
+        return {key: sum(e.count for e in device_events(prof) if f"{key}_kernel" in e.key)
+                for key in ("assign", "em_stats")}
+
+    def run():
+        _zero_launches()
+        fn()
+
+    prof, _ = profiled(run, label, complete=lambda p: all(n >= _launches()[key] for key, n in seen(p).items()))
+    return seen(prof), _launches()
+
+
 def _est_fit(fn):
     """(result, ms, launch counts, peak bytes) of one ``fn()`` on the card,
     the counts zeroed and the peak reset just before."""
@@ -4593,13 +4745,12 @@ def estimators_world_one(ht, smi: str) -> None:
                  predict_ms=pms, n_iter=steps, **extra)
         del est, pred
     # the profiler's count of one KMedians fit's kernels
-    prof, _ = profiled(lambda: ht.cluster.KMedians(n_clusters=k, init=init, max_iter=2).fit(X), "KMedians launches")
-    seen = {key: sum(e.count for e in device_events(prof) if f"{key}_kernel" in e.key) for key in ("assign",
-                                                                                                   "em_stats")}
+    seen, counts = profiled_launches(lambda: ht.cluster.KMedians(n_clusters=k, init=init, max_iter=2).fit(X),
+                                     "KMedians launches")
     if seen["em_stats"] or not seen["assign"]:
         fail(f"KMedians: the profiler saw {seen}")
     print(json.dumps({"phase": "estimators_profiled_launches", "estimator": "KMedians(max_iter=2)", "kernels": seen,
-                      "card": smi}), flush=True)
+                      "launch_counts": counts, "card": smi}), flush=True)
 
     for name, median in (("BatchParallelKMeans", False), ("BatchParallelKMedians", True)):
         kw = {"max_iter": EST_ITER if median else MAX_ITER}
@@ -4621,15 +4772,13 @@ def estimators_world_one(ht, smi: str) -> None:
                  None, None, launches, smi, n_iter=steps, recovered=recovered(C, means.cuda(), RECOVER_TOL),
                  recovered_of=k)
         del est
-    _zero_launches()
-    prof, _ = profiled(lambda: ht.cluster.BatchParallelKMeans(n_clusters=k, random_state=0, max_iter=3).fit(X),
-                       "BatchParallelKMeans launches")
-    seen = {key: sum(e.count for e in device_events(prof) if f"{key}_kernel" in e.key) for key in ("assign",
-                                                                                                   "em_stats")}
+    seen, counts = profiled_launches(
+        lambda: ht.cluster.BatchParallelKMeans(n_clusters=k, random_state=0, max_iter=3).fit(X),
+        "BatchParallelKMeans launches")
     if not seen["em_stats"]:
         fail(f"BatchParallelKMeans: the profiler saw {seen}")
     print(json.dumps({"phase": "estimators_profiled_launches", "estimator": "BatchParallelKMeans(max_iter=3)",
-                      "kernels": seen, "launch_counts": _launches(), "card": smi}), flush=True)
+                      "kernels": seen, "launch_counts": counts, "card": smi}), flush=True)
 
     # GaussianNB: per-class moments against float64 over each blob's rows
     nb, ms, launches, peak = _est_fit(lambda: ht.naive_bayes.GaussianNB().fit(X, y))
@@ -5556,11 +5705,84 @@ def serving_phase(smi: str) -> dict:
     return out
 
 
+# phase 15: the chaos scenarios (heat_tpu_torch.chaos.scenarios), each a
+# supervised world of the port's ranks on this card over gloo
+CHAOS_SCENARIOS = ("kill-resume-train", "serve-sigkill-mid-queue", "hang-straggler-verdict",
+                   "desync-minority-verdict", "fed-world-kill")
+# the worlds that run at once: the killed ones, then the post-mortem ones (2 + 2 + 2, then 2 + 3 ranks)
+CHAOS_WAVES = (("kill-resume-train", "serve-sigkill-mid-queue", "fed-world-kill"),
+               ("hang-straggler-verdict", "desync-minority-verdict"))
+CHAOS_HB_TIMEOUT_S = 30  # the post-mortem worlds' staleness: a rank on the card comes up in ~10 s
+CHAOS_TIMEOUT_S = 420  # a scenario that has not ended by then fails the run (its whole session killed)
+# the verdict each post-mortem scenario's supervisor report must carry: rank 1 named
+CHAOS_VERDICTS = {"hang-straggler-verdict": lambda v: v["verdict"] == "straggler" and v["straggler"]["rank"] == 1,
+                  "desync-minority-verdict": lambda v: v["verdict"] == "desync" and v["deviating_ranks"] == [1]}
+CHAOS_LINES = ("SUPERVISOR restarts", "RESUMED", "TRAIN-OK", "SCHED jobs", "SCHED-RECOVERED", "PM-HANG",
+               "PM-DESYNC", "POSTMORTEM", "CRITICAL-PATH kind=collective", "FED ", "FED-QUARANTINED", "FED-RESIZE",
+               "STEP-OVERLAP")
+
+
+def _supervisor_report(out: str) -> dict:
+    """The supervisor's report a failed world prints after its give-up line."""
+    at = out.find("SUPERVISOR GAVE UP; diagnostic report:")
+    if at < 0:
+        return {}
+    start = out.index("{", at)
+    return json.JSONDecoder().raw_decode(out[start:])[0]
+
+
+def chaos_phase(smi: str) -> dict:
+    """Phase 15: each of CHAOS_SCENARIOS through ``chaos.scenarios`` with
+    every rank on this card (``device="gpu"``, gloo), judged by its spec's
+    contract (``check_scenario``); the post-mortem scenarios' supervisor
+    reports must carry their verdicts under ``postmortems``.  The scenarios
+    run in CHAOS_WAVES, the worlds of a wave at once (each its own ports,
+    directories and processes).  Prints each scenario's seconds and its
+    attestation lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from heat_tpu_torch.chaos import scenarios
+
+    def run(name):
+        env = {"MPDRYRUN_HB_TIMEOUT": CHAOS_HB_TIMEOUT_S} if scenarios.scenario(name)["mode"] == "postmortem" else {}
+        t0 = time.perf_counter()
+        proc = scenarios.run_scenario(name, timeout=CHAOS_TIMEOUT_S, device="gpu", env=env)
+        return proc, time.perf_counter() - t0
+
+    seconds, t_phase = {}, time.perf_counter()
+    for wave in CHAOS_WAVES:
+        with ThreadPoolExecutor(len(wave)) as pool:
+            runs = dict(zip(wave, pool.map(run, wave)))
+        for name in wave:
+            proc, seconds[name] = runs[name]
+            spec = scenarios.scenario(name)
+            bad = scenarios.check_scenario(name, proc)
+            row = {"phase": "chaos", "scenario": name, "mode": spec["mode"], "ranks": spec["n_proc"],
+                   "device": "gpu (one card, gloo)", "wave": list(wave), "seconds": seconds[name],
+                   "rc": proc.returncode}
+            if name in CHAOS_VERDICTS:
+                pms = _supervisor_report(proc.stdout).get("postmortems") or []
+                row["postmortems"] = [{k: v.get(k) for k in ("verdict", "epoch", "first_divergent_seq",
+                                                             "deviating_ranks", "straggler")} for v in pms]
+                if not any(CHAOS_VERDICTS[name](v) for v in pms):
+                    bad.append(f"the supervisor's report carries no verdict naming rank 1: {row['postmortems']}")
+            row["lines"] = [ln for ln in proc.stdout.splitlines()
+                            if ln.split("] ", 1)[-1].startswith(CHAOS_LINES)][:24]
+            if bad:
+                print(proc.stdout[-6000:], proc.stderr[-3000:], sep="\n")
+                fail(f"chaos scenario {name}: {bad}")
+            print(json.dumps({**row, "check": "pass", "card": smi}), flush=True)
+    out = {"phase": "chaos_seconds", "seconds": seconds, "phase_seconds": time.perf_counter() - t_phase, "card": smi}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     global _TEARDOWN_CUPTI
     import torch
 
     _TEARDOWN_CUPTI = True
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test needs a GPU", file=sys.stderr)
         return 2
@@ -5597,8 +5819,9 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         check_kernels_small(dtype)
     check_em_edges()
-    flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN, FWD_EDGE_CHECKS)
-    gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN, GQA_FWD_EDGE_CHECKS)
+    flash_errs = check_flash_kernels(MHA_KERNELS, FLASH_CHECKS, FLASH_MAIN, FWD_EDGE_CHECKS + WIDE_EDGE_CHECKS,
+                                     FLASH_D512)
+    gqa_errs = check_flash_kernels(GQA_KERNELS, GQA_CHECKS, GQA_MAIN, GQA_FWD_EDGE_CHECKS, GQA_D512)
     pos_errs = check_pos_kernels()
 
     # 3. the KMeans main path at full width
@@ -5681,14 +5904,16 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the multi-head LM trained in bfloat16: every bfloat16 kernel on the tensor cores
     launches_bf16 = lm_train_bf16(ht)
+    # one step of an LM of head dim 512: the wide route on the training path
+    lm_d512_step(ht)
     # 11b. the rest of the nn surface at world size 1: Seq2SeqTransformer at
     # transformer-base width, the MoE LM, remat, the layer families
     nn_s = nn_surface_world_one(ht, smi, peaks["TransformerLM"])
 
     # 12. the kernels' timings; the positions kernels' launches come from 10
     rows += flash_rows(MHA_KERNELS, FLASH_MAIN, (132, 339, 376), launches, flash_errs, bench=FLASH_BENCH,
-                       launches_bf16=launches_bf16, wide=FLASH_WIDE)
-    rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs, wide=GQA_WIDE)
+                       launches_bf16=launches_bf16, wide=FLASH_WIDE, d512=FLASH_D512)
+    rows += flash_rows(GQA_KERNELS, GQA_MAIN, (871, 924, 945), launches, gqa_errs, wide=GQA_WIDE, d512=GQA_D512)
     pos = pos_rows(pos_errs)
     torch.cuda.empty_cache()
 
@@ -5734,7 +5959,12 @@ def main() -> int:
     # against world size 1
     serving_phase(smi)
 
-    # 8. the kernels line and the result
+    # 15. the chaos scenarios: supervised worlds of the port's ranks on
+    # this card, killed, hung or desynchronised, each judged by its spec
+    chaos_phase(smi)
+
+    # 16. the kernels line and the result
+    print(json.dumps({"phase": "script_seconds", "seconds": time.perf_counter() - t_script, "card": smi}), flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

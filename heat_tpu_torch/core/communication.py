@@ -21,8 +21,9 @@ Every collective passes through one accounting choke point
 name, the payload times the JAX package's traffic factor of that collective
 (``traffic()``).  The runtime hooks ride the same point, as in the JAX
 package: the flight recorder's sequence stamp, the ``comm.collective``
-fault site (under the deadline watchdog when a :meth:`deadline` is armed)
-and the telemetry account (``comm.<name>.calls``/``.bytes``).  ``Wait`` and
+fault site (under the deadline watchdog when a :meth:`deadline` is armed),
+the telemetry account (``comm.<name>.calls``/``.bytes``) and the
+recorder's ``enter`` mark as the rank goes into the transport.  ``Wait`` and
 ``Barrier`` block under the same watchdog.
 
 :meth:`Communication.Split` makes subgroup communicators (MPI's
@@ -212,18 +213,24 @@ class Communication:
         ``comm.collective`` fault site (under ``health.guard_blocking``
         when a deadline is armed, which refuses a blown deadline and turns
         an injected hang into ``CollectiveTimeoutError``), then the
-        telemetry account."""
+        telemetry account, and last the recorder's ``enter`` mark: past the
+        staging point, the rank goes into the transport.  These collectives
+        block until every rank joins, so a rank wedged at staging stops its
+        peers at the same seq, and only the marks tell the post-mortem
+        which rank the others wait on."""
         entry = self._traffic.setdefault(name, {"calls": 0, "bytes": 0})
         entry["calls"] += 1
         entry["bytes"] += int(nbytes)
-        if _FLIGHTREC is not None:
-            _FLIGHTREC.record_collective(name, nbytes, x, src_split, dst_split)
+        rec = _FLIGHTREC
+        seq = rec.record_collective(name, nbytes, x, src_split, dst_split) if rec is not None else None
         flt, hlth = _faults(), _health()
         if hlth.active_deadline() is None:
             flt.fire("comm.collective")
         else:
             hlth.guard_blocking(lambda: flt.fire("comm.collective"), f"comm.{name}")
         _telemetry().account_collective(name, nbytes)
+        if seq is not None:
+            rec.record_enter(seq)
 
     def traffic(self) -> Dict[str, Dict[str, int]]:
         """``{collective: {"calls": n, "bytes": wire bytes}}`` of this

@@ -130,6 +130,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_flash_pos_bwd_dq.restype = i32
     lib.heat_flash_pos_bwd_dkv.argtypes = [i32] + [ptr] * 10 + pos_tail
     lib.heat_flash_pos_bwd_dkv.restype = i32
+    lib.heat_flash_route.argtypes = [i32]
+    lib.heat_flash_route.restype = i32
     lib.heat_flash_strerror.argtypes = [i32]
     lib.heat_flash_strerror.restype = ctypes.c_char_p
 

@@ -102,13 +102,22 @@
 
 // The launchers, masks and bodies are in flash_launch.cuh.  This file
 // instantiates D = 64 and 128 (head dims 1 to 128); flash_attention_d256.cu
-// instantiates D = 256 for head dims 129 to 256, and each C function here
-// forwards such a d there.  The two files compile at once.
+// instantiates D = 256 for head dims 129 to 256, and
+// flash_attention_wide.cu the wide route (flash_wide.cuh) for every head dim
+// past 256, which tiles the products along d.  Each C function here forwards
+// such a d there.  The three files compile at once.
 
 #include "flash_launch.cuh"
 
+// The one decision of which unit runs a head dim: each C function below
+// branches on it, and heat_flash_route reports it.  d in (128, 256] goes to
+// flash_attention_d256.cu's D = 256, d > 256 to flash_attention_wide.cu, and
+// the rest stays here.
+enum FlashRoute : int { kRouteTiled = 0, kRouteD256 = 1, kRouteWide = 2 };
+inline int flash_route(int d) { return d > 256 ? kRouteWide : d > 128 ? kRouteD256 : kRouteTiled; }
+
 // Dispatch on the storage type and on d: tiles are zero-padded to D = 64 or
-// 128 columns here; d in (128, 256] goes to flash_attention_d256.cu's D = 256.
+// 128 columns here.
 #define HEAT_FLASH_DISPATCH(BF16, DIM, CALL)                                      \
   do {                                                                            \
     if ((DIM) < 1) return kErrUnsupportedD;                                       \
@@ -147,12 +156,35 @@ int heat_flash_pos_bwd_dkv_d256(int device, const void* q, const void* k, const 
                            int64_t b, int sq, int sk, int d, int bf16, float scale, int causal, int s_valid,
                            int masked, void* stream);
 
+// head dims past 256: flash_attention_wide.cu
+int heat_flash_fwd_wide(int device, const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq,
+                   int64_t bhk, int s, int d, int bf16, float scale, int causal, void* stream);
+int heat_flash_bwd_dq_wide(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                      const float* dd, void* dq, int64_t bhq, int64_t bhk, int s, int d, int bf16, float scale,
+                      int causal, void* stream);
+int heat_flash_bwd_dkv_wide(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                       const float* dd, void* dk, void* dv, int64_t bhq, int64_t bhk, int s, int d, int bf16,
+                       float scale, int causal, void* stream);
+int heat_flash_pos_fwd_wide(int device, const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
+                       void* out, float* lse, int64_t b, int sq, int sk, int d, int bf16, float scale, int causal,
+                       int s_valid, int masked, void* stream);
+int heat_flash_pos_bwd_dq_wide(int device, const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* dd, const int* qpos, const int* kpos, void* dq, int64_t b,
+                          int sq, int sk, int d, int bf16, float scale, int causal, int s_valid, int masked,
+                          void* stream);
+int heat_flash_pos_bwd_dkv_wide(int device, const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* dd, const int* qpos, const int* kpos, void* dk, void* dv,
+                           int64_t b, int sq, int sk, int d, int bf16, float scale, int causal, int s_valid,
+                           int masked, void* stream);
+
 // out (bhq, S, d) in the storage type and lse (bhq, S) float32 of q (bhq, S, d)
 // and k, v (bhk, S, d); bhk divides bhq, and bhk = bhq is multi-head attention.
 int heat_flash_fwd(int device, const void* q, const void* k, const void* v, void* out, float* lse, int64_t bhq,
                    int64_t bhk, int s, int d, int bf16, float scale, int causal, void* stream) {
-  if (d > 128 && d <= 256) return heat_flash_fwd_d256(device, q, k, v, out, lse, bhq, bhk, s, d, bf16, scale, causal,
-                                                      stream);
+  if (flash_route(d) == kRouteWide) return heat_flash_fwd_wide(device, q, k, v, out, lse, bhq, bhk, s, d, bf16, scale,
+                                                               causal, stream);
+  if (flash_route(d) == kRouteD256) return heat_flash_fwd_d256(device, q, k, v, out, lse, bhq, bhk, s, d, bf16, scale,
+                                                               causal, stream);
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
   HEAT_FLASH_DISPATCH(bf16, d, return (fwd_launch<T, D>(q, k, v, out, lse, bhq, bhk, d, scale, StaticMask{s, causal},
@@ -164,8 +196,10 @@ int heat_flash_fwd(int device, const void* q, const void* k, const void* v, void
 int heat_flash_bwd_dq(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* dd, void* dq, int64_t bhq, int64_t bhk, int s, int d, int bf16, float scale,
                       int causal, void* stream) {
-  if (d > 128 && d <= 256) return heat_flash_bwd_dq_d256(device, q, k, v, dout, lse, dd, dq, bhq, bhk, s, d, bf16,
-                                                         scale, causal, stream);
+  if (flash_route(d) == kRouteWide) return heat_flash_bwd_dq_wide(device, q, k, v, dout, lse, dd, dq, bhq, bhk, s, d,
+                                                                  bf16, scale, causal, stream);
+  if (flash_route(d) == kRouteD256) return heat_flash_bwd_dq_d256(device, q, k, v, dout, lse, dd, dq, bhq, bhk, s, d,
+                                                                  bf16, scale, causal, stream);
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
   HEAT_FLASH_DISPATCH(bf16, d, return (dq_launch<T, D>(q, k, v, dout, lse, dd, dq, bhq, bhk, d, scale,
@@ -176,8 +210,10 @@ int heat_flash_bwd_dq(int device, const void* q, const void* k, const void* v, c
 int heat_flash_bwd_dkv(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                        const float* dd, void* dk, void* dv, int64_t bhq, int64_t bhk, int s, int d, int bf16,
                        float scale, int causal, void* stream) {
-  if (d > 128 && d <= 256) return heat_flash_bwd_dkv_d256(device, q, k, v, dout, lse, dd, dk, dv, bhq, bhk, s, d,
-                                                          bf16, scale, causal, stream);
+  if (flash_route(d) == kRouteWide) return heat_flash_bwd_dkv_wide(device, q, k, v, dout, lse, dd, dk, dv, bhq, bhk,
+                                                                   s, d, bf16, scale, causal, stream);
+  if (flash_route(d) == kRouteD256) return heat_flash_bwd_dkv_d256(device, q, k, v, dout, lse, dd, dk, dv, bhq, bhk,
+                                                                   s, d, bf16, scale, causal, stream);
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
   HEAT_FLASH_DISPATCH(bf16, d, return (dkv_launch<T, D>(q, k, v, dout, lse, dd, dk, dv, bhq, bhk, d, scale,
@@ -190,8 +226,10 @@ int heat_flash_bwd_dkv(int device, const void* q, const void* k, const void* v, 
 int heat_flash_pos_fwd(int device, const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
                        void* out, float* lse, int64_t b, int sq, int sk, int d, int bf16, float scale, int causal,
                        int s_valid, int masked, void* stream) {
-  if (d > 128 && d <= 256) return heat_flash_pos_fwd_d256(device, q, k, v, qpos, kpos, out, lse, b, sq, sk, d, bf16,
-                                                          scale, causal, s_valid, masked, stream);
+  if (flash_route(d) == kRouteWide) return heat_flash_pos_fwd_wide(device, q, k, v, qpos, kpos, out, lse, b, sq, sk,
+                                                                   d, bf16, scale, causal, s_valid, masked, stream);
+  if (flash_route(d) == kRouteD256) return heat_flash_pos_fwd_d256(device, q, k, v, qpos, kpos, out, lse, b, sq, sk,
+                                                                   d, bf16, scale, causal, s_valid, masked, stream);
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
   const PosMask mask{qpos, kpos, sq, sk, s_valid, causal, masked};
@@ -204,8 +242,12 @@ int heat_flash_pos_bwd_dq(int device, const void* q, const void* k, const void* 
                           const float* lse, const float* dd, const int* qpos, const int* kpos, void* dq, int64_t b,
                           int sq, int sk, int d, int bf16, float scale, int causal, int s_valid, int masked,
                           void* stream) {
-  if (d > 128 && d <= 256) return heat_flash_pos_bwd_dq_d256(device, q, k, v, dout, lse, dd, qpos, kpos, dq, b, sq,
-                                                             sk, d, bf16, scale, causal, s_valid, masked, stream);
+  if (flash_route(d) == kRouteWide) return heat_flash_pos_bwd_dq_wide(device, q, k, v, dout, lse, dd, qpos, kpos, dq,
+                                                                      b, sq, sk, d, bf16, scale, causal, s_valid,
+                                                                      masked, stream);
+  if (flash_route(d) == kRouteD256) return heat_flash_pos_bwd_dq_d256(device, q, k, v, dout, lse, dd, qpos, kpos, dq,
+                                                                      b, sq, sk, d, bf16, scale, causal, s_valid,
+                                                                      masked, stream);
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
   const PosMask mask{qpos, kpos, sq, sk, s_valid, causal, masked};
@@ -218,9 +260,12 @@ int heat_flash_pos_bwd_dkv(int device, const void* q, const void* k, const void*
                            const float* lse, const float* dd, const int* qpos, const int* kpos, void* dk, void* dv,
                            int64_t b, int sq, int sk, int d, int bf16, float scale, int causal, int s_valid,
                            int masked, void* stream) {
-  if (d > 128 && d <= 256) return heat_flash_pos_bwd_dkv_d256(device, q, k, v, dout, lse, dd, qpos, kpos, dk, dv, b,
-                                                              sq, sk, d, bf16, scale, causal, s_valid, masked,
-                                                              stream);
+  if (flash_route(d) == kRouteWide) return heat_flash_pos_bwd_dkv_wide(device, q, k, v, dout, lse, dd, qpos, kpos, dk,
+                                                                       dv, b, sq, sk, d, bf16, scale, causal, s_valid,
+                                                                       masked, stream);
+  if (flash_route(d) == kRouteD256) return heat_flash_pos_bwd_dkv_d256(device, q, k, v, dout, lse, dd, qpos, kpos, dk,
+                                                                       dv, b, sq, sk, d, bf16, scale, causal, s_valid,
+                                                                       masked, stream);
   const heat::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return int(guard.error());
   const PosMask mask{qpos, kpos, sq, sk, s_valid, causal, masked};
@@ -228,8 +273,13 @@ int heat_flash_pos_bwd_dkv(int device, const void* q, const void* k, const void*
                                                         static_cast<cudaStream_t>(stream))));
 }
 
+// The route the C functions above take at head dim d: 0 (the D = 64 and 128
+// bodies of this file), 1 (flash_attention_d256.cu), 2 (the wide route of
+// flash_attention_wide.cu), or kErrUnsupportedD below d = 1.
+int heat_flash_route(int d) { return d < 1 ? kErrUnsupportedD : flash_route(d); }
+
 const char* heat_flash_strerror(int code) {
-  if (code == kErrUnsupportedD) return "the flash-attention kernels take 1 <= d <= 256";
+  if (code == kErrUnsupportedD) return "the flash-attention kernels take d >= 1";
   if (code == kErrSharedMemory) return "the flash-attention tiles need more shared memory than this card gives a block";
   if (code == kErrBadShape)
     return "bad shape: the K/V rows must divide the query rows, and rows*ceil(S/64) fit a 31-bit grid";

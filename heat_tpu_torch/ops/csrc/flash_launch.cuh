@@ -1,10 +1,11 @@
 // The flash-attention launchers shared by flash_attention.cu (head dims
-// 1 to 128: D = 64 and 128) and flash_attention_d256.cu (129 to 256: D =
-// 256), two translation units so that nvcc builds them at once.  Each
-// includes this header once: the mask policies, the three bodies of each
-// dtype and fwd_launch, dq_launch and dkv_launch, in an anonymous
-// namespace that the including file closes after its dispatch macro.
-// flash_attention.cu's note describes the kernels.
+// 1 to 128: D = 64 and 128), flash_attention_d256.cu (129 to 256: D =
+// 256) and flash_attention_wide.cu (past 256: flash_wide.cuh's route, which
+// uses the masks and ``launch`` here), three translation units so that nvcc
+// builds them at once.  Each includes this header once: the mask policies,
+// the three bodies of each dtype and fwd_launch, dq_launch and dkv_launch,
+// in an anonymous namespace that the including file closes after its
+// dispatch macro.  flash_attention.cu's note describes the kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

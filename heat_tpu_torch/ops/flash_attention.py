@@ -21,13 +21,20 @@ dk and dv sum the group's query heads in one float32 accumulator and round
 once.
 
 The CUDA source, with its C interface and its bound on the card, is
-``csrc/flash_attention.cu``.  Which body runs depends on the dtype, each
-with its own note: every float32 launch runs a CUDA-core body in full
-float32, the forward, dq and dk/dv of all three kinds of wrapper in
-``csrc/flash_f32.cuh``; every bfloat16 launch runs a tensor-core body
-(``mma.sync`` bf16 products with float32 accumulation), the forward of
-``flash_fwd``, ``flash_gqa_fwd`` and ``flash_pos_fwd`` in
-``csrc/flash_fwd_tc.cuh``, dq and dk/dv in ``csrc/flash_bwd_tc.cuh``.
+``csrc/flash_attention.cu``.  Which body runs depends on the head dim d and
+the dtype, each body with its own note.  Up to d = 256 (D = 64 and 128 in
+``flash_attention.cu``, D = 256 in ``flash_attention_d256.cu``) every
+float32 launch runs a CUDA-core body in full float32, the forward, dq and
+dk/dv of all three kinds of wrapper in ``csrc/flash_f32.cuh``; every
+bfloat16 launch runs a tensor-core body (``mma.sync`` bf16 products with
+float32 accumulation), the forward of ``flash_fwd``, ``flash_gqa_fwd`` and
+``flash_pos_fwd`` in ``csrc/flash_fwd_tc.cuh``, dq and dk/dv in
+``csrc/flash_bwd_tc.cuh``.  Past d = 256 every launch runs the wide route
+(``csrc/flash_attention_wide.cu``, bodies in ``csrc/flash_wide.cuh``): a
+block owns a chunk of the output's columns and rebuilds each score tile at
+full d from operands streamed along d, float32 on the CUDA cores and
+bfloat16 by ``mma.sync``; d has no upper cap.  ``route(d)`` reports the
+unit the C dispatch runs a head dim on, from the decision it branches on.
 A ``torch.autograd.Function`` ties them
 together as the reference's ``jax.custom_vjp`` does: the forward saves
 (q, k, v, out, lse), the backward computes ``dd = rowsum(dO * O)`` in torch
@@ -76,13 +83,12 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_gqa", "flash_attention_block", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_gqa_fwd", "flash_gqa_bwd_dq", "flash_gqa_bwd_dkv", "flash_pos_fwd",
-           "flash_pos_bwd_dq", "flash_pos_bwd_dkv", "launch_counts"]
+           "flash_pos_bwd_dq", "flash_pos_bwd_dkv", "launch_counts", "route"]
 
 # kernel launches since the last reset, one count per wrapper
 launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_gqa_fwd": 0, "flash_gqa_bwd_dq": 0,
                  "flash_gqa_bwd_dkv": 0, "flash_pos_fwd": 0, "flash_pos_bwd_dq": 0, "flash_pos_bwd_dkv": 0}
 
-MAX_D = 256  # tiles are zero-padded to 64, 128 or 256 columns
 KEY_TILE = 64  # keys per step of the forward kernel's loop (BK in the CUDA source)
 NO_MASS = -1e30  # lse of a row with no live key (_finalize's sentinel)
 POS_PAD = 2**30  # the position of a pad query or key: never attends (s_valid is capped at it)
@@ -109,9 +115,8 @@ def _check(q, k, v, *qlike, grouped: bool = False, positions: bool = False) -> N
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash attention operands must be contiguous")
     if q.device.type == "cuda":
-        if not 1 <= q.shape[2] <= MAX_D:
-            raise ValueError(f"the CUDA flash-attention kernels take 1 <= d <= {MAX_D}, got d={q.shape[2]} "
-                             "(R5b: the reference's Pallas kernels admit d up to 1126)")
+        if q.shape[2] < 1:
+            raise ValueError(f"the CUDA flash-attention kernels take d >= 1, got d={q.shape[2]}")
     elif q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
 
@@ -165,6 +170,20 @@ def _launch(name: str, plain, inputs, rows, outputs, causal: bool, scale: float,
         raise RuntimeError(f"flash-attention kernel {name} failed: {lib.heat_flash_strerror(rc).decode()} (code {rc})")
     launch_counts[name] += 1
     return out if len(out) > 1 else out[0]
+
+
+ROUTES = ("tiled", "d256", "wide")
+
+
+def route(d: int) -> str:
+    """The unit the C functions run head dim ``d`` on, as the dispatch
+    decides it (``heat_flash_route``): "tiled" (the D = 64 and 128 bodies of
+    ``flash_attention.cu``), "d256" (``flash_attention_d256.cu``) or "wide"
+    (``flash_attention_wide.cu``).  Builds the library on first use."""
+    code = _build.load().heat_flash_route(int(d))
+    if code < 0:
+        raise ValueError(f"the CUDA flash-attention kernels take d >= 1, got d={d}")
+    return ROUTES[code]
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float):

@@ -311,7 +311,22 @@ class DASO:
         after it, every ``global_skip`` steps an average dispatched on a
         snapshot and blended ``stale_steps`` later.  Returns the group's
         mean loss (0-d; no collective across the groups).  ``key`` is the
-        reference's: dropout draws from torch's generator."""
+        reference's: dropout draws from torch's generator.
+
+        Telemetry (when enabled): each step runs under a ``daso.step`` span,
+        and its wall time feeds the ``daso.step_dispatch_s`` histogram, as in
+        the reference; the step-time breakdown reads these spans."""
+        from ..utils import telemetry as _tel
+
+        if not _tel._ENABLED:
+            return self._step_impl(loss_fn, x, y)
+        t0 = time.perf_counter()
+        with _tel.span("daso.step", step=self._step_count + 1):
+            out = self._step_impl(loss_fn, x, y)
+        _tel.observe("daso.step_dispatch_s", time.perf_counter() - t0)
+        return out
+
+    def _step_impl(self, loss_fn, x, y):
         if self.module is None:
             raise RuntimeError("call init(module) before step()")
         x, y = getattr(x, "larray", x), getattr(y, "larray", y)

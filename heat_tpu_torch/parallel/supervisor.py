@@ -364,8 +364,8 @@ class Supervisor:
     # ------------------------------------------------------------------ #
     # flight-recorder harvest + post-mortem (TEARDOWN diagnostics)
     # ------------------------------------------------------------------ #
-    # the port's ring analyzer (ROADMAP A12b) is not here yet: until it is,
-    # a teardown harvests the rings and records no verdict
+    # the ring analyzer (heat_tpu_torch/analysis/postmortem.py) runs at every
+    # teardown with a flight-recorder dir: its verdict lands in the report
     _POSTMORTEM_PATH = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", "analysis", "postmortem.py"
     )

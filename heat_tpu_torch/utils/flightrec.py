@@ -31,6 +31,12 @@ reader never sees a half-initialized header.
   dtype (``float32``, without ``torch.``) of the tensor the rank passed.  In lockstep SPMD every rank stages the identical
   ``seq → fingerprint`` stream; the first index where streams differ IS
   the desync, and the rank whose stream is shortest IS the straggler.
+- ``enter`` — ``{"seq": N}``: the rank passed the staging point of
+  collective N (its fault site and deadline guard) and goes into the
+  transport.  The port's collectives block until every rank joins, so a
+  rank wedged at staging stops its peers at the same seq; the peers'
+  ``enter`` records, which the wedged rank lacks, are what tells the
+  post-mortem who the world waits on.
 - ``d`` — a coalesced cached-dispatch summary ``{"ops": {name: count}}``:
   every local dispatch since the previous full record, flushed immediately
   before the next collective/span/checkpoint append (and on ``sync()``) —
@@ -78,6 +84,7 @@ __all__ = [
     "recorder",
     "record_event",
     "record_collective",
+    "record_enter",
     "record_dispatch",
     "last_collective",
     "sync",
@@ -317,6 +324,11 @@ class FlightRecorder:
         self.record("coll", **fields)
         return seq
 
+    def record_enter(self, seq: int) -> None:
+        """Mark collective ``seq`` as past its staging point: the rank goes
+        into the transport and waits there for its peers."""
+        self.record("enter", seq=int(seq))
+
     def record_dispatch(self, op_name: str) -> None:
         """The ONE recorder call on the per-op hot path, so it is a single
         dict increment — the same cost class as the telemetry dispatch
@@ -496,10 +508,16 @@ def record_collective(
     x: Any = None,
     src_split: Optional[int] = None,
     dst_split: Optional[int] = None,
-) -> None:
+) -> Optional[int]:
+    """Stamp one collective when armed; its seq, or None when not."""
+    r = _RECORDER
+    return r.record_collective(name, wire_bytes, x, src_split, dst_split) if r is not None else None
+
+
+def record_enter(seq: int) -> None:
     r = _RECORDER
     if r is not None:
-        r.record_collective(name, wire_bytes, x, src_split, dst_split)
+        r.record_enter(seq)
 
 
 def record_dispatch(op_name: str) -> None:

@@ -203,6 +203,35 @@ def test_forward_edge_checks_stay_inside_the_kernels_limits(chip_smoke):
     assert {d for *_, d, _ in chip_smoke.FWD_EDGE_CHECKS + chip_smoke.GQA_FWD_EDGE_CHECKS} >= {8, 33, 100}
 
 
+def test_wide_checks_cover_every_wide_head_dim(chip_smoke):
+    """The wide route's checks: each of WIDE_DS through the multi-head,
+    grouped and positions wrappers (valid shapes past WIDE_D, the d512
+    timings' shapes among them), and its edges past WIDE_D under 129 rows;
+    every d up to WIDE_D keeps the 1% bfloat16 share, and past it the share
+    grows as sqrt(d / WIDE_D)."""
+    cs = chip_smoke
+    for checks in (cs.FLASH_CHECKS, cs.GQA_CHECKS):
+        assert {c[3] for c in checks if c[3] > cs.WIDE_D} == set(cs.WIDE_DS)
+        assert all(bhq % bhk == 0 for bhq, bhk, *_ in checks)
+    assert {c[3] for c in cs.POS_CHECKS if c[3] > cs.WIDE_D} == set(cs.WIDE_DS)
+    assert cs.FLASH_D512 + (True,) in cs.FLASH_CHECKS and cs.GQA_D512 + (True,) in cs.GQA_CHECKS
+    for bhq, bhk, S, d, causal in cs.WIDE_EDGE_CHECKS:
+        assert bhq % bhk == 0 and d > cs.WIDE_D and 1 <= S < 129 and isinstance(causal, bool)
+    assert cs.bf16_share_limit(1) == cs.bf16_share_limit(cs.WIDE_D) == cs.BF16_DIFF_SHARE == 0.01
+    assert cs.bf16_share_limit(4 * cs.WIDE_D) == 2 * cs.BF16_DIFF_SHARE
+    assert [round(cs.bf16_share_limit(d), 4) for d in cs.WIDE_DS] == [0.01, 0.0112, 0.0141, 0.021]
+    assert cs.LM_D512["embed_dim"] // cs.LM_D512["num_heads"] == 512
+
+
+def test_sdpa_backend_names_the_served_backend(chip_smoke):
+    """Which backend of scaled_dot_product_attention ran, from its kernels' names."""
+    name = chip_smoke.sdpa_backend
+    assert name(["fmha_cutlassF_f32_aligned_32x128_gmem_sm80(PyTorchMemEffAttention::AttentionKernel"]) == "efficient"
+    assert name(["void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits"]) == "flash"
+    assert name(["cudnn_generated_fort_native_sdpa_sm90_flash_fprop"]) == "cudnn"
+    assert name(["sm80_xmma_gemm_f32f32_f32f32_f32_tn_n", "void cutlass::Kernel2<cutlass_80_simt_sgemm_256x128"]) == "math"
+
+
 def test_edge_share_counts_only_elements_above_the_row_floor(chip_smoke):
     """_share_above_floor: the share of differing elements among those whose
     plain value reaches ROW_FLOOR of the tensor's scale (or of 1)."""
@@ -965,3 +994,11 @@ def test_seq2seq_batches_are_a_copy_task_without_bos(chip_smoke):
     b = chip_smoke.s2s_batches(2, seed=17, batch=3, seq=9)
     assert b.shape == (2, 3, 9) and b.min() >= 1 and b.max() < chip_smoke.S2S_BASE["src_vocab"]
     assert (b == chip_smoke.s2s_batches(2, seed=17, batch=3, seq=9)).all()
+
+
+def test_flash_bits_needs_a_card():
+    """scripts/flash_bits.py (a checkout's flash kernels against another's,
+    bit for bit) exits 2 without CUDA, before building or loading anything."""
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "flash_bits.py"), "--parent", str(REPO)],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "needs a CUDA card" in out.stderr, out

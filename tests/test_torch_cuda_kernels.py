@@ -37,6 +37,12 @@ Tolerances:
   - the positions kernels (ring attention's block) take the same limits:
     the same bodies and rounding points under another mask; a block wholly
     after its queries gives out 0 and lse -1e30 exactly.
+  - past d = 256 the wide route (``csrc/flash_wide.cuh``) takes the same
+    limits at d = 257, 320, 512, 1126 and 2048, but for the bfloat16
+    differing share, which grows with d (chip_smoke.py's
+    bf16_share_limit, 1% x sqrt(d / 256), derives it: the tensor cores add
+    a score's d products in 16-term groups, the plain version in one float32
+    chain).
   - the bfloat16 forward (the tensor-core body, ``csrc/flash_fwd_tc.cuh``)
     and the float32 forward (the CUDA-core body, ``csrc/flash_f32.cuh``)
     take the same limits at every d they take (8, 33, 100 padded into
@@ -223,20 +229,112 @@ def test_cuda_gqa_flash_kernels_match_plain_versions(S, d, causal, hq, hk, dtype
 
 
 def test_cuda_flash_kernels_refuse_d_256():
-    """Past the kernels' head dims, now 256 (R5), d = 257 raises, naming
-    R5b; d = 256 itself launches (it raised before R5)."""
-    q = torch.zeros((2, 16, 257), device="cuda")
-    with pytest.raises(ValueError, match="R5b"):
-        fa.flash_fwd(q, q, q, True, 1.0)
-    with pytest.raises(ValueError, match="R5b"):
-        fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="R5b"):
-        fa.flash_attention_gqa(q.view(1, 2, 16, 257), q[:1].view(1, 1, 16, 257), q[:1].view(1, 1, 16, 257))
+    """Past d = 256, where the kernels once refused a head dim (R5b), every
+    wrapper now launches the wide route: d = 257 through the multi-head,
+    grouped and positions wrappers launches one kernel each, on the route
+    the C dispatch reports as the wide one; d = 256 stays on the D = 256
+    bodies, d = 128 on the tiled ones, and d = 0 raises."""
+    assert [fa.route(d) for d in (1, 128, 129, 256, 257, 4096)] == ["tiled", "tiled", "d256", "d256", "wide", "wide"]
+    with pytest.raises(ValueError, match="d >= 1"):
+        fa.route(0)
+    q = torch.randn((2, 16, 257), device="cuda")
+    before = dict(fa.launch_counts)
+    out, _ = fa.flash_fwd(q, q, q, True, 1.0)
+    y = fa.flash_attention(q, q, q)
+    yg = fa.flash_attention_gqa(q.view(1, 2, 16, 257), q[:1].view(1, 1, 16, 257), q[:1].view(1, 1, 16, 257))
     pos = torch.arange(16, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="R5b"):
-        fa.flash_pos_fwd(q, q, q, pos, pos, True, 1.0, 16, True)
-    out, _ = fa.flash_fwd(q[..., :256].contiguous(), q[..., :256].contiguous(), q[..., :256].contiguous(), True, 1.0)
+    op, _ = fa.flash_pos_fwd(q, q, q, pos, pos, True, 1.0, 16, True)
+    torch.cuda.synchronize()
+    assert out.shape == y.shape == op.shape == (2, 16, 257) and yg.shape == (1, 2, 16, 257)
+    grew = {key: fa.launch_counts[key] - before[key] for key in before}
+    assert grew == {key: 2 if key == "flash_fwd" else int(key in ("flash_gqa_fwd", "flash_pos_fwd")) for key in grew}
+    t = q[..., :256].contiguous()
+    out, _ = fa.flash_fwd(t, t, t, True, 1.0)
     assert out.shape == (2, 16, 256)
+    with pytest.raises(ValueError, match="d >= 1"):
+        fa.flash_fwd(q[..., :0], q[..., :0], q[..., :0], True, 1.0)
+
+
+# the wide route's shapes: (query rows, K/V rows, S, causal) at each d it is held at
+WIDE_DIMS = [257, 320, 512, 1126, 2048]
+WIDE_SHAPES = [(4, 4, 200, True), (4, 2, 129, False), (2, 2, 64, True)]
+
+
+def _wide_share_ok(got, want, d, grad: bool) -> bool:
+    """bfloat16's share of differing elements past d = 256, held to
+    chip_smoke.py's bf16_share_limit (whose note derives it); a gradient's
+    counts the elements above the row floor, as ``_assert_backward``'s at
+    d <= 256 (rows of dq and dk that cancel to float32 noise, row 0 of a
+    causal dq, are held by the row error)."""
+    share = _CHIP_SMOKE._share_above_floor(got, want) if grad else float((got != want).float().mean())
+    return share <= _CHIP_SMOKE.bf16_share_limit(d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_cuda_wide_kernels_match_plain_versions(d, shape, dtype):
+    """The wide route's forward, dq and dk/dv (multi-head where the K/V rows
+    equal the query rows, grouped otherwise) against their plain versions,
+    with the d <= 256 tolerances (the differing share: the wide one); the
+    same bits twice; one launch a kernel, on the route the C dispatch
+    reports as the wide one."""
+    bhq, bhk, S, causal = shape
+    g = torch.Generator(device="cuda").manual_seed(S + d + bhk)
+    q, do = (torch.randn((bhq, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((bhk, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    kind = "flash_" if bhq == bhk else "flash_gqa_"
+    fwd, bwd_dq, bwd_dkv = (getattr(fa, kind + n) for n in ("fwd", "bwd_dq", "bwd_dkv"))
+    plain = [getattr(fa, "_torch_" + kind + n) for n in ("fwd", "bwd_dq", "bwd_dkv")]
+    before = dict(fa.launch_counts)
+    out, lse = fwd(q, k, v, causal, d**-0.5)
+    dd = (do.float() * out.float()).sum(-1)
+    dq = bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
+    dk, dv = bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.route(d) == "wide"
+    assert {key: fa.launch_counts[key] - before[key] for key in before} == {
+        key: int(key in (kind + "fwd", kind + "bwd_dq", kind + "bwd_dkv")) for key in before}
+    out_p, lse_p = plain[0](q, k, v, causal, d**-0.5)
+    dq_p = plain[1](q, k, v, do, lse, dd, causal, d**-0.5)
+    dk_p, dv_p = plain[2](q, k, v, do, lse, dd, causal, d**-0.5)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+    for got, want, key in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
+        assert row_err(got, want) <= tol[key]
+        if dtype == torch.bfloat16:
+            assert _wide_share_ok(got, want, d, key == "grad")
+    again, _ = fwd(q, k, v, causal, d**-0.5)
+    dk2, dv2 = bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
+    assert torch.equal(out, again) and torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_cuda_wide_positions_kernels_match_plain_versions(d, dtype):
+    """The wide route under the positions mask: a ragged, rectangular ring
+    block with pad keys and a nonzero lse cotangent, and a dead block."""
+    g = torch.Generator(device="cuda").manual_seed(d)
+    for Sq, Sk, qo, ko, causal, s_valid in ((100, 77, 50, 30, True, 160), (64, 64, 0, 64, True, 128)):
+        q, do = (torch.randn((3, Sq, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((3, Sk, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        args = (torch.arange(qo, qo + Sq, dtype=torch.int32, device="cuda"),
+                torch.arange(ko, ko + Sk, dtype=torch.int32, device="cuda"), causal, d**-0.5, s_valid, True)
+        out, lse = fa.flash_pos_fwd(q, k, v, *args)
+        dd = (do.float() * out.float()).sum(-1) - torch.randn((3, Sq), generator=g, device="cuda")
+        dq = fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
+        dk, dv = fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+        out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
+        dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
+        dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
+        for got, want, key in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
+            assert row_err(got, want) <= tol[key]
+            if dtype == torch.bfloat16:
+                assert _wide_share_ok(got, want, d, key == "grad")
+        if qo + Sq <= ko:  # every key after every query
+            assert not out.any() and bool((lse == fa.NO_MASS).all()) and not dk.any() and not dv.any()
 
 
 # positions blocks: (Sq, Sk, d, query offset, key offset, causal, s_valid)

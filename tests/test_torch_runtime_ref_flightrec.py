@@ -19,7 +19,6 @@ exec(compile(_SRC, f"{_REF.name}[heat_tpu_torch]", "exec"), globals())
 
 REASONS = {
     "DISPATCH": "per-op dispatch hooks (`core._operations`): the port instruments no op dispatch",
-    "PM": "the post-mortem verdict needs the port's ring analyzer, which is ROADMAP A12b (the rings themselves are read by the reference's scripts/postmortem.py in test_torch_runtime_tools.py)",
     "W1": "needs a collective at world size 1: the reference's 8-device mesh runs one there, the port's world of one process none (the port's collectives are stamped, accounted and guarded at 2 gloo ranks in test_torch_runtime_mp.py)",
 }
 NOT_PORTED = {
@@ -28,8 +27,6 @@ NOT_PORTED = {
     "TestStamping::test_dispatch_records_ride_along": "DISPATCH",
     "TestStamping::test_heartbeat_carries_seq": "W1",
     "TestStamping::test_seq_monotone_across_collectives": "W1",
-    "TestSupervisorPostmortem::test_run_postmortem_harvests_rings": "PM",
-    "TestSupervisorPostmortem::test_supervisor_embeds_verdict_end_to_end": "PM",
     "TestTraceStamping::test_staged_collective_through_account_bytes_carries_tid": "W1",
 }
 for _test, _why in NOT_PORTED.items():
