@@ -207,11 +207,15 @@
    same bits, the forward again with q and dq and dk/dv again with dO off
    16-byte alignment, to the same bits; d = 160 and 256 in every body
    (``FLASH_CHECKS``, ``GQA_CHECKS``, ``POS_CHECKS``), and the wide route
-   past d = 256 (``csrc/flash_wide.cuh``) at d = 257, 320, 512 and 1126
-   (``WIDE_DS``) in both dtypes through the multi-head, grouped and
-   positions wrappers, to the same tolerances, each wrapper's launches at
-   those shapes counted and every such d reported on the wide route by the
-   C dispatch (``flash_attention.route``).  Every bfloat16
+   past d = 256 (``csrc/flash_wide.cuh``, ``csrc/flash_wide_bwd.cuh``) at
+   d = 257, 320, 384, 385, 512, 1024, 1025 and 1126 (``WIDE_DS``) in both
+   dtypes through the multi-head, grouped and positions wrappers, to the
+   same tolerances, each wrapper's launches at those shapes counted and
+   every such d reported on the wide route by the C dispatch
+   (``flash_attention.route``); there the float32 dq, dk and dv are held
+   against the plain formulas in float64 (``wide_bwd_f64``), which no
+   float32 sum order favours, and each line also gives the float32 plain
+   versions' own error against it.  Every bfloat16
    launch runs a tensor-core body (``mma.sync``): the forward
    ``flash_fwd_tc.cuh``, dq and dk/dv ``flash_bwd_tc.cuh``; every float32
    launch the CUDA-core bodies of ``flash_f32.cuh``.
@@ -391,12 +395,16 @@ FWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_fwd_tc.cuh"  # the bfloat16 forwa
 BWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh"  # the bfloat16 dq and dk/dv, included by FLASH_SOURCE
 F32_SOURCE = "heat_tpu_torch/ops/csrc/flash_f32.cuh"  # the float32 forward, dq and dk/dv, included by FLASH_SOURCE
 KMEANS_SOURCE = "heat_tpu_torch/ops/csrc/kmeans.cu"
+WIDE_SOURCE = "heat_tpu_torch/ops/csrc/flash_wide.cuh"  # the wide route's forward, past d = 256
+WIDE_BWD_SOURCE = "heat_tpu_torch/ops/csrc/flash_wide_bwd.cuh"  # its dq and dk/dv, in thread block clusters
 # the kernel templates whose instances the ptxas lines report: the tensor-core
-# bodies, the float32 bodies on the CUDA cores, and the KMeans kernels
+# bodies, the float32 bodies on the CUDA cores, the wide route, and the KMeans kernels
 TC_KERNELS = {"flash_fwd_bf16_kernel": FWD_TC_SOURCE, "flash_bwd_dq_bf16_kernel": BWD_TC_SOURCE,
               "flash_bwd_dkv_bf16_kernel": BWD_TC_SOURCE}
 F32_KERNELS = {"flash_fwd_f32_kernel": F32_SOURCE, "flash_bwd_dq_f32_kernel": F32_SOURCE,
                "flash_bwd_dkv_f32_kernel": F32_SOURCE}
+WIDE_KERNELS = {"flash_wide_fwd_kernel": WIDE_SOURCE, "flash_wide_dq_kernel": WIDE_BWD_SOURCE,
+                "flash_wide_dkv_kernel": WIDE_BWD_SOURCE}
 KMEANS_KERNELS = {"assign_kernel": KMEANS_SOURCE, "em_stats_kernel": KMEANS_SOURCE,
                   "em_reduce_kernel": KMEANS_SOURCE}
 MHA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -445,7 +453,9 @@ POS_CHECKS = [(16, 2048, 2048, 64, 2048, 2048, True, 4096), (16, 2048, 2048, 64,
               # ragged and rectangular at 257, unmasked at 320, the diagonal at 1126
               (4, 300, 300, 512, 300, 300, True, 600), (4, 300, 300, 512, 300, 0, True, 600),
               (4, 300, 300, 512, 0, 300, True, 600), (4, 200, 333, 257, 100, 50, True, 383),
-              (4, 129, 300, 320, 0, 0, False, 2**30), (2, 300, 300, 1126, 300, 300, True, 600)]
+              (4, 129, 300, 320, 0, 0, False, 2**30), (2, 300, 300, 1126, 300, 300, True, 600),
+              (4, 200, 333, 384, 100, 50, True, 383), (4, 129, 300, 385, 0, 0, False, 2**30),
+              (2, 300, 300, 1024, 300, 0, True, 600), (2, 200, 150, 1025, 100, 0, True, 240)]
 # flash kernel checks: (query rows B*Hq, K/V rows B*Hkv, S, d, causal)
 FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 129, 128, True),
                 (16, 16, 129, 128, False), (64, 64, 1024, 64, True), (16, 16, 1024, 128, False),
@@ -454,13 +464,19 @@ FLASH_CHECKS = [(16, 16, 1000, 64, True), (16, 16, 1000, 64, False), (16, 16, 12
                 (16, 16, 1024, 256, True), (16, 16, 200, 160, False), (16, 16, 100, 96, True),
                 # d past 256: the wide route (WIDE_DS), the d512 timings' shape among them
                 (16, 16, 300, 257, True), (16, 16, 200, 320, False), (64, 64, 1024, 512, True),
-                (16, 16, 129, 512, False), (8, 8, 333, 1126, True), (8, 8, 200, 1126, False)]
+                (16, 16, 129, 512, False), (8, 8, 333, 1126, True), (8, 8, 200, 1126, False),
+                (8, 8, 200, 384, True), (8, 8, 129, 385, False), (8, 8, 300, 1024, True), (8, 8, 200, 1025, False)]
 GQA_CHECKS = [(16, 4, 1000, 64, True), (16, 4, 1000, 64, False), (16, 2, 129, 128, True), (16, 2, 129, 128, False),
               (64, 16, 1024, 64, True), (64, 8, 1024, 64, False), (8, 8, 1024, 128, True), (8, 8, 1000, 64, False),
               (32, 4, 1000, 128, True), (16, 4, 1024, 256, True), (16, 2, 200, 160, False),
-              (16, 4, 300, 257, False), (16, 2, 200, 320, True), (64, 16, 1024, 512, True), (8, 2, 333, 1126, True)]
+              (16, 4, 300, 257, False), (16, 2, 200, 320, True), (64, 16, 1024, 512, True), (8, 2, 333, 1126, True),
+              (16, 4, 200, 384, False), (8, 2, 129, 385, True), (16, 4, 300, 1024, True), (8, 2, 200, 1025, True)]
 WIDE_D = 256  # head dims past this run the wide route (flash_attention.route, checked in check_wide_launched)
-WIDE_DS = (257, 320, 512, 1126)  # the head dims the wide route is held at, in every wrapper and both dtypes
+# the head dims the wide route is held at, in every wrapper and both dtypes: where the backward's
+# split changes (float32's 64-column chunks: clusters of 5 blocks at 257 and 320, 6 at 384, 7 at
+# 385, 8 at 512, 2 passes of 8 at 1024, 3 passes of 6 at 1025 and 1126; bfloat16's 128-column
+# chunks: 3, 3, 3, 4, 4, 8 blocks, then 2 passes of 5 at 1025 and 1126)
+WIDE_DS = (257, 320, 384, 385, 512, 1024, 1025, 1126)
 # the tiles' edges, through all three kernels: S of one row and under the
 # 64-key and 128-row tiles; d = 33 and 100 load element by element, 8 pads one
 # k16 step.  Below ~129 rows whole rows of dq and dk cancel to float32 noise
@@ -1084,6 +1100,61 @@ def kmeans_launch(x, c) -> dict:
     return out
 
 
+def wide_bwd_f64(q, k, v, do, lse, dd, scale: float, keep=None):
+    """The float32 reference of the wide route's dq, dk and dv: the plain
+    versions' formulas in float64, cast down to q's, k's and v's dtypes.  P
+    = exp(S scale - lse) at the live keys ``keep`` ((Sq, Sk) bool; None:
+    all), dS = P (dO V^T - dd) scale, dq = dS K, dk = dS^T Q, dv = P^T dO,
+    with K/V rows repeated to q's rows and their gradients summed over each
+    group.  Past d = 256 the kernels and the float32 plain versions sum a
+    score's d products in different orders, and a row that cancels to
+    float32 noise (row 0 of a causal dq: dP - dd = dO.V - dO.O) keeps
+    either order's rounding; in float64 the reference holds neither."""
+    import torch
+
+    g = q.shape[0] // k.shape[0]
+    q64, do64 = q.double(), do.double()
+    k64, v64 = (t.double().repeat_interleave(g, dim=0) for t in (k, v))
+    s = torch.matmul(q64, k64.transpose(-1, -2)) * scale
+    live = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device) if keep is None else keep
+    p = torch.where(live, torch.exp(torch.where(live, s, 0.0) - lse.double()[..., None]), 0.0)
+    ds = p * (torch.matmul(do64, v64.transpose(-1, -2)) - dd.double()[..., None]) * scale
+    dq = torch.matmul(ds, k64)
+    dk = torch.matmul(ds.transpose(-1, -2), q64).unflatten(0, (-1, g)).sum(1)
+    dv = torch.matmul(p.transpose(-1, -2), do64).unflatten(0, (-1, g)).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def causal_keep(S: int, causal: bool, device):
+    """The live keys of an (S, S) block under the static mask; None: all."""
+    import torch
+
+    return torch.ones((S, S), dtype=torch.bool, device=device).tril() if causal else None
+
+
+def pos_keep(qpos, kpos, causal: bool, s_valid: int, masked: bool):
+    """The live keys under the positions mask (_masked_scores_pos); None: all."""
+    if not masked:
+        return None
+    keep = (kpos < s_valid)[None, :].expand(qpos.shape[0], -1)
+    return keep & (qpos[:, None] >= kpos[None, :]) if causal else keep
+
+
+def _grad_reference(q, k, v, do, lse, dd, scale: float, keep, plain) -> tuple:
+    """(dq, dk, dv to hold the kernels' gradients against, what to print of
+    them): the plain versions' ``plain`` but for float32 past WIDE_D, where
+    it is wide_bwd_f64's, and the line then names that reference and gives
+    the float32 plain versions' own row error against it, by the same
+    criterion; {} otherwise."""
+    import torch
+
+    if q.shape[-1] <= WIDE_D or q.dtype != torch.float32:
+        return plain, {}
+    ref = wide_bwd_f64(q, k, v, do, lse, dd, scale, keep)
+    return ref, {"grad_reference": "plain formulas in float64",
+                 "plain_f32_row_rel_err": dict(zip(("dq", "dk", "dv"), map(_row_err, plain, ref)))}
+
+
 def _rel_err(got, want) -> float:
     """max |got - want| / max(1, max |want|), in float32."""
     got, want = got.float(), want.float()
@@ -1188,6 +1259,7 @@ def check_edges(names, edges) -> None:
                                                                (q, k, v, _misaligned(do))))
             plain = (bwd_dq_p(q, k, v, do, lse, dd, causal, scale),) + tuple(
                 bwd_dkv_p(q, k, v, do, lse, dd, causal, scale))
+            plain, plain_f32 = _grad_reference(q, k, v, do, lse, dd, scale, causal_keep(S, causal, q.device), plain)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(grads, repeats, offs)):
                 fail(f"{names[1]} or {names[2]} does not repeat its bits (or not off alignment) at {shape} {dname}")
@@ -1218,7 +1290,7 @@ def check_edges(names, edges) -> None:
                               "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
                               "edge_err": edge, "edge_f32_atol": EDGE_F32_ATOL,
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
-                              "misaligned_bitwise": True, "check": "pass"}), flush=True)
+                              "misaligned_bitwise": True, **plain_f32, "check": "pass"}), flush=True)
 
 
 def check_flash_kernels(names, checks, main, edges, wide_main=None) -> dict:
@@ -1263,6 +1335,8 @@ def check_flash_kernels(names, checks, main, edges, wide_main=None) -> dict:
             out_p, lse_p = fwd_p(q, k, v, causal, scale)
             dq_p = bwd_dq_p(q, k, v, do, lse, dd, causal, scale)
             dk_p, dv_p = bwd_dkv_p(q, k, v, do, lse, dd, causal, scale)
+            (dq_p, dk_p, dv_p), plain_f32 = _grad_reference(q, k, v, do, lse, dd, scale,
+                                                            causal_keep(S, causal, q.device), (dq_p, dk_p, dv_p))
             torch.cuda.synchronize()
             if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 fail(f"{names[1]} or {names[2]} is not deterministic at {shape} {name}")
@@ -1285,7 +1359,8 @@ def check_flash_kernels(names, checks, main, edges, wide_main=None) -> dict:
                               "bhk": bhk, "S": S, "d": d, "causal": causal, "max_abs_err": abs_err,
                               "lse_max_abs_err": lse_err, "row_rel_err": res, "row_rel_tol": tol,
                               "differing_share": share, "lse_atol": LSE_ATOL, "repeats_bitwise": True,
-                              "misaligned_q_bitwise": True, "misaligned_do_bitwise": True, "check": "pass"}),
+                              "misaligned_q_bitwise": True, "misaligned_do_bitwise": True, **plain_f32,
+                              "check": "pass"}),
                   flush=True)
             if (bhq, bhk, S, d) in (main, wide_main) and causal:
                 errs[name if (bhq, bhk, S, d) == main else f"d512_{name}"] = dict(zip(names, ((max(abs_err["out"], lse_err), res["out"]), (abs_err["dq"], res["dq"]),
@@ -1575,9 +1650,24 @@ def lm_d512_step(ht) -> dict:
     route = fa.route(LM_D512["embed_dim"] // LM_D512["num_heads"])
     if route != "wide":
         fail(f"{label}: the C dispatch routes head dim 512 to {route!r}, want the wide route")
+    seconds = time.perf_counter() - t0
+
+    def step():  # forward and backward through the kernels, as the training step runs them
+        lm.zero_grad(set_to_none=True)
+        lm_loss(ht, lm, batch).backward()
+
+    step_ms = []
+    for _ in range(3):  # the first warms up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
     print(json.dumps({"phase": "main_path", "path": f"{label}, one step vs plain", **LM_D512, "head_dim": 512,
                       "params": sum(p.numel() for p in lm.parameters()), "batch": [LM_BATCH, LM_SEQ + 1],
-                      "seconds": time.perf_counter() - t0, "route": route, "check": "pass"}), flush=True)
+                      "seconds": seconds, "step_ms": min(step_ms[1:]), "step_ms_runs": step_ms,
+                      "step": "forward and backward, float32, host clock around a synchronized step",
+                      "route": route, "check": "pass"}), flush=True)
     del lm, batch
     torch.cuda.empty_cache()
     return row
@@ -1791,6 +1881,22 @@ def ptxas_report(log: str, word: str) -> list:
     return _ptxas_rows(log, args_of)
 
 
+def wide_ptxas_report(log: str, word: str) -> list:
+    """ptxas's registers and spills for each compiled instance of the wide
+    route's kernel ``word``: its storage type, 16-byte loads (the backward's)
+    and mask, read from the mangled name."""
+    import re
+
+    def args_of(name):
+        args = re.search(r"\d" + word + r"I(f|13__nv_bfloat16)(?:Lb([01])E)?NS_\d+(\w+?)EE", name)
+        if not args:
+            return None
+        row = {"dtype": "float32" if args.group(1) == "f" else "bfloat16", "mask": args.group(3)}
+        return row if args.group(2) is None else {**row, "vec": args.group(2) == "1"}
+
+    return _ptxas_rows(log, args_of)
+
+
 def kmeans_ptxas_report(log: str, word: str) -> list:
     """ptxas's registers and spills for each compiled instance of the KMeans
     kernel ``word``: its template arguments (storage type, DP columns, the
@@ -1841,11 +1947,27 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
                          **({"launches": launches_bf16[name]} if launches_bf16 else {})},
             **{f"bench_shape_{dt}": timed[name] for dt, timed in at_bench.items()},
             **{f"d256_{dt}": timed[name] for dt, timed in at_wide.items()},
-            **{f"d512_{dt}": {**timed[name], "route": "wide (flash_wide.cuh)", "max_abs_err": errs[f"d512_{dt}"][name][0],
+            **{f"d512_{dt}": {**timed[name], **wide_route(name, d512[3], dt), "max_abs_err": errs[f"d512_{dt}"][name][0],
                               "row_rel_err": errs[f"d512_{dt}"][name][1]} for dt, timed in at_d512.items()},
             "check": "pass",
         })
     return rows
+
+
+def wide_route(name: str, d: int, dtype: str) -> dict:
+    """The wide route's source for a wrapper's kernel at head dim ``d`` and,
+    for dq and dk/dv, how its launcher splits d (``flash_attention.wide_plan``):
+    blocks a cluster, columns a block, passes, shared bytes a block, and the
+    products at full d that the plan gives a live tile pair (from the split,
+    not counted by the kernels)."""
+    import torch
+
+    from heat_tpu_torch.ops import flash_attention as fa
+
+    if name.endswith("_fwd"):
+        return {"route": f"wide ({WIDE_SOURCE.rsplit('/', 1)[1]})"}
+    return {"route": f"wide ({WIDE_BWD_SOURCE.rsplit('/', 1)[1]})",
+            **fa.wide_plan(d, getattr(torch, dtype), "dq" if name.endswith("_dq") else "dkv")}
 
 
 def _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed):
@@ -1899,8 +2021,10 @@ def check_pos_kernels() -> dict:
                     and torch.equal(dk, dk3) and torch.equal(dv, dv3)):
                 fail(f"the positions kernels give other bits for a k off 16-byte alignment at {shape} {name}")
             out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
-            dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
-            dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+            (dq_p, dk_p, dv_p), plain_f32 = _grad_reference(
+                q, k, v, do, lse, dd, d**-0.5, pos_keep(qpos, kpos, causal, s_valid, args[-1]),
+                (fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args),
+                 *fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)))
             pairs = (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))
             res = {key: _row_err(a, b) for key, a, b in pairs}
             share = {key: float((a != b).float().mean()) for key, a, b in pairs}
@@ -1922,7 +2046,8 @@ def check_pos_kernels() -> dict:
                                         "causal": causal, "s_valid": s_valid}, "ring_block": block,
                               "max_abs_err": abs_err, "lse_max_abs_err": lse_err, "row_rel_err": res,
                               "row_rel_tol": tol, "differing_share": share, "lse_atol": LSE_ATOL,
-                              "repeats_bitwise": True, "misaligned_k_bitwise": True, "check": "pass"}), flush=True)
+                              "repeats_bitwise": True, "misaligned_k_bitwise": True, **plain_f32,
+                              "check": "pass"}), flush=True)
             if d == 512:  # the wide route's errors at the d512 timings' head dim
                 errs.setdefault(f"d512_{name}", {})[str(shape)] = {
                     "flash_pos_fwd": max(abs_err["out"], lse_err), "flash_pos_bwd_dq": abs_err["dq"],
@@ -2067,6 +2192,79 @@ def spawn_ranks(target, world: int, timeout_s: float, *args) -> dict:
                 p.kill()
                 p.join(10)
     return results
+
+
+# the parts of phases 3b-3g that run on 2 ranks, in the order ``two_rank_world`` runs them
+TWO_RANK_PARTS = ("indexing", "matmul", "linalg", "data_parallel", "statistics", "estimators", "surface")
+TWO_RANK_TIMEOUT_S = 900  # the whole world's; each part took 15-110 s on an H100
+
+
+def two_rank_world(rank: int, port: int, out_q, args: dict, parts=TWO_RANK_PARTS) -> None:
+    """One of 2 ranks on this card over gloo that runs the ``parts`` (of
+    TWO_RANK_PARTS, in that order) in one world, so the ranks come up once:
+    each part after a barrier, with the settings a fresh process has (IEEE
+    float32 products, cuDNN's own choice of algorithm), the card's cache
+    emptied after it.  ``args`` holds a part's extra arguments by name.
+    Puts (rank, {part: its result, "_seconds": {part: its seconds}}) on
+    ``out_q``."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    bodies = {"indexing": index_rank, "matmul": matmul_rank, "linalg": linalg_rank, "data_parallel": dp_rank,
+              "statistics": stats_rank, "estimators": estimators_rank, "surface": surface_rank}
+    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
+                                       timeout_s=RING_TIMEOUT_S)
+    try:
+        ht.use_device("gpu")
+        res, seconds = {}, {}
+        for name in parts:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+            torch.backends.cudnn.deterministic = False
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            res[name] = bodies[name](ht, rank, *args.get(name, ()))
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        res["_seconds"] = seconds
+        out_q.put((rank, res))
+    finally:
+        ht.core.bootstrap.finalize_distributed()
+
+
+def two_rank_phases(ht, smi: str, parts=TWO_RANK_PARTS) -> dict:
+    """Phases 3b-3g's two-rank parts (``parts``, by default all): one world
+    of 2 spawned ranks on this card (``two_rank_world``), then each part's
+    checks against world size 1 here, in the world's order; prints the
+    world's seconds and returns the seconds of the linear algebra, data
+    parallel and surface parts, where they ran."""
+    t0 = time.perf_counter()
+    out = {}
+    with scratch_dir() as d:
+        r2 = os.path.join(d, "r2")
+        os.makedirs(r2)
+        results = spawn_ranks(two_rank_world, 2, TWO_RANK_TIMEOUT_S,
+                              {"statistics": (STATS_2R_SORT,), "surface": (r2,)}, parts)
+        world_s = time.perf_counter() - t0
+        seconds = results[0]["_seconds"]
+        checks = {"indexing": lambda r: indexing_two_ranks(ht, smi, r, seconds["indexing"]),
+                  "matmul": lambda r: matmul_two_ranks(smi, r),
+                  "linalg": lambda r: linalg_two_ranks(ht, smi, r),
+                  "data_parallel": lambda r: data_parallel_two_ranks(smi, r),
+                  "statistics": lambda r: stats_two_ranks(ht, smi, r, seconds["statistics"]),
+                  "estimators": lambda r: estimators_two_ranks(ht, smi, r, seconds["estimators"]),
+                  "surface": lambda r: surface_two_ranks(ht, smi, r, seconds["surface"], r2)}
+        for name in parts:
+            t1 = time.perf_counter()
+            ret = checks[name]({rank: res[name] for rank, res in results.items()})
+            out[name] = ret if name == "surface" else seconds[name] + time.perf_counter() - t1
+    print(json.dumps({"phase": "two_rank_world", "note": "one world of 2 processes on ONE card over gloo for 3b-3g",
+                      "spawns": 1, "parts": list(parts), "world_seconds": world_s, "part_seconds_rank0": seconds,
+                      "checks_seconds": time.perf_counter() - t0 - world_s, "card": smi}), flush=True)
+    return out
 
 
 def ring_train(smi: str) -> dict:
@@ -2763,8 +2961,8 @@ def _wall_ms(fn, comm, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def matmul_rank(rank: int, port: int, out_q) -> None:
-    """One of 2 ranks on this card over gloo: every matmul split case at
+def matmul_rank(ht, rank: int) -> dict:
+    """A rank's part of ``two_rank_world``: every matmul split case at
     4096^2 and the vector products, ``matmul_summa`` (ragged too),
     ``resplit_``, mismatched-split and broadcast ``+``, and ``sum``, ``max``,
     ``cumsum`` along both axes, each gathered and held against the world-1
@@ -2772,85 +2970,76 @@ def matmul_rank(rank: int, port: int, out_q) -> None:
     communicator's traffic and transports."""
     import torch
 
-    import heat_tpu_torch as ht
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        comm = ht.core.communication.get_comm()
-        n = MATMUL_2R
-        g = torch.Generator(device="cuda").manual_seed(11)
-        A = torch.randn(n, n, generator=g, device="cuda")
-        B = torch.randn(n, n, generator=g, device="cuda")
-        v = torch.randn(n, generator=g, device="cuda")
-        want = torch.matmul(A, B)  # ht.matmul at world size 1, bit for bit (the world-1 phase)
-        res = {"rank": rank, "errs": {}, "splits": {}}
+    comm = ht.core.communication.get_comm()
+    n = MATMUL_2R
+    g = torch.Generator(device="cuda").manual_seed(11)
+    A = torch.randn(n, n, generator=g, device="cuda")
+    B = torch.randn(n, n, generator=g, device="cuda")
+    v = torch.randn(n, generator=g, device="cuda")
+    want = torch.matmul(A, B)  # ht.matmul at world size 1, bit for bit (the world-1 phase)
+    res = {"rank": rank, "errs": {}, "splits": {}}
 
-        def gathered(x):
-            if not x.larray.is_cuda:
-                fail(f"rank {rank}: a result left the card: {x.larray.device}")
-            return x.resplit(None).larray
+    def gathered(x):
+        if not x.larray.is_cuda:
+            fail(f"rank {rank}: a result left the card: {x.larray.device}")
+        return x.resplit(None).larray
 
-        for sa in (None, 0, 1):
-            for sb in (None, 0, 1):
-                c = ht.matmul(ht.array(A, split=sa), ht.array(B, split=sb))
-                res["splits"][f"{sa},{sb}"] = c.split
-                res["errs"][f"matmul {sa},{sb}"] = matmul_check(gathered(c), want)
-        for name, (x, sx, y, sy, ref) in {
-                "vector @ matrix 0,1": (v, 0, B, 1, torch.matmul(v, B)),
-                "matrix @ vector 1,0": (A, 1, v, 0, torch.matmul(A, v))}.items():
-            c = ht.matmul(ht.array(x, split=sx), ht.array(y, split=sy))
-            res["splits"][name] = c.split
-            res["errs"][name] = matmul_check(gathered(c), ref)
-        for shape in ((n, n, n), MATMUL_RAGGED):
-            gr = torch.Generator(device="cuda").manual_seed(sum(shape))
-            x = torch.randn(shape[0], shape[1], generator=gr, device="cuda")
-            y = torch.randn(shape[1], shape[2], generator=gr, device="cuda")
-            c = ht.linalg.matmul_summa(ht.array(x, split=0), ht.array(y, split=0))
-            res["splits"][f"summa {shape}"] = c.split
-            res["errs"][f"summa {shape}"] = matmul_check(gathered(c), torch.matmul(x, y))
+    for sa in (None, 0, 1):
+        for sb in (None, 0, 1):
+            c = ht.matmul(ht.array(A, split=sa), ht.array(B, split=sb))
+            res["splits"][f"{sa},{sb}"] = c.split
+            res["errs"][f"matmul {sa},{sb}"] = matmul_check(gathered(c), want)
+    for name, (x, sx, y, sy, ref) in {
+            "vector @ matrix 0,1": (v, 0, B, 1, torch.matmul(v, B)),
+            "matrix @ vector 1,0": (A, 1, v, 0, torch.matmul(A, v))}.items():
+        c = ht.matmul(ht.array(x, split=sx), ht.array(y, split=sy))
+        res["splits"][name] = c.split
+        res["errs"][name] = matmul_check(gathered(c), ref)
+    for shape in ((n, n, n), MATMUL_RAGGED):
+        gr = torch.Generator(device="cuda").manual_seed(sum(shape))
+        x = torch.randn(shape[0], shape[1], generator=gr, device="cuda")
+        y = torch.randn(shape[1], shape[2], generator=gr, device="cuda")
+        c = ht.linalg.matmul_summa(ht.array(x, split=0), ht.array(y, split=0))
+        res["splits"][f"summa {shape}"] = c.split
+        res["errs"][f"summa {shape}"] = matmul_check(gathered(c), torch.matmul(x, y))
 
+    x = ht.array(A, split=0)
+    exact = []
+    for axis in (1, None, 0):
+        x.resplit_(axis)
+        exact.append(x.split == axis and torch.equal(gathered(x), A))
+    res["resplit_exact"] = exact
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res["errs"]["+ mismatched splits 0,1"] = matmul_check(
+            gathered(ht.array(A, split=0) + ht.array(B, split=1)), A + B)
+    res["errs"]["+ split 0 and replicated"] = matmul_check(gathered(ht.array(A, split=0) + ht.array(B)), A + B)
+    res["errs"]["+ row vector split 0"] = matmul_check(gathered(ht.array(A, split=1) + ht.array(v, split=0)),
+                                                       A + v)
+    for axis in (0, 1):
         x = ht.array(A, split=0)
-        exact = []
-        for axis in (1, None, 0):
-            x.resplit_(axis)
-            exact.append(x.split == axis and torch.equal(gathered(x), A))
-        res["resplit_exact"] = exact
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            res["errs"]["+ mismatched splits 0,1"] = matmul_check(
-                gathered(ht.array(A, split=0) + ht.array(B, split=1)), A + B)
-        res["errs"]["+ split 0 and replicated"] = matmul_check(gathered(ht.array(A, split=0) + ht.array(B)), A + B)
-        res["errs"]["+ row vector split 0"] = matmul_check(gathered(ht.array(A, split=1) + ht.array(v, split=0)),
-                                                           A + v)
-        for axis in (0, 1):
-            x = ht.array(A, split=0)
-            res["errs"][f"sum axis {axis}"] = matmul_check(gathered(ht.sum(x, axis=axis)), A.sum(axis))
-            res["errs"][f"max axis {axis}"] = matmul_check(gathered(ht.max(x, axis=axis)), A.amax(axis))
-            res["errs"][f"cumsum axis {axis}"] = matmul_check(gathered(ht.cumsum(x, axis)), A.cumsum(axis))
+        res["errs"][f"sum axis {axis}"] = matmul_check(gathered(ht.sum(x, axis=axis)), A.sum(axis))
+        res["errs"][f"max axis {axis}"] = matmul_check(gathered(ht.max(x, axis=axis)), A.amax(axis))
+        res["errs"][f"cumsum axis {axis}"] = matmul_check(gathered(ht.cumsum(x, axis)), A.cumsum(axis))
 
-        a, b = ht.array(A, split=0), ht.array(B, split=0)
-        comm.reset_traffic()
-        ht.linalg.matmul_summa(a, b)
-        res["summa_traffic"] = comm.traffic()
-        comm.reset_traffic()
-        ht.matmul(a, b, method="gspmd")
-        res["gather_traffic"] = comm.traffic()
-        res["summa_ms"] = _wall_ms(lambda: ht.linalg.matmul_summa(a, b), comm, 3)
-        res["gather_ms"] = _wall_ms(lambda: ht.matmul(a, b, method="gspmd"), comm, 3)
-        res["transport"] = {op: comm.transport(A, op) for op in MATMUL_COLLECTIVES}
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+    a, b = ht.array(A, split=0), ht.array(B, split=0)
+    comm.reset_traffic()
+    ht.linalg.matmul_summa(a, b)
+    res["summa_traffic"] = comm.traffic()
+    comm.reset_traffic()
+    ht.matmul(a, b, method="gspmd")
+    res["gather_traffic"] = comm.traffic()
+    res["summa_ms"] = _wall_ms(lambda: ht.linalg.matmul_summa(a, b), comm, 3)
+    res["gather_ms"] = _wall_ms(lambda: ht.matmul(a, b, method="gspmd"), comm, 3)
+    res["transport"] = {op: comm.transport(A, op) for op in MATMUL_COLLECTIVES}
+    return res
 
 
-def matmul_two_ranks(smi: str) -> None:
-    """The two-rank matmul phase: 2 processes on this card over gloo; checks
-    what each reports and prints rank 0's line."""
-    results = spawn_ranks(matmul_rank, 2, RING_TIMEOUT_S)
+def matmul_two_ranks(smi: str, results: dict) -> None:
+    """The two-rank matmul phase: checks what ``matmul_rank`` reported from
+    each of 2 processes on this card over gloo (``results``) and prints rank
+    0's line."""
     for rank, res in sorted(results.items()):
         bad = {k: e for k, e in res["errs"].items() if not e <= MATMUL_2R_RTOL}
         if bad:
@@ -2976,7 +3165,7 @@ def pos_rows(errs: dict) -> list:
             "bfloat16": {**mix(bf16[name]), "max_abs_err": max(e[name] for e in errs["bfloat16"].values()),
                          "blocks": bf16[name]},
             **{f"d256_{dt}": {**mix(timed[name]), "shape": list(POS_WIDE)} for dt, timed in wide.items()},
-            **{f"d512_{dt}": {**mix(timed[name]), "shape": list(POS_D512), "route": "wide (flash_wide.cuh)",
+            **{f"d512_{dt}": {**mix(timed[name]), "shape": list(POS_D512), **wide_route(name, POS_D512[3], dt),
                               "library_backend": timed[name]["diagonal"]["library_backend"], "blocks": timed[name],
                               "max_abs_err": max(e[name] for e in errs[f"d512_{dt}"].values())}
                for dt, timed in d512.items()},
@@ -3333,31 +3522,20 @@ def _tensors_as(res: dict, conv) -> dict:
             (conv(v) if not isinstance(v, (int, list, type(None))) else v) for k, v in res.items()}
 
 
-def linalg_rank(rank: int, port: int, out_q) -> None:
-    """One of 2 ranks on this card over gloo: ``linalg_cases``, reported."""
+def linalg_rank(ht, rank: int) -> dict:
+    """A rank's part of ``two_rank_world``: ``linalg_cases``, reported."""
     import torch
 
-    import heat_tpu_torch as ht
-
     torch.set_float32_matmul_precision("highest")
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        res = _tensors_as(linalg_cases(ht), lambda t: t.numpy())  # by value: a shared tensor dies with its rank
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+    return _tensors_as(linalg_cases(ht), lambda t: t.numpy())  # by value: a shared tensor dies with its rank
 
 
-def linalg_two_ranks(ht, smi: str) -> None:
+def linalg_two_ranks(ht, smi: str, results: dict) -> None:
     """The two-rank linear algebra phase: ``linalg_cases`` at world size 1
-    on this card, then in 2 processes on this card over gloo, each rank's
-    results held against world size 1's (LINALG_2R_TOL; the mask exactly,
-    split 0); prints rank 0's line."""
+    on this card against ``linalg_rank``'s in 2 processes on this card over
+    gloo (``results``), each rank's held to world size 1's (LINALG_2R_TOL;
+    the mask exactly, split 0); prints rank 0's line."""
     want = linalg_cases(ht)
-    results = spawn_ranks(linalg_rank, 2, RING_TIMEOUT_S)
     errs = {}
     import torch
 
@@ -3723,38 +3901,27 @@ def index_put_at_size(ht) -> list:
     return out
 
 
-def index_rank(rank: int, port: int, out_q) -> None:
-    """One of 2 ranks on this card over gloo: ``index_cases``, reported with
+def index_rank(ht, rank: int) -> dict:
+    """A rank's part of ``two_rank_world``: ``index_cases``, reported with
     the communicator's traffic."""
-    import torch
-
-    import heat_tpu_torch as ht
-
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        comm = ht.core.communication.get_comm()
-        comm.reset_traffic()
-        res = index_cases(ht)
-        res["_traffic"] = comm.traffic()
-        res["_at_size"] = index_put_at_size(ht)
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+    comm = ht.core.communication.get_comm()
+    comm.reset_traffic()
+    res = index_cases(ht)
+    res["_traffic"] = comm.traffic()
+    res["_at_size"] = index_put_at_size(ht)
+    return res
 
 
-def indexing_two_ranks(ht, smi: str) -> None:
+def indexing_two_ranks(ht, smi: str, results: dict, part_s: float) -> None:
     """The two-rank indexing phase: ``index_cases`` at world size 1 on this
-    card, then in 2 processes on this card over gloo; every result of every
-    rank exactly world size 1's (values with the sign of zero, gshape,
-    split); prints rank 0's line."""
+    card against what ``index_rank`` gave in 2 processes on this card over
+    gloo (``results``, part of ``two_rank_world``, which took ``part_s``
+    seconds on rank 0); every result of every rank exactly world size 1's
+    (values with the sign of zero, gshape, split); prints rank 0's line."""
     import numpy as np
 
     t0 = time.perf_counter()
     want = index_cases(ht)
-    results = spawn_ranks(index_rank, 2, RING_TIMEOUT_S)
     for rank, res in sorted(results.items()):
         for row in res["_at_size"]:
             print(json.dumps({"phase": "indexing_two_ranks", "rank": rank, **row, "card": smi}), flush=True)
@@ -3771,7 +3938,7 @@ def indexing_two_ranks(ht, smi: str) -> None:
                 fail(f"rank {rank}: {name} differs from world size 1: {None if got is None else got[1:]} vs {w[1:]}")
     print(json.dumps({"phase": "indexing_two_ranks", "note": "2 processes on ONE card over gloo, against world size 1",
                       "cases": len(want), "exact": True, "traffic_rank0": results[0]["_traffic"],
-                      "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+                      "seconds": part_s + time.perf_counter() - t0, "card": smi}), flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -4149,42 +4316,33 @@ def stats_cases(ht, n_sort: int) -> dict:
     return out
 
 
-def stats_rank(rank: int, port: int, out_q, n_sort: int) -> None:
-    """One of 2 ranks on this card over gloo: ``stats_cases`` and the sort's
+def stats_rank(ht, rank: int, n_sort: int) -> dict:
+    """A rank's part of ``two_rank_world``: ``stats_cases`` and the sort's
     Alltoall bytes."""
     import torch
 
-    import heat_tpu_torch as ht
-
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        comm = ht.core.communication.get_comm()
-        res = stats_cases(ht, n_sort)
-        ht.random.seed(STATS_SEED + 3)
-        big = ht.random.rand(n_sort, split=0)
-        comm.reset_traffic()
-        t0 = time.perf_counter()
-        ht.sort(big)
-        torch.cuda.synchronize()
-        res["_sort"] = {"traffic": comm.traffic(), "seconds": time.perf_counter() - t0, "lshape": big.lshape[0]}
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+    comm = ht.core.communication.get_comm()
+    res = stats_cases(ht, n_sort)
+    ht.random.seed(STATS_SEED + 3)
+    big = ht.random.rand(n_sort, split=0)
+    comm.reset_traffic()
+    t0 = time.perf_counter()
+    ht.sort(big)
+    torch.cuda.synchronize()
+    res["_sort"] = {"traffic": comm.traffic(), "seconds": time.perf_counter() - t0, "lshape": big.lshape[0]}
+    return res
 
 
-def stats_two_ranks(ht, smi: str) -> None:
-    """Phase 3d: ``stats_cases`` at world size 1 on this card, then in 2
-    processes on this card over gloo; each result of each rank world size
-    1's (exact, or within STATS_2R_RTOL for the float reductions); prints
-    each rank's Alltoall bytes of the 1e7-element sort."""
+def stats_two_ranks(ht, smi: str, results: dict, part_s: float) -> None:
+    """Phase 3d: ``stats_cases`` at world size 1 on this card against
+    ``stats_rank``'s in 2 processes on this card over gloo (``results``,
+    ``part_s`` seconds on rank 0); each result of each rank world size 1's
+    (exact, or within STATS_2R_RTOL for the float reductions); prints each
+    rank's Alltoall bytes of the 1e7-element sort."""
     import numpy as np
 
     t0 = time.perf_counter()
     want = stats_cases(ht, STATS_2R_SORT)
-    results = spawn_ranks(stats_rank, 2, RING_TIMEOUT_S, STATS_2R_SORT)
     for rank, res in sorted(results.items()):
         for name, w in want.items():
             got = res.get(name)
@@ -4206,7 +4364,8 @@ def stats_two_ranks(ht, smi: str) -> None:
                           "alltoall_bytes": sent, "chunk_bytes": s["lshape"] * 4, "traffic": s["traffic"],
                           "seconds": s["seconds"], "card": smi}), flush=True)
     print(json.dumps({"phase": "statistics_two_ranks", "note": "2 processes on ONE card over gloo, against world "
-                      "size 1", "cases": len(want), "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+                      "size 1", "cases": len(want), "seconds": part_s + time.perf_counter() - t0, "card": smi}),
+          flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -4408,117 +4567,108 @@ def _daso_emulation(ht, x, y, rows: int, steps: int):
     return reps
 
 
-def dp_rank(rank: int, port: int, out_q) -> None:
-    """One rank of the two-rank data-parallel phase (a spawned process):
+def dp_rank(ht, rank: int) -> dict:
+    """A rank's part of ``two_rank_world``, the two-rank data-parallel phase:
     config 3's MLP and ResNet-50, one DataParallel step each against world
     size 1 on this card; DASO over 2 groups x 1 against its one-process
     emulation; all in IEEE float32 (``_full_float32``)."""
     import torch
-
-    import heat_tpu_torch as ht
     from heat_tpu_torch.linalg.basics import _full_float32
     from heat_tpu_torch.optim.dp_optimizer import _drain
 
     torch.backends.cudnn.deterministic = True  # the same convolution algorithms on both sides of each check
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        comm = ht.core.communication.get_comm()
-        ce = ht.nn.functional.cross_entropy
-        res = {"rank": rank}
-        with _full_float32():
-            # config 3's MLP: one step on a ragged global batch (129 | 128 rows)
-            x, y = mnist_synthetic(DP_2R_MLP_ROWS, 5)
-            sl = comm.chunk(x.shape, 0)[2][0]
-            torch.manual_seed(1 + rank)  # each rank its own weights: DataParallel broadcasts rank 0's
-            model = mnist_model(ht)
+    comm = ht.core.communication.get_comm()
+    ce = ht.nn.functional.cross_entropy
+    res = {"rank": rank}
+    with _full_float32():
+        # config 3's MLP: one step on a ragged global batch (129 | 128 rows)
+        x, y = mnist_synthetic(DP_2R_MLP_ROWS, 5)
+        sl = comm.chunk(x.shape, 0)[2][0]
+        torch.manual_seed(1 + rank)  # each rank its own weights: DataParallel broadcasts rank 0's
+        model = mnist_model(ht)
+        comm.reset_traffic()
+        t0 = time.perf_counter()
+        # SGD, not config 3's Adam: Adam's first step is lr * g / (|g| + eps), +-lr for
+        # every gradient above eps, whose sign float32 noise decides where g is ~0
+        loss = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer(
+            "sgd", lr=R50_LR, momentum=R50_MOMENTUM)).make_train_step(ce)(x[sl], y[sl])
+        torch.cuda.synchronize()
+        res["mlp_step_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.manual_seed(1)
+        one = mnist_model(ht)
+        loss_one = _plain_step(one, torch.optim.SGD(one.parameters(), lr=R50_LR, momentum=R50_MOMENTUM), x, y,
+                               ce)
+        res["mlp"] = {"rows": list(sl.indices(DP_2R_MLP_ROWS))[:2], "loss_rel_err": float(
+            abs(loss - loss_one) / abs(loss_one)), "worst": max_rel_err(model.state_dict(), one.state_dict()),
+            "traffic": comm.traffic(), "transport": {op: comm.transport(loss, op) for op in
+                                                     ("Allreduce", "Allgather", "Bcast")}}
+        del model, one
+        # ResNet-50: one step, 8 images a rank, the global batch's BatchNorm; in
+        # float32 (loss held, parameters reported) and in float64 (parameters held)
+        g = torch.Generator(device="cuda").manual_seed(6)
+        rows = 2 * DP_2R_R50_ROWS
+        x = torch.randn(rows, 3, 224, 224, generator=g, device="cuda")
+        y = torch.randint(0, R50_CLASSES, (rows,), generator=g, device="cuda")
+        mine = slice(rank * DP_2R_R50_ROWS, (rank + 1) * DP_2R_R50_ROWS)
+        states = {}
+        for dtype in (torch.float32, torch.float64):
+            torch.manual_seed(2 + rank)
+            model = ht.nn.models.resnet50().to(dtype)
             comm.reset_traffic()
             t0 = time.perf_counter()
-            # SGD, not config 3's Adam: Adam's first step is lr * g / (|g| + eps), +-lr for
-            # every gradient above eps, whose sign float32 noise decides where g is ~0
             loss = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer(
-                "sgd", lr=R50_LR, momentum=R50_MOMENTUM)).make_train_step(ce)(x[sl], y[sl])
+                "sgd", lr=R50_LR, momentum=R50_MOMENTUM)).make_train_step(ce)(x[mine].to(dtype), y[mine])
             torch.cuda.synchronize()
-            res["mlp_step_ms"] = (time.perf_counter() - t0) * 1e3
-            torch.manual_seed(1)
-            one = mnist_model(ht)
-            loss_one = _plain_step(one, torch.optim.SGD(one.parameters(), lr=R50_LR, momentum=R50_MOMENTUM), x, y,
-                                   ce)
-            res["mlp"] = {"rows": list(sl.indices(DP_2R_MLP_ROWS))[:2], "loss_rel_err": float(
-                abs(loss - loss_one) / abs(loss_one)), "worst": max_rel_err(model.state_dict(), one.state_dict()),
-                "traffic": comm.traffic(), "transport": {op: comm.transport(loss, op) for op in
-                                                         ("Allreduce", "Allgather", "Bcast")}}
+            step_ms = (time.perf_counter() - t0) * 1e3
+            torch.manual_seed(2)
+            one = ht.nn.models.resnet50().to(dtype)
+            loss_one = _plain_step(one, torch.optim.SGD(one.parameters(), lr=R50_LR, momentum=R50_MOMENTUM),
+                                   x.to(dtype), y, ce)
+            states[dtype] = (model.state_dict(), one.state_dict())
+            res[f"r50_{str(dtype)[6:]}"] = {
+                "step_ms": step_ms, "loss_rel_err": float(abs(loss - loss_one) / abs(loss_one)),
+                "worst": max_rel_err(model.state_dict(), one.state_dict()), "traffic": comm.traffic()}
             del model, one
-            # ResNet-50: one step, 8 images a rank, the global batch's BatchNorm; in
-            # float32 (loss held, parameters reported) and in float64 (parameters held)
-            g = torch.Generator(device="cuda").manual_seed(6)
-            rows = 2 * DP_2R_R50_ROWS
-            x = torch.randn(rows, 3, 224, 224, generator=g, device="cuda")
-            y = torch.randint(0, R50_CLASSES, (rows,), generator=g, device="cuda")
-            mine = slice(rank * DP_2R_R50_ROWS, (rank + 1) * DP_2R_R50_ROWS)
-            states = {}
-            for dtype in (torch.float32, torch.float64):
-                torch.manual_seed(2 + rank)
-                model = ht.nn.models.resnet50().to(dtype)
-                comm.reset_traffic()
-                t0 = time.perf_counter()
-                loss = ht.nn.DataParallel(model, optimizer=ht.optim.DataParallelOptimizer(
-                    "sgd", lr=R50_LR, momentum=R50_MOMENTUM)).make_train_step(ce)(x[mine].to(dtype), y[mine])
-                torch.cuda.synchronize()
-                step_ms = (time.perf_counter() - t0) * 1e3
-                torch.manual_seed(2)
-                one = ht.nn.models.resnet50().to(dtype)
-                loss_one = _plain_step(one, torch.optim.SGD(one.parameters(), lr=R50_LR, momentum=R50_MOMENTUM),
-                                       x.to(dtype), y, ce)
-                states[dtype] = (model.state_dict(), one.state_dict())
-                res[f"r50_{str(dtype)[6:]}"] = {
-                    "step_ms": step_ms, "loss_rel_err": float(abs(loss - loss_one) / abs(loss_one)),
-                    "worst": max_rel_err(model.state_dict(), one.state_dict()), "traffic": comm.traffic()}
-                del model, one
-            # float32's distance from float64 at world size 1 and over 2 ranks
-            (dp32, one32), (_, one64) = states[torch.float32], states[torch.float64]
-            res["r50_float32"]["world_one_vs_float64"] = max_rel_err(one32, one64)
-            res["r50_float32"]["two_ranks_vs_float64"] = max_rel_err(dp32, one64)
-            del states, dp32, one32, one64
-            # DASO: 2 groups x 1, 8 steps of 8 images a rank
-            xs = [torch.randn(rows, 3, 224, 224, generator=g, device="cuda") for _ in range(DASO_2R_STEPS)]
-            ys = [torch.randint(0, R50_CLASSES, (rows,), generator=g, device="cuda") for _ in range(DASO_2R_STEPS)]
-            torch.manual_seed(3 + rank)
-            model = ht.nn.models.resnet50()
-            daso = ht.optim.DASO(ht.optim.DataParallelOptimizer("sgd", lr=R50_LR, momentum=R50_MOMENTUM), **DASO_2R)
-            daso.init(model)
-            losses, step_ms = [], []
-            for t in range(DASO_2R_STEPS):
-                t0 = time.perf_counter()
-                losses.append(float(daso.step(ce, xs[t][mine], ys[t][mine])))
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-            consolidated = daso.consolidated_params()
-            _drain(daso._pending)  # the average dispatched at the last step
-            flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
-            mean = sum(comm.Allgather(flat)) / 2
-            off, worst_mean = 0, 0.0
-            for name, p in consolidated.items():
-                ref = mean[off: off + p.numel()].view_as(p)
-                worst_mean = max(worst_mean, float((p - ref).abs().max() / ref.abs().max().clamp_min(1e-30)))
-                off += p.numel()
-            emulated = _daso_emulation(ht, xs, ys, DP_2R_R50_ROWS, DASO_2R_STEPS)[rank]
-            res["daso"] = {"losses": losses, "step_ms": step_ms, "worst": max_rel_err(model.state_dict(),
-                                                                                       emulated.state_dict()),
-                           "consolidated_vs_mean": worst_mean, "dcn_traffic": daso.dcn.traffic(),
-                           "groups": [list(daso.ici.ranks), list(daso.dcn.ranks)],
-                           "devices": sorted({str(p.device) for p in model.parameters()})}
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+        # float32's distance from float64 at world size 1 and over 2 ranks
+        (dp32, one32), (_, one64) = states[torch.float32], states[torch.float64]
+        res["r50_float32"]["world_one_vs_float64"] = max_rel_err(one32, one64)
+        res["r50_float32"]["two_ranks_vs_float64"] = max_rel_err(dp32, one64)
+        del states, dp32, one32, one64
+        # DASO: 2 groups x 1, 8 steps of 8 images a rank
+        xs = [torch.randn(rows, 3, 224, 224, generator=g, device="cuda") for _ in range(DASO_2R_STEPS)]
+        ys = [torch.randint(0, R50_CLASSES, (rows,), generator=g, device="cuda") for _ in range(DASO_2R_STEPS)]
+        torch.manual_seed(3 + rank)
+        model = ht.nn.models.resnet50()
+        daso = ht.optim.DASO(ht.optim.DataParallelOptimizer("sgd", lr=R50_LR, momentum=R50_MOMENTUM), **DASO_2R)
+        daso.init(model)
+        losses, step_ms = [], []
+        for t in range(DASO_2R_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(daso.step(ce, xs[t][mine], ys[t][mine])))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        consolidated = daso.consolidated_params()
+        _drain(daso._pending)  # the average dispatched at the last step
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        mean = sum(comm.Allgather(flat)) / 2
+        off, worst_mean = 0, 0.0
+        for name, p in consolidated.items():
+            ref = mean[off: off + p.numel()].view_as(p)
+            worst_mean = max(worst_mean, float((p - ref).abs().max() / ref.abs().max().clamp_min(1e-30)))
+            off += p.numel()
+        emulated = _daso_emulation(ht, xs, ys, DP_2R_R50_ROWS, DASO_2R_STEPS)[rank]
+        res["daso"] = {"losses": losses, "step_ms": step_ms, "worst": max_rel_err(model.state_dict(),
+                                                                                   emulated.state_dict()),
+                       "consolidated_vs_mean": worst_mean, "dcn_traffic": daso.dcn.traffic(),
+                       "groups": [list(daso.ici.ranks), list(daso.dcn.ranks)],
+                       "devices": sorted({str(p.device) for p in model.parameters()})}
+    return res
 
 
-def data_parallel_two_ranks(smi: str) -> None:
-    """The two-rank data-parallel phase: 2 processes on this card over gloo;
-    checks what each reports against DP_2R_RTOL and prints rank 0's line."""
-    results = spawn_ranks(dp_rank, 2, RING_TIMEOUT_S)
+def data_parallel_two_ranks(smi: str, results: dict) -> None:
+    """The two-rank data-parallel phase: checks what ``dp_rank`` reported
+    from each of 2 processes on this card over gloo (``results``) against
+    DP_2R_RTOL and prints rank 0's line."""
     for rank, res in sorted(results.items()):
         for key, rtol in (("mlp", DP_2R_RTOL), ("r50_float64", DP_2R_F64_RTOL), ("daso", DP_2R_RTOL)):
             worst = res[key]["worst"]
@@ -5062,41 +5212,32 @@ def estimator_cases(ht) -> dict:
     return out
 
 
-def estimators_rank(rank: int, port: int, out_q) -> None:
-    """One of 2 ranks on this card over gloo: the tiled resplit of
+def estimators_rank(ht, rank: int) -> dict:
+    """A rank's part of ``two_rank_world``: the tiled resplit of
     RESPLIT_2R_SHAPE against the monolithic one at each of
     RESPLIT_2R_CASES, then ``estimator_cases``."""
     import torch
 
-    import heat_tpu_torch as ht
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        comm = ht.core.communication.get_comm()
-        res = {"resplit": {f"{s}->{d}": tiled_resplit_case(ht, comm, s, d, RESPLIT_2R_BUDGET)
-                           for s, d in RESPLIT_2R_CASES}}
-        torch.cuda.empty_cache()
-        res["cases"] = estimator_cases(ht)
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+    comm = ht.core.communication.get_comm()
+    res = {"resplit": {f"{s}->{d}": tiled_resplit_case(ht, comm, s, d, RESPLIT_2R_BUDGET)
+                       for s, d in RESPLIT_2R_CASES}}
+    torch.cuda.empty_cache()
+    res["cases"] = estimator_cases(ht)
+    return res
 
 
-def estimators_two_ranks(ht, smi: str) -> None:
-    """Phase 3f: on 2 spawned ranks on this card over gloo, the tiled
-    resplit bit for bit the monolithic one, with the same traffic bytes, its
-    transient memory within budget + one tile; then ``estimator_cases``
-    against world size 1 on this card (exact where marked, else within
-    EST_2R_RTOL of the largest entry)."""
+def estimators_two_ranks(ht, smi: str, results: dict, part_s: float) -> None:
+    """Phase 3f: what ``estimators_rank`` reported from 2 spawned ranks on
+    this card over gloo (``results``, ``part_s`` seconds on rank 0): the
+    tiled resplit bit for bit the monolithic one, with the same traffic
+    bytes, its transient memory within budget + one tile; then
+    ``estimator_cases`` against world size 1 on this card (exact where
+    marked, else within EST_2R_RTOL of the largest entry)."""
     import numpy as np
 
     t0 = time.perf_counter()
     want = estimator_cases(ht)
-    results = spawn_ranks(estimators_rank, 2, RING_TIMEOUT_S)
     for rank, res in sorted(results.items()):
         for case, r in res["resplit"].items():
             mono, tiled = r["monolithic"], r["tiled"]
@@ -5122,7 +5263,8 @@ def estimators_two_ranks(ht, smi: str) -> None:
                 err = None if got is None or got[0].shape != w.shape else float(np.abs(got[0] - w).max())
                 fail(f"rank {rank}: {name} differs from world size 1 (max abs difference {err})")
     print(json.dumps({"phase": "estimators_two_ranks", "note": "2 processes on ONE card over gloo, against world "
-                      "size 1", "cases": len(want), "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+                      "size 1", "cases": len(want), "seconds": part_s + time.perf_counter() - t0, "card": smi}),
+          flush=True)
 
 
 # 3g. I/O, fft, convolve, sparse, vmap; then on 2 ranks ring_map and DASO's resume too
@@ -5564,34 +5706,26 @@ def surface_cases(ht, d: str) -> dict:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def surface_rank(rank: int, port: int, out_q, d: str) -> None:
-    """One of 2 ranks on this card over gloo: ``surface_cases`` and the DASO
+def surface_rank(ht, rank: int, d: str) -> dict:
+    """A rank's part of ``two_rank_world``: ``surface_cases`` and the DASO
     checkpoint and resume."""
     import torch
 
-    import heat_tpu_torch as ht
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    ht.core.bootstrap.init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo",
-                                       timeout_s=RING_TIMEOUT_S)
-    try:
-        ht.use_device("gpu")
-        comm = ht.core.communication.get_comm()
-        res = {"cases": surface_cases(ht, d)}
-        res["daso"] = [_daso_steps(ht, comm, os.path.join(d, "daso_plain"), False),
-                       _daso_steps(ht, comm, os.path.join(d, "daso_resumed"), True)]
-        torch.distributed.barrier()
-        out_q.put((rank, res))
-    finally:
-        ht.core.bootstrap.finalize_distributed()
+    comm = ht.core.communication.get_comm()
+    res = {"cases": surface_cases(ht, d)}
+    res["daso"] = [_daso_steps(ht, comm, os.path.join(d, "daso_plain"), False),
+                   _daso_steps(ht, comm, os.path.join(d, "daso_resumed"), True)]
+    return res
 
 
-def surface_two_ranks(ht, smi: str) -> float:
-    """Phase 3g's 2-rank part: ``surface_cases`` on 2 spawned ranks on this
-    card over gloo against world size 1 (exact for I/O, else within
-    SURF_RTOL of the largest entry); the array checkpoint the ranks wrote
-    read here at world size 1; DASO's next 2 steps after a resume bit for
-    bit the uninterrupted run's.  Returns its seconds."""
+def surface_two_ranks(ht, smi: str, results: dict, part_s: float, r2: str) -> float:
+    """Phase 3g's 2-rank part: ``surface_rank``'s ``surface_cases`` on 2
+    spawned ranks on this card over gloo (``results``, ``part_s`` seconds on
+    rank 0, written under ``r2``) against world size 1 (exact for I/O, else
+    within SURF_RTOL of the largest entry); the array checkpoint the ranks
+    wrote read here at world size 1; DASO's next 2 steps after a resume bit
+    for bit the uninterrupted run's.  Returns its seconds."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -5599,9 +5733,6 @@ def surface_two_ranks(ht, smi: str) -> float:
         w1 = os.path.join(d, "w1")
         os.makedirs(w1)
         want = surface_cases(ht, w1)
-        r2 = os.path.join(d, "r2")
-        os.makedirs(r2)
-        results = spawn_ranks(surface_rank, 2, RING_TIMEOUT_S, r2)
         for rank, res in sorted(results.items()):
             for name, w in want.items():
                 got = res["cases"].get(name)
@@ -5617,7 +5748,7 @@ def surface_two_ranks(ht, smi: str) -> float:
         back = ht.load_array_checkpoint(os.path.join(r2, "ckpt_2r"))
         if not back.larray.is_cuda or not np.array_equal(back.numpy(), want["array checkpoint"]):
             fail("the array checkpoint written at 2 ranks does not load at world size 1")
-    seconds = time.perf_counter() - t0
+    seconds = part_s + time.perf_counter() - t0
     _surface_row(smi, op="two ranks", note="2 processes on ONE card over gloo, against world size 1",
              cases=len(want), daso="checkpoint at step 3, resumed: steps 4 and 5 bit for bit", seconds=seconds)
     return seconds
@@ -5811,6 +5942,9 @@ def main() -> int:
     for kernel, source in {**TC_KERNELS, **F32_KERNELS}.items():
         print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
                           "instances": ptxas_report(_build.build_info["log"], kernel)}), flush=True)
+    for kernel, source in WIDE_KERNELS.items():
+        print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
+                          "instances": wide_ptxas_report(_build.build_info["log"], kernel)}), flush=True)
     for kernel, source in KMEANS_KERNELS.items():
         print(json.dumps({"phase": "ptxas", "kernel": kernel, "source": source,
                           "instances": kmeans_ptxas_report(_build.build_info["log"], kernel)}), flush=True)
@@ -5923,7 +6057,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. the sequence-parallel LM over 2 ranks on this card, the first
-    # spawned ranks; then 3b, 4, 4b and 4c on 2 ranks on this card over gloo
+    # spawned ranks
     t0 = time.perf_counter()
     ring = ring_train(smi)
     print(json.dumps({"phase": "nn_surface_seconds", "world_one": nn_s,
@@ -5931,29 +6065,22 @@ def main() -> int:
     for row in pos:
         row["launches"] = ring[row["name"]]
     rows += pos
-    indexing_two_ranks(ht, smi)
-    matmul_two_ranks(smi)
-    t0 = time.perf_counter()
-    linalg_two_ranks(ht, smi)
-    print(json.dumps({"phase": "linalg_seconds", "seconds": linalg_s + time.perf_counter() - t0}), flush=True)
-    t0 = time.perf_counter()
-    data_parallel_two_ranks(smi)
-    print(json.dumps({"phase": "data_parallel_seconds", "seconds": data_parallel_s + time.perf_counter() - t0}),
-          flush=True)
 
     # 3c. the random streams, statistics, manipulations and the sort at
-    # world size 1 at users' sizes, then 3d: 2 ranks on this card
+    # world size 1 at users' sizes; 3g. I/O, fft, convolve, sparse and vmap
+    # at world size 1
     stats_world_one(ht, smi)
-    stats_two_ranks(ht, smi)
+    surface_s = surface_world_one(ht, smi)
 
-    # 3f. the tiled resplit and the estimators on 2 ranks on this card
-    estimators_two_ranks(ht, smi)
-
-    # 3g. I/O, fft, convolve, sparse and vmap at world size 1, then on 2
-    # ranks on this card (with ring_map and DASO's resume)
-    seconds = surface_world_one(ht, smi)
-    seconds += surface_two_ranks(ht, smi)
-    print(json.dumps({"phase": "surface_seconds", "seconds": seconds, "card": smi}), flush=True)
+    # 3b, 4, 4b, 4c, 3d (the sort), 3f (the tiled resplit and the
+    # estimators) and 3g (with ring_map and DASO's resume) on 2 ranks on
+    # this card: one spawned world for all of them
+    two_rank_s = two_rank_phases(ht, smi)
+    print(json.dumps({"phase": "linalg_seconds", "seconds": linalg_s + two_rank_s["linalg"]}), flush=True)
+    print(json.dumps({"phase": "data_parallel_seconds", "seconds": data_parallel_s + two_rank_s["data_parallel"]}),
+          flush=True)
+    print(json.dumps({"phase": "surface_seconds", "seconds": surface_s + two_rank_s["surface"], "card": smi}),
+          flush=True)
 
     # 14. the serving tier: 2 supervised gloo ranks on this card, one killed,
     # against world size 1

@@ -132,6 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_flash_pos_bwd_dkv.restype = i32
     lib.heat_flash_route.argtypes = [i32]
     lib.heat_flash_route.restype = i32
+    lib.heat_flash_wide_plan.argtypes = [i32, i32, i32, ptr]
+    lib.heat_flash_wide_plan.restype = i32
     lib.heat_flash_strerror.argtypes = [i32]
     lib.heat_flash_strerror.restype = ctypes.c_char_p
 

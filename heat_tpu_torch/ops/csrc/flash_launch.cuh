@@ -1,7 +1,8 @@
 // The flash-attention launchers shared by flash_attention.cu (head dims
 // 1 to 128: D = 64 and 128), flash_attention_d256.cu (129 to 256: D =
-// 256) and flash_attention_wide.cu (past 256: flash_wide.cuh's route, which
-// uses the masks and ``launch`` here), three translation units so that nvcc
+// 256) and flash_attention_wide.cu (past 256: the route of flash_wide.cuh
+// and flash_wide_bwd.cuh, which uses the masks, ``launch`` and
+// ``launch_cluster`` here), three translation units so that nvcc
 // builds them at once.  Each includes this header once: the mask policies,
 // the three bodies of each dtype and fwd_launch, dq_launch and dkv_launch,
 // in an anonymous namespace that the including file closes after its
@@ -177,13 +178,11 @@ struct PosMask {
 // Blocks of a grid over ``rows`` rows of n positions in 64-row tiles.
 int64_t tiles_of(int64_t rows, int n) { return rows * ((int64_t(n) + 63) / 64); }
 
-// Check the shape, set the kernel's dynamic shared memory and launch it on
-// ``blocks`` blocks of ``threads`` threads with ``args``; 0 or an error code.
-// ``blocks`` is the grid: query tiles for the forward and dq, key tiles for
-// dk/dv.
-template <typename Mask, typename... P, typename... A>
-int launch(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int64_t bhq, int64_t bhk, const Mask& mask,
-           cudaStream_t stream, A... args) {
+// Check the shape and set the kernel's dynamic shared memory: 0, or an
+// error code.  ``blocks`` is the grid: query tiles for the forward and dq,
+// key tiles for dk/dv.
+template <typename Mask, typename... P>
+int prepare_launch(void (*kern)(P...), size_t smem, int64_t blocks, int64_t bhq, int64_t bhk, const Mask& mask) {
   const bool rows_ok = bhk == 0 ? bhq == 0 : bhq >= 0 && bhk > 0 && bhq % bhk == 0;
   if (!rows_ok || mask.q_rows() < 0 || mask.k_rows() < 0 || blocks > 0x7fffffff) return kErrBadShape;
   int dev = 0, max_smem = 0;
@@ -191,10 +190,42 @@ int launch(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int64_t
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return int(err);
   if (smem > size_t(max_smem)) return kErrSharedMemory;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  if (blocks == 0) return 0;
+  return int(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+}
+
+// Launch ``kern`` on ``blocks`` blocks of ``threads`` threads with ``args``
+// after prepare_launch; 0 or an error code.
+template <typename Mask, typename... P, typename... A>
+int launch(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int64_t bhq, int64_t bhk, const Mask& mask,
+           cudaStream_t stream, A... args) {
+  const int err = prepare_launch(kern, smem, blocks, bhq, bhk, mask);
+  if (err != 0 || blocks == 0) return err;
   kern<<<int(blocks), threads, smem, stream>>>(args...);
+  return int(cudaGetLastError());
+}
+
+// The same in thread block clusters of ``cluster`` consecutive blocks
+// (cudaLaunchKernelEx); a cluster the card cannot place fails the launch.
+template <typename Mask, typename... P, typename... A>
+int launch_cluster(void (*kern)(P...), size_t smem, int threads, int64_t blocks, int cluster, int64_t bhq,
+                   int64_t bhk, const Mask& mask, cudaStream_t stream, A... args) {
+  if (cluster < 1 || blocks % cluster != 0) return kErrBadShape;
+  const int err = prepare_launch(kern, smem, blocks, bhq, bhk, mask);
+  if (err != 0 || blocks == 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(blocks));
+  cfg.blockDim = dim3(unsigned(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (launched != cudaSuccess) return int(launched);
   return int(cudaGetLastError());
 }
 

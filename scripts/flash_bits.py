@@ -8,10 +8,12 @@ default the one holding this script, and ``--parent``) on the same inputs,
 each checkout's package in a process of its own (its kernels built there),
 and prints one JSON line: the card (nvidia-smi's name and power limit) and,
 for each case, whether every output is the same to the bit.  The cases
-cover head dims up to 256, where a change that adds a route past them must
-leave the results as they were: the multi-head, grouped and positions
-wrappers, forward (out, lse), dq and dk/dv, float32 and bfloat16, at
-d = 64, 128 (grouped 8:2), 160 and 256.  Exits 1 if any case differs.
+cover every body a change to the wide route's backward must leave as it
+was: head dims up to 256 (the multi-head, grouped and positions wrappers,
+forward (out, lse), dq and dk/dv, float32 and bfloat16, at d = 64, 128
+(grouped 8:2), 160 and 256), and the wide route's forward past 256 (out
+and lse of the three wrappers at d = 320, 512 and 1126, ragged and
+unaligned among them).  Exits 1 if any case differs.
 The parent is unpacked by ``git archive`` under ``build/`` (which git
 ignores):
 
@@ -32,12 +34,15 @@ HERE = Path(__file__).resolve().parents[1]
 # (query rows, K/V rows, S, d, causal); positions blocks (B, Sq, Sk, d, q offset, k offset, causal, s_valid)
 CASES = [(16, 16, 1000, 64, True), (16, 4, 129, 128, False), (8, 8, 300, 256, True), (8, 2, 200, 160, True)]
 POS_CASES = [(4, 300, 300, 64, 300, 300, True, 600), (4, 200, 333, 256, 100, 50, True, 383)]
+# the wide forward: (query rows, K/V rows, S, d, causal) and positions blocks as above
+WIDE_CASES = [(8, 8, 300, 512, True), (8, 2, 200, 320, False), (4, 4, 129, 1126, True)]
+WIDE_POS_CASES = [(4, 200, 333, 512, 100, 50, True, 383), (2, 300, 300, 1126, 300, 0, True, 600)]
 
 DUMP = r"""
 import sys, torch
 sys.path.insert(0, sys.argv[1])
 from heat_tpu_torch.ops import flash_attention as fa
-cases, pos_cases = eval(sys.argv[3]), eval(sys.argv[4])
+cases, pos_cases, wide_cases, wide_pos_cases = (eval(a) for a in sys.argv[3:7])
 res = {}
 for dt in (torch.float32, torch.bfloat16):
     for bhq, bhk, S, d, causal in cases:
@@ -60,14 +65,28 @@ for dt in (torch.float32, torch.bfloat16):
         dd = (do.float() * out.float()).sum(-1) - 0.5
         res[f"flash_pos_{dt}{(B, Sq, Sk, d, qo, ko)}"] = [t.cpu() for t in (
             out, lse, fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *a), *fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *a))]
+    for bhq, bhk, S, d, causal in wide_cases:
+        g = torch.Generator(device="cuda").manual_seed(S + d)
+        q = torch.randn((bhq, S, d), generator=g, device="cuda").to(dt)
+        k, v = (torch.randn((bhk, S, d), generator=g, device="cuda").to(dt) for _ in range(2))
+        pre = "flash_" if bhq == bhk else "flash_gqa_"
+        res[f"wide_{pre}fwd_{dt}{(bhq, bhk, S, d, causal)}"] = [
+            t.cpu() for t in getattr(fa, pre + "fwd")(q, k, v, causal, d**-0.5)]
+    for B, Sq, Sk, d, qo, ko, causal, s_valid in wide_pos_cases:
+        g = torch.Generator(device="cuda").manual_seed(Sq + d)
+        q = torch.randn((B, Sq, d), generator=g, device="cuda").to(dt)
+        k, v = (torch.randn((B, Sk, d), generator=g, device="cuda").to(dt) for _ in range(2))
+        a = (torch.arange(qo, qo + Sq, dtype=torch.int32, device="cuda"),
+             torch.arange(ko, ko + Sk, dtype=torch.int32, device="cuda"), causal, d**-0.5, s_valid, True)
+        res[f"wide_flash_pos_fwd_{dt}{(B, Sq, Sk, d, qo, ko)}"] = [t.cpu() for t in fa.flash_pos_fwd(q, k, v, *a)]
 torch.save(res, sys.argv[2])
 """
 
 
 def dump(root: Path, out: Path) -> None:
     """Run ``root``'s kernels on every case in a process of its own; the outputs into ``out``."""
-    subprocess.run([sys.executable, "-c", DUMP, str(root.resolve()), str(out), repr(CASES), repr(POS_CASES)],
-                   check=True, timeout=1200)
+    subprocess.run([sys.executable, "-c", DUMP, str(root.resolve()), str(out), repr(CASES), repr(POS_CASES),
+                    repr(WIDE_CASES), repr(WIDE_POS_CASES)], check=True, timeout=1200)
 
 
 def main() -> int:

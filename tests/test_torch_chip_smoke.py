@@ -219,8 +219,43 @@ def test_wide_checks_cover_every_wide_head_dim(chip_smoke):
         assert bhq % bhk == 0 and d > cs.WIDE_D and 1 <= S < 129 and isinstance(causal, bool)
     assert cs.bf16_share_limit(1) == cs.bf16_share_limit(cs.WIDE_D) == cs.BF16_DIFF_SHARE == 0.01
     assert cs.bf16_share_limit(4 * cs.WIDE_D) == 2 * cs.BF16_DIFF_SHARE
-    assert [round(cs.bf16_share_limit(d), 4) for d in cs.WIDE_DS] == [0.01, 0.0112, 0.0141, 0.021]
+    assert [round(cs.bf16_share_limit(d), 4) for d in cs.WIDE_DS] == [0.01, 0.0112, 0.0122, 0.0123, 0.0141, 0.02,
+                                                                     0.02, 0.021]
     assert cs.LM_D512["embed_dim"] // cs.LM_D512["num_heads"] == 512
+
+
+@pytest.mark.parametrize("bhq, bhk, causal", [(4, 4, True), (4, 2, False), (4, 1, True)])
+def test_wide_float64_reference_is_the_plain_backward(chip_smoke, bhq, bhk, causal):
+    """wide_bwd_f64, the wide route's float32 gradient reference, is the
+    plain versions' dq, dk and dv in float64: against the float32 plain
+    versions (multi-head, grouped, positions) it differs by float32
+    rounding alone, within FLASH_TOL's float32 row error, while a gradient
+    1e-3 off reads past it."""
+    rng = np.random.default_rng(bhq + bhk + causal)
+    S, d = 40, 260
+    q, do = (torch.from_numpy(rng.standard_normal((bhq, S, d), dtype=np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((bhk, S, d), dtype=np.float32)) for _ in range(2))
+    kind = "flash_" if bhq == bhk else "flash_gqa_"
+    out, lse = getattr(fa, f"_torch_{kind}fwd")(q, k, v, causal, d**-0.5)
+    dd = (do * out).sum(-1)
+    plain = (getattr(fa, f"_torch_{kind}bwd_dq")(q, k, v, do, lse, dd, causal, d**-0.5),
+             *getattr(fa, f"_torch_{kind}bwd_dkv")(q, k, v, do, lse, dd, causal, d**-0.5))
+    ref = chip_smoke.wide_bwd_f64(q, k, v, do, lse, dd, d**-0.5, chip_smoke.causal_keep(S, causal, q.device))
+    assert all(r.dtype == torch.float32 and r.shape == p.shape for r, p in zip(ref, plain))
+    assert max(map(chip_smoke._row_err, plain, ref)) <= chip_smoke.FLASH_TOL["float32"]["grad"]
+    assert chip_smoke._row_err(ref[1] * (1 + 1e-3), ref[1]) > chip_smoke.FLASH_TOL["float32"]["grad"]
+    if bhk != bhq:
+        return
+    qpos, kpos = torch.arange(20, 20 + S, dtype=torch.int32), torch.arange(0, S, dtype=torch.int32)
+    args = (qpos, kpos, causal, d**-0.5, 30, True)  # keys 30.. are padding
+    out, lse = fa._torch_flash_pos_fwd(q, k, v, *args)
+    dd = (do * out).sum(-1)
+    plain = (fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args), *fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse,
+                                                                                                 dd, *args))
+    keep = chip_smoke.pos_keep(qpos, kpos, causal, 30, True)
+    assert not bool(keep[:, 30:].any()) and bool(keep[0, :21].all()) and bool(keep[0, 21:].any()) != causal
+    ref = chip_smoke.wide_bwd_f64(q, k, v, do, lse, dd, d**-0.5, keep)
+    assert max(map(chip_smoke._row_err, plain, ref)) <= chip_smoke.FLASH_TOL["float32"]["grad"]
 
 
 def test_sdpa_backend_names_the_served_backend(chip_smoke):

@@ -255,9 +255,11 @@ def test_cuda_flash_kernels_refuse_d_256():
         fa.flash_fwd(q[..., :0], q[..., :0], q[..., :0], True, 1.0)
 
 
-# the wide route's shapes: (query rows, K/V rows, S, causal) at each d it is held at
-WIDE_DIMS = [257, 320, 512, 1126, 2048]
-WIDE_SHAPES = [(4, 4, 200, True), (4, 2, 129, False), (2, 2, 64, True)]
+# the wide route's shapes: (query rows, K/V rows, S, causal) at each d it is
+# held at: where the backward's split of d changes (chunks of 64 columns, 128
+# for bfloat16 dq; clusters of up to 8 blocks, then passes), and past them
+WIDE_DIMS = [257, 320, 384, 385, 512, 1024, 1025, 1126, 2048]
+WIDE_SHAPES = [(4, 4, 200, True), (4, 2, 129, False), (8, 2, 200, True), (2, 2, 64, True)]
 
 
 def _wide_share_ok(got, want, d, grad: bool) -> bool:
@@ -275,8 +277,9 @@ def _wide_share_ok(got, want, d, grad: bool) -> bool:
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_cuda_wide_kernels_match_plain_versions(d, shape, dtype):
     """The wide route's forward, dq and dk/dv (multi-head where the K/V rows
-    equal the query rows, grouped otherwise) against their plain versions,
-    with the d <= 256 tolerances (the differing share: the wide one); the
+    equal the query rows, grouped otherwise) against their plain versions
+    (float32 gradients: the plain formulas in float64), with the d <= 256
+    tolerances (the differing share: the wide one); the
     same bits twice; one launch a kernel, on the route the C dispatch
     reports as the wide one."""
     bhq, bhk, S, causal = shape
@@ -298,6 +301,9 @@ def test_cuda_wide_kernels_match_plain_versions(d, shape, dtype):
     out_p, lse_p = plain[0](q, k, v, causal, d**-0.5)
     dq_p = plain[1](q, k, v, do, lse, dd, causal, d**-0.5)
     dk_p, dv_p = plain[2](q, k, v, do, lse, dd, causal, d**-0.5)
+    if dtype == torch.float32:  # the plain formulas in float64, as chip_smoke.py holds them
+        dq_p, dk_p, dv_p = _CHIP_SMOKE.wide_bwd_f64(q, k, v, do, lse, dd, d**-0.5,
+                                                    _CHIP_SMOKE.causal_keep(S, causal, q.device))
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
     for got, want, key in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
@@ -305,8 +311,9 @@ def test_cuda_wide_kernels_match_plain_versions(d, shape, dtype):
         if dtype == torch.bfloat16:
             assert _wide_share_ok(got, want, d, key == "grad")
     again, _ = fwd(q, k, v, causal, d**-0.5)
+    dq2 = bwd_dq(q, k, v, do, lse, dd, causal, d**-0.5)
     dk2, dv2 = bwd_dkv(q, k, v, do, lse, dd, causal, d**-0.5)
-    assert torch.equal(out, again) and torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics
+    assert torch.equal(out, again) and torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -327,6 +334,9 @@ def test_cuda_wide_positions_kernels_match_plain_versions(d, dtype):
         out_p, lse_p = fa._torch_flash_pos_fwd(q, k, v, *args)
         dq_p = fa._torch_flash_pos_bwd_dq(q, k, v, do, lse, dd, *args)
         dk_p, dv_p = fa._torch_flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args)
+        if dtype == torch.float32:
+            dq_p, dk_p, dv_p = _CHIP_SMOKE.wide_bwd_f64(q, k, v, do, lse, dd, d**-0.5,
+                                                        _CHIP_SMOKE.pos_keep(*args[:3], s_valid, True))
         tol = FLASH_TOL[dtype]
         torch.testing.assert_close(lse, lse_p, atol=2e-5, rtol=2e-5)
         for got, want, key in ((out, out_p, "out"), (dq, dq_p, "grad"), (dk, dk_p, "grad"), (dv, dv_p, "grad")):
@@ -335,6 +345,43 @@ def test_cuda_wide_positions_kernels_match_plain_versions(d, dtype):
                 assert _wide_share_ok(got, want, d, key == "grad")
         if qo + Sq <= ko:  # every key after every query
             assert not out.any() and bool((lse == fa.NO_MASS).all()) and not dk.any() and not dv.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 512, 1025])
+def test_cuda_wide_backward_repeats_bit_for_bit(d, dtype):
+    """The wide route's dq and dk/dv, whose clusters sum the blocks' partial
+    scores in rank order and write each output once: two runs of each
+    kernel give the same bits, multi-head, grouped (4 query rows a K/V row)
+    and under the positions mask, at a split of one pass (320, 512) and of
+    several (1025); and the launcher's split is the one the route reports."""
+    g = torch.Generator(device="cuda").manual_seed(d + 1)
+    S = 300
+    for bhq, bhk in ((4, 4), (8, 2)):
+        q, do = (torch.randn((bhq, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((bhk, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        kind = "flash_" if bhq == bhk else "flash_gqa_"
+        fwd, bwd_dq, bwd_dkv = (getattr(fa, kind + n) for n in ("fwd", "bwd_dq", "bwd_dkv"))
+        out, lse = fwd(q, k, v, True, d**-0.5)
+        dd = (do.float() * out.float()).sum(-1)
+        runs = [(bwd_dq(q, k, v, do, lse, dd, True, d**-0.5), *bwd_dkv(q, k, v, do, lse, dd, True, d**-0.5))
+                for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    q, do = (torch.randn((2, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((2, 200, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    args = (torch.arange(100, 100 + S, dtype=torch.int32, device="cuda"),
+            torch.arange(0, 200, dtype=torch.int32, device="cuda"), True, d**-0.5, 250, True)
+    out, lse = fa.flash_pos_fwd(q, k, v, *args)
+    dd = (do.float() * out.float()).sum(-1)
+    runs = [(fa.flash_pos_bwd_dq(q, k, v, do, lse, dd, *args), *fa.flash_pos_bwd_dkv(q, k, v, do, lse, dd, *args))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    chunk = 128 if dtype == torch.bfloat16 else 64
+    for kernel in ("dq", "dkv"):
+        plan = fa.wide_plan(d, dtype, kernel)
+        chunks = -(-d // chunk)
+        assert plan["chunk"] == chunk and plan["cluster"] <= 8 and plan["cluster"] * plan["passes"] >= chunks
+        assert plan["plan_products_per_pair"] == 2 * plan["passes"] + (1 if kernel == "dq" else 2)
 
 
 # positions blocks: (Sq, Sk, d, query offset, key offset, causal, s_valid)
