@@ -396,7 +396,7 @@ BWD_TC_SOURCE = "heat_tpu_torch/ops/csrc/flash_bwd_tc.cuh"  # the bfloat16 dq an
 F32_SOURCE = "heat_tpu_torch/ops/csrc/flash_f32.cuh"  # the float32 forward, dq and dk/dv, included by FLASH_SOURCE
 KMEANS_SOURCE = "heat_tpu_torch/ops/csrc/kmeans.cu"
 WIDE_SOURCE = "heat_tpu_torch/ops/csrc/flash_wide.cuh"  # the wide route's forward, past d = 256
-WIDE_BWD_SOURCE = "heat_tpu_torch/ops/csrc/flash_wide_bwd.cuh"  # its dq and dk/dv, in thread block clusters
+WIDE_BWD_SOURCE = "heat_tpu_torch/ops/csrc/flash_wide_bwd.cuh"  # its dq and dk/dv; all three in thread block clusters
 # the kernel templates whose instances the ptxas lines report: the tensor-core
 # bodies, the float32 bodies on the CUDA cores, the wide route, and the KMeans kernels
 TC_KERNELS = {"flash_fwd_bf16_kernel": FWD_TC_SOURCE, "flash_bwd_dq_bf16_kernel": BWD_TC_SOURCE,
@@ -1955,19 +1955,18 @@ def flash_rows(names, main, replaces, launches: dict, errs: dict, bench=None, la
 
 
 def wide_route(name: str, d: int, dtype: str) -> dict:
-    """The wide route's source for a wrapper's kernel at head dim ``d`` and,
-    for dq and dk/dv, how its launcher splits d (``flash_attention.wide_plan``):
-    blocks a cluster, columns a block, passes, shared bytes a block, and the
-    products at full d that the plan gives a live tile pair (from the split,
-    not counted by the kernels)."""
+    """The wide route's source for a wrapper's kernel at head dim ``d`` and
+    how its launcher splits d (``flash_attention.wide_plan``): blocks a
+    cluster, columns a block, passes, shared bytes a block, and the products
+    at full d that the plan gives a live tile pair (from the split, not
+    counted by the kernels)."""
     import torch
 
     from heat_tpu_torch.ops import flash_attention as fa
 
-    if name.endswith("_fwd"):
-        return {"route": f"wide ({WIDE_SOURCE.rsplit('/', 1)[1]})"}
-    return {"route": f"wide ({WIDE_BWD_SOURCE.rsplit('/', 1)[1]})",
-            **fa.wide_plan(d, getattr(torch, dtype), "dq" if name.endswith("_dq") else "dkv")}
+    kernel = "fwd" if name.endswith("_fwd") else "dq" if name.endswith("_dq") else "dkv"
+    source = WIDE_SOURCE if kernel == "fwd" else WIDE_BWD_SOURCE
+    return {"route": f"wide ({source.rsplit('/', 1)[1]})", **fa.wide_plan(d, getattr(torch, dtype), kernel)}
 
 
 def _pos_inputs(B, Sq, Sk, d, qo, ko, dtype, seed):

@@ -1,6 +1,7 @@
 // The wide route's backward: dq and dk/dv at head dims past 256, included
 // once by flash_attention_wide.cu inside flash_launch.cuh's anonymous
-// namespace, after flash_wide.cuh (the forward).
+// namespace, before flash_wide.cuh (the forward, which runs on the
+// clusters, tiles, ring and schedule defined here).
 //
 // Replaces, past d = 256, the Pallas TPU kernels of
 // heat_tpu/ops/flash_attention.py:
@@ -86,6 +87,17 @@
 constexpr int kWbThreads = 256;   // a block: two warpgroups
 constexpr int kWbMaxCluster = 8;  // blocks a cluster: the portable limit
 constexpr int kWbRld = 64 + 4;    // stride, in floats, of a float32 64 x 64 tile (partial sums; float32 P, dS)
+
+template <typename T>
+__device__ __forceinline__ T wide_cast(float x);
+template <>
+__device__ __forceinline__ float wide_cast<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 wide_cast<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // output columns of a block: bfloat16 128 (a warpgroup's wgmma m64n64
 // half of dq, or all of dV or dK by m64n128), float32 64
@@ -237,12 +249,12 @@ __device__ __forceinline__ void wide_load_rows(float* dst, const float* __restri
 
 // ---- float32 products on the CUDA cores ----
 
-// acc[i][j] += sum over kk < C of a[rg + 8i][kk] b[cg + 16j][kk]: operand tiles (WbTile<float, C>)
-template <int C>
+// acc[i][j] += sum over kk < K of a[rg + 8i][kk] b[cg + 16j][kk]: operand tiles (WbTile<float, C>)
+template <int C, int K = C>
 __device__ __forceinline__ void f32_nt(float (&acc)[8][4], const float* a, const float* b, int rg, int cg) {
   constexpr int LD = WbTile<float, C>::LD;
 #pragma unroll 1
-  for (int kk = 0; kk < C; kk += 4) {
+  for (int kk = 0; kk < K; kk += 4) {
     float4 bv[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (cg + 16 * j) * LD + kk);
@@ -625,18 +637,19 @@ struct WbSteps {
   __device__ __forceinline__ bool owns() const { return chunk(own()) < pl.no; }
 };
 
-// The fields both kernels share: shared memory, the plan, the ring's
-// barriers.  The ring's stage st holds a partner tile's two operand tiles
-// (dq: K, V; dk/dv: Q, dO) at ring + 2 st TE; red(st) its partial S and dP.
-template <typename T, bool DKV>
+// The fields the kernels share: shared memory (laid out by M), the plan,
+// the ring's barriers.  The ring's stage st holds a partner tile's two
+// operand tiles (dq and the forward: K, V; dk/dv: Q, dO) at ring + 2 st TE;
+// red(st) its partial S and dP (the forward: the two warpgroups' partial S).
+template <typename T, bool DKV, typename M_ = WbSmem<T, DKV>>
 struct WbBlock {
-  using M = WbSmem<T, DKV>;
+  using M = M_;
   static constexpr int C = M::C, TE = M::TILE / int(sizeof(T));  // tile elements
-  T* res;  // the own tiles (dq: Q_j, dO_j; dk/dv: K_j, V_j)
+  T* res;  // the own tiles (dq: Q_j, dO_j; dk/dv: K_j, V_j; the forward: Q_j)
   T* ring;
   float* red;
   T* pushed;
-  float* rows;  // lse, dd: dq one set; dk/dv one a stage
+  float* rows;  // lse, dd: dq one set; dk/dv one a stage; the forward: m, l, corr
   uint64_t* bar;
   WbSteps steps;
   uint32_t phase = 0;
@@ -680,13 +693,15 @@ __device__ __forceinline__ void wb_partials(K& k, int part, int st) {
 }
 
 // Where a block's time goes, when the unit is built with -DHEAT_WB_PHASES
-// (scripts/wide_bwd_phases.py; otherwise every call is empty): thread 0 of
+// (scripts/wide_phases.py; otherwise every call is empty): thread 0 of
 // each block adds the clock cycles of each phase of wb_schedule, and the
-// tile pairs it ran, to wb_phase_cycles[dk/dv][phase] (heat_wb_phases).
+// tile pairs it ran, to wb_phase_cycles[kind][phase] (heat_wb_phases; kind
+// 0 dq, 1 dk/dv, 2 the forward).
 enum WbPhase { kPhIssue, kPhWait1, kPhExchange, kPhArrive2, kPhPartials, kPhWait2, kPhOutput, kPhBarrier,
                kPhArrive1, kPhPairs };
 #ifdef HEAT_WB_PHASES
-__device__ unsigned long long wb_phase_cycles[2][kPhPairs + 1];
+constexpr int kPhKinds = 3;
+__device__ unsigned long long wb_phase_cycles[kPhKinds][kPhPairs + 1];
 struct WbPhases {
   long long t, c[kPhPairs + 1] = {};
   __device__ __forceinline__ WbPhases() { t = clock64(); }
@@ -696,9 +711,9 @@ struct WbPhases {
     t = now;
   }
   __device__ __forceinline__ void count() { ++c[kPhPairs]; }
-  __device__ __forceinline__ void flush(int dkv) const {
+  __device__ __forceinline__ void flush(int kind) const {
     if (threadIdx.x == 0)
-      for (int k = 0; k <= kPhPairs; ++k) atomicAdd(&wb_phase_cycles[dkv][k], (unsigned long long)c[k]);
+      for (int k = 0; k <= kPhPairs; ++k) atomicAdd(&wb_phase_cycles[kind][k], (unsigned long long)c[k]);
   }
 };
 #else
@@ -709,7 +724,7 @@ struct WbPhases {
 };
 #endif
 
-// The schedule of both kernels.  Every block of a cluster runs it in step
+// The schedule of the wide kernels.  Every block of a cluster runs it in step
 // over the same partner tiles; the two cluster barriers of a tile pair are
 // split into arrive and wait, so the next pair's partial products run
 // while this pair's pushes land:
@@ -761,7 +776,7 @@ __device__ __forceinline__ void wb_schedule(K& k) {
     nxt = after;
     ph.count();
   }
-  ph.flush(K::DKV);
+  ph.flush(K::KIND);
 }
 
 // dq's view of the schedule: block (b, query tile, pass p, rank r) of a
@@ -769,7 +784,7 @@ __device__ __forceinline__ void wb_schedule(K& k) {
 // live key tiles (the partners).
 template <typename T_, bool VEC, typename Mask>
 struct WbDq {
-  static constexpr int DKV = 0;
+  static constexpr int KIND = 0;
   using T = T_;
   using B = WbBlock<T, false>;
   static constexpr int C = B::C, TE = B::TE;
@@ -900,7 +915,7 @@ __global__ void __launch_bounds__(kWbThreads, 1)
 // j < g and query tile iq.
 template <typename T_, bool VEC, typename Mask>
 struct WbDkv {
-  static constexpr int DKV = 1;
+  static constexpr int KIND = 1;
   using T = T_;
   using B = WbBlock<T, true>;
   static constexpr int C = B::C, TE = B::TE;
@@ -1086,8 +1101,8 @@ int wb_view(CUtensorMap* map, const void* base, int64_t batch, int rows, int d) 
 }
 
 // The four views a launch by TMA reads (bfloat16 rows of whole 16-byte
-// chunks; q and dO: bhq rows of Sq; k and v: bhk of Sk); left zero
-// otherwise, where the kernel reads none.
+// chunks; q and dO: bhq rows of Sq; k and v: bhk of Sk; no dO view for the
+// forward's null dout); left zero otherwise, where the kernel reads none.
 template <typename T>
 int wb_views(CUtensorMap (&m)[4], bool vec, const void* q, const void* k, const void* v, const void* dout,
              int64_t bhq, int64_t bhk, int sq, int sk, int d) {
@@ -1096,7 +1111,7 @@ int wb_views(CUtensorMap (&m)[4], bool vec, const void* q, const void* k, const 
   int err = wb_view(&m[0], q, bhq, sq, d);
   if (!err) err = wb_view(&m[1], k, bhk, sk, d);
   if (!err) err = wb_view(&m[2], v, bhk, sk, d);
-  if (!err) err = wb_view(&m[3], dout, bhq, sq, d);
+  if (!err && dout != nullptr) err = wb_view(&m[3], dout, bhq, sq, d);
   return err;
 }
 

@@ -31,15 +31,15 @@ float32 accumulation), the forward of ``flash_fwd``, ``flash_gqa_fwd`` and
 ``flash_pos_fwd`` in ``csrc/flash_fwd_tc.cuh``, dq and dk/dv in
 ``csrc/flash_bwd_tc.cuh``.  Past d = 256 every launch runs the wide route
 (``csrc/flash_attention_wide.cu``); d has no upper cap.  Its forward
-(``csrc/flash_wide.cuh``) gives a block a chunk of the output's columns and
-rebuilds each score tile at full d.  Its dq and dk/dv
-(``csrc/flash_wide_bwd.cuh``) launch the blocks of one tile's column chunks
-as a thread block cluster that forms each score tile once a tile pair:
-each block's partial scores over its own columns are summed through
-distributed shared memory; bfloat16 products run on ``wgmma``, float32 on
-the CUDA cores.  ``route(d)`` reports the unit the C dispatch runs a head
-dim on, from the decision it branches on, and ``wide_plan`` how the
-backward splits d.
+(``csrc/flash_wide.cuh``), dq and dk/dv (``csrc/flash_wide_bwd.cuh``) launch
+the blocks of one tile's output column chunks as a thread block cluster
+that forms each score tile once a live tile pair: each block's partial
+scores over its own columns are summed through distributed shared memory
+by the block that owns their rows, which, in the forward, also keeps the
+rows' running max and sum and pushes P and the rescaling to every block;
+bfloat16 products run on ``wgmma``, float32 on the CUDA cores.
+``route(d)`` reports the unit the C dispatch runs a head dim on, from the
+decision it branches on, and ``wide_plan`` how each wide kernel splits d.
 A ``torch.autograd.Function`` ties them
 together as the reference's ``jax.custom_vjp`` does: the forward saves
 (q, k, v, out, lse), the backward computes ``dd = rowsum(dO * O)`` in torch
@@ -192,18 +192,22 @@ def route(d: int) -> str:
     return ROUTES[code]
 
 
+WIDE_KERNELS = ("dq", "dkv", "fwd")  # heat_flash_wide_plan's kernel codes, in order
+
+
 def wide_plan(d: int, dtype: torch.dtype, kernel: str) -> dict:
-    """How the wide route's backward ``kernel`` ("dq" or "dkv") splits head
-    dim ``d`` (> 256) in ``dtype``, as its launcher decides it
+    """How the wide route's ``kernel`` ("fwd", "dq" or "dkv") splits head dim
+    ``d`` (> 256) in ``dtype``, as its launcher decides it
     (``heat_flash_wide_plan``): blocks a thread block cluster, output
     columns a block, passes (clusters a tile), shared bytes a block, and the
-    products at full d that the plan gives a live tile pair (the bound's: 3
-    for dq, 4 for dk/dv; more where d needs passes), counted from the split,
-    not by the kernels.  Builds the library on first use."""
-    if kernel not in ("dq", "dkv") or dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"need kernel 'dq' or 'dkv' and float32 or bfloat16, got {kernel!r}, {dtype}")
+    products at full d that the plan gives a live tile pair (the bound's: 2
+    for the forward, 3 for dq, 4 for dk/dv; more where d needs passes),
+    counted from the split, not by the kernels.  Builds the library on first
+    use."""
+    if kernel not in WIDE_KERNELS or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"need kernel 'fwd', 'dq' or 'dkv' and float32 or bfloat16, got {kernel!r}, {dtype}")
     out = (ctypes.c_int * 5)()
-    rc = _build.load().heat_flash_wide_plan(int(d), int(dtype == torch.bfloat16), int(kernel == "dkv"), out)
+    rc = _build.load().heat_flash_wide_plan(int(d), int(dtype == torch.bfloat16), WIDE_KERNELS.index(kernel), out)
     if rc != 0:
         raise ValueError(f"the CUDA flash-attention kernels take d >= 1, got d={d}")
     return dict(zip(("cluster", "chunk", "passes", "smem_bytes", "plan_products_per_pair"), out))

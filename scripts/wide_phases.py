@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Where the wide route's backward spends its time, phase by phase, on a CUDA card.
+"""Where the wide route's kernels spend their time, phase by phase, on a CUDA card.
 
-    python3 scripts/wide_bwd_phases.py [--shape BHQ,BHK,S,D]
+    python3 scripts/wide_phases.py [--shape BHQ,BHK,S,D]
 
 Builds ``heat_tpu_torch/ops/csrc/flash_attention_wide.cu`` with
 ``-DHEAT_WB_PHASES`` (thread 0 of each block adds the clock cycles of each
-phase of ``wb_schedule`` in ``flash_wide_bwd.cuh``) into ``build/``, runs dq
-and dk/dv once causal at the shape (default ``FLASH_D512``: 64 query rows,
-64 K/V rows, S = 1024, d = 512) in float32 and bfloat16 after a warm-up run,
-and prints one JSON line a kernel and dtype: the card (nvidia-smi's name and
-power limit), the tile pairs the blocks ran, the cycles a pair in each
-phase (summed over the blocks, over the pairs) and each phase's share.  The
-phases: ``issue`` (the next pair's loads and the loop), ``wait1`` (for the
-cluster's partial scores), ``exchange`` (the sums, P and dS, the pushes),
+phase of ``wb_schedule`` in ``flash_wide_bwd.cuh``) into ``build/``, runs the
+forward, dq and dk/dv once causal at the shape (default ``FLASH_D512``: 64
+query rows, 64 K/V rows, S = 1024, d = 512) in float32 and bfloat16 after a
+warm-up run, and prints one JSON line a kernel and dtype: the card
+(nvidia-smi's name and power limit), the tile pairs the blocks ran, the
+cycles a pair in each phase (summed over the blocks, over the pairs) and
+each phase's share.  The phases: ``issue`` (the next pair's loads and the
+loop), ``wait1`` (for the cluster's partial scores), ``exchange`` (the sums;
+P and dS, or the forward's P, running max and sum; the pushes),
 ``arrive2``, ``partials`` (the next pair's partial products, overlapping the
-pushes' landing), ``wait2`` (for every block's P and dS), ``output`` (the
+pushes' landing), ``wait2`` (for every block's pushes), ``output`` (the
 chunk's products), ``barrier`` (the block barrier after them), ``arrive1``.
 The counters cost a few clock reads a pair; the kernels in the package are
 built without them.
@@ -32,6 +33,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+KINDS = ("dq", "dkv", "fwd")  # the rows of wb_phase_cycles
 PHASES = ("issue", "wait1", "exchange", "arrive2", "partials", "wait2", "output", "barrier", "arrive1")
 
 
@@ -49,6 +51,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     i32, i64, ptr, f32 = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_float
     tail = [i64, i64, i32, i32, i32, f32, i32, ptr]
+    lib.heat_flash_fwd_wide.argtypes = [i32] + [ptr] * 5 + tail
     lib.heat_flash_bwd_dq_wide.argtypes = [i32] + [ptr] * 7 + tail
     lib.heat_flash_bwd_dkv_wide.argtypes = [i32] + [ptr] * 8 + tail
     lib.heat_wb_phases.argtypes = [ptr]
@@ -62,7 +65,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("wide_bwd_phases.py needs a CUDA card", file=sys.stderr)
+        print("wide_phases.py needs a CUDA card", file=sys.stderr)
         return 2
     from heat_tpu_torch.ops import flash_attention as fa
 
@@ -70,7 +73,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     lib = build()
-    counters = (ctypes.c_ulonglong * (2 * (len(PHASES) + 1)))()
+    counters = (ctypes.c_ulonglong * (len(KINDS) * (len(PHASES) + 1)))()
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device="cuda").manual_seed(5)
         q, do = (torch.randn((bhq, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
@@ -80,11 +83,13 @@ def main() -> int:
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         dims = (bhq, bhk, S, d, int(dtype == torch.bfloat16), d**-0.5, 1, torch.cuda.current_stream().cuda_stream)
         ptrs = [t.data_ptr() for t in (q, k, v, do, lse, dd)]
-        for kind, row in (("dq", 0), ("dkv", 1)):
+        o2, lse2 = torch.empty_like(q), torch.empty_like(lse)
+        for row, kind in enumerate(KINDS):
             for _ in range(2):  # a warm-up run, then the counted one
                 lib.heat_wb_phases(counters)
                 rc = (lib.heat_flash_bwd_dq_wide(0, *ptrs, dq.data_ptr(), *dims) if kind == "dq" else
-                      lib.heat_flash_bwd_dkv_wide(0, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims))
+                      lib.heat_flash_bwd_dkv_wide(0, *ptrs, dk.data_ptr(), dv.data_ptr(), *dims) if kind == "dkv"
+                      else lib.heat_flash_fwd_wide(0, *ptrs[:3], o2.data_ptr(), lse2.data_ptr(), *dims))
                 if rc != 0:
                     raise RuntimeError(f"{kind} failed with code {rc}")
                 torch.cuda.synchronize()

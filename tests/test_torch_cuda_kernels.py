@@ -37,8 +37,9 @@ Tolerances:
   - the positions kernels (ring attention's block) take the same limits:
     the same bodies and rounding points under another mask; a block wholly
     after its queries gives out 0 and lse -1e30 exactly.
-  - past d = 256 the wide route (``csrc/flash_wide.cuh``) takes the same
-    limits at d = 257, 320, 512, 1126 and 2048, but for the bfloat16
+  - past d = 256 the wide route (``csrc/flash_wide.cuh``,
+    ``csrc/flash_wide_bwd.cuh``) takes the same limits at d = 257 to 2048
+    (``WIDE_DIMS``), and each of its kernels repeats bit for bit, but for the bfloat16
     differing share, which grows with d (chip_smoke.py's
     bf16_share_limit, 1% x sqrt(d / 256), derives it: the tensor cores add
     a score's d products in 16-term groups, the plain version in one float32
@@ -382,6 +383,38 @@ def test_cuda_wide_backward_repeats_bit_for_bit(d, dtype):
         chunks = -(-d // chunk)
         assert plan["chunk"] == chunk and plan["cluster"] <= 8 and plan["cluster"] * plan["passes"] >= chunks
         assert plan["plan_products_per_pair"] == 2 * plan["passes"] + (1 if kernel == "dq" else 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 512, 1024, 1126])
+def test_cuda_wide_forward_repeats_bit_for_bit(d, dtype):
+    """The wide route's forward, whose clusters sum the blocks' partial
+    scores in rank order and keep each row's running max and sum in one
+    block: two runs give the same out and lse, multi-head, grouped (4 query
+    rows a K/V row) and under the positions mask, at a split of one pass
+    (320, 512; bfloat16 also 1024) and of several (float32 at 1024, both
+    dtypes at 1126); and the launcher's split gives a live tile pair 2
+    products at d = 512, n_p + 1 where d takes n_p passes."""
+    g = torch.Generator(device="cuda").manual_seed(d + 2)
+    S = 300
+    for bhq, bhk in ((4, 4), (8, 2)):
+        q = torch.randn((bhq, S, d), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((bhk, S, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+        fwd = fa.flash_fwd if bhq == bhk else fa.flash_gqa_fwd
+        runs = [fwd(q, k, v, True, d**-0.5) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    q = torch.randn((2, S, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((2, 200, d), generator=g, device="cuda").to(dtype) for _ in range(2))
+    args = (torch.arange(100, 100 + S, dtype=torch.int32, device="cuda"),
+            torch.arange(0, 200, dtype=torch.int32, device="cuda"), True, d**-0.5, 250, True)
+    runs = [fa.flash_pos_fwd(q, k, v, *args) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    chunk = 128 if dtype == torch.bfloat16 else 64
+    chunks = -(-d // chunk)
+    plan = fa.wide_plan(d, dtype, "fwd")
+    assert plan["chunk"] == chunk and plan["cluster"] <= 8 and plan["cluster"] * plan["passes"] >= chunks
+    assert plan["passes"] == -(-chunks // 8) and plan["plan_products_per_pair"] == plan["passes"] + 1
+    assert d != 512 or plan["plan_products_per_pair"] == 2
 
 
 # positions blocks: (Sq, Sk, d, query offset, key offset, causal, s_valid)
